@@ -2,12 +2,14 @@
 """Smoke run of fedvit_torch on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py            # from the root of a checkout
-    python3 chip_smoke.py --trace    # and where a serving batch's time goes
+    python3 chip_smoke.py --trace    # and where the time of a serving batch
+                                     # and of a training step goes
 
 Phases, one line of output each (or a few):
 
 1. the card (``nvidia-smi`` name and power limit, ``torch.cuda``), then the
-   build of every hand-written kernel from ``fedvit_torch/csrc`` with ``nvcc``;
+   build of every hand-written kernel from ``fedvit_torch/csrc`` with ``nvcc``
+   (one compiler per source, all at once);
 2. each kernel against its plain PyTorch version on the card, at the shape
    the serving path gives it (and a small fp32 case), with its time, the
    plain version's, one PyTorch library call's for the same function, and
@@ -20,7 +22,22 @@ Phases, one line of output each (or a few):
 4. the same for 8-view TTA (``evaluate_with_tta``) at batch 32;
 5. with ``--trace`` only: a serving batch broken into stages (each ended by
    a synchronise, host clock) and a ``torch.profiler`` trace of
-   ``_evaluate`` (device time by kernel, the device's busy share).
+   ``_evaluate`` (device time by kernel, the device's busy share);
+6. training (``fedvit_torch/train/step.py::make_train_step``):
+   a. K2, K3 and K4 against their plain versions at the shapes a ViT-B
+      micro-batch of 64 gives them (and small fp32 cases), with their times,
+      the plain versions', a PyTorch library call's and the bound;
+   b. the step: ViT-B/16@224 (4 channels, metadata, bf16, drop-path 0.1 and
+      the default dropouts, seeded perturbed weights), asymmetric loss,
+      MixUp/CutMix, AdamW with LLRD, clip, EMA, macro batch 128 as 2
+      micro-batches of 64 made by the eval augment from seeded 272² uint8
+      canvases; 1 warm-up step then 5 timed ones, img/s and peak memory, the
+      launch counts (2 × (12 K2, 12 K3, 25 K4) a step, no K1), the parameters
+      and the EMA shadow must move as the update says;
+   c. the gradients of one macro batch through the kernels against the same
+      step through the plain attention and LayerNorm backward, leaf by leaf,
+      and a control with K3's bias gradient zeroed that must fail the check;
+   with ``--trace``, a ``torch.profiler`` trace of one training step.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -46,6 +63,8 @@ SEED = 0
 SERVE_BATCH, SERVE_IMAGES = 256, 3 * 256 + 40   # 4 forwards, the last ragged
 TTA_BATCH, TTA_IMAGES = 32, 2 * 32 + 8          # 3 forwards of 32·8 views
 BLOCKS = 12                                      # ViT-B: one K1 launch per block
+NORMS = 2 * BLOCKS + 1                           # ViT-B LayerNorms: one K4 each
+MICRO, ACCUM, TIMED_STEPS = 64, 2, 5             # training: macro batch 128
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -69,6 +88,38 @@ K1_ATOL_BF16 = 2.0 ** -5
 # or softmax scale moves the logits by a third of their RMS or more, and the
 # run checks that dropping the qkv bias does exceed the limit.
 LOGITS_RTOL_BF16 = 0.1
+# K2's log-sum-exp against torch.logsumexp of the same fp32 scores (values of
+# 5-10): summation order, __expf and logf.
+K2_LSE_ATOL = 1e-4
+# K3 (dqkv, dbias) against autograd of the plain version, as a share of the
+# largest |value|: fp32, sums over N keys and B·N rows in another order;
+# bf16, four bf16 ulps of the largest value — the plain backward rounds P, dP
+# and dS to bf16 at each cast of its forward, the kernel keeps them fp32.
+K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+# K4 against ln_bwd_plain, as a share of the largest |value|: dx fp32 1e-5,
+# bf16 2^-6 (both round dx to bf16, one ulp apart from fp32 sums in another
+# order); dgamma and dbeta 1e-4 (fp32 sums over the rows in another order).
+K4_DX_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+K4_SUM_TOL = 1e-4
+# The gradient of each parameter over one macro batch, kernel path against
+# the plain attention and LayerNorm backward, as the RMS of the difference
+# over the RMS of the plain gradient. As for the logits: bf16 roundings that
+# differ by an ulp (K2 keeps P fp32 where the plain forward rounds it, K3
+# keeps P, dP and dS fp32) pass through 12 blocks forward and back; a wrong
+# bias gradient, scale or softmax moves a leaf's gradient by its own size,
+# and the run checks that zeroing K3's bias gradient exceeds the limit.
+GRAD_RTOL_BF16 = 0.1
+# A leaf whose gradient is 0 in exact arithmetic carries only rounding noise,
+# which no relative error can hold: the check leaves out every leaf whose
+# plain-path RMS gradient is at most NOISE_SHARE x the median leaf's. The
+# noise of a bf16 sum that cancels is about one bf16 ulp (2^-8) of the terms
+# it sums, which are of a typical gradient's size; the limit allows four. The
+# biases of the metadata branch's two Dense layers must be among the leaves
+# left out: they feed a BatchNorm in training mode, which subtracts the batch
+# mean (the CPU step test leaves them out of its per-element check too). A
+# real gradient on either breaks the rule and fails the run.
+NOISE_SHARE = 2.0 ** -6
+ZERO_GRAD = ("metadata_branch.net.0.bias", "metadata_branch.net.4.bias")
 
 
 def log(*parts) -> None:
@@ -83,17 +134,45 @@ def card() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls.
+
+    The calls are queued behind a sleeping kernel, so the events time the
+    device's work and not the host's: a wrapper that takes longer to enqueue
+    than its kernel takes to run would otherwise be timed by the host. If
+    the sleep ended before the last call was queued, it runs again with a
+    longer sleep."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    for cycles in (10 ** 8, 4 * 10 ** 8, 16 * 10 ** 8):   # from ~50 ms
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            break
+    else:
+        log("[time] the host queued the calls slower than the device ran "
+            "them: this time includes the host's gaps")
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate for their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def short(dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 def check_k1(fa, attention_from_qkvb, b, n, heads, d, dtype, atol, timed):
@@ -109,24 +188,20 @@ def check_k1(fa, attention_from_qkvb, b, n, heads, d, dtype, atol, timed):
     if out.shape != (b, n, e) or not bool(torch.isfinite(out).all()):
         raise RuntimeError(f"K1 {tuple(qkv.shape)} {dtype}: bad output")
     err = float((out.float() - want.float()).abs().max())
-    log(f"[k1] qkv {tuple(qkv.shape)} {str(dtype).split('.')[-1]} heads {heads}: "
+    log(f"[k1] qkv {tuple(qkv.shape)} {short(dtype)} heads {heads}: "
         f"max_abs_err {err!r} (tolerance {atol!r})")
     if not err <= atol:
         raise RuntimeError(f"K1 disagrees with its plain version: {err} > {atol}")
     rec = {"max_abs_err": err}
     if timed:
-        biased = (qkv + bias.to(dtype)).view(b, n, 3, heads, d)
-        q, k, v = biased.permute(2, 0, 3, 1, 4).unbind(0)   # (B, H, N, d) views
+        q, k, v = biased_views(qkv, bias, heads)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         rec["ms"] = cuda_ms(lambda: fa.flash_attention_qkvb(qkv, bias, heads))
         rec["plain_ms"] = cuda_ms(lambda: attention_from_qkvb(qkv, bias, heads))
         rec["library_ms"] = cuda_ms(lambda: sdpa(q, k, v))
         nbytes = (qkv.numel() + bias.numel() + out.numel()) * qkv.element_size()
         flops = 4.0 * b * heads * n * n * d          # q·kᵀ and p·v
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        rec["bound_ms"] = max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec.update(bound(nbytes, flops, dtype))
         log(f"[k1] kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, "
             f"sdpa {rec['library_ms']!r} ms (on the biased views), bound "
             f"{rec['bound_ms']!r} ms by {rec['bound_by']} ({nbytes} B, "
@@ -202,6 +277,17 @@ def expect_launches(name, fa, forwards):
     return got
 
 
+def device_events(prof):
+    """The profile's device-side entries (kernels, copies), longest first,
+    and their total ms: an aten op's own entry repeats the time of the
+    kernels it launched, so only these add up to the device's busy time."""
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    return events, sum(e.self_device_time_total for e in events) / 1e3
+
+
 def trace_serving(model, step, augment, source, cfg, smi) -> None:
     """Phase 5: stages of each serving batch, then a profile of ``_evaluate``."""
     from torch.profiler import ProfilerActivity, profile
@@ -242,13 +328,7 @@ def trace_serving(model, step, augment, source, cfg, smi) -> None:
         _evaluate(step, source, SERVE_BATCH, cfg.num_classes)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side entries only (kernels, copies): an aten op's own entry
-    # repeats the time of the kernels it launched
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and e.self_device_time_total > 0),
-                    key=lambda e: e.self_device_time_total, reverse=True)
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    events, device_ms = device_events(prof)
     log(f"[profile] {n} batches: wall {wall_ms!r} ms, device {device_ms!r} ms, "
         f"busy {100 * device_ms / wall_ms:.1f}% ({smi})")
     for e in events[:15]:
@@ -261,10 +341,394 @@ def trace_serving(model, step, augment, source, cfg, smi) -> None:
         f"device time")
 
 
+def seeded(shape, dtype, seed, scale=1.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (scale * torch.randn(shape, device="cuda", generator=g)).to(dtype)
+
+
+def rel_max(got, want) -> float:
+    """max |got − want| as a share of max |want| (or of 1 when smaller)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def attention_lse_plain(attention_from_qkvb, qkv, bias, heads):
+    """K2's plain version: the plain attention and torch.logsumexp of its
+    fp32 scaled scores, (B, H, N)."""
+    b, n, e3 = qkv.shape
+    e, d = e3 // 3, e3 // 3 // heads
+    x = qkv + bias.to(qkv.dtype)
+    q, k = (x[..., i * e:(i + 1) * e].reshape(b, n, heads, d).float()
+            for i in (0, 1))
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) / math.sqrt(d)
+    return attention_from_qkvb(qkv, bias, heads), torch.logsumexp(s, -1)
+
+
+def biased_views(qkv, bias, heads):
+    b, n, e3 = qkv.shape
+    x = (qkv + bias.to(qkv.dtype)).view(b, n, 3, heads, e3 // 3 // heads)
+    return x.permute(2, 0, 3, 1, 4).unbind(0)       # q, k, v (B, H, N, d)
+
+
+def check_k2(fa, attention_from_qkvb, b, n, heads, dtype, timed):
+    """K2 through its wrapper: the output bit-identical to K1's and within
+    K1's tolerance of the plain version, the log-sum-exp within
+    K2_LSE_ATOL."""
+    e = heads * 64
+    qkv = seeded((b, n, 3 * e), dtype, SEED + 10 + n)
+    bias = seeded((3 * e,), torch.float32, SEED + 11 + n, 0.5)
+    out, lse = fa.qkvb_attention_lse_cuda(qkv, bias, heads)
+    torch.cuda.synchronize()
+    same = torch.equal(out, fa.qkvb_attention_cuda(qkv, bias, heads))
+    want, want_lse = attention_lse_plain(attention_from_qkvb, qkv, bias, heads)
+    err = float((out.float() - want.float()).abs().max())
+    lse_err = float((lse - want_lse).abs().max())
+    atol = K1_ATOL_FP32 if dtype == torch.float32 else K1_ATOL_BF16
+    log(f"[k2] qkv {tuple(qkv.shape)} {short(dtype)}: out max_abs_err {err!r} "
+        f"(tolerance {atol!r}), bit-identical to K1: {same}; lse max_abs_err "
+        f"{lse_err!r} (tolerance {K2_LSE_ATOL!r})")
+    if not (same and err <= atol and lse_err <= K2_LSE_ATOL
+            and bool(torch.isfinite(lse).all())):
+        raise RuntimeError("K2 disagrees with K1 or with its plain version")
+    rec = {"max_abs_err": err}
+    if timed:
+        q, k, v = biased_views(qkv, bias, heads)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rec["ms"] = cuda_ms(lambda: fa.qkvb_attention_lse_cuda(qkv, bias, heads))
+        rec["plain_ms"] = cuda_ms(
+            lambda: attention_lse_plain(attention_from_qkvb, qkv, bias, heads))
+        rec["library_ms"] = cuda_ms(lambda: sdpa(q, k, v))
+        nbytes = ((qkv.numel() + bias.numel() + out.numel()) * qkv.element_size()
+                  + lse.numel() * 4)
+        rec.update(bound(nbytes, 4.0 * b * heads * n * n * 64, dtype))
+        log(f"[k2] kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, sdpa "
+            f"forward {rec['library_ms']!r} ms, bound {rec['bound_ms']!r} ms by "
+            f"{rec['bound_by']} ({nbytes} B)")
+    return rec
+
+
+def check_k3(fa, attention_from_qkvb, b, n, heads, dtype, timed):
+    """K3 through the autograd Function (K2 forward, K3 backward): dqkv and
+    dbias against autograd of the plain version on the same seeded dout."""
+    e = heads * 64
+    qkv = seeded((b, n, 3 * e), dtype, SEED + 20 + n)
+    bias = seeded((3 * e,), torch.float32, SEED + 21 + n, 0.5)
+    dout = seeded((b, n, e), dtype, SEED + 22 + n)
+    qkv_g, bias_g = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+    out = fa.flash_attention_qkvb(qkv_g, bias_g, heads)
+    dqkv, dbias = torch.autograd.grad(out, (qkv_g, bias_g), dout)
+    torch.cuda.synchronize()
+    qkv_p, bias_p = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+    out_p = attention_from_qkvb(qkv_p, bias_p, heads)
+    want_dqkv, want_dbias = torch.autograd.grad(out_p, (qkv_p, bias_p), dout,
+                                                retain_graph=True)
+    tol = K3_TOL[dtype]
+    errs = (rel_max(dqkv, want_dqkv), rel_max(dbias, want_dbias))
+    err = float((dqkv.float() - want_dqkv.float()).abs().max())
+    log(f"[k3] qkv {tuple(qkv.shape)} {short(dtype)}: dqkv max_abs_err {err!r}, "
+        f"{errs[0]!r} of max |dqkv| {float(want_dqkv.abs().max())!r}; dbias "
+        f"{errs[1]!r} of max |dbias| {float(want_dbias.abs().max())!r} "
+        f"(tolerance {tol!r} of the largest |value|)")
+    if not (max(errs) <= tol and bool(torch.isfinite(dqkv).all())
+            and dqkv.dtype == dtype and dbias.dtype == torch.float32):
+        raise RuntimeError("K3 disagrees with its plain version")
+    rec = {"max_abs_err": err}
+    if timed:
+        o, lse = fa.qkvb_attention_lse_cuda(qkv, bias, heads)
+        rec["ms"] = cuda_ms(
+            lambda: fa.qkvb_attention_bwd_cuda(qkv, bias, o, dout, lse, heads))
+        rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out_p, (qkv_p, bias_p), dout, retain_graph=True))
+        qkv_s, bias_s = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+        out_s = torch.nn.functional.scaled_dot_product_attention(
+            *biased_views(qkv_s, bias_s, heads))
+        rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out_s, (qkv_s, bias_s), dout.view(b, n, heads, 64).transpose(1, 2),
+            retain_graph=True))
+        nbytes = ((2 * qkv.numel() + 2 * o.numel() + bias.numel())
+                  * qkv.element_size() + (lse.numel() + dbias.numel()) * 4)
+        rec.update(bound(nbytes, 10.0 * b * heads * n * n * 64, dtype))
+        log(f"[k3] kernel {rec['ms']!r} ms, plain backward {rec['plain_ms']!r} "
+            f"ms, sdpa backward {rec['library_ms']!r} ms (on the biased views), "
+            f"bound {rec['bound_ms']!r} ms by {rec['bound_by']} ({nbytes} B)")
+    return rec
+
+
+def check_k4(ln, shape, dtype, timed):
+    """K4 through ``layer_norm_bwd`` against ``ln_bwd_plain``."""
+    d = shape[-1]
+    x = (seeded(shape, torch.float32, SEED + 30 + d, 2.0) + 0.5).to(dtype)
+    dy = seeded(shape, dtype, SEED + 31 + d)
+    w = 1.0 + seeded((d,), torch.float32, SEED + 32 + d, 0.3)
+    got = ln.layer_norm_bwd(x, w, dy, 1e-6)
+    torch.cuda.synchronize()
+    want = ln.ln_bwd_plain(x, w, dy, 1e-6)
+    errs = [rel_max(a, b) for a, b in zip(got, want)]
+    tols = (K4_DX_TOL[dtype], K4_SUM_TOL, K4_SUM_TOL)
+    err = float((got[0].float() - want[0].float()).abs().max())
+    log(f"[k4] x {shape} {short(dtype)}: dx max_abs_err {err!r}; as shares of "
+        f"the largest |value|, dx {errs[0]!r}, dgamma {errs[1]!r}, dbeta "
+        f"{errs[2]!r} (tolerances {tols[0]!r}, {tols[1]!r}, {tols[2]!r})")
+    if not all(e <= t for e, t in zip(errs, tols)):
+        raise RuntimeError("K4 disagrees with its plain version")
+    rec = {"max_abs_err": err}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: ln.layer_norm_bwd(x, w, dy, 1e-6))
+        rec["plain_ms"] = cuda_ms(lambda: ln.ln_bwd_plain(x, w, dy, 1e-6))
+        xr = x.clone().requires_grad_()
+        wr = w.to(dtype).requires_grad_()
+        br = torch.zeros(d, device="cuda", dtype=dtype, requires_grad=True)
+        f = torch.nn.functional.layer_norm
+        fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+            f(xr, (d,), wr, br, 1e-6), (xr, wr, br), dy))
+        fwd = cuda_ms(lambda: f(xr, (d,), wr, br, 1e-6))
+        rec["library_ms"] = fwd_bwd - fwd
+        nbytes = 3 * x.numel() * x.element_size() + 3 * d * 4
+        # per element: mean and E[x²] 3, xhat 2, g 1, the two means 3,
+        # dgamma and dbeta 3, dx 4 — 16 fp32 operations
+        rec.update(bound(nbytes, 16.0 * x.numel(), torch.float32))
+        log(f"[k4] kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, "
+            f"F.layer_norm backward {rec['library_ms']!r} ms (forward+backward "
+            f"{fwd_bwd!r} − forward {fwd!r}), bound {rec['bound_ms']!r} ms by "
+            f"{rec['bound_by']} ({nbytes} B)")
+    return rec
+
+
+def launch_counts(fa, ln) -> dict:
+    return {"K1": fa.flash_attention_qkvb.launches,
+            "K2": fa.qkvb_attention_lse_cuda.launches,
+            "K3": fa.qkvb_attention_bwd_cuda.launches,
+            "K4": ln.layer_norm_bwd_cuda.launches}
+
+
+def reset_counts(fa, ln) -> None:
+    fa.flash_attention_qkvb.launches = 0
+    fa.qkvb_attention_lse_cuda.launches = 0
+    fa.qkvb_attention_bwd_cuda.launches = 0
+    ln.layer_norm_bwd_cuda.launches = 0
+
+
+@contextlib.contextmanager
+def layer_norm_backward_replaced_by(fn):
+    """Run every LayerNorm backward through ``fn`` instead of K4."""
+    from fedvit_torch.ops import layer_norm
+    kernel = layer_norm.layer_norm_bwd
+    layer_norm.layer_norm_bwd = fn
+    try:
+        yield
+    finally:
+        layer_norm.layer_norm_bwd = kernel
+
+
+def k3_without_dbias(fa):
+    """K2 forward and K3 backward with K3's bias gradient replaced by zeros:
+    the control of 6c, in the model's place of ``flash_attention_qkvb``."""
+
+    class WithoutDbias(fa.QkvbAttention):
+        @staticmethod
+        def backward(ctx, dout):
+            dqkv, dbias, _ = fa.QkvbAttention.backward(ctx, dout)
+            return dqkv, torch.zeros_like(dbias), None
+
+    return WithoutDbias.apply
+
+
+def training_batches(cfg, n_batches: int):
+    """Macro batches on the card: seeded uint8 canvases through the eval
+    augment, standing in for the train augment (not ported yet)."""
+    from fedvit_torch.data.pipeline import canvas_size, make_device_augment
+    from fedvit_torch.eval.serve import _to_device
+
+    macro = MICRO * ACCUM
+    source = serving_inputs(n_batches * macro, canvas_size(cfg.model.image_size))
+    augment = make_device_augment(cfg, False)
+    with torch.no_grad():
+        return [augment(_to_device(source.gather(np.arange(i * macro,
+                                                           (i + 1) * macro)),
+                                   torch.device("cuda")))
+                for i in range(n_batches)]
+
+
+def train_phase(fa, ln, attention_from_qkvb, smi, trace):
+    """Phase 6b and 6c; returns the launch counts of the timed steps."""
+    from fedvit_torch.core.config import (AugmentationConfig, Config,
+                                          DataConfig, LLRDConfig, LossConfig,
+                                          ModelConfig, OptimizerConfig,
+                                          SchedulerConfig, EMAConfig,
+                                          TrainingConfig)
+    from fedvit_torch.models import build_model
+    from fedvit_torch.train.losses import build_loss
+    from fedvit_torch.train.optim import build_optimizer
+    from fedvit_torch.train.state import TrainState
+    from fedvit_torch.train.step import make_train_step
+
+    cfg = Config(
+        data=DataConfig(use_segmentation_mask=True),
+        model=ModelConfig(backbone="vit_base_patch16_224", image_size=224,
+                          compute_dtype="bfloat16", drop_path_rate=0.1),
+        training=TrainingConfig(
+            batch_size=MICRO, gradient_accumulation_steps=ACCUM,
+            optimizer=OptimizerConfig(lr=1e-4),
+            scheduler=SchedulerConfig(warmup_epochs=0),
+            llrd=LLRDConfig(decay_rate=0.75, head_lr_mult=10.0),
+            grad_clip=1.0, ema=EMAConfig(decay=0.9995)),
+        augmentation=AugmentationConfig(),       # MixUp 0.4 + CutMix 1.0 p0.7
+        loss=LossConfig(type="asymmetric"))
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED))
+    perturb(model, SEED)
+    tx, _ = build_optimizer(cfg, model, steps_per_epoch=100)
+    state = TrainState.create(model, tx, seed=SEED)
+    step = make_train_step(cfg, build_loss(cfg))
+    batches = training_batches(cfg, 1 + TIMED_STEPS)
+    macro = MICRO * ACCUM
+
+    # 6b. one warm-up step, checked: every parameter moves, and the EMA shadow
+    # moves by (1 − d) of the step's update
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    d = cfg.training.ema.decay
+    still = [n for n, p in model.named_parameters() if torch.equal(p, before[n])]
+    num = den = worst = 0.0
+    for n, p in model.named_parameters():
+        dp = (p.detach() - before[n]).double()
+        de = (state.ema[n] - before[n]).double()
+        num += float((de * dp).sum())
+        den += float((dp * dp).sum())
+        want = d * before[n] + (1 - d) * p.detach()
+        worst = max(worst, float((state.ema[n] - want).abs().max())
+                    / max(float(before[n].abs().max()), 1e-30))
+    ratio = num / den
+    log(f"[train] warm-up step: loss {float(m['loss'])!r}, grad_norm "
+        f"{float(m['grad_norm'])!r}; parameters that did not move: "
+        f"{len(still)} of {len(before)}; EMA moved by {ratio!r} of the update "
+        f"(want 1 − d = {1 - d!r}), largest deviation from d·s + (1−d)·p "
+        f"{worst!r} of the leaf's size")
+    # the shadow's change is (1 − d)·Δp plus its own fp32 rounding, which is
+    # of Δp's size on leaves at the lowest LLRD scales; so the ratio is held
+    # to 1%, and the update itself to a few ulps of the leaf
+    if still or not abs(ratio - (1 - d)) <= 1e-2 * (1 - d) or worst > 1e-6:
+        raise RuntimeError("the warm-up step did not move the parameters or "
+                           "the EMA shadow as it should")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, ln)
+    metrics = []
+    t0 = time.perf_counter()
+    for batch in batches[1:]:
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = launch_counts(fa, ln)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    want = {"K1": 0, "K2": TIMED_STEPS * ACCUM * BLOCKS,
+            "K3": TIMED_STEPS * ACCUM * BLOCKS, "K4": TIMED_STEPS * ACCUM * NORMS}
+    log(f"[train] steps {state.step}: loss {losses}, grad_norm {norms}")
+    log(f"[train] launches in {TIMED_STEPS} steps: {counts} (want {want})")
+    if counts != want:
+        raise RuntimeError("the training step did not launch the kernels as "
+                           "it should")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise RuntimeError("the training loss is not finite")
+    log(f"[train] ViT-B/16@224 bf16 4ch+meta, macro batch {macro} "
+        f"({ACCUM} x {MICRO}): {TIMED_STEPS} steps in {train_s!r} s = "
+        f"{TIMED_STEPS * macro / train_s!r} img/s, "
+        f"{train_s / TIMED_STEPS * 1e3!r} ms/step, peak {peak_gb!r} GiB ({smi})")
+
+    # 6c. one macro batch's gradients, kernels against the plain path
+    batch = batches[1]
+    snap = (state.generator.get_state(), state.np_rng.bit_generator.state,
+            {n: t.clone() for n, t in model.named_buffers()})
+
+    def grads_of():
+        state.generator.set_state(snap[0])
+        state.np_rng.bit_generator.state = snap[1]
+        with torch.no_grad():
+            for n, t in model.named_buffers():
+                t.copy_(snap[2][n])
+        grads, loss, _ = step.accumulate_grads(state, batch)
+        return {n: g.float().clone() for n, g in grads.items()}, float(loss)
+
+    kernel, loss_k = grads_of()
+    with attention_replaced_by(attention_from_qkvb), \
+            layer_norm_backward_replaced_by(ln.ln_bwd_plain):
+        plain, loss_p = grads_of()
+    with attention_replaced_by(k3_without_dbias(fa)):
+        control, _ = grads_of()
+    for p in model.parameters():
+        p.grad = None
+    rms = {n: float(g.square().mean().sqrt()) for n, g in plain.items()}
+    median = float(np.median(list(rms.values())))
+    noise = {n: r for n, r in rms.items() if r <= NOISE_SHARE * median}
+    log(f"[train] leaves with a noise-sized plain gradient (RMS <= "
+        f"{NOISE_SHARE!r} x the median leaf's {median!r}), left out of the "
+        f"check: RMS gradient {noise}; the smallest leaves kept: "
+        f"{sorted((r, n) for n, r in rms.items() if n not in noise)[:3]}")
+    if not set(ZERO_GRAD) <= set(noise):
+        raise RuntimeError(f"a bias before a training-mode BatchNorm has more "
+                           f"than a noise-sized gradient: "
+                           f"{({n: rms[n] for n in ZERO_GRAD})}")
+    errs = {n: rel_rms(kernel[n].cpu().numpy(), plain[n].cpu().numpy())
+            for n in plain if n not in noise}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    qkv_bias = [n for n in plain if n.endswith("attn.qkv.bias")]
+    ctrl = min(rel_rms(control[n].cpu().numpy(), plain[n].cpu().numpy())
+               for n in qkv_bias)
+    log(f"[train] grads, kernels vs plain path: loss {loss_k!r} vs {loss_p!r}; "
+        f"RMS error / RMS grad over {len(errs)} leaves: median "
+        f"{float(np.median(list(errs.values())))!r}, largest {worst} "
+        f"(limit {GRAD_RTOL_BF16!r}); control, K3's dbias zeroed: smallest "
+        f"over the {len(qkv_bias)} attn.qkv.bias leaves {ctrl!r} (must exceed "
+        f"{GRAD_RTOL_BF16!r})")
+    if not worst[0][1] <= GRAD_RTOL_BF16 or \
+            not abs(loss_k - loss_p) <= GRAD_RTOL_BF16 * abs(loss_p):
+        raise RuntimeError("the kernel path's gradients disagree with the "
+                           "plain path's")
+    if not ctrl > GRAD_RTOL_BF16:
+        raise RuntimeError("the gradient check cannot tell a missing K3 dbias")
+
+    if trace:
+        trace_training(step, state, batches[2], smi)
+    return counts
+
+
+def trace_training(step, state, batch, smi) -> None:
+    """A profile of one training step: device time by kernel, the busy share,
+    and the share of K2, K3 and K4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events, device_ms = device_events(prof)
+    log(f"[profile-train] one step: wall {wall_ms!r} ms, device {device_ms!r} "
+        f"ms, busy {100 * device_ms / wall_ms:.1f}% ({smi})")
+    for e in events[:20]:
+        ms = e.self_device_time_total / 1e3
+        log(f"[profile-train]   {ms!r} ms ({100 * ms / device_ms:.1f}%) "
+            f"x{e.count} {e.key[:90]}")
+    groups = {"K2": ("qkvb_attention_fwd_kernel",),
+              "K3": ("delta_kernel", "dkdv_kernel", "dq_kernel",
+                     "column_sum_kernel"),
+              "K4": ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")}
+    for k, names in groups.items():
+        ms = sum(e.self_device_time_total for e in events
+                 if any(nm in e.key for nm in names)) / 1e3
+        log(f"[profile-train] {k} {ms!r} ms = {100 * ms / device_ms:.1f}% of "
+            f"device time")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
-                        help="also break a serving batch's time down (phase 5)")
+                        help="also break the time of a serving batch (phase 5) "
+                             "and of a training step (phase 6) down")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -279,6 +743,7 @@ def main() -> int:
                                          make_eval_step)
     from fedvit_torch.models import build_model
     from fedvit_torch.ops import flash_attention as fa
+    from fedvit_torch.ops import layer_norm as ln
     from fedvit_torch.ops.attention import attention_from_qkvb
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -289,12 +754,12 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| {kind} x{torch.cuda.device_count()}")
-    for name in kernels.SOURCES:
-        t0 = time.perf_counter()
-        text = kernels.build(name)
-        log(f"[build] {name} in {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    built = kernels.build_all()
+    log(f"[build] {', '.join(built)} in {time.perf_counter() - t0!r} s")
+    for name, text in built.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or ("spill" in line and " 0 bytes spill" not in line):
                 log(f"[build] {name}: {line.strip()}")
 
     # 2. K1 against its plain version, at the serving shape and a small fp32 one
@@ -363,12 +828,36 @@ def main() -> int:
     if args.trace:
         trace_serving(model, step, augment, source, cfg, smi)
 
+    # 6a. K2, K3, K4 at the training micro-batch's shapes and small fp32 ones
+    for nn_ in (37, n):
+        check_k2(fa, attention_from_qkvb, 3, nn_, 12, torch.float32, False)
+        check_k3(fa, attention_from_qkvb, 3, nn_, 12, torch.float32, False)
+    check_k4(ln, (3, 37, e), torch.float32, False)
+    k2 = check_k2(fa, attention_from_qkvb, MICRO, n, 12, torch.bfloat16, True)
+    k3 = check_k3(fa, attention_from_qkvb, MICRO, n, 12, torch.bfloat16, True)
+    k4 = check_k4(ln, (MICRO, n, e), torch.bfloat16, True)
+
+    # 6b, 6c. the training step
+    counts = train_phase(fa, ln, attention_from_qkvb, smi, args.trace)
+
     log(smi)
-    log(json.dumps({"kernels": [{
-        "name": "qkvb_attention_fwd", "route": "cuda",
-        "source": "fedvit_torch/csrc/qkvb_attention.cu",
-        "replaces": "fedvit_tpu/ops/flash_attention.py:367",
-        "launches": launches, **k1}]}))
+    log(json.dumps({"kernels": [
+        {"name": "qkvb_attention_fwd", "route": "cuda",
+         "source": "fedvit_torch/csrc/qkvb_attention.cu",
+         "replaces": "fedvit_tpu/ops/flash_attention.py:367",
+         "launches": launches, **k1},
+        {"name": "qkvb_attention_fwd_lse", "route": "cuda",
+         "source": "fedvit_torch/csrc/qkvb_attention.cu",
+         "replaces": "fedvit_tpu/ops/flash_attention.py:466",
+         "launches": counts["K2"], **k2},
+        {"name": "qkvb_attention_bwd", "route": "cuda",
+         "source": "fedvit_torch/csrc/qkvb_attention_bwd.cu",
+         "replaces": "fedvit_tpu/ops/flash_attention.py:391",
+         "launches": counts["K3"], **k3},
+        {"name": "layer_norm_bwd", "route": "cuda",
+         "source": "fedvit_torch/csrc/layer_norm_bwd.cu",
+         "replaces": "fedvit_tpu/ops/layer_norm.py:90",
+         "launches": counts["K4"], **k4}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -4,8 +4,8 @@ them with ctypes.
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 by ``nvcc`` for ``sm_90a`` (Hopper) into ``build/kernels/`` at the root of the
 checkout, a directory ``.gitignore`` lists. The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-finished build is reused.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt and a finished build is reused.
 """
 
 from __future__ import annotations
@@ -16,10 +16,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("qkvb_attention",)   # every csrc/<name>.cu
+SOURCES = ("qkvb_attention", "qkvb_attention_bwd",   # every csrc/<name>.cu
+           "layer_norm_bwd")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
@@ -40,6 +43,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
@@ -62,6 +66,13 @@ def build(name: str) -> str:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
     os.replace(tmp, lib)   # atomic: a concurrent build never sees half a file
     return proc.stdout
+
+
+def build_all() -> Dict[str, str]:
+    """Build every source at once, one ``nvcc`` each, all started together;
+    returns each one's compiler output (see ``build``)."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(build, SOURCES)))
 
 
 @functools.cache

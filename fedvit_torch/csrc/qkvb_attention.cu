@@ -1,26 +1,33 @@
 // Multi-head softmax attention on the bias-free packed QKV projection output,
-// with the projection bias added on load. Forward only.
+// with the projection bias added on load: the forward of K1 (no grad) and K2
+// (the forward under grad, which also writes each row's log-sum-exp).
 //
-// Replaces the TPU kernel fedvit_tpu/ops/flash_attention.py::_qkvb_fwd_kernel
-// (launched by _qkvb_fwd_rule through pl.pallas_call).
+// Replaces the TPU kernels fedvit_tpu/ops/flash_attention.py::_qkvb_fwd_kernel
+// (K1) and ::_qkvb_fwd_stats_kernel (K2), both launched by _qkvb_fwd_rule
+// through pl.pallas_call. The TPU's K2 saves the row max and 1/sum in a
+// (B, N, 128) block; this one saves lse = max + log(sum), (B, H, N) fp32,
+// which is what the backward in qkvb_attention_bwd.cu needs to rebuild P.
 //
 //   qkv  (B, N, 3E)  heads head-major along the last dim: [q_0..q_{H-1} |
 //                    k_0..k_{H-1} | v_0..v_{H-1}], each head d = E/H = 64
 //                    wide (the head width of ViT-Ti/S/B/L; others refused)
 //   bias (3E,)       the projection bias, already in qkv's type
 //   out  (B, N, E)   head h writes its column slice [h*d, (h+1)*d)
+//   lse  (B, H, N)   K2 only: log sum_j exp(s_ij), s = (q.k) / sqrt(d), fp32
 //
 //   out_h = softmax((q_h + b_q)(k_h + b_k)^T / sqrt(d)) (v_h + b_v)
 //
 // The biased q/k/v are rounded to the input type, as the reference adds the
 // bias in that type. Scores, the running max and the running sum are fp32.
+// K2 is K1's code with one more store, so its output is bit-identical to K1's.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the ViT-B/16@224
 // serving shape, B=256, N=197, E=768, H=12, d=64, bf16:
 //   bytes: qkv read 256*197*2304*2 = 232.4 MB, out write 77.5 MB
 //          -> 309.9 MB / 3.35 TB/s = 92.5 us
 //   flops: 4*197^2*64*12*256 = 30.5 GFLOP -> 30.8 us at the bf16 tensor peak
-// so the kernel is bound by bytes, and a forward launches it 12 times.
+// so the kernel is bound by bytes, and a forward launches it 12 times. K2 at
+// the training micro-batch of 64 adds 0.6 MB of lse to 77.5 MB: ~23 us.
 //
 // Design. This first version is plain SIMT code, written to be right and
 // readable; it runs its arithmetic on the fp32 cores, not the tensor cores,
@@ -36,10 +43,9 @@
 // N=197) are staged as zeros and masked with a score of -inf. Nothing is
 // written but the output, and no transposed copy of q, k or v is made.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -49,67 +55,11 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kQueryTile = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKeyTile = 64;                        // key rows per staged tile
 
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  static constexpr int kVec = 4;  // elements in one 16-byte load
-  __device__ static void load(const float* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-  }
-  __device__ static float round(float x) { return x; }
-  template <int kN>
-  __device__ static void store(float* p, const float* f) {
-    if constexpr (kN == 2) {
-      *reinterpret_cast<float2*>(p) = make_float2(f[0], f[1]);
-    } else {
-      p[0] = f[0];
-    }
-  }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static void unpack(uint32_t w, float* f) {
-    f[0] = __uint_as_float(w << 16);          // element 0 is the low half
-    f[1] = __uint_as_float(w & 0xffff0000u);
-  }
-  __device__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    unpack(v.x, f); unpack(v.y, f + 2); unpack(v.z, f + 4); unpack(v.w, f + 6);
-  }
-  __device__ static float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  template <int kN>
-  __device__ static void store(__nv_bfloat16* p, const float* f) {
-    if constexpr (kN == 2) {
-      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(f[0], f[1]);
-    } else {
-      p[0] = __float2bfloat16(f[0]);
-    }
-  }
-};
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 qkvb_attention_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
-                          T* __restrict__ out, int n, int e, float scale) {
+                          T* __restrict__ out, float* __restrict__ lse, int n,
+                          int e, float scale) {
   constexpr int kVec = Io<T>::kVec;
   constexpr int kVecPerRow = D / kVec;
   constexpr int kStride = D + 4;  // padded fp32 row: conflict-free 16-byte reads
@@ -231,8 +181,11 @@ qkvb_attention_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
 
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
-    const float inv = 1.f / warp_sum(l[r]);
+    const float sum = warp_sum(l[r]);
+    const float inv = 1.f / sum;
     const int row = q0 + warp * kR + r;
+    if (kLse && row < n && lane == 0)
+      lse[(static_cast<size_t>(b) * gridDim.y + h) * n + row] = m[r] + logf(sum);
     if (row < n) {
       float res[kCols];
 #pragma unroll
@@ -243,31 +196,52 @@ qkvb_attention_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   }
 }
 
-template <typename T>
-int launch(const void* qkv, const void* bias, void* out, int batch, int n, int e,
-           int heads, float scale, cudaStream_t stream) {
+template <typename T, bool kLse>
+int launch(const void* qkv, const void* bias, void* out, float* lse, int batch,
+           int n, int e, int heads, float scale, cudaStream_t stream) {
   const dim3 grid((n + kQueryTile - 1) / kQueryTile, heads, batch);
   const T* q = static_cast<const T*>(qkv);
   const T* bb = static_cast<const T*>(bias);
   T* o = static_cast<T*>(out);
   if (e / heads != 64) return static_cast<int>(cudaErrorInvalidValue);
-  qkvb_attention_fwd_kernel<T, 64><<<grid, kThreads, 0, stream>>>(q, bb, o, n, e, scale);
+  qkvb_attention_fwd_kernel<T, 64, kLse>
+      <<<grid, kThreads, 0, stream>>>(q, bb, o, lse, n, e, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kLse>
+int dispatch(const void* qkv, const void* bias, void* out, float* lse, int batch,
+             int n, int e, int heads, int dtype, float scale, void* stream) {
+  if (batch <= 0 || n <= 0 || heads <= 0 || e % heads != 0 || batch > 65535 ||
+      heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, kLse>(qkv, bias, out, lse, batch, n, e, heads, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kLse>(qkv, bias, out, lse, batch, n, e, heads,
+                                       scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
 // The caller checks shapes, contiguity and 16-byte alignment.
+
+// K1: out only.
 extern "C" int qkvb_attention_fwd(const void* qkv, const void* bias, void* out,
                                   int batch, int n, int e, int heads, int dtype,
                                   float scale, void* stream) {
-  if (batch <= 0 || n <= 0 || heads <= 0 || e % heads != 0 || batch > 65535 ||
-      heads > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(qkv, bias, out, batch, n, e, heads, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(qkv, bias, out, batch, n, e, heads, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(qkv, bias, out, nullptr, batch, n, e, heads, dtype,
+                         scale, stream);
+}
+
+// K2: out and lse (B, H, N) fp32.
+extern "C" int qkvb_attention_fwd_lse(const void* qkv, const void* bias,
+                                      void* out, void* lse, int batch, int n,
+                                      int e, int heads, int dtype, float scale,
+                                      void* stream) {
+  return dispatch<true>(qkv, bias, out, static_cast<float*>(lse), batch, n, e,
+                        heads, dtype, scale, stream);
 }

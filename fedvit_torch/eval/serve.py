@@ -26,7 +26,11 @@ def _device_of(model: nn.Module) -> torch.device:
 
 
 def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
+    """Every entry of a batch of numpy arrays or tensors, as a tensor on
+    ``device``."""
+    return {k: torch.as_tensor(v if isinstance(v, torch.Tensor)
+                               else np.asarray(v)).to(device)
+            for k, v in batch.items()}
 
 
 def make_eval_step(model: nn.Module, cfg: Config,
@@ -35,12 +39,15 @@ def make_eval_step(model: nn.Module, cfg: Config,
 
     ``batch`` is a host dict of numpy arrays; with ``augment`` (the eval
     transform from ``make_device_augment``) its "image" is the raw uint8
-    canvas. The loss of the JAX step comes with the training slice."""
+    canvas. The model runs in evaluation mode (``deterministic=True`` in
+    the JAX step), whatever mode a train step left it in. The JAX step's
+    loss comes with the fold trainer."""
     use_meta = cfg.model.metadata.enabled
     device = _device_of(model)
 
     @torch.inference_mode()
     def eval_step(batch: Dict) -> torch.Tensor:
+        model.eval()
         batch = _to_device(batch, device)
         if augment is not None:
             batch = augment(batch)
@@ -100,6 +107,7 @@ def _make_tta_step(model: nn.Module, size: int, use_mask: bool,
 
     @torch.inference_mode()
     def tta_step(raw: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
+        model.eval()
         img = I.to_float(raw[..., :3])
         mask = (I.to_float(raw[..., 3:4])
                 if use_mask and raw.shape[-1] == 4 else None)

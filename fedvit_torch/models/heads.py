@@ -4,10 +4,12 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from fedvit_torch.models.layers import GELU, Dense
+from fedvit_torch.models.layers import GELU, Dense, Dropout, run_sequential
 
 
 class ClassifierHead(nn.Sequential):
@@ -15,9 +17,11 @@ class ClassifierHead(nn.Sequential):
                  hidden_dim: int = 512, dropout: float = 0.5,
                  dtype: torch.dtype = torch.float32):
         super().__init__(Dense(in_dim, hidden_dim, dtype), GELU(),
-                         nn.Dropout(dropout),
+                         Dropout(dropout),
                          Dense(hidden_dim, num_classes, dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, in_dim) → fp32 logits (B, num_classes)."""
-        return super().forward(x).float()
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, in_dim) → fp32 logits (B, num_classes); in training mode the
+        dropout mask comes from ``generator``."""
+        return run_sequential(self, x, generator).float()

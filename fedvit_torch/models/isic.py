@@ -61,18 +61,22 @@ class ISICClassifier(nn.Module):
                                          cls_dropout, dtype)
 
     def forward(self, x: torch.Tensor,
-                metadata: Optional[torch.Tensor] = None
+                metadata: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        features = self.backbone(x)
+        """In training mode (``model.train()``) every dropout and drop-path
+        mask is drawn from ``generator``, a ``torch.Generator`` on the
+        model's device; evaluation needs none."""
+        features = self.backbone(x, generator)
         out = {"features": features}
         if self.meta_output_dim:
             if metadata is not None:
-                meta = self.metadata_branch(metadata)
+                meta = self.metadata_branch(metadata, generator)
             else:
                 meta = features.new_zeros(features.shape[0],
                                           self.meta_output_dim)
             features = torch.cat([features, meta], dim=-1)
-        out["logits"] = self.classifier(features)
+        out["logits"] = self.classifier(features, generator)
         return out
 
 

@@ -7,6 +7,8 @@ reference/timm parameter names so state dicts cross between the packages.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -32,37 +34,95 @@ class Dense(nn.Linear):
 
 
 class TorchBatchNorm(nn.BatchNorm1d):
-    """Eval-mode BatchNorm over the leading axis on running statistics, in
-    fp32 (``fedvit_tpu/models/layers.py::TorchBatchNorm``)."""
+    """BatchNorm over the leading axis in fp32 with torch's running-statistics
+    convention (``fedvit_tpu/models/layers.py::TorchBatchNorm``).
+
+    Training normalises with the batch's mean and biased variance and moves
+    the running mean and the *unbiased* running variance by momentum 0.1;
+    the branch is written out because ``nn.BatchNorm1d`` refuses a batch of
+    1 in training, which the JAX module takes (factor n / max(n - 1, 1)).
+    Evaluation uses the running statistics."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm statistics updates come with the training step; "
-                "call model.eval() to serve")
-        return super().forward(x.float())
+        x32 = x.float()
+        if not self.training:
+            return super().forward(x32)
+        n = x32.shape[0]
+        mean = x32.mean(0)
+        var = ((x32 - mean) ** 2).mean(0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+            self.num_batches_tracked.add_(1)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight + self.bias
 
 
-class DropPath(nn.Module):
-    """Stochastic depth; the identity at inference."""
+def _keep_mask(shape, keep: float, generator: Optional[torch.Generator],
+               device: torch.device) -> torch.Tensor:
+    """Bernoulli(keep) mask drawn from the caller's generator — never the
+    global one, so the train step's generator decides every mask."""
+    if generator is None:
+        raise ValueError("dropout in training mode needs the step's "
+                         "torch.Generator (pass generator=...)")
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: x / keep where kept, else 0, with the mask drawn
+    from the ``generator`` passed to ``forward``; the identity in evaluation
+    or at rate 0."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                "stochastic depth comes with the training step")
-        return x
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        if keep <= 0.0:
+            return torch.zeros_like(x)
+        mask = _keep_mask(x.shape, keep, generator, x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (timm semantics: kept samples scaled by
+    1 / keep), mask drawn from the ``generator`` passed to ``forward``; the
+    identity in evaluation or at rate 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = _keep_mask(shape, keep, generator, x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def run_sequential(layers: nn.Sequential, x: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``nn.Sequential``'s forward, with the generator handed to each
+    ``Dropout``."""
+    for layer in layers:
+        x = layer(x, generator) if isinstance(layer, Dropout) else layer(x)
+    return x
 
 
 class Mlp(nn.Module):
-    """Transformer MLP: fc1 → GELU → fc2 (dropout is the identity at
-    inference)."""
+    """Transformer MLP: fc1 → GELU → fc2 (the ViT's dropout rate is 0.0,
+    ``fedvit_tpu/models/vit.py:84``, so there is no dropout layer)."""
 
     def __init__(self, dim: int, hidden_dim: int,
                  dtype: torch.dtype = torch.float32):
@@ -79,9 +139,10 @@ class MultiHeadAttention(nn.Module):
     then attention with the projection bias applied inside the op, then
     ``proj``. The ``qkv`` parameters keep nn.Linear's (timm) layout.
 
-    Attention is always ``flash_attention_qkvb``: the CUDA kernel on a GPU
-    tensor, its plain version on a CPU tensor. Only ``attention_impl="auto"``
-    is ported."""
+    Attention is always ``flash_attention_qkvb``: the CUDA kernels on a GPU
+    tensor (K1 without grad, K2/K3 with), its plain version on a CPU tensor.
+    The projection stays bias-free, so the bias gradient comes only from the
+    attention's backward. Only ``attention_impl="auto"`` is ported."""
 
     def __init__(self, dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
@@ -111,5 +172,6 @@ def trunc_normal_(t: torch.Tensor, generator: torch.Generator,
                                  generator=generator)
 
 
-__all__ = ["Dense", "TorchBatchNorm", "DropPath", "Mlp", "MultiHeadAttention",
-           "GELU", "trunc_normal_", "ATTENTION_IMPLS"]
+__all__ = ["Dense", "TorchBatchNorm", "Dropout", "DropPath", "run_sequential",
+           "Mlp", "MultiHeadAttention", "GELU", "trunc_normal_",
+           "ATTENTION_IMPLS"]

@@ -4,10 +4,13 @@ Linear(256→128) → BN → GELU), named ``net.{0,1,4,5}`` as in the reference.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from fedvit_torch.models.layers import GELU, Dense, TorchBatchNorm
+from fedvit_torch.models.layers import (GELU, Dense, Dropout, TorchBatchNorm,
+                                        run_sequential)
 
 
 class MetadataBranch(nn.Module):
@@ -17,11 +20,13 @@ class MetadataBranch(nn.Module):
         super().__init__()
         self.net = nn.Sequential(
             Dense(input_dim, hidden_dim, dtype), TorchBatchNorm(hidden_dim),
-            GELU(), nn.Dropout(dropout),
+            GELU(), Dropout(dropout),
             Dense(hidden_dim, output_dim, dtype), TorchBatchNorm(output_dim),
             GELU())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, input_dim) → (B, output_dim) fp32. The BatchNorms emit
-        fp32, so both GELUs take the exact-erf form, as in the JAX package."""
-        return self.net(x).float()
+        fp32, so both GELUs take the exact-erf form, as in the JAX package.
+        In training mode the dropout mask comes from ``generator``."""
+        return run_sequential(self.net, x, generator).float()

@@ -3,6 +3,8 @@ with timm parameter names."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -50,13 +52,16 @@ class ViTBlock(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.drop_path(self.attn(self.norm1(x)), generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
 
 
 class VisionTransformer(nn.Module):
-    """Headless ViT returning pooled fp32 features (B, embed_dim)."""
+    """Headless ViT returning pooled fp32 features (B, embed_dim). In
+    training mode the drop-path masks come from ``generator``; the dropout
+    rate is 0.0, as in the JAX package (``models/vit.py:84``)."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  in_channels: int = 3, embed_dim: int = 768, depth: int = 12,
@@ -80,13 +85,14 @@ class VisionTransformer(nn.Module):
                      attention_impl) for i in range(depth))
         self.norm = LayerNorm(embed_dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.compute_dtype
         x = self.patch_embed(x.to(dt))
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         x = self.norm(x)
         feats = x[:, 0] if self.pool == "cls" else x[:, 1:].mean(dim=1)
         return feats.float()

@@ -1,16 +1,32 @@
-"""LayerNorm forward with fp32 statistics (``fedvit_tpu/ops/layer_norm.py::_ln_fwd``).
+"""LayerNorm with fp32 statistics and a fused backward
+(``fedvit_tpu/ops/layer_norm.py``).
 
-Serving needs only the forward, which the JAX package also leaves plain; its
-fused backward kernel is ported with the training step."""
+The forward is plain PyTorch, as the JAX package leaves it to XLA. Under grad
+it runs inside ``LayerNormFn``, a ``torch.autograd.Function`` that saves only
+x and the weight (``_ln_fwd_rule``) and whose backward is ``layer_norm_bwd``:
+on a CUDA tensor the hand-written kernel K4 (``csrc/layer_norm_bwd.cu``,
+replaces ``_ln_bwd_kernel``), on a CPU tensor its plain version
+``ln_bwd_plain`` (``_ln_bwd_xla``), which K4 is held to on the card.
+``layer_norm_bwd_cuda.launches`` counts K4's launches.
+"""
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
 
 import torch
 from torch import nn
 
+from fedvit_torch.core import kernels
 
-def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-6, dtype: torch.dtype = None) -> torch.Tensor:
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float = 1e-6,
+                     dtype: torch.dtype = None) -> torch.Tensor:
     """LayerNorm over the last axis: E[x] and E[x²] in one fp32 pass, output
     cast to ``dtype`` (default: x's dtype)."""
     dtype = dtype or x.dtype
@@ -20,6 +36,126 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     var = torch.clamp(mean2 - mu * mu, min=0.0)
     xhat = (x32 - mu) * torch.rsqrt(var + eps)
     return (xhat * weight.float() + bias.float()).to(dtype)
+
+
+def ln_bwd_plain(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                 eps: float = 1e-6
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Analytic LayerNorm backward over the last axis, as ``_ln_bwd_xla``:
+    (dx in x's dtype and shape, dgamma (D,) fp32, dbeta (D,) fp32)."""
+    d = x.shape[-1]
+    x32 = x.reshape(-1, d).float()
+    dy32 = dy.reshape(-1, d).float()
+    mu = x32.mean(-1, keepdim=True)
+    xc = x32 - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    xhat = xc * r
+    g = dy32 * weight.float()
+    m1 = g.mean(-1, keepdim=True)
+    m2 = (g * xhat).mean(-1, keepdim=True)
+    dx = (r * (g - m1 - xhat * m2)).to(x.dtype).reshape(x.shape)
+    return dx, (dy32 * xhat).sum(0), dy32.sum(0)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = kernels.load("layer_norm_bwd")
+    lib.layer_norm_bwd.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.layer_norm_bwd.restype = ctypes.c_int
+    for name in ("layer_norm_bwd_max_d", "layer_norm_bwd_workspace_rows"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def layer_norm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor,
+                        dy: torch.Tensor, eps: float = 1e-6
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 on CUDA ``x`` and ``dy`` (..., D) of one dtype and the (D,)
+    weight: (dx in x's dtype, dgamma fp32, dbeta fp32). Raises on anything it
+    does not take."""
+    if x.device.type != "cuda" or dy.device != x.device or \
+            weight.device != x.device:
+        raise ValueError(f"x, dy and weight must be on one CUDA device, got "
+                         f"{x.device}, {dy.device} and {weight.device}")
+    if x.dtype not in _DTYPES or dy.dtype != x.dtype:
+        raise TypeError(f"x and dy must share a dtype of float32 or bfloat16, "
+                        f"got {x.dtype} and {dy.dtype}")
+    d = x.shape[-1]
+    if dy.shape != x.shape or weight.shape != (d,):
+        raise ValueError(f"x {tuple(x.shape)}, dy {tuple(dy.shape)} and "
+                         f"weight {tuple(weight.shape)} do not match")
+    lib = _library()
+    dtype = _DTYPES[x.dtype]
+    vec = 16 // x.element_size()
+    if d % vec or d > lib.layer_norm_bwd_max_d(dtype):
+        raise ValueError(f"D={d} must be a multiple of {vec} and at most "
+                         f"{lib.layer_norm_bwd_max_d(dtype)} for {x.dtype}")
+    if not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError("x and dy must be contiguous")
+    if x.data_ptr() % 16 or dy.data_ptr() % 16:
+        raise ValueError("x and dy must be 16-byte aligned")
+    rows = x.numel() // d
+    w = weight.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    blocks = lib.layer_norm_bwd_workspace_rows(rows)
+    part_g = torch.empty((blocks, d), **f32)
+    part_b = torch.empty((blocks, d), **f32)
+    dx = torch.empty_like(x)
+    dgamma = torch.empty((d,), **f32)
+    dbeta = torch.empty((d,), **f32)
+    err = lib.layer_norm_bwd(
+        x.data_ptr(), dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
+        part_g.data_ptr(), part_b.data_ptr(), dgamma.data_ptr(),
+        dbeta.data_ptr(), rows, d, dtype, eps, blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"layer_norm_bwd launch failed: CUDA error {err}")
+    layer_norm_bwd_cuda.launches += 1
+    return dx, dgamma, dbeta
+
+
+layer_norm_bwd_cuda.launches = 0
+
+
+def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                   eps: float = 1e-6
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The LayerNorm backward: K4 on a CUDA tensor, ``ln_bwd_plain`` on a CPU
+    one. dy is taken in x's dtype."""
+    if x.device.type == "cpu":
+        return ln_bwd_plain(x, weight, dy, eps)
+    return layer_norm_bwd_cuda(x, weight, dy.to(x.dtype).contiguous(), eps)
+
+
+class LayerNormFn(torch.autograd.Function):
+    """Plain forward; backward through ``layer_norm_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, dtype):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        ctx.bias_dtype = bias.dtype
+        return layer_norm_plain(x, weight, bias, eps, dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_bwd(x, weight, dy, ctx.eps)
+        return (dx, dgamma.to(weight.dtype), dbeta.to(ctx.bias_dtype), None,
+                None)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6, dtype: torch.dtype = None) -> torch.Tensor:
+    """LayerNorm over the last axis with fp32 statistics, output in ``dtype``
+    (default: x's dtype); under grad, its backward is the fused one."""
+    if torch.is_grad_enabled():
+        return LayerNormFn.apply(x, weight, bias, eps, dtype or x.dtype)
+    return layer_norm_plain(x, weight, bias, eps, dtype)
 
 
 class LayerNorm(nn.Module):

@@ -1,0 +1,130 @@
+"""Loss functions on (logits, integer targets) — ``fedvit_tpu/train/losses.py``.
+
+Every loss computes in fp32 whatever the logits' dtype:
+
+* ``asymmetric_focal_loss`` — the current generation's loss (JAX :34-71);
+* ``cross_entropy_loss`` with class weights and label smoothing, with
+  ``torch.nn.CrossEntropyLoss`` semantics (JAX :78-106);
+* ``focal_loss`` (JAX :109-126);
+* ``mixup_criterion`` — the λ-weighted two-target loss (JAX :176-184);
+* ``build_loss`` — from the config, with ``loss.class_weights`` honoured.
+
+The old generation's ``bce_dice_loss`` and ``joint_loss`` raise: the port's
+``build_model`` refuses the segmentation branch they train.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from fedvit_torch.core.config import Config
+
+LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def asymmetric_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                          gamma_neg: float = 4.0, gamma_pos: float = 1.0,
+                          clip: float = 0.05, eps: float = 1e-8
+                          ) -> torch.Tensor:
+    """Asymmetric focal loss for single-label multi-class classification:
+    softmax probabilities p, clamped p_pos = max(p, eps), p_neg = max(min(p,
+    1 - eps) - clip, eps); loss = -[(1-p)^γ+ y log p_pos + p^γ- (1-y)
+    log(1 - p_neg)], summed over classes, averaged over the batch.
+    logits (B, C), targets (B,) int."""
+    logits = logits.float()
+    probs = torch.softmax(logits, dim=-1)
+    one_hot = F.one_hot(targets.long(), logits.shape[-1]).float()
+    p_pos = torch.clamp(probs, min=eps)
+    p_neg = torch.clamp(probs, max=1.0 - eps)
+    if clip > 0:
+        p_neg = torch.clamp(p_neg - clip, min=eps)
+    loss_pos = one_hot * torch.log(p_pos)
+    loss_neg = (1.0 - one_hot) * torch.log(1.0 - p_neg)
+    w_pos = torch.clamp(1.0 - probs, min=0.0) ** gamma_pos
+    w_neg = torch.clamp(probs, min=0.0) ** gamma_neg
+    loss = -(w_pos * loss_pos + w_neg * loss_neg)
+    return loss.sum(-1).mean()
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       class_weights: Optional[torch.Tensor] = None,
+                       label_smoothing: float = 0.0) -> torch.Tensor:
+    """(Optionally weighted, label-smoothed) softmax cross-entropy with
+    ``torch.nn.CrossEntropyLoss`` semantics: the smoothing term is weighted
+    per class w_j, the NLL term per target w_y, and the mean is normalised
+    by Σ_i w_{y_i}."""
+    num_classes = logits.shape[-1]
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    one_hot = F.one_hot(targets.long(), num_classes).float()
+    eps = label_smoothing
+    if class_weights is None:
+        q = one_hot * (1.0 - eps) + eps / num_classes if eps > 0 else one_hot
+        return -(q * log_probs).sum(-1).mean()
+    w = class_weights.float().to(logits.device)
+    w_y = w[targets.long()]
+    nll = -(one_hot * log_probs).sum(-1) * w_y
+    if eps > 0:
+        smooth = -(log_probs * w[None, :]).sum(-1) / num_classes
+        per_sample = (1.0 - eps) * nll + eps * smooth
+    else:
+        per_sample = nll
+    return per_sample.sum() / torch.clamp(w_y.sum(), min=1e-12)
+
+
+def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+               gamma: float = 2.0,
+               class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-class focal loss: the mean over the batch of (1-p_t)^γ · CE_t,
+    weighted by w_{y_i} and normalised by their sum when class weights are
+    given."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    one_hot = F.one_hot(targets.long(), logits.shape[-1]).float()
+    log_pt = (one_hot * log_probs).sum(-1)
+    per_sample = -((1.0 - torch.exp(log_pt)) ** gamma) * log_pt
+    if class_weights is not None:
+        w = class_weights.float().to(logits.device)[targets.long()]
+        return (per_sample * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    return per_sample.mean()
+
+
+def bce_dice_loss(*args, **kwargs):
+    raise NotImplementedError(
+        "bce_dice_loss trains the old-generation segmentation branch, which "
+        "fedvit_torch does not port yet")
+
+
+def joint_loss(*args, **kwargs):
+    raise NotImplementedError(
+        "joint_loss trains the old-generation segmentation branch, which "
+        "fedvit_torch does not port yet")
+
+
+def mixup_criterion(criterion: LossFn, logits: torch.Tensor,
+                    targets_a: torch.Tensor, targets_b: torch.Tensor,
+                    lam) -> torch.Tensor:
+    """λ · loss(targets_a) + (1 − λ) · loss(targets_b)."""
+    return (lam * criterion(logits, targets_a)
+            + (1.0 - lam) * criterion(logits, targets_b))
+
+
+def build_loss(cfg: Config,
+               class_weights: Optional[torch.Tensor] = None) -> LossFn:
+    """The classification loss of ``cfg.loss``; ``class_weights`` (C,) reach
+    the focal and CE losses only when ``loss.class_weights`` is set."""
+    lc = cfg.loss
+    weights = class_weights if lc.class_weights else None
+    if lc.type == "asymmetric":
+        return partial(asymmetric_focal_loss,
+                       gamma_neg=lc.asymmetric.gamma_neg,
+                       gamma_pos=lc.asymmetric.gamma_pos,
+                       clip=lc.asymmetric.clip)
+    if lc.type == "focal":
+        return partial(focal_loss, gamma=lc.focal_gamma, class_weights=weights)
+    if lc.type == "ce":
+        return partial(cross_entropy_loss, class_weights=weights,
+                       label_smoothing=lc.label_smoothing)
+    raise ValueError(f"Unknown loss type: {lc.type}")

@@ -1,0 +1,130 @@
+"""The train step (``fedvit_tpu/train/step.py::make_train_step``).
+
+One step takes a macro batch of ``accum · micro`` already-augmented images
+(NHWC, normalised), labels and metadata:
+
+1. ``accumulate_grads``: the macro batch is cut into ``accum`` micro-batches,
+   run in order with the model in training mode (BatchNorm statistics thread
+   through them in the module's buffers). Each draws its mix, runs forward
+   and loss, and adds its gradients to the parameters' ``.grad``; then
+   grads ← sum / accum and loss ← mean.
+2. ``apply_update``: clip, AdamW with LLRD, LR (``train/optim.py``), then the
+   EMA, then ``step += 1``.
+
+Metrics are ``loss`` and ``grad_norm``, the global norm of the averaged
+gradients before clipping, as tensors on the model's device (reading them
+waits for the device).
+
+Parameters are fp32 and are cast to the compute dtype where they are used
+(``models/layers.py::Dense``), as flax does: no ``torch.autocast`` and no
+GradScaler, since bf16 has fp32's exponent range.
+
+On a CUDA model every attention runs K2 forward and K3 backward and every
+LayerNorm K4 backward (``ops/``): per micro-batch of a ViT-B, 12, 12 and 25
+launches.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from fedvit_torch.core.config import Config
+from fedvit_torch.eval.serve import _to_device
+from fedvit_torch.train.ema import ema_update
+from fedvit_torch.train.losses import LossFn, mixup_criterion
+from fedvit_torch.train.mixup import make_mix_fn
+from fedvit_torch.train.state import TrainState
+
+
+class TrainStep:
+    """``step(state, batch) → (state, metrics)``, and its two halves."""
+
+    def __init__(self, cfg: Config, loss_fn: LossFn):
+        t = cfg.training
+        self.loss_fn = loss_fn
+        self.accum = max(1, t.gradient_accumulation_steps)
+        self.use_meta = cfg.model.metadata.enabled
+        self.ema_enabled = t.ema.enabled
+        self.ema_decay = t.ema.decay
+        self.mix = make_mix_fn(cfg.augmentation)
+
+    def accumulate_grads(self, state: TrainState, batch: Dict
+                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                                    Dict[str, torch.Tensor]]:
+        """(grads by parameter name, mean loss, BatchNorm statistics by
+        buffer name) of one macro batch. The grads are the parameters'
+        ``.grad`` tensors."""
+        model = state.model
+        model.train()
+        device = next(model.parameters()).device
+        batch = _to_device(batch, device)
+        images, labels = batch["image"], batch["label"].long()
+        metadata = batch.get("metadata") if self.use_meta else None
+        b = images.shape[0]
+        micro = b // self.accum
+        if micro * self.accum != b:
+            raise ValueError(f"batch {b} not divisible by accumulation steps "
+                             f"{self.accum}")
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        loss_sum = torch.zeros((), device=device)
+        for i in range(self.accum):
+            sl = slice(i * micro, (i + 1) * micro)
+            x, y = images[sl], labels[sl]
+            meta = metadata[sl] if metadata is not None else None
+            if self.mix is not None:
+                x, ya, yb, lam = self.mix(x, y, rng=state.np_rng,
+                                          generator=state.generator)
+            logits = model(x, meta, generator=state.generator)["logits"]
+            if self.mix is None:
+                loss = self.loss_fn(logits, y)
+            else:
+                loss = mixup_criterion(self.loss_fn, logits, ya, yb, lam)
+            loss.backward()
+            loss_sum += loss.detach()
+        grads = {}
+        for name, p in params.items():
+            if p.grad is None:             # a branch this batch did not use
+                p.grad = torch.zeros_like(p)
+            if self.accum > 1:
+                p.grad.mul_(1.0 / self.accum)
+            grads[name] = p.grad
+        stats = {name: t for name, t in model.named_buffers()
+                 if name.endswith(("running_mean", "running_var"))}
+        return grads, loss_sum * (1.0 / self.accum), stats
+
+    def apply_update(self, state: TrainState,
+                     grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Optimizer update, EMA and ``step += 1``, in place; returns the
+        global norm of ``grads`` before clipping."""
+        grad_norm = state.tx.step(state.model, grads, state.opt_state)
+        if self.ema_enabled and state.ema is not None:
+            ema_update(state.ema, state.model, self.ema_decay)
+        for p in state.model.parameters():
+            p.grad = None
+        state.step += 1
+        return grad_norm
+
+    def __call__(self, state: TrainState, batch: Dict
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        grads, loss, _ = self.accumulate_grads(state, batch)
+        grad_norm = self.apply_update(state, grads)
+        return state, {"loss": loss, "grad_norm": grad_norm}
+
+
+def make_train_step(cfg: Config, loss_fn: LossFn,
+                    augment: Optional[Callable] = None) -> TrainStep:
+    """The train step for ``cfg``. The batch arrives already augmented:
+    ``augment`` (the on-device train augment) is not ported yet and raises,
+    as does ``model.remat``."""
+    if augment is not None:
+        raise NotImplementedError(
+            "the on-device train augment is not ported yet; pass batches "
+            "that are already augmented and normalised (augment=None)")
+    if cfg.model.remat:
+        raise NotImplementedError("model.remat (rematerialised blocks) is not "
+                                  "ported yet")
+    return TrainStep(cfg, loss_fn)

@@ -8,6 +8,7 @@ an odd N so that a ragged tile would show. Tolerance: atol 1e-5 — fp32
 throughout, the frameworks sum the 37-long rows in other orders.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,3 +84,81 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     qkv, bias = _inputs(1, 5, 64, seed=0)
     with pytest.raises(ValueError, match="CUDA"):
         qkvb_attention_cuda(torch.from_numpy(qkv), torch.from_numpy(bias), 1)
+
+
+# --- the backward ------------------------------------------------------------
+# The port's CPU path is the plain version under torch autograd; K3 is held
+# to it on the card. Here its gradients (dqkv, dbias) are held to jax.vjp of
+# the Pallas kernel in interpret mode — every TPU backward variant: the plain
+# recompute kernel (picked at these N), the stats pair and the stats+delta
+# pair, chosen by the JAX package's own switches — and of the XLA branch.
+# Tolerance: atol 1e-5 for dqkv (fp32, sums over N keys in another order),
+# 1e-4 for dbias (fp32 sums over B·N rows of dqkv).
+
+_VARIANTS = {"plain": {}, "stats": {"FEDVIT_QKVB_STATS": "1"},
+             "stats_delta": {"FEDVIT_QKVB_STATS": "1", "FEDVIT_QKVB_DELTA": "1"}}
+
+
+def _port_grads(qkv, bias, heads, dout):
+    qt = torch.from_numpy(qkv).requires_grad_()
+    bt = torch.from_numpy(bias).requires_grad_()
+    out = flash_attention_qkvb(qt, bt, heads)
+    out.backward(torch.from_numpy(dout))
+    return qt.grad.numpy(), bt.grad.numpy()
+
+
+def _jax_vjp(fn, qkv, bias, dout):
+    _, vjp = jax.vjp(fn, jnp.asarray(qkv), jnp.asarray(bias))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("variant", list(_VARIANTS))
+@pytest.mark.parametrize("n", [37, 197])
+def test_backward_matches_pallas_kernels_in_interpret_mode(monkeypatch, n,
+                                                           variant):
+    for k, v in _VARIANTS[variant].items():
+        monkeypatch.setenv(k, v)
+    heads = 2
+    qkv, bias = _inputs(2, n, heads * 64, seed=n + 1)
+    dout = np.random.default_rng(n).normal(size=(2, n, heads * 64)).astype(
+        np.float32)
+    want = _jax_vjp(lambda q, b: jax_qkvb(q, b, heads, interpret=True),
+                    qkv, bias, dout)
+    got = _port_grads(qkv, bias, heads, dout)
+    np.testing.assert_allclose(got[0], want[0], atol=ATOL)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [37, 197])
+def test_backward_matches_jax_xla_branch(n):
+    heads = 3
+    qkv, bias = _inputs(2, n, heads * 64, seed=n + 2)
+    dout = np.random.default_rng(n + 1).normal(size=(2, n, heads * 64)).astype(
+        np.float32)
+    want = _jax_vjp(lambda q, b: jattn.attention_from_qkvb(q, b, heads,
+                                                           impl="xla"),
+                    qkv, bias, dout)
+    got = _port_grads(qkv, bias, heads, dout)
+    np.testing.assert_allclose(got[0], want[0], atol=ATOL)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-4)
+
+
+def test_cpu_grad_path_launches_no_kernel():
+    from fedvit_torch.ops import flash_attention as fa
+    qkv, bias = _inputs(1, 5, 64, seed=1)
+    counts = (fa.flash_attention_qkvb.launches,
+              fa.qkvb_attention_lse_cuda.launches,
+              fa.qkvb_attention_bwd_cuda.launches)
+    _port_grads(qkv, bias, 1, np.ones((1, 5, 64), np.float32))
+    assert (fa.flash_attention_qkvb.launches, fa.qkvb_attention_lse_cuda.launches,
+            fa.qkvb_attention_bwd_cuda.launches) == counts
+
+
+def test_kernel_wrappers_of_the_backward_refuse_cpu_tensors():
+    from fedvit_torch.ops import flash_attention as fa
+    qkv, bias = (torch.from_numpy(a) for a in _inputs(1, 5, 64, seed=0))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.qkvb_attention_lse_cuda(qkv, bias, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.qkvb_attention_bwd_cuda(qkv, bias, qkv[..., :64], qkv[..., :64],
+                                   torch.zeros(1, 1, 5), 1)

@@ -5,16 +5,31 @@ with the card (no JAX needed there, hence ``--noconftest``):
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
-Tolerances: fp32 atol 2e-5 (fp32 scores and sums in both, other summation
-order and ``__expf``); bf16 atol 2^-5, one bf16 ulp of outputs below 8 (the
-plain version rounds the softmax weights to bf16 before P·V, the kernel
-keeps them in fp32).
+Tolerances:
+
+- K1 and K2's output: fp32 atol 2e-5 (fp32 scores and sums in both, other
+  summation order and ``__expf``); bf16 atol 2^-5, one bf16 ulp of outputs
+  below 8 (the plain version rounds the softmax weights to bf16 before P·V,
+  the kernel keeps them in fp32). K2's output is K1's, bit for bit.
+- K2's log-sum-exp: atol 1e-4 against ``torch.logsumexp`` of the same fp32
+  scores (values of 5-10; summation order and ``__expf``/``logf``).
+- K3 (dqkv, dbias) against autograd of the plain version, as a share of the
+  largest |value|: fp32 1e-4 (sums over N keys and B·N rows in another
+  order); bf16 2^-5, four bf16 ulps of the largest value (the plain
+  backward rounds P, dP and dS to bf16 at each cast of the forward; the
+  kernel keeps them fp32, and dbias sums the rounded dqkv in fp32).
+- K4 (dx, dgamma, dbeta) against ``ln_bwd_plain``, as a share of the
+  largest |value|: fp32 1e-5; bf16 dx 2^-6 (both round dx to bf16: one ulp,
+  from fp32 sums in another order), dgamma and dbeta 1e-4 in both (fp32 sums
+  over the rows in another order; the kernel's variance is E[x²] − μ², the
+  plain version's the centred one, as the TPU kernel and ``_ln_bwd_xla``).
 """
 
 import pytest
 import torch
 
 from fedvit_torch.ops import flash_attention as fa
+from fedvit_torch.ops import layer_norm as ln
 from fedvit_torch.ops.attention import attention_from_qkvb
 
 pytestmark = pytest.mark.cuda
@@ -85,3 +100,168 @@ def test_tiny_model_on_the_card_matches_the_cpu(cuda):
         got = gpu(x.cuda(), meta.cuda())["logits"].cpu()
     assert fa.flash_attention_qkvb.launches == before + 12
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def _rel_err(got, want):
+    """max |got − want| as a share of max |want| (or of 1 when smaller)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,n,heads,dtype", [
+    (2, 37, 2, torch.float32), (2, 65, 3, torch.float32),
+    (3, 197, 12, torch.float32), (2, 197, 12, torch.bfloat16),
+    (2, 65, 3, torch.bfloat16)])
+def test_k2_is_k1_plus_lse(cuda, b, n, heads, dtype):
+    qkv, bias = _inputs(b, n, heads * 64, dtype, seed=n + 1)
+    before = fa.qkvb_attention_lse_cuda.launches
+    out, lse = fa.qkvb_attention_lse_cuda(qkv, bias, heads)
+    torch.cuda.synchronize()
+    assert fa.qkvb_attention_lse_cuda.launches == before + 1
+    assert torch.equal(out, fa.qkvb_attention_cuda(qkv, bias, heads))
+    e = heads * 64
+    x = qkv + bias.to(dtype)
+    q = x[..., :e].reshape(b, n, heads, 64).float()
+    k = x[..., e:2 * e].reshape(b, n, heads, 64).float()
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) / 8.0
+    assert lse.shape == (b, heads, n) and lse.dtype == torch.float32
+    assert float((lse - torch.logsumexp(s, -1)).abs().max()) <= 1e-4
+
+
+def _plain_grads(qkv, bias, heads, dout):
+    qkv = qkv.detach().requires_grad_()
+    bias = bias.detach().requires_grad_()
+    out = attention_from_qkvb(qkv, bias, heads)
+    return torch.autograd.grad(out, (qkv, bias), dout)
+
+
+@pytest.mark.parametrize("b,n,heads,dtype,tol", [
+    (2, 37, 2, torch.float32, 1e-4), (2, 65, 3, torch.float32, 1e-4),
+    (3, 197, 12, torch.float32, 1e-4), (2, 1, 2, torch.float32, 1e-4),
+    (4, 197, 12, torch.bfloat16, 2.0 ** -5),
+    (2, 37, 2, torch.bfloat16, 2.0 ** -5)])
+def test_k3_matches_plain_backward(cuda, b, n, heads, dtype, tol):
+    qkv, bias = _inputs(b, n, heads * 64, dtype, seed=n + 2)
+    g = torch.Generator(device="cuda").manual_seed(n)
+    dout = torch.randn(b, n, heads * 64, device="cuda", generator=g).to(dtype)
+    qkv_g = qkv.clone().requires_grad_()
+    bias_g = bias.clone().requires_grad_()
+    k2, k3 = fa.qkvb_attention_lse_cuda.launches, fa.qkvb_attention_bwd_cuda.launches
+    k1 = fa.flash_attention_qkvb.launches
+    out = fa.flash_attention_qkvb(qkv_g, bias_g, heads)
+    dqkv, dbias = torch.autograd.grad(out, (qkv_g, bias_g), dout)
+    torch.cuda.synchronize()
+    assert fa.qkvb_attention_lse_cuda.launches == k2 + 1
+    assert fa.qkvb_attention_bwd_cuda.launches == k3 + 1
+    assert fa.flash_attention_qkvb.launches == k1          # no K1 under grad
+    want_dqkv, want_dbias = _plain_grads(qkv, bias, heads, dout)
+    assert dqkv.dtype == dtype and dbias.dtype == torch.float32
+    assert torch.isfinite(dqkv).all() and torch.isfinite(dbias).all()
+    assert _rel_err(dqkv, want_dqkv) <= tol
+    assert _rel_err(dbias, want_dbias) <= tol
+
+
+def test_k3_dbias_sums_the_rounded_dqkv(cuda):
+    qkv, bias = _inputs(3, 197, 12 * 64, torch.bfloat16, seed=5)
+    out, lse = fa.qkvb_attention_lse_cuda(qkv, bias, 12)
+    dout = torch.randn_like(out)
+    dqkv, dbias = fa.qkvb_attention_bwd_cuda(qkv, bias, out, dout, lse, 12)
+    want = dqkv.float().sum((0, 1))
+    assert float((dbias - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape,dtype,dx_tol", [
+    ((37, 192), torch.float32, 1e-5), ((3, 197, 768), torch.float32, 1e-5),
+    ((2, 65, 1024), torch.float32, 1e-5), ((64, 197, 768), torch.bfloat16, 2.0 ** -6),
+    ((5, 37, 192), torch.bfloat16, 2.0 ** -6), ((1, 1, 768), torch.bfloat16, 2.0 ** -6)])
+def test_k4_matches_plain(cuda, shape, dtype, dx_tol):
+    g = torch.Generator(device="cuda").manual_seed(shape[-1])
+    x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    w = 1.0 + 0.3 * torch.randn(shape[-1], device="cuda", generator=g)
+    before = ln.layer_norm_bwd_cuda.launches
+    dx, dg, db = ln.layer_norm_bwd(x, w, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_bwd_cuda.launches == before + 1
+    want = ln.ln_bwd_plain(x, w, dy, 1e-6)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert dg.dtype == db.dtype == torch.float32
+    assert _rel_err(dx, want[0]) <= dx_tol
+    assert _rel_err(dg, want[1]) <= 1e-4
+    assert _rel_err(db, want[2]) <= 1e-4
+
+
+def test_k4_refuses_d_over_its_cap(cuda):
+    x = torch.randn(2, 1028, device="cuda")
+    with pytest.raises(ValueError, match="at most 1024"):
+        ln.layer_norm_bwd_cuda(x, torch.ones(1028, device="cuda"), x)
+
+
+def test_k3_k4_refuse_a_short_workspace(cuda):
+    """The C entry points own their workspace sizes and return an error for a
+    buffer shorter than they write, instead of writing past it."""
+    lib = ln._library()
+    rows, d = 130, 64
+    assert lib.layer_norm_bwd_workspace_rows(rows) == 3
+    x = torch.randn(rows, d, device="cuda")
+    w = torch.ones(d, device="cuda")
+    part = torch.empty(2, d, device="cuda")
+    out = [torch.empty_like(x), torch.empty(d, device="cuda"),
+           torch.empty(d, device="cuda")]
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.layer_norm_bwd(x.data_ptr(), x.data_ptr(), w.data_ptr(),
+                              out[0].data_ptr(), part.data_ptr(), part.data_ptr(),
+                              out[1].data_ptr(), out[2].data_ptr(), rows, d, 0,
+                              1e-6, 2, stream) != 0
+    blib = fa._bwd_library()
+    b, n, e = 2, 197, 64
+    assert blib.qkvb_attention_bwd_workspace_rows(b, n) == 8
+    qkv, bias = _inputs(b, n, e, torch.float32)
+    o = torch.empty(b, n, e, device="cuda")
+    lse = torch.empty(b, 1, n, device="cuda")
+    wsp = torch.empty(7, 3 * e, device="cuda")
+    assert blib.qkvb_attention_bwd(
+        qkv.data_ptr(), bias.data_ptr(), o.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), lse.data_ptr(), wsp.data_ptr(), qkv.data_ptr(),
+        wsp.data_ptr(), b, n, e, 1, 0, 0.125, 7, stream) != 0
+
+
+def test_layer_norm_function_launches_k4_under_grad(cuda):
+    x = torch.randn(4, 9, 64, device="cuda", requires_grad=True)
+    w = torch.ones(64, device="cuda", requires_grad=True)
+    b = torch.zeros(64, device="cuda", requires_grad=True)
+    before = ln.layer_norm_bwd_cuda.launches
+    ln.layer_norm(x, w, b).square().sum().backward()
+    assert ln.layer_norm_bwd_cuda.launches == before + 1
+    assert x.grad.shape == x.shape and w.grad.shape == b.grad.shape == (64,)
+
+
+def test_tiny_model_training_launches_k2_k3_k4(cuda):
+    """Under grad a ViT forward and backward launches K2 and K3 once per
+    block and K4 once per LayerNorm (2 per block + the final norm), and no
+    K1; the grads match the CPU's."""
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.models import build_model
+
+    cfg = from_dict({"model": {"backbone": "vit_tiny_patch16_224",
+                               "image_size": 32, "compute_dtype": "float32",
+                               "drop_path_rate": 0.0,
+                               "metadata": {"dropout": 0.0},
+                               "classifier": {"dropout": 0.0}},
+                     "data": {"use_segmentation_mask": True}})
+    cpu = build_model(cfg, device="cpu").train()
+    gpu = build_model(cfg, device="cuda").train()
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 32, 32, 4, generator=g)
+    meta = torch.randn(3, 13, generator=g)
+    counts = (fa.flash_attention_qkvb.launches, fa.qkvb_attention_lse_cuda.launches,
+              fa.qkvb_attention_bwd_cuda.launches, ln.layer_norm_bwd_cuda.launches)
+    gpu(x.cuda(), meta.cuda())["logits"].square().sum().backward()
+    after = (fa.flash_attention_qkvb.launches, fa.qkvb_attention_lse_cuda.launches,
+             fa.qkvb_attention_bwd_cuda.launches, ln.layer_norm_bwd_cuda.launches)
+    assert [a - c for a, c in zip(after, counts)] == [0, 12, 12, 25]
+    cpu(x, meta)["logits"].square().sum().backward()
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-3,
+                                   msg=name)
