@@ -37,7 +37,23 @@ Phases, one line of output each (or a few):
    c. the gradients of one macro batch through the kernels against the same
       step through the plain attention and LayerNorm backward, leaf by leaf,
       and a control with K3's bias gradient zeroed that must fail the check;
-   with ``--trace``, a ``torch.profiler`` trace of one training step.
+   with ``--trace``, a ``torch.profiler`` trace of one training step;
+7. SwinV2-L@384 serving (``swinv2_large_window12to24_192to384``):
+   a. K5 (the windowed attention with a relative-position bias and a shift
+      mask) against its plain version: small fp32 cases with a ragged N,
+      several windows and several rows a window, then bf16 at the four stage
+      shapes a batch of 32 gives it, with the real shift mask where the stage
+      has one; its time, the plain version's, SDPA's with the summed bias and
+      mask as ``attn_mask``, and the bound; the log-sum-exp variant's output
+      bit-equal to K5's and its LSE against ``torch.logsumexp``;
+   b. serving: the ``ISICClassifier`` on SwinV2-L (4 channels, metadata, bf16,
+      seeded perturbed weights) takes seeded 448² uint8 canvases through
+      ``_evaluate`` at batch 32 with a ragged last batch; 24 K5 launches per
+      forward and none of K1-K4; the logits against the same model with the
+      plain attention, and a control with the relative-position bias zeroed
+      that must fail the check;
+   c. the same for 8-view TTA at batch 8;
+   with ``--trace``, the stages and profile of a SwinV2-L serving batch.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -65,6 +81,15 @@ TTA_BATCH, TTA_IMAGES = 32, 2 * 32 + 8          # 3 forwards of 32·8 views
 BLOCKS = 12                                      # ViT-B: one K1 launch per block
 NORMS = 2 * BLOCKS + 1                           # ViT-B LayerNorms: one K4 each
 MICRO, ACCUM, TIMED_STEPS = 64, 2, 5             # training: macro batch 128
+SWIN = "swinv2_large_window12to24_192to384.ms_in22k_ft_in1k"
+SWIN_SIZE, SWIN_DEPTHS = 384, (2, 2, 18, 2)      # one K5 launch per block
+SWIN_BATCH, SWIN_IMAGES = 32, 3 * 32 + 8         # 4 forwards, the last ragged
+SWIN_TTA_BATCH, SWIN_TTA_IMAGES = 8, 2 * 8 + 4   # 3 forwards of 8·8 views
+# K5's shapes in SwinV2-L@384 at batch 32: (windows W0, rows a window B,
+# tokens N, heads H, side of the map for the shift mask or None, launches a
+# forward). Stages 2 and 3 are one window that covers the map: no mask.
+SWIN_STAGES = ((16, 32, 576, 6, 96, 2), (4, 32, 576, 12, 48, 2),
+               (1, 32, 576, 24, None, 18), (1, 32, 144, 48, None, 2))
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -119,6 +144,24 @@ GRAD_RTOL_BF16 = 0.1
 # mean (the CPU step test leaves them out of its per-element check too). A
 # real gradient on either breaks the rule and fails the run.
 NOISE_SHARE = 2.0 ** -6
+# K5 against its plain version, for K1's reasons: fp32, both keep fp32 scores
+# (here plus the fp32 bias and mask), max and sums, and differ by summation
+# order and __expf over up to 576 keys; bf16, the plain version rounds the
+# softmax weights to bf16 before P·V and the kernel keeps them fp32, one bf16
+# ulp (2^-5) of outputs below 8. The log-sum-exp (values up to ~40, where an
+# fp32 ulp is 4e-6) against torch.logsumexp of the plain fp32 scores.
+K5_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -5}
+K5_LSE_ATOL = 1e-4
+# Logits of the bf16 SwinV2-L, K5 against the plain attention: as for the
+# ViT, RMS of the difference over the RMS of the plain logits, one-ulp
+# differences through 24 post-norm blocks. The limit is a tenth of the ViT's:
+# SwinV2 pools the mean over its tokens, which averages away both the
+# rounding differences and most of what a changed attention pattern does (a
+# softmax row sums to 1 whatever its weights), where the ViT reads the one cls
+# token. The control, the plain path with the relative-position bias zeroed,
+# must exceed the limit: on these seeded weights it reads about 0.02 and the
+# kernel path about 0.003.
+SWIN_LOGITS_RTOL_BF16 = 0.01
 ZERO_GRAD = ("metadata_branch.net.0.bias", "metadata_branch.net.4.bias")
 
 
@@ -228,11 +271,13 @@ def perturb(model, seed: int) -> None:
     """Move every weight of the seeded model by seeded noise, so that biases
     are non-zero and attention is peaked: linear and patch-embedding weights
     by N(0, 4 / fan_in) (q·k scores then spread over several units), every
-    other tensor by N(0, 0.25); BatchNorm variances stay positive."""
+    other tensor by N(0, 0.25); BatchNorm variances stay positive. Buffers
+    that the state dict leaves out (SwinV2's tables and masks) stay."""
     g = torch.Generator().manual_seed(seed)
+    saved = set(model.state_dict())
     with torch.no_grad():
         for name, t in [*model.named_parameters(), *model.named_buffers()]:
-            if not t.is_floating_point():
+            if not t.is_floating_point() or name not in saved:
                 continue
             linear = name.endswith("weight") and t.dim() >= 2
             std = 2.0 / math.sqrt(t[0].numel()) if linear else 0.5
@@ -242,30 +287,41 @@ def perturb(model, seed: int) -> None:
 
 
 @contextlib.contextmanager
-def attention_replaced_by(fn):
-    """Run the model's attention through ``fn`` instead of the kernel."""
-    from fedvit_torch.models import layers
-    kernel = layers.flash_attention_qkvb
-    layers.flash_attention_qkvb = fn
+def rebound(module, name, fn):
+    """``module.name`` is ``fn`` inside the block, and itself again after."""
+    kernel = getattr(module, name)
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        layers.flash_attention_qkvb = kernel
+        setattr(module, name, kernel)
+
+
+def attention_replaced_by(fn):
+    """Run the ViT's attention through ``fn`` instead of the kernel."""
+    from fedvit_torch.models import layers
+    return rebound(layers, "flash_attention_qkvb", fn)
+
+
+def window_attention_replaced_by(fn):
+    """Run the SwinV2's attention through ``fn`` instead of the kernel."""
+    from fedvit_torch.models import swin
+    return rebound(swin, "flash_attention_bias_flat", fn)
 
 
 def rel_rms(got, want) -> float:
     return float(np.sqrt(np.mean((got - want) ** 2) / np.mean(want ** 2)))
 
 
-def compare_logits(name, got, want):
+def compare_logits(name, got, want, limit=LOGITS_RTOL_BF16):
     if got.shape != want.shape or not np.isfinite(got).all():
         raise RuntimeError(f"{name}: logits {got.shape} not finite or wrong shape")
     err = rel_rms(got, want)
     log(f"[{name}] logits {got.shape} finite; kernel vs plain attention: RMS "
-        f"error {err!r} x RMS logit (limit {LOGITS_RTOL_BF16!r}), RMS logit "
+        f"error {err!r} x RMS logit (limit {limit!r}), RMS logit "
         f"{float(np.sqrt(np.mean(want ** 2)))!r}, max_abs_err "
         f"{float(np.abs(got - want).max())!r}")
-    if not err <= LOGITS_RTOL_BF16:
+    if not err <= limit:
         raise RuntimeError(f"{name}: kernel path disagrees with the plain path")
 
 
@@ -288,19 +344,23 @@ def device_events(prof):
     return events, sum(e.self_device_time_total for e in events) / 1e3
 
 
-def trace_serving(model, step, augment, source, cfg, smi) -> None:
-    """Phase 5: stages of each serving batch, then a profile of ``_evaluate``."""
+def trace_serving(model, step, augment, source, cfg, smi, batch_size=SERVE_BATCH,
+                  kernel=("K1", "qkvb_attention"), tag="") -> None:
+    """Stages of each full serving batch, then a profile of ``_evaluate``;
+    ``kernel`` is the attention kernel's label and a part of its name in the
+    profile, ``tag`` marks the lines of another model than the ViT."""
     from torch.profiler import ProfilerActivity, profile
 
     from fedvit_torch.eval.serve import _evaluate, _to_device
 
-    n = math.ceil(len(source) / SERVE_BATCH)
+    stages_tag, profile_tag = f"[stages{tag}]", f"[profile{tag}]"
+    n = math.ceil(len(source) / batch_size)
     stages = {k: [] for k in ("gather", "to_device", "augment", "forward",
                               "to_host")}
     with torch.inference_mode():
         for i in range(n - 1):                       # the full batches
             t = [time.perf_counter()]
-            batch = source.gather(np.arange(i * SERVE_BATCH, (i + 1) * SERVE_BATCH))
+            batch = source.gather(np.arange(i * batch_size, (i + 1) * batch_size))
             t.append(time.perf_counter())
             dev = _to_device(batch, torch.device("cuda"))
             torch.cuda.synchronize()
@@ -316,29 +376,29 @@ def trace_serving(model, step, augment, source, cfg, smi) -> None:
             for k, a, b in zip(stages, t, t[1:]):
                 stages[k].append((b - a) * 1e3)
     total = float(sum(np.median(v) for v in stages.values()))
-    log(f"[stages] batch {SERVE_BATCH}, median of {n - 1} ({smi}):")
+    log(f"{stages_tag} batch {batch_size}, median of {n - 1} ({smi}):")
     for k, v in stages.items():
         ms = float(np.median(v))
-        log(f"[stages]   {k:10s} {ms!r} ms ({100 * ms / total:.1f}%)")
-    log(f"[stages]   total {total!r} ms = {SERVE_BATCH / total * 1e3!r} img/s "
+        log(f"{stages_tag}   {k:10s} {ms!r} ms ({100 * ms / total:.1f}%)")
+    log(f"{stages_tag}   total {total!r} ms = {batch_size / total * 1e3!r} img/s "
         f"synchronised")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _evaluate(step, source, SERVE_BATCH, cfg.num_classes)
+        _evaluate(step, source, batch_size, cfg.num_classes)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events, device_ms = device_events(prof)
-    log(f"[profile] {n} batches: wall {wall_ms!r} ms, device {device_ms!r} ms, "
+    log(f"{profile_tag} {n} batches: wall {wall_ms!r} ms, device {device_ms!r} ms, "
         f"busy {100 * device_ms / wall_ms:.1f}% ({smi})")
     for e in events[:15]:
         ms = e.self_device_time_total / 1e3
-        log(f"[profile]   {ms / n!r} ms/batch ({100 * ms / device_ms:.1f}%) "
+        log(f"{profile_tag}   {ms / n!r} ms/batch ({100 * ms / device_ms:.1f}%) "
             f"x{e.count / n:g} {e.key[:90]}")
-    k1 = sum(e.self_device_time_total for e in events
-             if "qkvb_attention" in e.key) / 1e3
-    log(f"[profile] K1 {k1 / n!r} ms/batch = {100 * k1 / device_ms:.1f}% of "
-        f"device time")
+    k_ms = sum(e.self_device_time_total for e in events
+               if kernel[1] in e.key) / 1e3
+    log(f"{profile_tag} {kernel[0]} {k_ms / n!r} ms/batch = "
+        f"{100 * k_ms / device_ms:.1f}% of device time")
 
 
 def seeded(shape, dtype, seed, scale=1.0):
@@ -494,30 +554,27 @@ def check_k4(ln, shape, dtype, timed):
     return rec
 
 
+def counted(fa, ln) -> dict:
+    """Every kernel wrapper that counts its launches, by kernel."""
+    return {"K1": fa.flash_attention_qkvb, "K2": fa.qkvb_attention_lse_cuda,
+            "K3": fa.qkvb_attention_bwd_cuda, "K4": ln.layer_norm_bwd_cuda,
+            "K5": fa.flash_attention_bias_flat,
+            "K5_lse": fa.window_attention_lse_cuda}
+
+
 def launch_counts(fa, ln) -> dict:
-    return {"K1": fa.flash_attention_qkvb.launches,
-            "K2": fa.qkvb_attention_lse_cuda.launches,
-            "K3": fa.qkvb_attention_bwd_cuda.launches,
-            "K4": ln.layer_norm_bwd_cuda.launches}
+    return {k: fn.launches for k, fn in counted(fa, ln).items()}
 
 
 def reset_counts(fa, ln) -> None:
-    fa.flash_attention_qkvb.launches = 0
-    fa.qkvb_attention_lse_cuda.launches = 0
-    fa.qkvb_attention_bwd_cuda.launches = 0
-    ln.layer_norm_bwd_cuda.launches = 0
+    for fn in counted(fa, ln).values():
+        fn.launches = 0
 
 
-@contextlib.contextmanager
 def layer_norm_backward_replaced_by(fn):
     """Run every LayerNorm backward through ``fn`` instead of K4."""
     from fedvit_torch.ops import layer_norm
-    kernel = layer_norm.layer_norm_bwd
-    layer_norm.layer_norm_bwd = fn
-    try:
-        yield
-    finally:
-        layer_norm.layer_norm_bwd = kernel
+    return rebound(layer_norm, "layer_norm_bwd", fn)
 
 
 def k3_without_dbias(fa):
@@ -626,7 +683,8 @@ def train_phase(fa, ln, attention_from_qkvb, smi, trace):
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
     want = {"K1": 0, "K2": TIMED_STEPS * ACCUM * BLOCKS,
-            "K3": TIMED_STEPS * ACCUM * BLOCKS, "K4": TIMED_STEPS * ACCUM * NORMS}
+            "K3": TIMED_STEPS * ACCUM * BLOCKS, "K4": TIMED_STEPS * ACCUM * NORMS,
+            "K5": 0, "K5_lse": 0}
     log(f"[train] steps {state.step}: loss {losses}, grad_norm {norms}")
     log(f"[train] launches in {TIMED_STEPS} steps: {counts} (want {want})")
     if counts != want:
@@ -724,11 +782,204 @@ def trace_training(step, state, batch, smi) -> None:
             f"device time")
 
 
+def window_inputs(w0, b, n, heads, dtype, side, seed):
+    """K5's inputs as a SwinV2 block makes them: q and k of unit norm per head
+    (q times a logit scale of 10), v normal, a bias of 16·sigmoid size, and
+    the real shift mask of a ``side``² map of windows of √N (None: no mask)."""
+    from fedvit_torch.models.swin import shift_attention_mask
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows, d = w0 * b, 32
+
+    def unit(scale):
+        t = torch.randn(rows, n, heads, d, device="cuda", generator=g)
+        return (scale * t / t.norm(dim=-1, keepdim=True)).reshape(
+            rows, n, heads * d).to(dtype)
+
+    q, k = unit(10.0), unit(1.0)
+    v = torch.randn(rows, n, heads * d, device="cuda", generator=g).to(dtype)
+    bias = 16 * torch.sigmoid(
+        2 * torch.randn(heads, n, n, device="cuda", generator=g))
+    if side is None:
+        return q, k, v, bias, None
+    window = math.isqrt(n)
+    mask = torch.from_numpy(
+        shift_attention_mask(side, side, window, window // 2)).cuda()
+    if mask.shape != (w0, n, n):
+        raise RuntimeError(f"shift mask {tuple(mask.shape)} for W0 = {w0}")
+    return q, k, v, bias, mask
+
+
+def window_scores_lse(q, k, bias, mask, heads):
+    """torch.logsumexp of the plain fp32 biased, masked scores: (W0·B, H, N)."""
+    rows, n, e = q.shape
+    w0 = 1 if mask is None else mask.shape[0]
+    qh, kh = (t.reshape(w0, rows // w0, n, heads, e // heads).float()
+              for t in (q, k))
+    s = torch.einsum("wbnhd,wbmhd->wbhnm", qh, kh) + bias
+    if mask is not None:
+        s = s + mask[:, None, None]
+    return torch.logsumexp(s, -1).reshape(rows, heads, n)
+
+
+def check_k5(fa, plain, w0, b, n, heads, dtype, side, timed):
+    """K5 through the wrapper the model calls, and its log-sum-exp variant,
+    against the plain version on the same inputs; returns its record."""
+    q, k, v, bias, mask = window_inputs(w0, b, n, heads, dtype, side,
+                                        SEED + 50 + n + heads)
+    out = fa.flash_attention_bias_flat(q, k, v, bias, mask, heads)
+    torch.cuda.synchronize()
+    out_l, lse = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
+    torch.cuda.synchronize()
+    same = torch.equal(out, out_l)
+    want = plain(q, k, v, bias, mask, heads)
+    err = float((out.float() - want.float()).abs().max())
+    lse_err = float((lse - window_scores_lse(q, k, bias, mask, heads)).abs().max())
+    atol = K5_ATOL[dtype]
+    shape = f"(W0 {w0}, B {b}, N {n}, H {heads}, d 32) {short(dtype)}"
+    log(f"[k5] {shape}, mask {None if mask is None else tuple(mask.shape)}: "
+        f"max_abs_err {err!r} (tolerance {atol!r}); lse variant bit-identical: "
+        f"{same}, lse max_abs_err {lse_err!r} (tolerance {K5_LSE_ATOL!r})")
+    if out.shape != q.shape or out.dtype != dtype or \
+            not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"K5 {shape}: bad output")
+    if not (err <= atol and same and lse_err <= K5_LSE_ATOL):
+        raise RuntimeError(f"K5 {shape} disagrees with its plain version")
+    rec = {"shape": {"W0": w0, "B": b, "N": n, "H": heads, "d": 32},
+           "max_abs_err": err}
+    if timed:
+        rows = w0 * b
+        views = [t.view(rows, n, heads, 32).transpose(1, 2) for t in (q, k, v)]
+        added = bias[None] if mask is None else bias[None] + mask[:, None]
+        attn_mask = added.to(dtype)[:, None].expand(
+            added.shape[0], rows // added.shape[0], heads, n, n).reshape(
+            rows, heads, n, n)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rec["ms"] = cuda_ms(
+            lambda: fa.flash_attention_bias_flat(q, k, v, bias, mask, heads),
+            iters=8, warmup=2)
+        rec["plain_ms"] = cuda_ms(lambda: plain(q, k, v, bias, mask, heads),
+                                  iters=4, warmup=1)
+        rec["library_ms"] = cuda_ms(
+            lambda: sdpa(*views, attn_mask=attn_mask, scale=1.0),
+            iters=8, warmup=2)
+        nbytes = (4 * q.numel() * q.element_size() + bias.numel() * 4
+                  + (0 if mask is None else mask.numel() * 4))
+        flops = 4.0 * rows * heads * n * n * 32          # q·kᵀ and p·v
+        rec.update(bound(nbytes, flops, dtype))
+        log(f"[k5] kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, sdpa "
+            f"{rec['library_ms']!r} ms (bias + mask as attn_mask), bound "
+            f"{rec['bound_ms']!r} ms by {rec['bound_by']} ({nbytes} B, "
+            f"{flops:.4g} flop)")
+    return rec
+
+
+def swin_phase(fa, ln, smi, trace):
+    """Phase 7; returns K5's record (the stage-2 shape's numbers, the other
+    stage shapes under "stages") with its launches in the serving run."""
+    from fedvit_torch.core.config import (Config, DataConfig, ModelConfig,
+                                          TrainingConfig)
+    from fedvit_torch.data.pipeline import canvas_size, make_device_augment
+    from fedvit_torch.eval.serve import (_evaluate, evaluate_with_tta,
+                                         make_eval_step)
+    from fedvit_torch.models import build_model
+    from fedvit_torch.ops.attention import windowed_attention_flat as plain
+
+    # 7a. K5 against its plain version
+    for w0, b, n, heads in ((4, 3, 49, 2), (9, 2, 16, 3)):
+        check_k5(fa, plain, w0, b, n, heads, torch.float32, math.isqrt(n) * math.isqrt(w0),
+                 timed=False)
+    check_k5(fa, plain, 1, 5, 64, 6, torch.float32, None, timed=False)
+    stages = [check_k5(fa, plain, w0, b, n, heads, torch.bfloat16, side, True)
+              for w0, b, n, heads, side, _ in SWIN_STAGES]
+    per_forward = sum(r["ms"] * st[5] for r, st in zip(stages, SWIN_STAGES))
+    log(f"[k5] a SwinV2-L@384 forward of {SWIN_BATCH} launches it "
+        f"{[st[5] for st in SWIN_STAGES]} times: {per_forward!r} ms of K5")
+    torch.cuda.empty_cache()
+
+    # 7b. serving at batch 32, ragged last batch
+    cfg = Config(
+        data=DataConfig(use_segmentation_mask=True),
+        model=ModelConfig(backbone=SWIN, image_size=SWIN_SIZE,
+                          compute_dtype="bfloat16", drop_path_rate=0.0),
+        training=TrainingConfig(batch_size=SWIN_BATCH))
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED))
+    perturb(model, SEED)
+    log(f"[swin] {SWIN} built and perturbed in {time.perf_counter() - t0!r} s, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    canvas = canvas_size(SWIN_SIZE)
+    source = serving_inputs(SWIN_IMAGES, canvas)
+    augment = make_device_augment(cfg, False)
+    step = make_eval_step(model, cfg, augment=augment)
+    _evaluate(step, serving_inputs(SWIN_BATCH, canvas), SWIN_BATCH,
+              cfg.num_classes)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blocks = sum(SWIN_DEPTHS)
+
+    def expect(name, forwards):
+        got = launch_counts(fa, ln)
+        want = {k: 0 for k in got} | {"K5": blocks * forwards}
+        log(f"[{name}] launches for {forwards} forwards: {got} (want {want})")
+        if got != want:
+            raise RuntimeError(f"{name}: the SwinV2 forward did not launch the "
+                               f"kernels as it should")
+        return got["K5"]
+
+    reset_counts(fa, ln)
+    t0 = time.perf_counter()
+    served = _evaluate(step, source, SWIN_BATCH, cfg.num_classes)
+    serve_s = time.perf_counter() - t0
+    launches = expect("swin-serve", math.ceil(SWIN_IMAGES / SWIN_BATCH))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    with window_attention_replaced_by(plain):
+        plain_out = _evaluate(step, source, SWIN_BATCH, cfg.num_classes)
+    compare_logits("swin-serve", served["logits"], plain_out["logits"],
+                   SWIN_LOGITS_RTOL_BF16)
+    # the control: without the relative-position bias the logits must leave
+    # the limit
+    with window_attention_replaced_by(
+            lambda q, k, v, bias, mask, h: plain(q, k, v, bias * 0, mask, h)):
+        no_bias = _evaluate(step, source, SWIN_BATCH, cfg.num_classes)
+    control = rel_rms(no_bias["logits"], plain_out["logits"])
+    log(f"[swin-serve] control, plain attention without the relative-position "
+        f"bias: RMS error {control!r} x RMS logit (must exceed "
+        f"{SWIN_LOGITS_RTOL_BF16!r})")
+    if not control > SWIN_LOGITS_RTOL_BF16:
+        raise RuntimeError("the logits check cannot tell a dropped "
+                           "relative-position bias")
+    log(f"[swin-serve] SwinV2-L@384 bf16 4ch+meta bs {SWIN_BATCH}: "
+        f"{SWIN_IMAGES} images in {serve_s!r} s = {SWIN_IMAGES / serve_s!r} "
+        f"img/s, peak {peak_gb!r} GiB ({smi})")
+
+    # 7c. 8-view TTA at batch 8
+    tta_source = serving_inputs(SWIN_TTA_IMAGES, canvas)
+    reset_counts(fa, ln)
+    t0 = time.perf_counter()
+    _, _, tta_logits = evaluate_with_tta(cfg, model, tta_source,
+                                         batch_size=SWIN_TTA_BATCH)
+    tta_s = time.perf_counter() - t0
+    expect("swin-tta", math.ceil(SWIN_TTA_IMAGES / SWIN_TTA_BATCH))
+    with window_attention_replaced_by(plain):
+        _, _, tta_plain = evaluate_with_tta(cfg, model, tta_source,
+                                            batch_size=SWIN_TTA_BATCH)
+    compare_logits("swin-tta", tta_logits, tta_plain, SWIN_LOGITS_RTOL_BF16)
+    log(f"[swin-tta] 8 views bs {SWIN_TTA_BATCH}: {SWIN_TTA_IMAGES} images in "
+        f"{tta_s!r} s = {SWIN_TTA_IMAGES / tta_s!r} img/s ({smi})")
+
+    if trace:
+        trace_serving(model, step, augment, source, cfg, smi, SWIN_BATCH,
+                      kernel=("K5", "window_attention"), tag="-swin")
+    return {"launches": launches, **stages[2], "stages": stages}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
-                        help="also break the time of a serving batch (phase 5) "
-                             "and of a training step (phase 6) down")
+                        help="also break the time of a serving batch (phases 5 "
+                             "and 7) and of a training step (phase 6) down")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -840,6 +1091,11 @@ def main() -> int:
     # 6b, 6c. the training step
     counts = train_phase(fa, ln, attention_from_qkvb, smi, args.trace)
 
+    # 7. SwinV2-L@384 serving
+    del model, step
+    torch.cuda.empty_cache()
+    k5 = swin_phase(fa, ln, smi, args.trace)
+
     log(smi)
     log(json.dumps({"kernels": [
         {"name": "qkvb_attention_fwd", "route": "cuda",
@@ -857,7 +1113,10 @@ def main() -> int:
         {"name": "layer_norm_bwd", "route": "cuda",
          "source": "fedvit_torch/csrc/layer_norm_bwd.cu",
          "replaces": "fedvit_tpu/ops/layer_norm.py:90",
-         "launches": counts["K4"], **k4}]}))
+         "launches": counts["K4"], **k4},
+        {"name": "window_attention_fwd", "route": "cuda",
+         "source": "fedvit_torch/csrc/window_attention.cu",
+         "replaces": "fedvit_tpu/ops/flash_attention.py:992", **k5}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -12,6 +12,7 @@ metadata embedding and the LayerNorm head are not ported yet.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -83,8 +84,9 @@ class ISICClassifier(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random init: trunc-normal(0.02) weights for every linear map,
     the patch embedding, the cls token and the position embedding; zero
-    biases; unit LayerNorm/BatchNorm scales (the JAX package's init, except
-    that flax's lecun-normal default for the metadata Dense layers is
+    biases; unit LayerNorm/BatchNorm scales; SwinV2's ``logit_scale`` log 10
+    and its ``q_bias``/``v_bias`` zeros (the JAX package's init, except that
+    flax's lecun-normal default for the metadata and CPB Dense layers is
     trunc-normal here too)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -92,8 +94,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if leaf in ("cls_token", "pos_embed") or (
                     leaf == "weight" and p.dim() >= 2):
                 trunc_normal_(p, generator)
-            elif leaf == "bias":
+            elif leaf in ("bias", "q_bias", "v_bias"):
                 p.zero_()
+            elif leaf == "logit_scale":
+                p.fill_(math.log(10.0))
             else:
                 p.fill_(1.0)
     return model

@@ -1,17 +1,34 @@
 """Backbone registry — timm-style names → port backbones
-(``fedvit_tpu/models/registry.py``). ViT names are ported; Swin names come
-with a later slice."""
+(``fedvit_tpu/models/registry.py``):
+
+  * "vit_{size}_patch{P}_{res}" (and deit/eva02 names)  → VisionTransformer
+  * "swinv2_large_window12to24_192to384.ms_in22k_ft_in1k",
+    "swin_small_patch4_window12_384", "swin(v2)_{size}_..._window{W}[to{W2}]"
+                                                        → SwinTransformerV2
+"""
 
 from __future__ import annotations
 
 import re
 import warnings
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 from torch import nn
 
+from fedvit_torch.models.swin import SWIN_CONFIGS, SwinTransformerV2
 from fedvit_torch.models.vit import VIT_CONFIGS, VisionTransformer
+
+BACKBONE_SPECS: Dict[str, Dict[str, Any]] = {
+    # explicit entries for exact reference config names
+    "swinv2_large_window12to24_192to384.ms_in22k_ft_in1k": dict(
+        family="swinv2", embed_dim=192, depths=(2, 2, 18, 2),
+        num_heads=(6, 12, 24, 48), window_size=24,
+        pretrained_window_sizes=(12, 12, 12, 6)),
+    "swin_small_patch4_window12_384": dict(
+        family="swin", embed_dim=96, depths=(2, 2, 18, 2),
+        num_heads=(3, 6, 12, 24), window_size=12),
+}
 
 _VIT_RE = re.compile(
     r"^(vit|deit|eva02?)_(tiny|small|base|large|huge)_patch(\d+)(?:_(\d+))?")
@@ -39,6 +56,19 @@ def build_backbone(name: str, image_size: int, in_channels: int = 3,
             dtype=DTYPES[compute_dtype], attention_impl=attention_impl, **cfg)
         return mod, cfg["embed_dim"]
     if name.startswith("swin"):
-        raise NotImplementedError(
-            f"{name}: Swin backbones are not ported to fedvit_torch yet")
+        spec = BACKBONE_SPECS.get(name)
+        if spec is None:
+            sm = re.match(r"^swin(?:v2)?_(tiny|small|base|large)", name)
+            if not sm:
+                raise ValueError(f"Unknown swin backbone: {name}")
+            spec = dict(SWIN_CONFIGS[sm.group(1)])
+            wm = re.search(r"window(\d+)(?:to(\d+))?", name)
+            if wm:
+                spec["window_size"] = int(wm.group(2) or wm.group(1))
+        spec = {k: v for k, v in spec.items() if k != "family"}
+        mod = SwinTransformerV2(
+            image_size=image_size, in_channels=in_channels,
+            drop_path_rate=drop_path_rate, dtype=DTYPES[compute_dtype],
+            attention_impl=attention_impl, **spec)
+        return mod, mod.num_features
     raise ValueError(f"Unknown backbone: {name}")

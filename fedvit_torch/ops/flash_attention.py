@@ -1,4 +1,5 @@
-"""Fused attention on the packed QKV projection, with its backward.
+"""Fused attention: on the packed QKV projection with its backward (ViT),
+and windowed with a relative-position bias and a shift mask (SwinV2).
 
 ``flash_attention_qkvb`` is the port of ``fedvit_tpu/ops/flash_attention.py::
 flash_attention_qkvb``. On a CPU tensor it runs the plain version,
@@ -15,9 +16,20 @@ fallback:
   ``_qkvb_bwd_stats_kernel`` and ``_qkvb_bwd_delta_kernel``), which returns
   dqkv and the bias gradient, so the bias-free projection never counts it.
 
+``flash_attention_bias_flat`` is the port of ``fedvit_tpu/ops/
+flash_attention.py::flash_attention_bias_flat``, forward only: on a CPU tensor
+the plain ``ops/attention.py::windowed_attention_flat``, on a CUDA tensor K5
+(``csrc/window_attention.cu::window_attention_fwd``, replaces
+``_wflat_fwd_kernel``). Its backward (K6) is not ported: a CUDA tensor that
+needs a gradient is refused. ``window_attention_lse_cuda`` is K5 plus each
+row's log-sum-exp (replaces ``_wflat_fwd_stats_kernel``), which that backward
+will read.
+
 Each kernel's wrapper counts its launches in its ``launches`` attribute:
 ``flash_attention_qkvb.launches`` (K1), ``qkvb_attention_lse_cuda.launches``
-(K2), ``qkvb_attention_bwd_cuda.launches`` (K3).
+(K2), ``qkvb_attention_bwd_cuda.launches`` (K3),
+``flash_attention_bias_flat.launches`` (K5),
+``window_attention_lse_cuda.launches`` (K5 with the log-sum-exp).
 """
 
 from __future__ import annotations
@@ -25,15 +37,17 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from fedvit_torch.core import kernels
-from fedvit_torch.ops.attention import attention_from_qkvb
+from fedvit_torch.ops.attention import (attention_from_qkvb,
+                                        windowed_attention_flat)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64,)   # ViT-Ti/S/B/L all have d = 64
+_HEAD_DIMS = (64,)          # K1-K3: ViT-Ti/S/B/L all have d = 64
+_WINDOW_HEAD_DIMS = (32,)   # K5: every SwinV2 the registry builds has d = 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -191,3 +205,113 @@ def flash_attention_qkvb(qkv: torch.Tensor, bias: torch.Tensor,
 flash_attention_qkvb.launches = 0
 qkvb_attention_lse_cuda.launches = 0
 qkvb_attention_bwd_cuda.launches = 0
+
+
+# --- windowed attention with a bias and a mask (SwinV2) ----------------------
+
+@functools.cache
+def _window_library() -> ctypes.CDLL:
+    lib = kernels.load("window_attention")
+    lib.window_attention_fwd.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    lib.window_attention_fwd_lse.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    lib.window_attention_fwd.restype = _I
+    lib.window_attention_fwd_lse.restype = _I
+    return lib
+
+
+def _check_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor, mask: Optional[torch.Tensor],
+                  num_heads: int) -> Tuple[int, int, int, int, torch.Tensor,
+                                           torch.Tensor]:
+    """Raise on what K5 does not take; returns (W0·B, N, E, W0) and the bias
+    and mask as contiguous fp32 (the mask zeros (1, N, N) for None)."""
+    if q.device.type != "cuda" or any(
+            t.device != q.device for t in (k, v, bias)) or (
+            mask is not None and mask.device != q.device):
+        raise ValueError(f"q, k, v, bias and mask must be on one CUDA device, "
+                         f"got q on {q.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias, mask)):
+        raise NotImplementedError(
+            "flash_attention_bias_flat has no backward on CUDA yet (K6, the "
+            "windowed attention's backward, comes with Swin training); run it "
+            "under torch.no_grad() or torch.inference_mode()")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share a dtype of float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype} and {v.dtype}")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must share a (W0·B, N, E) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    rows, n, e = q.shape
+    if e % num_heads or e // num_heads not in _WINDOW_HEAD_DIMS:
+        raise ValueError(f"E={e} with {num_heads} heads: head dim must be one "
+                         f"of {_WINDOW_HEAD_DIMS}")
+    if bias.shape != (num_heads, n, n):
+        raise ValueError(f"bias must be ({num_heads}, {n}, {n}), got "
+                         f"{tuple(bias.shape)}")
+    if mask is None:
+        mask = torch.zeros((1, n, n), dtype=torch.float32, device=q.device)
+    if mask.dim() != 3 or mask.shape[1:] != (n, n) or rows % mask.shape[0]:
+        raise ValueError(f"mask must be (W0, {n}, {n}) with W0 dividing the "
+                         f"{rows} rows, got {tuple(mask.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return (rows, n, e, mask.shape[0], bias.float().contiguous(),
+            mask.float().contiguous())
+
+
+def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: torch.Tensor, mask: Optional[torch.Tensor],
+                          num_heads: int) -> torch.Tensor:
+    """K5 on (W0·B, N, E) window-major ``q``, ``k``, ``v``, (H, N, N) ``bias``
+    and (W0, N, N) ``mask`` (or None); returns a new (W0·B, N, E) tensor.
+    Raises on anything it does not take."""
+    rows, n, e, w0, bias, mask = _check_window(q, k, v, bias, mask, num_heads)
+    out = torch.empty_like(q)
+    _raise_on(_window_library().window_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), rows, n, e, num_heads, w0,
+        _DTYPES[q.dtype], _stream(q)), "window_attention_fwd")
+    flash_attention_bias_flat.launches += 1
+    return out
+
+
+def window_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias: torch.Tensor,
+                              mask: Optional[torch.Tensor], num_heads: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's output, bit for bit, and each row's log-sum-exp of the biased,
+    masked scores, (W0·B, H, N) fp32."""
+    rows, n, e, w0, bias, mask = _check_window(q, k, v, bias, mask, num_heads)
+    out = torch.empty_like(q)
+    lse = torch.empty((rows, num_heads, n), dtype=torch.float32,
+                      device=q.device)
+    _raise_on(_window_library().window_attention_fwd_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), lse.data_ptr(), rows, n, e, num_heads,
+        w0, _DTYPES[q.dtype], _stream(q)), "window_attention_fwd_lse")
+    window_attention_lse_cuda.launches += 1
+    return out, lse
+
+
+def flash_attention_bias_flat(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias: torch.Tensor,
+                              mask: Optional[torch.Tensor],
+                              num_heads: int) -> torch.Tensor:
+    """Windowed attention softmax(q_h·k_hᵀ + bias[h] + mask[w])·v_h.
+
+    q, k, v: (W0·B, N, E) window-major flat; bias (H, N, N); mask (W0, N, N)
+    additive, or None. The caller folds any score scale into q. CPU tensors
+    take the plain version; CUDA tensors K5, which has no backward yet and
+    refuses a tensor that needs a gradient.
+    ``flash_attention_bias_flat.launches`` counts K5's launches."""
+    if q.device.type == "cpu":
+        return windowed_attention_flat(q, k, v, bias, mask, num_heads)
+    return window_attention_cuda(q, k, v, bias, mask, num_heads)
+
+
+flash_attention_bias_flat.launches = 0
+window_attention_lse_cuda.launches = 0

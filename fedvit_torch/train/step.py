@@ -119,7 +119,8 @@ def make_train_step(cfg: Config, loss_fn: LossFn,
                     augment: Optional[Callable] = None) -> TrainStep:
     """The train step for ``cfg``. The batch arrives already augmented:
     ``augment`` (the on-device train augment) is not ported yet and raises,
-    as does ``model.remat``."""
+    as do ``model.remat`` and a Swin backbone (its attention has no backward
+    kernel yet)."""
     if augment is not None:
         raise NotImplementedError(
             "the on-device train augment is not ported yet; pass batches "
@@ -127,4 +128,9 @@ def make_train_step(cfg: Config, loss_fn: LossFn,
     if cfg.model.remat:
         raise NotImplementedError("model.remat (rematerialised blocks) is not "
                                   "ported yet")
+    if cfg.model.backbone.startswith("swin"):
+        raise NotImplementedError(
+            f"{cfg.model.backbone}: Swin training is not ported yet; it needs "
+            f"K6, the backward of the windowed attention "
+            f"(flash_attention_bias_flat), and only its forward (K5) is ported")
     return TrainStep(cfg, loss_fn)

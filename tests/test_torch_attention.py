@@ -162,3 +162,104 @@ def test_kernel_wrappers_of_the_backward_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fa.qkvb_attention_bwd_cuda(qkv, bias, qkv[..., :64], qkv[..., :64],
                                    torch.zeros(1, 1, 5), 1)
+
+
+# --- windowed attention with a bias and a mask (SwinV2) ----------------------
+# ``flash_attention_bias_flat`` on CPU tensors runs the plain
+# ``windowed_attention_flat``, which K5 is held to on the card. Here it is held
+# to the JAX package's Pallas kernel in interpret mode and to its XLA branch,
+# over the shapes of ``tests/test_kernel_shapes.py::WFLAT_SHAPES`` (odd N, odd
+# window counts, one row per window, d = 32) plus a case with W0 > 1 and B > 1,
+# with a mask that differs per window, and with ``mask=None``. Tolerance: atol
+# 2e-5 — fp32 throughout, rows of up to 144 scores of size ~6 summed in other
+# orders.
+
+WFLAT_SHAPES = [(1, 2, 49, 2, 8), (4, 1, 16, 3, 8), (9, 2, 16, 1, 8),
+                (1, 3, 64, 6, 32), (4, 2, 144, 2, 16), (4, 3, 49, 2, 32)]
+WFLAT_ATOL = 2e-5
+
+
+def _window_inputs(w0, b, n, h, d, seed, masked=True):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(w0 * b, n, h * d)).astype(np.float32)
+               for _ in range(3))
+    bias = rng.normal(size=(h, n, n)).astype(np.float32)
+    mask = np.where(rng.normal(size=(w0, n, n)) > 1.0, -100.0, 0.0).astype(
+        np.float32) if masked else None
+    return q, k, v, bias, mask
+
+
+def _port_window(q, k, v, bias, mask, h):
+    from fedvit_torch.ops.flash_attention import flash_attention_bias_flat
+    return flash_attention_bias_flat(
+        *(torch.from_numpy(t) for t in (q, k, v, bias)),
+        None if mask is None else torch.from_numpy(mask), h).numpy()
+
+
+@pytest.mark.parametrize("w0,b,n,h,d", WFLAT_SHAPES)
+def test_plain_windowed_matches_pallas_kernel_in_interpret_mode(w0, b, n, h, d):
+    from fedvit_tpu.ops.flash_attention import flash_attention_bias_flat
+    q, k, v, bias, mask = _window_inputs(w0, b, n, h, d, seed=n + w0)
+    want = flash_attention_bias_flat(*(jnp.asarray(t) for t in
+                                       (q, k, v, bias, mask)), h, interpret=True)
+    got = _port_window(q, k, v, bias, mask, h)
+    assert got.shape == (w0 * b, n, h * d)
+    np.testing.assert_allclose(got, np.asarray(want), atol=WFLAT_ATOL)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "mask_none"])
+@pytest.mark.parametrize("w0,b,n,h,d", WFLAT_SHAPES)
+def test_plain_windowed_matches_jax_xla_branch(w0, b, n, h, d, masked):
+    if not masked:
+        w0, b = 1, w0 * b           # no mask: one group of all rows
+    q, k, v, bias, mask = _window_inputs(w0, b, n, h, d, seed=n + b, masked=masked)
+    want = jattn.windowed_attention_flat(
+        *(jnp.asarray(t) for t in (q, k, v, bias)),
+        None if mask is None else jnp.asarray(mask), h, impl="xla")
+    got = _port_window(q, k, v, bias, mask, h)
+    np.testing.assert_allclose(got, np.asarray(want), atol=WFLAT_ATOL)
+
+
+def test_windowed_rows_are_window_major():
+    """Row r uses mask[r // B], not mask[r % W0]: with W0 = 3 and B = 2 the
+    op equals three separate calls on each window's two rows."""
+    w0, b, n, h, d = 3, 2, 16, 2, 32
+    q, k, v, bias, mask = _window_inputs(w0, b, n, h, d, seed=5)
+    got = _port_window(q, k, v, bias, mask, h)
+    for w in range(w0):
+        rows = slice(w * b, (w + 1) * b)
+        one = _port_window(q[rows], k[rows], v[rows], bias, mask[w:w + 1], h)
+        np.testing.assert_allclose(got[rows], one, atol=1e-6)
+
+
+def test_windowed_bf16_follows_the_xla_branch_casts():
+    """bf16 operands: fp32 scores, bias and mask added in fp32, softmax weights
+    rounded to bf16 before P·V, as in the XLA branch (atol: 2 bf16 ulps at
+    |x| ≤ 2)."""
+    q, k, v, bias, mask = _window_inputs(2, 2, 49, 2, 32, seed=9)
+    want = jattn.windowed_attention_flat(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), jnp.asarray(bias),
+        jnp.asarray(mask), 2, impl="xla")
+    from fedvit_torch.ops.flash_attention import flash_attention_bias_flat
+    got = flash_attention_bias_flat(
+        *(torch.from_numpy(t).bfloat16() for t in (q, k, v)),
+        torch.from_numpy(bias), torch.from_numpy(mask), 2)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=2 * 2.0 ** -7 * 2)
+
+
+def test_window_wrapper_counts_only_kernel_launches_and_refuses_cpu_tensors():
+    from fedvit_torch.ops import flash_attention as fa
+    q, k, v, bias, mask = (torch.from_numpy(t) for t in
+                           _window_inputs(2, 2, 16, 1, 32, seed=0))
+    counts = (fa.flash_attention_bias_flat.launches,
+              fa.window_attention_lse_cuda.launches)
+    fa.flash_attention_bias_flat(q, k, v, bias, mask, 1)     # CPU: plain version
+    assert (fa.flash_attention_bias_flat.launches,
+            fa.window_attention_lse_cuda.launches) == counts
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.window_attention_cuda(q, k, v, bias, mask, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.window_attention_lse_cuda(q, k, v, bias, mask, 1)

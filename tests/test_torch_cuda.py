@@ -23,6 +23,11 @@ Tolerances:
   from fp32 sums in another order), dgamma and dbeta 1e-4 in both (fp32 sums
   over the rows in another order; the kernel's variance is E[x²] − μ², the
   plain version's the centred one, as the TPU kernel and ``_ln_bwd_xla``).
+- K5's output against ``windowed_attention_flat``: fp32 atol 2e-5, bf16 atol
+  2^-5, for K1's reasons (fp32 scores, max and sums in both; the plain version
+  rounds the softmax weights to bf16 before P·V). The log-sum-exp variant's
+  output is K5's, bit for bit; its LSE atol 1e-4 against ``torch.logsumexp`` of
+  the plain fp32 scores.
 """
 
 import pytest
@@ -30,7 +35,8 @@ import torch
 
 from fedvit_torch.ops import flash_attention as fa
 from fedvit_torch.ops import layer_norm as ln
-from fedvit_torch.ops.attention import attention_from_qkvb
+from fedvit_torch.ops.attention import (attention_from_qkvb,
+                                        windowed_attention_flat)
 
 pytestmark = pytest.mark.cuda
 
@@ -265,3 +271,148 @@ def test_tiny_model_training_launches_k2_k3_k4(cuda):
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-3,
                                    msg=name)
+
+
+# --- K5: windowed attention with a bias and a mask ---------------------------
+
+def _window_inputs(w0, b, n, heads, dtype, seed=0, masked=True):
+    """Seeded q, k, v (W0·B, N, 32·H) of unit-norm-sized heads, a bias of
+    16·sigmoid size and a −100/0 mask that differs per window."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    e = 32 * heads
+    q, k, v = (torch.randn(w0 * b, n, e, device="cuda", generator=g).to(dtype)
+               for _ in range(3))
+    bias = 16 * torch.sigmoid(torch.randn(heads, n, n, device="cuda", generator=g))
+    mask = torch.where(torch.rand(w0, n, n, device="cuda", generator=g) > 0.8,
+                       -100.0, 0.0) if masked else None
+    return q, k, v, bias, mask
+
+
+@pytest.mark.parametrize("w0,b,n,heads,dtype,atol", [
+    (4, 3, 49, 2, torch.float32, 2e-5),      # ragged N, W0 > 1 and B > 1
+    (9, 2, 16, 3, torch.float32, 2e-5),
+    (1, 5, 64, 6, torch.float32, 2e-5),
+    (3, 2, 1, 1, torch.float32, 2e-5),
+    (2, 3, 144, 4, torch.float32, 2e-5),
+    (4, 3, 49, 2, torch.bfloat16, 2.0 ** -5),
+    (4, 2, 576, 6, torch.bfloat16, 2.0 ** -5),
+    (1, 3, 144, 48, torch.bfloat16, 2.0 ** -5),
+])
+def test_window_kernel_matches_plain(cuda, w0, b, n, heads, dtype, atol):
+    q, k, v, bias, mask = _window_inputs(w0, b, n, heads, dtype, seed=n + w0)
+    before = fa.flash_attention_bias_flat.launches
+    got = fa.flash_attention_bias_flat(q, k, v, bias, mask, heads)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bias_flat.launches == before + 1
+    want = windowed_attention_flat(q, k, v, bias, mask, heads)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    assert float((got.float() - want.float()).abs().max()) <= atol
+
+
+def test_window_kernel_rows_are_window_major(cuda):
+    """A batch-major reading of the rows (mask[r % W0]) gives another answer;
+    the kernel agrees with the window-major one, and with mask=None it agrees
+    with a zeros mask."""
+    w0, b, n, heads = 4, 3, 49, 2
+    q, k, v, bias, mask = _window_inputs(w0, b, n, heads, torch.float32, seed=3)
+    got = fa.flash_attention_bias_flat(q, k, v, bias, mask, heads)
+    rows = torch.arange(w0 * b, device="cuda")
+    wrong = torch.cat([windowed_attention_flat(
+        q[r:r + 1], k[r:r + 1], v[r:r + 1], bias, mask[r % w0][None], heads)
+        for r in rows.tolist()])
+    right = windowed_attention_flat(q, k, v, bias, mask, heads)
+    assert float((got - right).abs().max()) <= 2e-5
+    assert float((got - wrong).abs().max()) > 1e-2
+    none = fa.flash_attention_bias_flat(q, k, v, bias, None, heads)
+    zeros = fa.flash_attention_bias_flat(q, k, v, bias, torch.zeros_like(mask),
+                                         heads)
+    assert torch.equal(none, zeros)
+
+
+@pytest.mark.parametrize("w0,b,n,heads,dtype", [
+    (4, 3, 49, 2, torch.float32), (1, 2, 144, 3, torch.float32),
+    (4, 2, 576, 6, torch.bfloat16), (9, 2, 16, 3, torch.bfloat16)])
+def test_window_lse_variant_is_k5_plus_lse(cuda, w0, b, n, heads, dtype):
+    q, k, v, bias, mask = _window_inputs(w0, b, n, heads, dtype, seed=n)
+    counts = (fa.flash_attention_bias_flat.launches,
+              fa.window_attention_lse_cuda.launches)
+    out, lse = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bias_flat.launches,
+            fa.window_attention_lse_cuda.launches) == (counts[0], counts[1] + 1)
+    assert torch.equal(out, fa.window_attention_cuda(q, k, v, bias, mask, heads))
+    qh, kh = (t.reshape(w0, b, n, heads, 32).float() for t in (q, k))
+    s = torch.einsum("wbnhd,wbmhd->wbhnm", qh, kh) + bias + mask[:, None, None]
+    assert lse.shape == (w0 * b, heads, n) and lse.dtype == torch.float32
+    want = torch.logsumexp(s, -1).reshape(w0 * b, heads, n)
+    assert float((lse - want).abs().max()) <= 1e-4
+
+
+def test_window_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, bias, mask = _window_inputs(2, 2, 16, 2, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bias_flat(q, k, v, bias[:1], mask, 1)      # d = 64
+    with pytest.raises(TypeError):
+        fa.flash_attention_bias_flat(q.half(), k.half(), v.half(), bias, mask, 2)
+    with pytest.raises(TypeError):
+        fa.flash_attention_bias_flat(q, k.bfloat16(), v, bias, mask, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bias_flat(q.transpose(0, 1).contiguous().transpose(0, 1),
+                                     k, v, bias, mask, 2)
+    wide = torch.randn(4, 16, 68, device="cuda")[..., 4:]   # 16 bytes off a row
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bias_flat(wide, k, v, bias, mask, 2)
+    flat = torch.randn(4 * 16 * 64 + 1, device="cuda")[1:].view(4, 16, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_bias_flat(flat, k, v, bias, mask, 2)
+    with pytest.raises(ValueError, match="bias"):
+        fa.flash_attention_bias_flat(q, k, v, bias[:, :-1], mask, 2)
+    with pytest.raises(ValueError, match="mask"):
+        fa.flash_attention_bias_flat(q, k, v, bias, mask.repeat(3, 1, 1)[:3], 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.window_attention_cuda(q.cpu(), k.cpu(), v.cpu(), bias.cpu(),
+                                 mask.cpu(), 2)
+    with pytest.raises(NotImplementedError, match="K6"):
+        fa.flash_attention_bias_flat(q.clone().requires_grad_(), k, v, bias,
+                                     mask, 2)
+    with pytest.raises(NotImplementedError, match="K6"):
+        fa.flash_attention_bias_flat(q, k, v, bias.clone().requires_grad_(),
+                                     mask, 2)
+    with torch.no_grad():      # without grad mode the same tensor is served
+        fa.flash_attention_bias_flat(q.clone().requires_grad_(), k, v, bias,
+                                     mask, 2)
+
+
+def test_tiny_swin_model_on_the_card_matches_the_cpu(cuda):
+    """A SwinV2-tiny ISICClassifier at image_size 64 (windows of 8: stage 0
+    shifts, the others clamp): one K5 launch per block, none of K1-K4, logits
+    equal to the CPU's plain path; under grad the card's path refuses."""
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.models import build_model
+
+    cfg = from_dict({"model": {"backbone": "swinv2_tiny_window8_64",
+                               "image_size": 64, "compute_dtype": "float32"},
+                     "data": {"use_segmentation_mask": True}})
+    cpu = build_model(cfg, device="cpu")
+    gpu = build_model(cfg, device="cuda")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():       # non-zero biases, peaked attention
+        for p in cpu.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 64, 64, 4, generator=g)
+    meta = torch.randn(3, 13, generator=g)
+    counts = (fa.flash_attention_bias_flat.launches,
+              fa.flash_attention_qkvb.launches, fa.qkvb_attention_lse_cuda.launches,
+              fa.qkvb_attention_bwd_cuda.launches, ln.layer_norm_bwd_cuda.launches)
+    with torch.inference_mode():
+        want = cpu(x, meta)["logits"]
+        got = gpu(x.cuda(), meta.cuda())["logits"].cpu()
+    after = (fa.flash_attention_bias_flat.launches,
+             fa.flash_attention_qkvb.launches, fa.qkvb_attention_lse_cuda.launches,
+             fa.qkvb_attention_bwd_cuda.launches, ln.layer_norm_bwd_cuda.launches)
+    assert [a - c for a, c in zip(after, counts)] == [12, 0, 0, 0, 0]
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    with pytest.raises(NotImplementedError, match="K6"):
+        gpu(x.cuda(), meta.cuda())

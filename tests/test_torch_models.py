@@ -14,7 +14,7 @@ import torch
 
 from fedvit_tpu.models.import_weights import import_torch_isic
 
-from torch_parity import configs, jax_variables, torch_model
+from torch_parity import configs, flat, jax_variables, torch_model
 
 ATOL = 1e-4
 
@@ -48,8 +48,8 @@ def test_state_dict_round_trip_through_import_torch_isic():
     sd = torch_model(tcfg, variables).state_dict()
     back = import_torch_isic(sd, variables, depth=12)
     for group in ("params", "batch_stats"):
-        want = _flat(variables[group])
-        got = _flat(back[group])
+        want = flat(variables[group])
+        got = flat(back[group])
         assert want.keys() == got.keys()
         for k in want:
             np.testing.assert_array_equal(np.asarray(got[k]), want[k], err_msg=k)
@@ -82,11 +82,17 @@ def test_unported_branches_raise():
     from fedvit_torch.models import build_model
     m = tcfg.model
     for model_cfg in (
-            m.__class__(**{**m.__dict__, "backbone": "swin_small_patch4_window12_384"}),
             m.__class__(**{**m.__dict__, "metadata": m.metadata.__class__(style="embedding")}),
             m.__class__(**{**m.__dict__, "segmentation": m.segmentation.__class__(enabled=True)})):
         with pytest.raises(NotImplementedError):
             build_model(tcfg.replace(model=model_cfg), device="cpu")
+    # a Swin model builds and serves, but its training step waits for K6
+    from fedvit_torch.train.losses import build_loss
+    from fedvit_torch.train.step import make_train_step
+    swin = tcfg.replace(model=m.__class__(
+        **{**m.__dict__, "backbone": "swin_small_patch4_window12_384"}))
+    with pytest.raises(NotImplementedError, match="K6"):
+        make_train_step(swin, build_loss(swin))
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla", "packed", "mega"])
@@ -126,12 +132,3 @@ def test_smoke_reference_attention_is_swapped_in_and_restored():
     assert layers.flash_attention_qkvb is kernel
     torch.testing.assert_close(again, want, atol=0, rtol=0)
     assert chip_smoke.rel_rms(no_bias.numpy(), want.numpy()) > 0.1
-
-
-def _flat(tree, prefix=()):
-    if not isinstance(tree, dict):
-        return {prefix: np.asarray(tree)}
-    out = {}
-    for k, v in tree.items():
-        out.update(_flat(v, prefix + (k,)))
-    return out

@@ -12,9 +12,11 @@ import numpy as np
 
 from fedvit_torch.core import config as tconfig
 from fedvit_torch.models import build_model as build_torch_model
+from fedvit_torch.models import registry as tregistry
 from fedvit_torch.models.import_weights import state_dict_from_jax
 from fedvit_tpu.core import config as jconfig
 from fedvit_tpu.models import build_model as build_jax_model
+from fedvit_tpu.models import registry as jregistry
 
 TINY = {
     "model": {"backbone": "vit_tiny_patch16_224", "image_size": 32,
@@ -24,17 +26,32 @@ TINY = {
     "training": {"batch_size": 8, "num_workers": 1},
 }
 
+# A two-stage SwinV2 small enough for the CPU, under a name both registries
+# know: at image_size 32 stage 0 is an 8×8 map of four 4×4 windows (its second
+# block shifts and takes the mask), stage 1 a 4×4 map that the window covers
+# (clamped, no shift). Heads of 32, as in every SwinV2 the registries build.
+SWIN_NAME = "swinv2_parity_window4"
+SWIN_SPEC = dict(family="swinv2", embed_dim=32, depths=(2, 2),
+                 num_heads=(1, 2), window_size=4,
+                 pretrained_window_sizes=(2, 2))
+jregistry.BACKBONE_SPECS[SWIN_NAME] = SWIN_SPEC
+tregistry.BACKBONE_SPECS[SWIN_NAME] = SWIN_SPEC
+BACKBONES = {"vit": TINY["model"]["backbone"], "swin": SWIN_NAME}
 
-def raw_config(use_mask: bool = True, metadata: bool = True) -> dict:
+
+def raw_config(use_mask: bool = True, metadata: bool = True,
+               backbone: str = "vit") -> dict:
     raw = copy.deepcopy(TINY)
     raw["data"]["use_segmentation_mask"] = use_mask
     raw["model"]["metadata"]["enabled"] = metadata
+    raw["model"]["backbone"] = BACKBONES[backbone]
     return raw
 
 
-def configs(use_mask: bool = True, metadata: bool = True):
+def configs(use_mask: bool = True, metadata: bool = True,
+            backbone: str = "vit"):
     """(JAX Config, port Config) from one raw dict."""
-    raw = raw_config(use_mask, metadata)
+    raw = raw_config(use_mask, metadata, backbone)
     return jconfig.from_dict(copy.deepcopy(raw)), tconfig.from_dict(raw)
 
 
@@ -66,3 +83,13 @@ def torch_model(tcfg, variables, **kw):
     model = build_torch_model(tcfg, device="cpu", **kw)
     model.load_state_dict(state_dict_from_jax(variables))
     return model
+
+
+def flat(tree, prefix=()):
+    """A nested dict of arrays as {path tuple: numpy array}."""
+    if not isinstance(tree, dict):
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for k, v in tree.items():
+        out.update(flat(v, prefix + (k,)))
+    return out
