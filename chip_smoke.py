@@ -53,7 +53,30 @@ Phases, one line of output each (or a few):
       plain attention, and a control with the relative-position bias zeroed
       that must fail the check;
    c. the same for 8-view TTA at batch 8;
-   with ``--trace``, the stages and profile of a SwinV2-L serving batch.
+   with ``--trace``, the stages and profile of a SwinV2-L serving batch;
+8. SwinV2-L@384 training:
+   a. K6 (the windowed attention's backward) through the autograd Function
+      (K5's log-sum-exp entry forward, K6 backward) against autograd of the
+      plain version: small fp32 cases (several windows and rows a window, the
+      real shift mask, a ragged N), then bf16 at the four stage shapes a
+      micro-batch of 8 gives it, each of dq, dk, dv and dbias; its time, the
+      plain autograd backward's, SDPA's backward and the bound; K4 at
+      SwinV2-L's widths (D = 192, 384, 1536 in bf16, 1536 in fp32);
+   b. the step: SwinV2-L (4 channels, metadata, bf16, drop-path 0.2), the
+      recipe of 6b with LLRD 0.8, macro batch 16 as 2 micro-batches of 8;
+      1 warm-up step then 5 timed ones, img/s and peak memory, the launch
+      counts (per micro-batch 24 of K5's log-sum-exp entry, 24 K6, one K4 per
+      LayerNorm, none of K1-K3 nor of the plain K5), every parameter and the
+      EMA shadow must move;
+   c. between the warm-up step and the timed ones, the gradients of one
+      macro batch through the kernels against the same step through the plain
+      attention and LayerNorm backward, leaf by leaf and for the q, k and v
+      rows of every qkv weight, each allowed the limit plus twice its own
+      rounding noise (the plain path against the plain path with fp32
+      attention); the kernel path twice for the same bits; and a control with
+      K6's bias gradient zeroed that must fail the check on every ``cpb_mlp``
+      leaf;
+   with ``--trace``, a ``torch.profiler`` trace of one SwinV2-L training step.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -90,6 +113,11 @@ SWIN_TTA_BATCH, SWIN_TTA_IMAGES = 8, 2 * 8 + 4   # 3 forwards of 8·8 views
 # forward). Stages 2 and 3 are one window that covers the map: no mask.
 SWIN_STAGES = ((16, 32, 576, 6, 96, 2), (4, 32, 576, 12, 48, 2),
                (1, 32, 576, 24, None, 18), (1, 32, 144, 48, None, 2))
+SWIN_MICRO, SWIN_ACCUM = 8, 2                    # SwinV2-L training: macro 16
+SWIN_DROP_PATH, SWIN_LLRD = 0.2, 0.8
+# the same stages at a training micro-batch of 8: K6's shapes
+SWIN_TRAIN_STAGES = tuple((w0, SWIN_MICRO, n, h, side, count)
+                          for w0, _, n, h, side, count in SWIN_STAGES)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -163,6 +191,38 @@ K5_LSE_ATOL = 1e-4
 # kernel path about 0.003.
 SWIN_LOGITS_RTOL_BF16 = 0.01
 ZERO_GRAD = ("metadata_branch.net.0.bias", "metadata_branch.net.4.bias")
+# K6 (dq, dk, dv, dbias) against autograd of the plain version. fp32, as K3:
+# a share of the largest |value|, sums over N keys and (dbias) W0·B rows in
+# another order and __expf. bf16, as the RMS of the difference over the RMS of
+# the plain gradient: both round P to bf16 before dv; the kernel rounds dS to
+# bf16 before dq and dk where the plain backward keeps it fp32, and the plain
+# backward rounds dP to bf16 where the kernel keeps it fp32, so every term of
+# a sum differs by a bf16 rounding (2^-9 of its size) and the rounded outputs
+# by an ulp here and there: some 2^-8 of the RMS. A wrong window index, mask,
+# lse or a dropped ragged tile moves whole rows by their own size.
+K6_TOL_FP32 = 1e-4
+K6_RTOL_BF16 = 2.0 ** -6
+# The gradient of each SwinV2-L parameter over one macro batch, kernel path
+# against the plain attention and LayerNorm backward, as for the ViT (RMS of
+# the difference over the RMS of the plain gradient), through 24 post-norm
+# blocks forward and back. Most leaves read about 0.01; the limit is some
+# four times that. SwinV2 has leaves that bf16 rounding alone moves by more:
+# the gradients of q_bias, logit_scale and the cpb_mlp are sums that cancel
+# (a row of dS sums to 0, and the cosine norm removes dq's radial part), so a
+# leaf is allowed the limit plus twice its own rounding noise, measured in
+# the same run as how far the plain path is from the plain path with its
+# attention computed in fp32. A leaf whose noise exceeds NOISY_LEAF differs
+# by a quarter of its size between two correct paths and can judge no third:
+# it is printed, not judged. The two biases before a training-mode BatchNorm
+# must be among those, and the leaves of the control and the q, k and v rows
+# of every qkv weight (judged apart: they carry dq, dk and dv without the
+# cancelling sums) must not. The control, K6 with its bias gradient zeroed,
+# leaves the cpb_mlp leaves without their only gradient and must fail on
+# every one. The check runs right after the warm-up step: six steps later
+# these seeded, perturbed weights have moved to where rounding alone moves
+# the median leaf by 0.12 and the check could tell little.
+SWIN_GRAD_RTOL_BF16 = 0.05
+NOISY_LEAF = 0.25
 
 
 def log(*parts) -> None:
@@ -555,11 +615,14 @@ def check_k4(ln, shape, dtype, timed):
 
 
 def counted(fa, ln) -> dict:
-    """Every kernel wrapper that counts its launches, by kernel."""
-    return {"K1": fa.flash_attention_qkvb, "K2": fa.qkvb_attention_lse_cuda,
-            "K3": fa.qkvb_attention_bwd_cuda, "K4": ln.layer_norm_bwd_cuda,
-            "K5": fa.flash_attention_bias_flat,
-            "K5_lse": fa.window_attention_lse_cuda}
+    """Every kernel wrapper that counts its launches, by kernel (the
+    attention kernels only when ``ln`` is None)."""
+    fns = {"K1": fa.flash_attention_qkvb, "K2": fa.qkvb_attention_lse_cuda,
+           "K3": fa.qkvb_attention_bwd_cuda,
+           "K5": fa.flash_attention_bias_flat,
+           "K5_lse": fa.window_attention_lse_cuda,
+           "K6": fa.window_attention_bwd_cuda}
+    return fns if ln is None else fns | {"K4": ln.layer_norm_bwd_cuda}
 
 
 def launch_counts(fa, ln) -> dict:
@@ -590,13 +653,12 @@ def k3_without_dbias(fa):
     return WithoutDbias.apply
 
 
-def training_batches(cfg, n_batches: int):
+def training_batches(cfg, n_batches: int, macro: int):
     """Macro batches on the card: seeded uint8 canvases through the eval
     augment, standing in for the train augment (not ported yet)."""
     from fedvit_torch.data.pipeline import canvas_size, make_device_augment
     from fedvit_torch.eval.serve import _to_device
 
-    macro = MICRO * ACCUM
     source = serving_inputs(n_batches * macro, canvas_size(cfg.model.image_size))
     augment = make_device_augment(cfg, False)
     with torch.no_grad():
@@ -606,8 +668,9 @@ def training_batches(cfg, n_batches: int):
                 for i in range(n_batches)]
 
 
-def train_phase(fa, ln, attention_from_qkvb, smi, trace):
-    """Phase 6b and 6c; returns the launch counts of the timed steps."""
+def training_setup(backbone, image_size, micro, accum, drop_path, llrd):
+    """The current-generation recipe on ``backbone``: (cfg, model, state,
+    step, 1 + TIMED_STEPS macro batches)."""
     from fedvit_torch.core.config import (AugmentationConfig, Config,
                                           DataConfig, LLRDConfig, LossConfig,
                                           ModelConfig, OptimizerConfig,
@@ -621,13 +684,13 @@ def train_phase(fa, ln, attention_from_qkvb, smi, trace):
 
     cfg = Config(
         data=DataConfig(use_segmentation_mask=True),
-        model=ModelConfig(backbone="vit_base_patch16_224", image_size=224,
-                          compute_dtype="bfloat16", drop_path_rate=0.1),
+        model=ModelConfig(backbone=backbone, image_size=image_size,
+                          compute_dtype="bfloat16", drop_path_rate=drop_path),
         training=TrainingConfig(
-            batch_size=MICRO, gradient_accumulation_steps=ACCUM,
+            batch_size=micro, gradient_accumulation_steps=accum,
             optimizer=OptimizerConfig(lr=1e-4),
             scheduler=SchedulerConfig(warmup_epochs=0),
-            llrd=LLRDConfig(decay_rate=0.75, head_lr_mult=10.0),
+            llrd=LLRDConfig(decay_rate=llrd, head_lr_mult=10.0),
             grad_clip=1.0, ema=EMAConfig(decay=0.9995)),
         augmentation=AugmentationConfig(),       # MixUp 0.4 + CutMix 1.0 p0.7
         loss=LossConfig(type="asymmetric"))
@@ -637,13 +700,15 @@ def train_phase(fa, ln, attention_from_qkvb, smi, trace):
     tx, _ = build_optimizer(cfg, model, steps_per_epoch=100)
     state = TrainState.create(model, tx, seed=SEED)
     step = make_train_step(cfg, build_loss(cfg))
-    batches = training_batches(cfg, 1 + TIMED_STEPS)
-    macro = MICRO * ACCUM
+    batches = training_batches(cfg, 1 + TIMED_STEPS, micro * accum)
+    return cfg, model, state, step, batches
 
-    # 6b. one warm-up step, checked: every parameter moves, and the EMA shadow
-    # moves by (1 − d) of the step's update
+
+def warm_up_step(tag, cfg, model, state, step, batch):
+    """One step, checked: every parameter moves, and the EMA shadow moves by
+    (1 − d) of the step's update."""
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    state, m = step(state, batches[0])
+    state, m = step(state, batch)
     torch.cuda.synchronize()
     d = cfg.training.ema.decay
     still = [n for n, p in model.named_parameters() if torch.equal(p, before[n])]
@@ -657,23 +722,29 @@ def train_phase(fa, ln, attention_from_qkvb, smi, trace):
         worst = max(worst, float((state.ema[n] - want).abs().max())
                     / max(float(before[n].abs().max()), 1e-30))
     ratio = num / den
-    log(f"[train] warm-up step: loss {float(m['loss'])!r}, grad_norm "
+    log(f"[{tag}] warm-up step: loss {float(m['loss'])!r}, grad_norm "
         f"{float(m['grad_norm'])!r}; parameters that did not move: "
-        f"{len(still)} of {len(before)}; EMA moved by {ratio!r} of the update "
-        f"(want 1 − d = {1 - d!r}), largest deviation from d·s + (1−d)·p "
-        f"{worst!r} of the leaf's size")
+        f"{len(still)} of {len(before)} {still[:5]}; EMA moved by {ratio!r} of "
+        f"the update (want 1 − d = {1 - d!r}), largest deviation from "
+        f"d·s + (1−d)·p {worst!r} of the leaf's size")
     # the shadow's change is (1 − d)·Δp plus its own fp32 rounding, which is
     # of Δp's size on leaves at the lowest LLRD scales; so the ratio is held
     # to 1%, and the update itself to a few ulps of the leaf
     if still or not abs(ratio - (1 - d)) <= 1e-2 * (1 - d) or worst > 1e-6:
         raise RuntimeError("the warm-up step did not move the parameters or "
                            "the EMA shadow as it should")
+    return state
 
+
+def timed_steps(tag, what, fa, ln, state, step, batches, want, smi):
+    """The timed steps: launch counts against ``want``, finite losses, img/s
+    and peak memory; returns (state, counts)."""
+    macro = batches[0]["image"].shape[0]
     torch.cuda.reset_peak_memory_stats()
     reset_counts(fa, ln)
     metrics = []
     t0 = time.perf_counter()
-    for batch in batches[1:]:
+    for batch in batches:
         state, m = step(state, batch)
         metrics.append(m)
     torch.cuda.synchronize()
@@ -682,81 +753,165 @@ def train_phase(fa, ln, attention_from_qkvb, smi, trace):
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    want = {"K1": 0, "K2": TIMED_STEPS * ACCUM * BLOCKS,
-            "K3": TIMED_STEPS * ACCUM * BLOCKS, "K4": TIMED_STEPS * ACCUM * NORMS,
-            "K5": 0, "K5_lse": 0}
-    log(f"[train] steps {state.step}: loss {losses}, grad_norm {norms}")
-    log(f"[train] launches in {TIMED_STEPS} steps: {counts} (want {want})")
+    log(f"[{tag}] steps {state.step}: loss {losses}, grad_norm {norms}")
+    log(f"[{tag}] launches in {len(batches)} steps: {counts} (want {want})")
     if counts != want:
         raise RuntimeError("the training step did not launch the kernels as "
                            "it should")
-    if not all(math.isfinite(v) for v in losses + norms):
-        raise RuntimeError("the training loss is not finite")
-    log(f"[train] ViT-B/16@224 bf16 4ch+meta, macro batch {macro} "
-        f"({ACCUM} x {MICRO}): {TIMED_STEPS} steps in {train_s!r} s = "
-        f"{TIMED_STEPS * macro / train_s!r} img/s, "
-        f"{train_s / TIMED_STEPS * 1e3!r} ms/step, peak {peak_gb!r} GiB ({smi})")
+    if not all(math.isfinite(v) for v in losses + norms) or \
+            len(set(losses)) < 2:
+        raise RuntimeError("the training loss is not finite or does not move")
+    log(f"[{tag}] {what}, macro batch {macro} ({step.accum} x "
+        f"{macro // step.accum}): {len(batches)} steps in {train_s!r} s = "
+        f"{len(batches) * macro / train_s!r} img/s, "
+        f"{train_s / len(batches) * 1e3!r} ms/step, peak {peak_gb!r} GiB ({smi})")
+    return state, counts
 
-    # 6c. one macro batch's gradients, kernels against the plain path
-    batch = batches[1]
+
+def grads_by_path(model, state, step, batch, paths):
+    """One macro batch's gradients by parameter name (fp32) and loss, once for
+    each entry of ``paths`` (name → context managers to run inside, none for
+    the kernels), every time from the same generator states and buffers."""
     snap = (state.generator.get_state(), state.np_rng.bit_generator.state,
             {n: t.clone() for n, t in model.named_buffers()})
-
-    def grads_of():
+    got = {}
+    for name, managers in paths.items():
         state.generator.set_state(snap[0])
         state.np_rng.bit_generator.state = snap[1]
         with torch.no_grad():
             for n, t in model.named_buffers():
                 t.copy_(snap[2][n])
-        grads, loss, _ = step.accumulate_grads(state, batch)
-        return {n: g.float().clone() for n, g in grads.items()}, float(loss)
-
-    kernel, loss_k = grads_of()
-    with attention_replaced_by(attention_from_qkvb), \
-            layer_norm_backward_replaced_by(ln.ln_bwd_plain):
-        plain, loss_p = grads_of()
-    with attention_replaced_by(k3_without_dbias(fa)):
-        control, _ = grads_of()
+        with contextlib.ExitStack() as stack:
+            for ctx in managers:
+                stack.enter_context(ctx)
+            grads, loss, _ = step.accumulate_grads(state, batch)
+        got[name] = ({n: g.float().clone() for n, g in grads.items()},
+                     float(loss))
     for p in model.parameters():
         p.grad = None
-    rms = {n: float(g.square().mean().sqrt()) for n, g in plain.items()}
-    median = float(np.median(list(rms.values())))
-    noise = {n: r for n, r in rms.items() if r <= NOISE_SHARE * median}
-    log(f"[train] leaves with a noise-sized plain gradient (RMS <= "
-        f"{NOISE_SHARE!r} x the median leaf's {median!r}), left out of the "
-        f"check: RMS gradient {noise}; the smallest leaves kept: "
-        f"{sorted((r, n) for n, r in rms.items() if n not in noise)[:3]}")
-    if not set(ZERO_GRAD) <= set(noise):
-        raise RuntimeError(f"a bias before a training-mode BatchNorm has more "
-                           f"than a noise-sized gradient: "
-                           f"{({n: rms[n] for n in ZERO_GRAD})}")
-    errs = {n: rel_rms(kernel[n].cpu().numpy(), plain[n].cpu().numpy())
-            for n in plain if n not in noise}
-    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
-    qkv_bias = [n for n in plain if n.endswith("attn.qkv.bias")]
-    ctrl = min(rel_rms(control[n].cpu().numpy(), plain[n].cpu().numpy())
-               for n in qkv_bias)
-    log(f"[train] grads, kernels vs plain path: loss {loss_k!r} vs {loss_p!r}; "
-        f"RMS error / RMS grad over {len(errs)} leaves: median "
-        f"{float(np.median(list(errs.values())))!r}, largest {worst} "
-        f"(limit {GRAD_RTOL_BF16!r}); control, K3's dbias zeroed: smallest "
-        f"over the {len(qkv_bias)} attn.qkv.bias leaves {ctrl!r} (must exceed "
-        f"{GRAD_RTOL_BF16!r})")
-    if not worst[0][1] <= GRAD_RTOL_BF16 or \
-            not abs(loss_k - loss_p) <= GRAD_RTOL_BF16 * abs(loss_p):
-        raise RuntimeError("the kernel path's gradients disagree with the "
-                           "plain path's")
-    if not ctrl > GRAD_RTOL_BF16:
-        raise RuntimeError("the gradient check cannot tell a missing K3 dbias")
+    return got
 
+
+def compare_grads(tag, got, limit, control_leaves, control_name, report=()):
+    """Each leaf's gradient, ``got["kernel"]`` against ``got["plain"]``, as the
+    RMS of the difference over the RMS of the plain gradient; ``got["control"]``
+    must fail the same check on every one of ``control_leaves``. Leaves whose
+    name ends in one of ``report`` are printed by group.
+
+    What a leaf is allowed depends on what ``got`` holds. Without
+    ``got["fp32"]``: ``limit``, and the leaves of noise-sized plain gradient
+    (see NOISE_SHARE) are left out, the ZERO_GRAD ones required among them.
+    With it (the plain path with its attention computed in fp32): ``limit``
+    plus twice the leaf's own rounding noise, which is how far the plain path
+    is from that fp32 path; leaves whose noise exceeds NOISY_LEAF are left
+    out, the ZERO_GRAD ones required among them."""
+    (kernel, loss_k), (plain, loss_p) = got["kernel"], got["plain"]
+    control = got["control"][0]
+
+    def errors(a, b, names):
+        return {n: rel_rms(a[n].cpu().numpy(), b[n].cpu().numpy()) for n in names}
+
+    if "fp32" in got:
+        noise = errors(plain, got["fp32"][0], plain)
+        left_out = {n: v for n, v in noise.items() if v > NOISY_LEAF}
+        allowed = {n: limit + 2 * v for n, v in noise.items()
+                   if n not in left_out}
+        log(f"[{tag}] rounding noise of a leaf = plain path vs the plain path "
+            f"with fp32 attention: median {float(np.median(list(noise.values())))!r}"
+            f", largest by kind {group_max(noise)}; left out of the check "
+            f"(noise > {NOISY_LEAF!r}): {left_out}")
+        if not set(ZERO_GRAD) <= set(left_out):
+            raise RuntimeError(f"a bias before a training-mode BatchNorm is not "
+                               f"all noise: {({n: noise[n] for n in ZERO_GRAD})}")
+    else:
+        rms = {n: float(g.square().mean().sqrt()) for n, g in plain.items()}
+        median = float(np.median(list(rms.values())))
+        left_out = {n: r for n, r in rms.items() if r <= NOISE_SHARE * median}
+        log(f"[{tag}] leaves with a noise-sized plain gradient (RMS <= "
+            f"{NOISE_SHARE!r} x the median leaf's {median!r}), left out of the "
+            f"check: RMS gradient {left_out}; the smallest leaves kept: "
+            f"{sorted((r, n) for n, r in rms.items() if n not in left_out)[:3]}")
+        if not set(ZERO_GRAD) <= set(left_out):
+            raise RuntimeError(f"a bias before a training-mode BatchNorm has "
+                               f"more than a noise-sized gradient: "
+                               f"{({n: rms[n] for n in ZERO_GRAD})}")
+        allowed = {n: limit for n in plain if n not in left_out}
+    must_judge = [*control_leaves, *(n for n in plain if n.endswith("]"))]
+    if not set(must_judge) <= set(allowed):
+        raise RuntimeError(f"left out of the check: "
+                           f"{sorted(set(must_judge) - set(allowed))}")
+    errs = errors(kernel, plain, allowed)
+    over = {n: (e, allowed[n]) for n, e in errs.items() if not e <= allowed[n]}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1] / allowed[kv[0]])[:3]
+    ctrl = errors(control, plain, control_leaves)
+    caught = [n for n in control_leaves if ctrl[n] > allowed[n]]
+    log(f"[{tag}] grads, kernels vs plain path: loss {loss_k!r} vs {loss_p!r}; "
+        f"RMS error / RMS grad over {len(errs)} leaves: median "
+        f"{float(np.median(list(errs.values())))!r}, nearest their limits "
+        f"{[(n, e, allowed[n]) for n, e in worst]} (limit {limit!r}); control, "
+        f"{control_name}: smallest error over the {len(control_leaves)} leaves "
+        f"{min(ctrl.values())!r}, {len(caught)} over their limits (largest "
+        f"limit {max(allowed[n] for n in control_leaves)!r})")
+    for suffix in report:
+        group = {n: v for n, v in errs.items() if n.endswith(suffix)}
+        if not group:
+            log(f"[{tag}]   {suffix}: every leaf left out")
+            continue
+        log(f"[{tag}]   {suffix}: {len(group)} leaves, error median "
+            f"{float(np.median(list(group.values())))!r}, largest "
+            f"{max(group.values())!r}; limits from "
+            f"{min(allowed[n] for n in group)!r} to "
+            f"{max(allowed[n] for n in group)!r}")
+    if over or not abs(loss_k - loss_p) <= limit * abs(loss_p):
+        raise RuntimeError(f"the kernel path's gradients disagree with the "
+                           f"plain path's: {over}")
+    if len(caught) != len(control_leaves):
+        raise RuntimeError(f"the gradient check cannot tell {control_name}")
+
+
+def group_max(values) -> dict:
+    """{leaf kind: (count, largest value)}, a kind being the leaf's name with
+    its block and stage numbers taken out."""
+    kinds = {}
+    for n, v in values.items():
+        kind = "".join(c for c in n if not c.isdigit()).replace("..", ".")
+        count, top = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (count + 1, max(top, v))
+    return kinds
+
+
+def train_phase(fa, ln, attention_from_qkvb, smi, trace):
+    """Phase 6b and 6c; returns the launch counts of the timed steps."""
+    cfg, model, state, step, batches = training_setup(
+        "vit_base_patch16_224", 224, MICRO, ACCUM, 0.1, 0.75)
+    state = warm_up_step("train", cfg, model, state, step, batches[0])
+    want = {k: 0 for k in counted(fa, ln)} | {
+        "K2": TIMED_STEPS * ACCUM * BLOCKS, "K3": TIMED_STEPS * ACCUM * BLOCKS,
+        "K4": TIMED_STEPS * ACCUM * NORMS}
+    state, counts = timed_steps("train", "ViT-B/16@224 bf16 4ch+meta", fa, ln,
+                                state, step, batches[1:], want, smi)
+
+    # 6c. one macro batch's gradients, kernels against the plain path
+    got = grads_by_path(model, state, step, batches[1], {
+        "kernel": (),
+        "plain": (attention_replaced_by(attention_from_qkvb),
+                  layer_norm_backward_replaced_by(ln.ln_bwd_plain)),
+        "control": (attention_replaced_by(k3_without_dbias(fa)),)})
+    compare_grads("train", got, GRAD_RTOL_BF16,
+                  [n for n in got["plain"][0] if n.endswith("attn.qkv.bias")],
+                  "K3's dbias zeroed")
     if trace:
-        trace_training(step, state, batches[2], smi)
+        trace_training("profile-train", step, state, batches[2], smi, {
+            "K2": ("qkvb_attention_fwd_kernel",),
+            "K3": ("delta_kernel", "dkdv_kernel", "dq_kernel",
+                   "column_sum_kernel"),
+            "K4": ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")})
     return counts
 
 
-def trace_training(step, state, batch, smi) -> None:
+def trace_training(tag, step, state, batch, smi, groups) -> None:
     """A profile of one training step: device time by kernel, the busy share,
-    and the share of K2, K3 and K4."""
+    and the share of each group of kernels (label → parts of their names)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -765,20 +920,17 @@ def trace_training(step, state, batch, smi) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events, device_ms = device_events(prof)
-    log(f"[profile-train] one step: wall {wall_ms!r} ms, device {device_ms!r} "
-        f"ms, busy {100 * device_ms / wall_ms:.1f}% ({smi})")
+    log(f"[{tag}] one step: wall {wall_ms!r} ms, device {device_ms!r} "
+        f"ms in {sum(e.count for e in events)} kernels and copies, busy "
+        f"{100 * device_ms / wall_ms:.1f}% ({smi})")
     for e in events[:20]:
         ms = e.self_device_time_total / 1e3
-        log(f"[profile-train]   {ms!r} ms ({100 * ms / device_ms:.1f}%) "
+        log(f"[{tag}]   {ms!r} ms ({100 * ms / device_ms:.1f}%) "
             f"x{e.count} {e.key[:90]}")
-    groups = {"K2": ("qkvb_attention_fwd_kernel",),
-              "K3": ("delta_kernel", "dkdv_kernel", "dq_kernel",
-                     "column_sum_kernel"),
-              "K4": ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")}
     for k, names in groups.items():
         ms = sum(e.self_device_time_total for e in events
                  if any(nm in e.key for nm in names)) / 1e3
-        log(f"[profile-train] {k} {ms!r} ms = {100 * ms / device_ms:.1f}% of "
+        log(f"[{tag}] {k} {ms!r} ms = {100 * ms / device_ms:.1f}% of "
             f"device time")
 
 
@@ -829,9 +981,9 @@ def check_k5(fa, plain, w0, b, n, heads, dtype, side, timed):
                                         SEED + 50 + n + heads)
     out = fa.flash_attention_bias_flat(q, k, v, bias, mask, heads)
     torch.cuda.synchronize()
-    out_l, lse = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
+    out_l, lse, out32 = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
     torch.cuda.synchronize()
-    same = torch.equal(out, out_l)
+    same = torch.equal(out, out_l) and torch.equal(out32.to(dtype), out_l)
     want = plain(q, k, v, bias, mask, heads)
     err = float((out.float() - want.float()).abs().max())
     lse_err = float((lse - window_scores_lse(q, k, bias, mask, heads)).abs().max())
@@ -975,6 +1127,200 @@ def swin_phase(fa, ln, smi, trace):
     return {"launches": launches, **stages[2], "stages": stages}
 
 
+def check_k6(fa, plain, w0, b, n, heads, dtype, side, timed):
+    """K6 through the autograd Function the model calls (K5's log-sum-exp
+    entry forward, K6 backward) against autograd of the plain version on the
+    same inputs and the same seeded dout; returns K6's record and, when
+    timed, the log-sum-exp entry's."""
+    q, k, v, bias, mask = window_inputs(w0, b, n, heads, dtype, side,
+                                        SEED + 60 + n + heads)
+    dout = seeded(q.shape, dtype, SEED + 61 + n + heads)
+    shape = f"(W0 {w0}, B {b}, N {n}, H {heads}, d 32) {short(dtype)}"
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+        out = fn(*leaves, mask, heads)
+        return out, leaves, torch.autograd.grad(out, leaves, dout,
+                                                retain_graph=True)
+
+    before = launch_counts(fa, None)
+    out, _, got = grads(fa.flash_attention_bias_flat)
+    torch.cuda.synchronize()
+    after = launch_counts(fa, None)
+    launched = {key: after[key] - before[key] for key in after}
+    if launched != {key: 0 for key in after} | {"K5_lse": 1, "K6": 1}:
+        raise RuntimeError(f"K6 {shape}: under grad the wrapper launched "
+                           f"{launched}")
+    out_p, leaves_p, want = grads(plain)
+    names = ("dq", "dk", "dv", "dbias")
+    if dtype == torch.float32:
+        errs = [rel_max(g, w) for g, w in zip(got, want)]
+        tol, how = K6_TOL_FP32, "of the largest |value|"
+    else:
+        errs = [rel_rms(g.float().cpu().numpy(), w.float().cpu().numpy())
+                for g, w in zip(got, want)]
+        tol, how = K6_RTOL_BF16, "RMS error / RMS gradient"
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got[:3], want[:3]))
+    log(f"[k6] {shape}, mask {None if mask is None else tuple(mask.shape)}: "
+        f"{dict(zip(names, errs))} {how} (tolerance {tol!r}); dq, dk, dv "
+        f"max_abs_err {err!r}, max |dbias| {float(want[3].abs().max())!r}")
+    ok = all(e <= tol for e in errs) and all(
+        bool(torch.isfinite(g).all()) and g.shape == w.shape
+        for g, w in zip(got, want))
+    if not ok or any(g.dtype != dtype for g in got[:3]) or \
+            got[3].dtype != torch.float32:
+        raise RuntimeError(f"K6 {shape} disagrees with its plain version")
+    rec = {"shape": {"W0": w0, "B": b, "N": n, "H": heads, "d": 32},
+           "max_abs_err": err}
+    if not timed:
+        return rec, None
+    rows = w0 * b
+    _, lse, o32 = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
+    rec["ms"] = cuda_ms(lambda: fa.window_attention_bwd_cuda(
+        q, k, v, bias, mask, o32, dout, lse, heads), iters=6, warmup=1)
+    rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out_p, leaves_p, dout, retain_graph=True), iters=3, warmup=1)
+    # the library yardstick: SDPA with the summed bias and mask as attn_mask,
+    # gradients of q, k and v only (the attn_mask gets none)
+    views = [t.view(rows, n, heads, 32).transpose(1, 2).detach().requires_grad_()
+             for t in (q, k, v)]
+    added = bias[None] if mask is None else bias[None] + mask[:, None]
+    attn_mask = added.to(dtype)[:, None].expand(
+        added.shape[0], rows // added.shape[0], heads, n, n).reshape(
+        rows, heads, n, n)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out_s = sdpa(*views, attn_mask=attn_mask, scale=1.0)
+    dout_s = dout.view(rows, n, heads, 32).transpose(1, 2)
+    rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out_s, views, dout_s, retain_graph=True), iters=6, warmup=1)
+    extra = (bias.numel() + (0 if mask is None else mask.numel())) * 4
+    nbytes = (7 * q.numel() * q.element_size() + extra
+              + (o32.numel() + lse.numel() + bias.numel()) * 4)
+    flops = 10.0 * rows * heads * n * n * 32       # five products
+    rec.update(bound(nbytes, flops, dtype))
+    log(f"[k6] kernel {rec['ms']!r} ms, plain autograd backward "
+        f"{rec['plain_ms']!r} ms, sdpa backward {rec['library_ms']!r} ms (bias "
+        f"+ mask as attn_mask, which gets no gradient), bound "
+        f"{rec['bound_ms']!r} ms by {rec['bound_by']} ({nbytes} B, "
+        f"{flops:.4g} flop)")
+    # the forward of the pair, K5's log-sum-exp entry, at the same shape
+    fwd = {"shape": rec["shape"],
+           "max_abs_err": float((out.float() - out_p.float()).abs().max())}
+    fwd["ms"] = cuda_ms(lambda: fa.window_attention_lse_cuda(
+        q, k, v, bias, mask, heads), iters=6, warmup=1)
+    fwd["plain_ms"] = cuda_ms(lambda: plain(q, k, v, bias, mask, heads),
+                              iters=3, warmup=1)
+    with torch.no_grad():
+        fwd["library_ms"] = cuda_ms(
+            lambda: sdpa(*views, attn_mask=attn_mask, scale=1.0), iters=6,
+            warmup=1)
+    fwd.update(bound(4 * q.numel() * q.element_size() + extra
+                     + (lse.numel() + o32.numel()) * 4,
+                     4.0 * rows * heads * n * n * 32, dtype))
+    log(f"[k5-lse] same shape: kernel {fwd['ms']!r} ms, plain {fwd['plain_ms']!r}"
+        f" ms, sdpa {fwd['library_ms']!r} ms, bound {fwd['bound_ms']!r} ms by "
+        f"{fwd['bound_by']}; out max_abs_err {fwd['max_abs_err']!r}")
+    return rec, fwd
+
+
+def k6_without_dbias(fa):
+    """K5's log-sum-exp entry forward and K6 backward with K6's bias gradient
+    replaced by zeros: the control of 8c, in the model's place of
+    ``flash_attention_bias_flat``."""
+
+    class WithoutDbias(fa.WindowAttention):
+        @staticmethod
+        def backward(ctx, dout):
+            dq, dk, dv, dbias, _, _ = fa.WindowAttention.backward(ctx, dout)
+            return dq, dk, dv, torch.zeros_like(dbias), None, None
+
+    return WithoutDbias.apply
+
+
+def swin_train_phase(fa, ln, smi, trace):
+    """Phase 8; returns (K6's record, the log-sum-exp entry's, K4's at the
+    SwinV2-L widths, the launch counts of the timed steps)."""
+    from fedvit_torch.ops.attention import windowed_attention_flat as plain
+    from fedvit_torch.ops.layer_norm import LayerNorm
+
+    # 8a. K6 against its plain version; K4 at SwinV2-L's widths
+    for w0, b, n, heads in ((4, 3, 49, 2), (9, 2, 16, 3)):
+        check_k6(fa, plain, w0, b, n, heads, torch.float32,
+                 math.isqrt(n) * math.isqrt(w0), timed=False)
+    check_k6(fa, plain, 1, 5, 144, 2, torch.float32, None, timed=False)
+    stages = [check_k6(fa, plain, w0, b, n, heads, torch.bfloat16, side, True)
+              for w0, b, n, heads, side, _ in SWIN_TRAIN_STAGES]
+    torch.cuda.empty_cache()
+    for name, i in (("K5's log-sum-exp entry", 1), ("K6", 0)):
+        per_micro = sum(r[i]["ms"] * st[5]
+                        for r, st in zip(stages, SWIN_TRAIN_STAGES))
+        log(f"[k6] a SwinV2-L@384 micro-batch of {SWIN_MICRO} launches {name} "
+            f"{[st[5] for st in SWIN_TRAIN_STAGES]} times: {per_micro!r} ms")
+    k6 = {**stages[2][0], "stages": [r[0] for r in stages]}
+    k5_lse = {**stages[2][1], "stages": [r[1] for r in stages]}
+    tokens = (SWIN_SIZE // 4) ** 2
+    k4 = [check_k4(ln, (SWIN_MICRO, tokens // 4 ** s, 192 * 2 ** s),
+                   torch.bfloat16, True) for s in (0, 1, 3)]
+    check_k4(ln, (SWIN_MICRO, tokens // 4 ** 3, 1536), torch.float32, False)
+
+    # 8b. the step at macro batch 16
+    cfg, model, state, step, batches = training_setup(
+        SWIN, SWIN_SIZE, SWIN_MICRO, SWIN_ACCUM, SWIN_DROP_PATH, SWIN_LLRD)
+    blocks = sum(SWIN_DEPTHS)
+    norms = sum(isinstance(m, LayerNorm) for m in model.modules())
+    log(f"[swin-train] {SWIN}: {blocks} blocks, {norms} LayerNorms")
+    if norms != 1 + 2 * blocks + (len(SWIN_DEPTHS) - 1) + 1:
+        raise RuntimeError(f"{norms} LayerNorms: want the patch norm, two a "
+                           f"block, one a merging and the final norm")
+    state = warm_up_step("swin-train", cfg, model, state, step, batches[0])
+
+    # 8c. one macro batch's gradients, kernels against the plain path, before
+    # the timed steps (see SWIN_GRAD_RTOL_BF16)
+    def plain_fp32(q, k, v, bias, mask, heads):
+        return plain(q.float(), k.float(), v.float(), bias, mask, heads).to(q.dtype)
+
+    got = grads_by_path(model, state, step, batches[1], {
+        "kernel": (), "again": (),
+        "plain": (window_attention_replaced_by(plain),
+                  layer_norm_backward_replaced_by(ln.ln_bwd_plain)),
+        "fp32": (window_attention_replaced_by(plain_fp32),
+                 layer_norm_backward_replaced_by(ln.ln_bwd_plain)),
+        "control": (window_attention_replaced_by(k6_without_dbias(fa)),)})
+    differ = [n for n, g in got["kernel"][0].items()
+              if not torch.equal(g, got["again"][0][n])]
+    log(f"[swin-train] the kernel path run twice from the same state: "
+        f"{len(differ)} of {len(got['kernel'][0])} leaves differ in their "
+        f"bits, by kind {group_max({n: 1.0 for n in differ})}")
+    for grads, _ in got.values():      # the q, k and v rows of each qkv weight
+        for n in [n for n in grads if n.endswith("attn.qkv.weight")]:
+            for part, rows in zip("qkv", grads[n].chunk(3, dim=0)):
+                grads[f"{n}[{part}]"] = rows
+    compare_grads("swin-train", got, SWIN_GRAD_RTOL_BF16,
+                  [n for n in got["plain"][0] if ".cpb_mlp." in n],
+                  "K6's dbias zeroed (the cpb_mlp leaves)",
+                  report=("cpb_mlp.0.weight", "cpb_mlp.0.bias",
+                          "cpb_mlp.2.weight", "logit_scale", "q_bias", "v_bias",
+                          "qkv.weight[q]", "qkv.weight[k]", "qkv.weight[v]",
+                          "downsample.reduction.weight"))
+    del got
+
+    # 8b, the timed steps
+    micro_batches = TIMED_STEPS * SWIN_ACCUM
+    want = {k: 0 for k in counted(fa, ln)} | {
+        "K5_lse": micro_batches * blocks, "K6": micro_batches * blocks,
+        "K4": micro_batches * norms}
+    state, counts = timed_steps("swin-train", "SwinV2-L@384 bf16 4ch+meta", fa,
+                                ln, state, step, batches[1:], want, smi)
+    if trace:
+        trace_training("profile-swin-train", step, state, batches[2], smi, {
+            "K5 log-sum-exp entry": ("window_attention_fwd_kernel",),
+            "K6": ("delta_kernel", "dkdv_kernel", "dq_dbias_kernel",
+                   "group_sum_kernel"),
+            "K4": ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")})
+    return k6, k5_lse, k4, counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
@@ -1096,6 +1442,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     k5 = swin_phase(fa, ln, smi, args.trace)
 
+    # 8. SwinV2-L@384 training
+    torch.cuda.empty_cache()
+    k6, k5_lse, k4_swin, swin_counts = swin_train_phase(fa, ln, smi, args.trace)
+
     log(smi)
     log(json.dumps({"kernels": [
         {"name": "qkvb_attention_fwd", "route": "cuda",
@@ -1113,10 +1463,19 @@ def main() -> int:
         {"name": "layer_norm_bwd", "route": "cuda",
          "source": "fedvit_torch/csrc/layer_norm_bwd.cu",
          "replaces": "fedvit_tpu/ops/layer_norm.py:90",
-         "launches": counts["K4"], **k4},
+         "launches": counts["K4"], **k4,
+         "launches_swin_train": swin_counts["K4"], "swin_shapes": k4_swin},
         {"name": "window_attention_fwd", "route": "cuda",
          "source": "fedvit_torch/csrc/window_attention.cu",
-         "replaces": "fedvit_tpu/ops/flash_attention.py:992", **k5}]}))
+         "replaces": "fedvit_tpu/ops/flash_attention.py:992", **k5},
+        {"name": "window_attention_fwd_lse", "route": "cuda",
+         "source": "fedvit_torch/csrc/window_attention.cu",
+         "replaces": "fedvit_tpu/ops/flash_attention.py:1168",
+         "launches": swin_counts["K5_lse"], **k5_lse},
+        {"name": "window_attention_bwd", "route": "cuda",
+         "source": "fedvit_torch/csrc/window_attention_bwd.cu",
+         "replaces": "fedvit_tpu/ops/flash_attention.py:1028",
+         "launches": swin_counts["K6"], **k6}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

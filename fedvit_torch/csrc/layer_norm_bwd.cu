@@ -10,8 +10,9 @@
 //   dgamma = sum_rows dy xhat, dbeta = sum_rows dy   fp32
 //
 //   x, dy (rows, D) fp32 or bf16, gamma (D,) fp32; D a multiple of 8 (bf16)
-//   or 4 (fp32), at most 32 * 8 16-byte vectors (D = 2048 bf16, 1024 fp32;
-//   ViT-Ti/S/B/L have D <= 1024).
+//   or 4 (fp32), at most 2048: a lane holds up to 64 elements of a row, 8
+//   16-byte vectors of bf16 or 16 of fp32 (ViT-Ti/S/B/L have D <= 1024,
+//   SwinV2-L 192 to 1536).
 //
 // The TPU kernel accumulates dgamma and dbeta in resident (1, D) outputs
 // across its sequential grid; Hopper's blocks run in no order, so here:
@@ -39,7 +40,7 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerBlock = 64;
-constexpr int kMaxPer = 8;  // 16-byte vectors per lane
+constexpr int kMaxPerLane = 64;  // elements of a row a lane holds
 
 template <typename T, int kPer>
 __global__ void __launch_bounds__(kThreads)
@@ -184,15 +185,21 @@ int launch(const void* x, const void* dy, const void* gamma, void* dx,
   T* o = static_cast<T*>(dx);
   float* pg = static_cast<float*>(part_g);
   float* pb = static_cast<float*>(part_b);
-  int err;
-  static_assert(kMaxPer == 8, "one case below for each kPer up to kMaxPer");
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  static_assert(kMaxPerLane == 64, "one case below for each kPer up to 64 / 4");
+  // kPer 16-byte vectors a lane: up to 8 of bf16, 16 of fp32
   switch (per) {
-#define FEDVIT_LN_CASE(P) \
-  case P: err = launch_rows<T, P>(xx, gg, w, o, pg, pb, rows, d, eps, blocks, s); break;
+#define FEDVIT_LN_CASE(P)                                                       \
+  case P:                                                                       \
+    if constexpr (P * kVec <= kMaxPerLane)                                      \
+      err = launch_rows<T, P>(xx, gg, w, o, pg, pb, rows, d, eps, blocks, s);   \
+    break;
     FEDVIT_LN_CASE(1) FEDVIT_LN_CASE(2) FEDVIT_LN_CASE(3) FEDVIT_LN_CASE(4)
     FEDVIT_LN_CASE(5) FEDVIT_LN_CASE(6) FEDVIT_LN_CASE(7) FEDVIT_LN_CASE(8)
+    FEDVIT_LN_CASE(9) FEDVIT_LN_CASE(10) FEDVIT_LN_CASE(11) FEDVIT_LN_CASE(12)
+    FEDVIT_LN_CASE(13) FEDVIT_LN_CASE(14) FEDVIT_LN_CASE(15) FEDVIT_LN_CASE(16)
 #undef FEDVIT_LN_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
   if (err != 0) return err;
   ln_bwd_columns_kernel<<<(2 * d + kThreads - 1) / kThreads, kThreads, 0, s>>>(
@@ -229,6 +236,4 @@ extern "C" int layer_norm_bwd(const void* x, const void* dy, const void* gamma,
 }
 
 // the largest D the kernel takes for a dtype (0 = float32, 1 = bfloat16)
-extern "C" int layer_norm_bwd_max_d(int dtype) {
-  return 32 * kMaxPer * (dtype == 1 ? 8 : 4);
-}
+extern "C" int layer_norm_bwd_max_d(int /*dtype*/) { return 32 * kMaxPerLane; }

@@ -7,7 +7,11 @@
 // _wflat_fwd_rule and _wflat_fwd_rule_vjp through pl.pallas_call. The TPU's
 // stats variant saves the row max and 1/sum in lane-padded blocks; this one
 // saves lse = max + log(sum), (W0*B, H, N) fp32, which is what a backward
-// needs to rebuild P.
+// needs to rebuild P, and the output before its rounding to the storage type,
+// (W0*B, N, E) fp32: the backward's delta_i = sum_c dout_ic out_ic stands in
+// for sum_j P_ij dP_ij only as exactly as out is sum_j P_ij v_j. From a bf16
+// out, where one key takes nearly all of a row's weight, dP_ij - delta_i is
+// lost in out's rounding, and the gradients of q and k with it.
 //
 //   q, k, v (W0*B, N, E)  window-major rows: rows [w*B, (w+1)*B) belong to
 //                         window w; heads head-major along E, each d = E/H =
@@ -18,12 +22,13 @@
 //                         W0 = 1 every row uses mask[0]
 //   out     (W0*B, N, E)  head h writes its column slice [h*d, (h+1)*d)
 //   lse     (W0*B, H, N)  flagged entry only: log sum_j exp(s_ij), fp32
+//   out32   (W0*B, N, E)  flagged entry only: out before rounding, fp32
 //
 //   out_h = softmax(q_h k_h^T + bias[h] + mask[w]) v_h
 //
 // No score scale: the caller folds it into q. Scores, the running max and the
-// running sum are fp32. The flagged entry is the same code with one more
-// store, so its output is bit-identical to the flagless one's.
+// running sum are fp32. The flagged entry is the same code with two more
+// stores, so its output is bit-identical to the flagless one's.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the SwinV2-L@384
 // stage shapes for a batch of 32, bf16, (W0, N, E, H):
@@ -70,8 +75,9 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const float* __restrict__ bias,
                             const float* __restrict__ mask, T* __restrict__ out,
-                            float* __restrict__ lse, int n, int e, int heads,
-                            int batch, int w0, int q_tiles) {
+                            float* __restrict__ lse, float* __restrict__ out32,
+                            int n, int e, int heads, int batch, int w0,
+                            int q_tiles) {
   constexpr int kVec = Io<T>::kVec;
   constexpr int kVecPerRow = D / kVec;
   constexpr int kStride = D + 4;  // padded fp32 row: conflict-free 16-byte reads
@@ -216,16 +222,17 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float res[kCols];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) res[c] = o[r][c] * inv;
-      Io<T>::template store<kCols>(
-          out + base + static_cast<size_t>(qrow) * e + lane * kCols, res);
+      const size_t at = base + static_cast<size_t>(qrow) * e + lane * kCols;
+      Io<T>::template store<kCols>(out + at, res);
+      if (kLse) Io<float>::template store<kCols>(out32 + at, res);
     }
   }
 }
 
 template <typename T, bool kLse>
 int launch(const void* q, const void* k, const void* v, const float* bias,
-           const float* mask, void* out, float* lse, int rows, int n, int e,
-           int heads, int w0, cudaStream_t stream) {
+           const float* mask, void* out, float* lse, float* out32, int rows,
+           int n, int e, int heads, int w0, cudaStream_t stream) {
   if (e / heads != 32) return static_cast<int>(cudaErrorInvalidValue);
   const int q_tiles = (n + kQueryTile - 1) / kQueryTile;
   const long long blocks = static_cast<long long>(rows) * heads * q_tiles;
@@ -233,15 +240,15 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   window_attention_fwd_kernel<T, 32, kLse>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), bias, mask, static_cast<T*>(out), lse, n, e,
-          heads, rows / w0, w0, q_tiles);
+          static_cast<const T*>(v), bias, mask, static_cast<T*>(out), lse, out32,
+          n, e, heads, rows / w0, w0, q_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kLse>
 int dispatch(const void* q, const void* k, const void* v, const void* bias,
-             const void* mask, void* out, float* lse, int rows, int n, int e,
-             int heads, int w0, int dtype, void* stream) {
+             const void* mask, void* out, float* lse, float* out32, int rows,
+             int n, int e, int heads, int w0, int dtype, void* stream) {
   if (rows <= 0 || n <= 0 || heads <= 0 || w0 <= 0 || e % heads != 0 ||
       rows % w0 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -249,11 +256,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* bias,
   const float* bb = static_cast<const float*>(bias);
   const float* mm = static_cast<const float*>(mask);
   if (dtype == 0)
-    return launch<float, kLse>(q, k, v, bb, mm, out, lse, rows, n, e, heads, w0,
-                               s);
+    return launch<float, kLse>(q, k, v, bb, mm, out, lse, out32, rows, n, e,
+                               heads, w0, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, kLse>(q, k, v, bb, mm, out, lse, rows, n, e,
-                                       heads, w0, s);
+    return launch<__nv_bfloat16, kLse>(q, k, v, bb, mm, out, lse, out32, rows, n,
+                                       e, heads, w0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -268,16 +275,21 @@ extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* bias, const void* mask,
                                     void* out, int rows, int n, int e, int heads,
                                     int w0, int dtype, void* stream) {
-  return dispatch<false>(q, k, v, bias, mask, out, nullptr, rows, n, e, heads,
-                         w0, dtype, stream);
+  return dispatch<false>(q, k, v, bias, mask, out, nullptr, nullptr, rows, n, e,
+                         heads, w0, dtype, stream);
 }
 
-// K5 with each row's log-sum-exp: out and lse (rows, H, N) fp32.
+// K5 with what the backward reads: out, lse (rows, H, N) fp32 and the
+// unrounded output out32 (rows, N, E) fp32.
 extern "C" int window_attention_fwd_lse(const void* q, const void* k,
                                         const void* v, const void* bias,
                                         const void* mask, void* out, void* lse,
-                                        int rows, int n, int e, int heads,
-                                        int w0, int dtype, void* stream) {
-  return dispatch<true>(q, k, v, bias, mask, out, static_cast<float*>(lse), rows,
-                        n, e, heads, w0, dtype, stream);
+                                        void* out32, int rows, int n, int e,
+                                        int heads, int w0, int dtype,
+                                        void* stream) {
+  if (lse == nullptr || out32 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(q, k, v, bias, mask, out, static_cast<float*>(lse),
+                        static_cast<float*>(out32), rows, n, e, heads, w0, dtype,
+                        stream);
 }

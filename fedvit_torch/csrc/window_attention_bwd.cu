@@ -1,0 +1,574 @@
+// Backward of the windowed multi-head attention with a per-head
+// relative-position bias and a per-window shift mask (K6), the attention of
+// every SwinV2 block under grad.
+//
+// Replaces the TPU kernels fedvit_tpu/ops/flash_attention.py::_wflat_bwd_kernel,
+// ::_wflat_bwd_stats_kernel and ::_wflat_bwd_delta_kernel (launched by the rule
+// of _make_wflat_bwd through pl.pallas_call). All three compute the same
+// function and differ in what they recompute; this is the saved-statistics form
+// with the delta identity, fed by the forward's per-row log-sum-exp and its
+// unrounded fp32 output (window_attention.cu::window_attention_fwd_lse):
+//
+//   inputs   q, k, v, dout (W0*B, N, E) window-major rows, heads head-major
+//            along E, each d = 32 wide; out (W0*B, N, E) fp32, the forward's
+//            output before rounding; bias (H, N, N) fp32; mask (W0, N, N)
+//            fp32 (W0 = 1: every row uses mask[0]); lse (W0*B, H, N) fp32
+//   outputs  dq, dk, dv (W0*B, N, E) in q's type; dbias (H, N, N) fp32.
+//            The mask gets no gradient: it is a constant of the model.
+//
+//   per (row r, head h), w = r / B:
+//   S = q_h k_h^T + bias[h] + mask[w]   (no scale: the caller folded it into q)
+//   P = exp(S - lse),  delta_i = sum_c dout_ic out_ic,  dP = dout_h v_h^T
+//   dS = P * (dP - delta)
+//   dv = P^T dout_h with P rounded to q's type first; dq = dS k_h and
+//   dk = dS^T q_h with dS rounded to q's type first (as the TPU kernels round
+//   them before their products); sums in fp32
+//   dbias[h] = sum over all rows r of the unrounded fp32 dS
+//
+// Launches, in order on the caller's stream:
+//   1. delta: one warp per (r, query, head), a lane per column, fp32. It
+//      stands in for sum_j P_ij dP_ij (which the TPU's default kernel sums
+//      over its resident tile) only as exactly as out is sum_j P_ij v_j: where
+//      one key takes nearly all of a row's weight, dP_ij - delta_i is a
+//      difference of near-equal numbers, and a bf16 out loses it (measured:
+//      the q and k rows of SwinV2-L's qkv gradients then sit three times as
+//      far from an fp32 reference as the plain backward's). Hence the fp32
+//      out.
+//   2. dk, dv: one block per (r, h, 64-key tile); it walks the query tiles and
+//      keeps its 64x32 dk and dv sums in registers.
+//   3. dq and dbias: one block per (h, 32-query tile, group of rows). It walks
+//      its rows r and, for each, the key tiles: dq of (r, tile) is summed in
+//      registers and written once per r, and every dS it computes is also added
+//      into the block's own (32, N) fp32 tile of dbias in shared memory, which
+//      is written once at the end.
+//   4. only with more than one group of rows: dbias = sum of the groups' tiles.
+//
+// dbias is the new problem of this kernel: a sum over all W0*B rows for each
+// of H*N*N cells (SwinV2-L@384 at 8 images: 128 rows into 6 x 576^2 cells at
+// stage 0, 8 rows into 24 x 576^2 cells, 32 MB, at stage 2). The TPU kernel
+// keeps the (heads, N, N) block resident and orders its sequential grid so
+// that consecutive steps add to it; Hopper's blocks run in no order. fp32
+// atomics would do it in one line but give other bits every run. Instead the
+// reduction over rows is a loop inside the block that owns the cells (pass 3),
+// so the sum is taken in one order and every run gives the same bits. With
+// all rows in one group there are only H * N/32 blocks (108 at stage 0 for
+// 132 SMs), so the rows are cut into up to 16 groups, each writing its tile to
+// an fp32 workspace (groups, H, N, N) that pass 4 sums in order; the number of
+// groups is the one that fills the card's block slots in the fewest waves
+// (window_attention_bwd_row_groups, which the caller asks to size the
+// workspace). One group writes dbias directly and needs no workspace.
+//
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the SwinV2-L@384
+// stage shapes for 8 images, bf16: q, k, v, dout and the fp32 out read, dq, dk,
+// dv written, bias and mask read, lse read, dbias written:
+//   stage 0 (W0 16, N 576, E 192, H 6): (7 * 2 + 4) * 128*576*192 = 254.8 MB
+//            + bias 8.0 + mask 21.2 + lse 1.8 + dbias 8.0 = 293.8 MB -> 88 us;
+//            10 * 128*6*576^2*32 = 81.5 GFLOP -> 82 us at the bf16 tensor peak
+//   stage 2 (W0 1, N 576, E 768, H 24): 63.7 + 31.9 + 0.4 + 31.9 = 127.9 MB
+//            -> 38 us; 20.4 GFLOP -> 21 us
+// so bytes bound it, narrowly at stage 0: half of stage 2's bytes are bias and
+// dbias.
+//
+// Design. As qkvb_attention_bwd.cu: plain SIMT code on the fp32 cores, written
+// to be right and readable, far above the bound (see PERF.md). S and dP are
+// recomputed in both passes (7 N^2 d products per (r, h) instead of 5). Tiles
+// are staged as padded fp32 rows in dynamic shared memory; 256 threads each
+// own a (4 or 2) x 4 piece of a (64 or 32) x 64 score tile with the row index
+// interleaved (thread column tx takes keys tx, tx+16, ...), and read
+// bias[h][i][j] + mask[w][i][j] for their piece before the dot products that
+// hide the loads. Pass 2's grid has the batch index fastest, as the forward's,
+// so the blocks that share a (window, head, key tile)'s bias and mask slices
+// run together out of L2. Any N up to window_attention_bwd_max_n() works:
+// rows and keys past N are staged as zeros and get P = 0.
+
+#include <math.h>
+
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kD = 32;                  // head width (every SwinV2 built)
+constexpr int kKeyTile = 64;            // keys of a score tile
+constexpr int kDkdvQueryTile = 64;      // queries a score tile of pass 2
+constexpr int kDqQueryTile = 32;        // queries a block of pass 3
+constexpr int kThreads = 256;
+constexpr int kStride = kD + 4;         // padded fp32 row of q, k, v, dout
+constexpr int kPStride = kKeyTile + 1;  // padded fp32 row of P and dS
+constexpr int kDbPad = 16;              // padding of a row of the dbias tile
+constexpr int kMaxGroups = 16;
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// rows [row0, row0 + kRows) of one head slice (src points at row 0, column
+// h*d; ld elements a row) into fp32 shared memory; rows past n are zeros
+template <typename T, int kRows>
+__device__ void stage(float* dst, const T* __restrict__ src, int ld, int row0,
+                      int n) {
+  constexpr int kVec = Io<T>::kVec;
+  constexpr int kVecPerRow = kD / kVec;
+  for (int i = threadIdx.x; i < kRows * kVecPerRow; i += kThreads) {
+    const int r = i / kVecPerRow;
+    const int c = (i % kVecPerRow) * kVec;
+    float x[kVec];
+    if (row0 + r < n) {
+      Io<T>::load(src + static_cast<size_t>(row0 + r) * ld + c, x);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) x[j] = 0.f;
+    }
+    float4* d4 = reinterpret_cast<float4*>(dst + r * kStride + c);
+#pragma unroll
+    for (int j = 0; j < kVec / 4; ++j)
+      d4[j] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+
+// lse and delta of query rows [q0, q0 + count) of one (r, h) into shared memory
+__device__ void stage_rows(float* lse_s, float* dl_s, const float* __restrict__ lse,
+                           const float* __restrict__ delta, int q0, int n,
+                           int count) {
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const bool in = q0 + i < n;
+    lse_s[i] = in ? lse[q0 + i] : 0.f;
+    dl_s[i] = in ? delta[q0 + i] : 0.f;
+  }
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// For the (16 kA) x 64 tile pair (query rows i = ty + 16a, key rows
+// j = tx + 16b): P = exp(q_i k_j + bias + mask - lse_i) and
+// dS = P * (dout_i v_j - delta_i), fp32 and unrounded, into this thread's
+// registers. Entries past N get 0. bias_h and mask_w point at the (N, N)
+// slices of this head and window.
+template <int kA>
+__device__ __forceinline__ void scores(
+    const float* q_s, const float* k_s, const float* do_s, const float* v_s,
+    const float* lse_s, const float* dl_s, const float* __restrict__ bias_h,
+    const float* __restrict__ mask_w, int n, int q0, int k0, float (&p)[kA][4],
+    float (&ds)[kA][4]) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  float add[kA][4], s[kA][4], dp[kA][4];
+#pragma unroll
+  for (int a = 0; a < kA; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int i = q0 + ty + 16 * a;
+      const int j = k0 + tx + 16 * b;
+      const size_t at = static_cast<size_t>(i) * n + j;
+      add[a][b] = (i < n && j < n) ? bias_h[at] + mask_w[at] : 0.f;
+      s[a][b] = dp[a][b] = 0.f;
+    }
+#pragma unroll 4
+  for (int c = 0; c < kD; c += 4) {
+    float4 kb[4], vb[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      kb[b] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * b) * kStride + c);
+      vb[b] = *reinterpret_cast<const float4*>(v_s + (tx + 16 * b) * kStride + c);
+    }
+#pragma unroll
+    for (int a = 0; a < kA; ++a) {
+      const float4 qa = *reinterpret_cast<const float4*>(q_s + (ty + 16 * a) * kStride + c);
+      const float4 da = *reinterpret_cast<const float4*>(do_s + (ty + 16 * a) * kStride + c);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        s[a][b] += dot4(qa, kb[b]);
+        dp[a][b] += dot4(da, vb[b]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < kA; ++a) {
+    const int i = ty + 16 * a;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const bool valid = q0 + i < n && k0 + tx + 16 * b < n;
+      p[a][b] = valid ? __expf(s[a][b] + add[a][b] - lse_s[i]) : 0.f;
+      ds[a][b] = p[a][b] * (dp[a][b] - dl_s[i]);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+delta_kernel(const float* __restrict__ out, const T* __restrict__ dout,
+             float* __restrict__ delta, int n, int e, int heads, long long total) {
+  const long long w = static_cast<long long>(blockIdx.x) * (kThreads / 32) +
+                      threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (w >= total) return;
+  const int h = static_cast<int>(w % heads);
+  const long long token = w / heads;          // r * n + i
+  const long long r = token / n;
+  const int i = static_cast<int>(token % n);
+  const size_t at = static_cast<size_t>(token) * e + h * kD + lane;
+  const float s = warp_sum(out[at] * static_cast<float>(dout[at]));
+  if (lane == 0) delta[(static_cast<size_t>(r) * heads + h) * n + i] = s;
+}
+
+// Pass 2. block index = ((window * heads + head) * k_tiles + tile) * batch + b
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ dout,
+            const float* __restrict__ bias, const float* __restrict__ mask,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            T* __restrict__ dk, T* __restrict__ dv, int n, int e, int heads,
+            int batch, int w0, int k_tiles) {
+  constexpr int kQ = kDkdvQueryTile;
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;
+  float* v_s = k_s + kKeyTile * kStride;
+  float* q_s = v_s + kKeyTile * kStride;
+  float* do_s = q_s + kQ * kStride;
+  float* p_s = do_s + kQ * kStride;
+  float* ds_s = p_s + kQ * kPStride;
+  float* lse_s = ds_s + kQ * kPStride;
+  float* dl_s = lse_s + kQ;
+
+  int idx = blockIdx.x;
+  const int b = idx % batch;
+  idx /= batch;
+  const int k0 = (idx % k_tiles) * kKeyTile;
+  idx /= k_tiles;
+  const int h = idx % heads;
+  const int w = idx / heads;
+  const size_t row = static_cast<size_t>(w) * batch + b;  // window-major
+  const size_t base = row * n * e + h * kD;
+  const size_t rh = (row * heads + h) * n;
+  const size_t nn = static_cast<size_t>(n) * n;
+  const float* bias_h = bias + h * nn;
+  const float* mask_w = mask + (w0 > 1 ? w : 0) * nn;
+
+  stage<T, kKeyTile>(k_s, k + base, e, k0, n);
+  stage<T, kKeyTile>(v_s, v + base, e, k0, n);
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int tr = threadIdx.x / 8;         // key rows tr, tr + 32
+  const int tc = (threadIdx.x % 8) * 4;   // columns tc .. tc + 3
+  float acc_k[2][4], acc_v[2][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_k[a][c] = acc_v[a][c] = 0.f;
+
+  for (int q0 = 0; q0 < n; q0 += kQ) {
+    __syncthreads();  // the previous query tile is consumed
+    stage<T, kQ>(q_s, q + base, e, q0, n);
+    stage<T, kQ>(do_s, dout + base, e, q0, n);
+    stage_rows(lse_s, dl_s, lse + rh, delta + rh, q0, n, kQ);
+    __syncthreads();
+    float p[4][4], ds[4][4];
+    scores<4>(q_s, k_s, do_s, v_s, lse_s, dl_s, bias_h, mask_w, n, q0, k0, p, ds);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        const int at = (ty + 16 * a) * kPStride + tx + 16 * bb;
+        p_s[at] = Io<T>::round(p[a][bb]);
+        ds_s[at] = Io<T>::round(ds[a][bb]);
+      }
+    __syncthreads();
+    const int nq = min(kQ, n - q0);
+    for (int i = 0; i < nq; ++i) {
+      const float4 g = *reinterpret_cast<const float4*>(do_s + i * kStride + tc);
+      const float4 x = *reinterpret_cast<const float4*>(q_s + i * kStride + tc);
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const float pv = p_s[i * kPStride + tr + 32 * a];
+        const float dsv = ds_s[i * kPStride + tr + 32 * a];
+        acc_v[a][0] += pv * g.x; acc_v[a][1] += pv * g.y;
+        acc_v[a][2] += pv * g.z; acc_v[a][3] += pv * g.w;
+        acc_k[a][0] += dsv * x.x; acc_k[a][1] += dsv * x.y;
+        acc_k[a][2] += dsv * x.z; acc_k[a][3] += dsv * x.w;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int j = k0 + tr + 32 * a;
+    if (j < n) {
+      const size_t at = base + static_cast<size_t>(j) * e + tc;
+      Io<T>::template store<4>(dk + at, acc_k[a]);
+      Io<T>::template store<4>(dv + at, acc_v[a]);
+    }
+  }
+}
+
+// Pass 3. block index = (head * q_tiles + tile) * groups + group; the block
+// takes rows [group * rows_per_group, (group + 1) * rows_per_group) and writes
+// its (32, N) dbias tile to db_out + group * H*N*N (db_out is dbias itself
+// when there is one group).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dq_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ bias, const float* __restrict__ mask,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                T* __restrict__ dq, float* __restrict__ db_out, int n, int e,
+                int heads, int batch, int w0, int rows, int q_tiles, int groups,
+                int rows_per_group, int db_stride) {
+  constexpr int kQ = kDqQueryTile;
+  extern __shared__ __align__(16) float smem[];
+  float* q_s = smem;
+  float* do_s = q_s + kQ * kStride;
+  float* k_s = do_s + kQ * kStride;
+  float* v_s = k_s + kKeyTile * kStride;
+  float* ds_s = v_s + kKeyTile * kStride;
+  float* lse_s = ds_s + kQ * kPStride;
+  float* dl_s = lse_s + kQ;
+  float* db_s = dl_s + kQ;  // (kQ, db_stride): this block's tile of dbias
+
+  int idx = blockIdx.x;
+  const int group = idx % groups;
+  idx /= groups;
+  const int q0 = (idx % q_tiles) * kQ;
+  const int h = idx / q_tiles;
+  const size_t nn = static_cast<size_t>(n) * n;
+  const float* bias_h = bias + h * nn;
+
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int tr = threadIdx.x / 8;         // query row of this thread's dq
+  const int tc = (threadIdx.x % 8) * 4;   // columns tc .. tc + 3
+
+  for (int i = threadIdx.x; i < kQ * db_stride; i += kThreads) db_s[i] = 0.f;
+
+  const int r_end = min(rows, (group + 1) * rows_per_group);
+  for (int r = group * rows_per_group; r < r_end; ++r) {
+    const int w = r / batch;  // window-major
+    const size_t base = static_cast<size_t>(r) * n * e + h * kD;
+    const size_t rh = (static_cast<size_t>(r) * heads + h) * n;
+    const float* mask_w = mask + (w0 > 1 ? w : 0) * nn;
+    // q_s, do_s, lse_s and dl_s are last read by scores(), which every thread
+    // has left at the barrier before the dq sums below
+    stage<T, kQ>(q_s, q + base, e, q0, n);
+    stage<T, kQ>(do_s, dout + base, e, q0, n);
+    stage_rows(lse_s, dl_s, lse + rh, delta + rh, q0, n, kQ);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+
+    for (int k0 = 0; k0 < n; k0 += kKeyTile) {
+      __syncthreads();  // the previous key tile is consumed
+      stage<T, kKeyTile>(k_s, k + base, e, k0, n);
+      stage<T, kKeyTile>(v_s, v + base, e, k0, n);
+      __syncthreads();
+      float p[2][4], ds[2][4];
+      scores<2>(q_s, k_s, do_s, v_s, lse_s, dl_s, bias_h, mask_w, n, q0, k0, p, ds);
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb) {
+          const int i = ty + 16 * a;
+          const int j = tx + 16 * bb;
+          db_s[i * db_stride + k0 + j] += ds[a][bb];  // this thread's own cell
+          ds_s[i * kPStride + j] = Io<T>::round(ds[a][bb]);
+        }
+      __syncthreads();
+      const int nk = min(kKeyTile, n - k0);
+      for (int j = 0; j < nk; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(k_s + j * kStride + tc);
+        const float dsv = ds_s[tr * kPStride + j];
+        acc[0] += dsv * x.x; acc[1] += dsv * x.y;
+        acc[2] += dsv * x.z; acc[3] += dsv * x.w;
+      }
+    }
+    if (q0 + tr < n)
+      Io<T>::template store<4>(dq + base + static_cast<size_t>(q0 + tr) * e + tc, acc);
+  }
+
+  __syncthreads();
+  float* dst = db_out + (static_cast<size_t>(group) * heads + h) * nn;
+  const int count = min(kQ, n - q0);
+  for (int i = threadIdx.x; i < count * n; i += kThreads) {
+    const int qi = i / n;
+    const int j = i % n;
+    dst[static_cast<size_t>(q0 + qi) * n + j] = db_s[qi * db_stride + j];
+  }
+}
+
+// Pass 4. dbias[c] = sum_g partial[g, c], one thread per cell, groups in order
+__global__ void __launch_bounds__(kThreads)
+group_sum_kernel(const float* __restrict__ partial, float* __restrict__ dbias,
+                 int groups, size_t cells) {
+  const size_t c = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (c >= cells) return;
+  float sum = 0.f;
+  for (int g = 0; g < groups; ++g) sum += partial[g * cells + c];
+  dbias[c] = sum;
+}
+
+constexpr size_t kDkdvSmem =
+    (2 * kKeyTile * kStride + 2 * kDkdvQueryTile * kStride +
+     2 * kDkdvQueryTile * kPStride + 2 * kDkdvQueryTile) * sizeof(float);
+
+int key_tiles(int n) { return (n + kKeyTile - 1) / kKeyTile; }
+
+int db_stride(int n) { return key_tiles(n) * kKeyTile + kDbPad; }
+
+size_t dq_smem(int n) {
+  return (2 * kDqQueryTile * kStride + 2 * kKeyTile * kStride +
+          kDqQueryTile * kPStride + 2 * kDqQueryTile +
+          static_cast<size_t>(kDqQueryTile) * db_stride(n)) * sizeof(float);
+}
+
+// How many groups pass 3 cuts the rows into: the count (at most kMaxGroups)
+// that runs its H * q_tiles * groups blocks over the card's block slots in
+// the least waves x rows a group, each group past the first charged a tenth
+// of a row for its workspace tile. Returns 0 on a CUDA error.
+template <typename T>
+int row_groups(int rows, int n, int heads) {
+  const size_t smem = dq_smem(n);
+  if (cudaFuncSetAttribute(dq_dbias_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess)
+    return 0;
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, dq_dbias_kernel<T>, kThreads, smem) != cudaSuccess ||
+      per_sm < 1)
+    return 0;
+  const long long slots = static_cast<long long>(sms) * per_sm;
+  const long long tiles =
+      static_cast<long long>(heads) * ((n + kDqQueryTile - 1) / kDqQueryTile);
+  int best = 1;
+  double best_cost = 0.;
+  for (int g = 1; g <= std::min(rows, kMaxGroups); ++g) {
+    const int per = (rows + g - 1) / g;
+    const int used = (rows + per - 1) / per;
+    if (used != g) continue;  // the same cut as a smaller count
+    const long long waves = (tiles * g + slots - 1) / slots;
+    const double cost = static_cast<double>(waves) * per + (g > 1 ? 0.1 * g : 0.);
+    if (g == 1 || cost < best_cost) {
+      best = g;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const float* bias,
+           const float* mask, const float* out, const void* dout, const float* lse,
+           float* delta, float* partial, void* dq, void* dk, void* dv,
+           float* dbias, int rows, int n, int e, int heads, int w0,
+           int workspace_groups, cudaStream_t stream) {
+  const T* qq = static_cast<const T*>(q);
+  const T* kk = static_cast<const T*>(k);
+  const T* vv = static_cast<const T*>(v);
+  const T* gg = static_cast<const T*>(dout);
+  const int batch = rows / w0;
+  cudaError_t err;
+
+  const int groups = row_groups<T>(rows, n, heads);  // also opts pass 3's smem in
+  if (groups < 1 || (groups > 1 && workspace_groups < groups))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  const long long total = static_cast<long long>(rows) * n * heads;
+  const long long delta_blocks = (total + kThreads / 32 - 1) / (kThreads / 32);
+  const int k_tiles = key_tiles(n);
+  const long long dkdv_blocks = static_cast<long long>(rows) * heads * k_tiles;
+  if (delta_blocks > 0x7fffffffLL || dkdv_blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  delta_kernel<T><<<static_cast<unsigned>(delta_blocks), kThreads, 0, stream>>>(
+      out, gg, delta, n, e, heads, total);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  err = cudaFuncSetAttribute(dkdv_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kDkdvSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dkdv_kernel<T><<<static_cast<unsigned>(dkdv_blocks), kThreads, kDkdvSmem, stream>>>(
+      qq, kk, vv, gg, bias, mask, lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), n, e, heads, batch, w0, k_tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  const int q_tiles = (n + kDqQueryTile - 1) / kDqQueryTile;
+  const int rows_per_group = (rows + groups - 1) / groups;
+  dq_dbias_kernel<T><<<static_cast<unsigned>(heads * q_tiles * groups), kThreads,
+                       dq_smem(n), stream>>>(
+      qq, kk, vv, gg, bias, mask, lse, delta, static_cast<T*>(dq),
+      groups > 1 ? partial : dbias, n, e, heads, batch, w0, rows, q_tiles, groups,
+      rows_per_group, db_stride(n));
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  if (groups > 1) {
+    const size_t cells = static_cast<size_t>(heads) * n * n;
+    group_sum_kernel<<<static_cast<unsigned>((cells + kThreads - 1) / kThreads),
+                       kThreads, 0, stream>>>(partial, dbias, groups, cells);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
+}
+
+bool shapes_ok(int rows, int n, int e, int heads, int w0) {
+  return rows > 0 && n > 0 && heads > 0 && w0 > 0 && e % heads == 0 &&
+         e / heads == kD && rows % w0 == 0 && dq_smem(n) <= kMaxSmem &&
+         static_cast<long long>(heads) * ((n + kDqQueryTile - 1) / kDqQueryTile) *
+                 kMaxGroups <= 0x7fffffffLL;
+}
+
+}  // namespace
+
+// the largest N the kernel takes: pass 3 keeps a (32, N) fp32 tile of dbias in
+// shared memory
+extern "C" int window_attention_bwd_max_n() {
+  int n = kKeyTile;
+  while (dq_smem(n + kKeyTile) <= kMaxSmem) n += kKeyTile;
+  return n;
+}
+
+// Groups of rows pass 3 will use for these shapes on the current device
+// (dtype: 0 = float32, 1 = bfloat16): with more than one, the caller allocates
+// the fp32 workspace `partial` of (groups, H, N, N). 0 on an error or on
+// shapes the kernel does not take.
+extern "C" int window_attention_bwd_row_groups(int rows, int n, int e, int heads,
+                                               int w0, int dtype) {
+  if (!shapes_ok(rows, n, e, heads, w0)) return 0;
+  if (dtype == 0) return row_groups<float>(rows, n, heads);
+  if (dtype == 1) return row_groups<__nv_bfloat16>(rows, n, heads);
+  return 0;
+}
+
+// rows = W0 * B. dtype of q, k, v, dout, dq, dk, dv: 0 = float32,
+// 1 = bfloat16; out, bias, mask, lse, delta, partial and dbias are float32. Returns
+// a cudaError_t (0 on success). The caller checks shapes, contiguity and
+// 16-byte alignment and allocates the fp32 workspaces: delta (rows, H, N) and,
+// when window_attention_bwd_row_groups(...) is more than 1, partial of that
+// many (H, N, N) tiles; workspace_groups short of it is refused.
+extern "C" int window_attention_bwd(const void* q, const void* k, const void* v,
+                                    const void* bias, const void* mask,
+                                    const void* out, const void* dout,
+                                    const void* lse, void* delta, void* partial,
+                                    void* dq, void* dk, void* dv, void* dbias,
+                                    int rows, int n, int e, int heads, int w0,
+                                    int dtype, int workspace_groups,
+                                    void* stream) {
+  if (!shapes_ok(rows, n, e, heads, w0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bb = static_cast<const float*>(bias);
+  const float* mm = static_cast<const float*>(mask);
+  const float* ll = static_cast<const float*>(lse);
+  const float* oo = static_cast<const float*>(out);
+  float* dl = static_cast<float*>(delta);
+  float* pp = static_cast<float*>(partial);
+  float* db = static_cast<float*>(dbias);
+  if (dtype == 0)
+    return launch<float>(q, k, v, bb, mm, oo, dout, ll, dl, pp, dq, dk, dv, db,
+                         rows, n, e, heads, w0, workspace_groups, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, bb, mm, oo, dout, ll, dl, pp, dq, dk,
+                                 dv, db, rows, n, e, heads, w0, workspace_groups, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

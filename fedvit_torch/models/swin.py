@@ -12,15 +12,17 @@ a window that clamps to the stage's resolution.
 Layout: tokens stay (B, H, W, C) between blocks; the window partition is
 window-major, (nW·B, w², C) with the rows of one window contiguous, which is
 what ``flash_attention_bias_flat`` takes: on a CUDA tensor the hand-written
-kernel K5, on a CPU tensor its plain version. The bias (H, n, n) and the shift
-mask (nW, n, n) go to it as separate inputs.
+kernels (K5; under grad its log-sum-exp entry and the backward K6), on a CPU
+tensor their plain version. The bias (H, n, n) and the shift mask (nW, n, n)
+go to it as separate inputs; the bias's gradient reaches ``cpb_mlp`` through
+the sliding windows of ``expand_bias_table``.
 
 Two things differ from the JAX module tree, both to keep timm's names and
 weight layouts: the patch merging sits at the start of stage s+1
 (``layers.{s+1}.downsample``), not at the end of stage s, and gathers its four
-pixel chunks in timm's order. The coordinate table, the position index and the
-shift mask are made at construction from ``image_size`` and are buffers that
-the state dict leaves out.
+pixel chunks in timm's order. The coordinate table and the shift mask are made
+at construction from ``image_size`` and are buffers that the state dict leaves
+out.
 """
 
 from __future__ import annotations
@@ -95,20 +97,23 @@ def relative_position_index(window: int) -> np.ndarray:
     return rel.sum(-1).astype(np.int32)                    # (w², w²)
 
 
-def expand_bias_table(table: torch.Tensor, window: int,
-                      index: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(2w−1, 2w−1, H) bias table → (H, w², w²) per-pair bias:
+def expand_bias_table(table: torch.Tensor, window: int) -> torch.Tensor:
+    """(2w−1, 2w−1, H) bias table → (H, w², w²) per-pair bias, the values of
     ``table.reshape(-1, H)[relative_position_index(w)]`` with the heads moved
-    first. (The JAX function builds the same values from static slices to
-    spare the TPU a gather.) ``index`` is the position index as a long tensor
-    on the table's device, made here when not given."""
+    first: entry (query (yi, xi), key (yj, xj)) is
+    ``table[yi − yj + w − 1, xi − xj + w − 1]``.
+
+    Built from sliding windows over the flipped table, not from an index
+    gather (the JAX function, too, builds it from static slices): under grad a
+    gather's backward is a scatter-add of H·w⁴ values over repeated indices,
+    which PyTorch sorts first, a millisecond a block on the card; a sliding
+    window's backward sums each table cell's w² uses in one order."""
     heads = table.shape[-1]
     n = window * window
-    if index is None:
-        index = torch.from_numpy(relative_position_index(window)).long().to(
-            table.device)
-    by_head = table.reshape(-1, heads).t().contiguous()    # (H, (2w−1)²)
-    return by_head[:, index.reshape(-1)].reshape(heads, n, n)
+    flipped = table.permute(2, 0, 1).flip((1, 2))          # (H, 2w−1, 2w−1)
+    # [h, s, t, yj, xj] = flipped[h, s + yj, t + xj], with s = w − 1 − yi
+    pairs = flipped.unfold(1, window, 1).unfold(2, window, 1)
+    return pairs.flip((1, 2)).reshape(heads, n, n)
 
 
 def shift_attention_mask(h: int, w: int, window: int, shift: int
@@ -166,17 +171,12 @@ class WindowAttentionV2(nn.Module):
             "relative_coords_table",
             torch.from_numpy(relative_coords_table(window, pretrained_window)),
             persistent=False)
-        self.register_buffer(
-            "relative_position_index",
-            torch.from_numpy(relative_position_index(window)).long(),
-            persistent=False)
 
     def relative_position_bias(self) -> torch.Tensor:
         """(H, w², w²) fp32: 16·sigmoid of the CPB MLP over the coordinate
         table, in fp32 whatever the compute dtype."""
         cpb = self.cpb_mlp(self.relative_coords_table)     # (1, 2w−1, 2w−1, H)
-        return expand_bias_table(16.0 * torch.sigmoid(cpb[0]), self.window,
-                                 self.relative_position_index)
+        return expand_bias_table(16.0 * torch.sigmoid(cpb[0]), self.window)
 
     def _inv_norm(self, t: torch.Tensor,
                   head_scale: Optional[torch.Tensor] = None) -> torch.Tensor:

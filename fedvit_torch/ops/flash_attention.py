@@ -17,19 +17,27 @@ fallback:
   dqkv and the bias gradient, so the bias-free projection never counts it.
 
 ``flash_attention_bias_flat`` is the port of ``fedvit_tpu/ops/
-flash_attention.py::flash_attention_bias_flat``, forward only: on a CPU tensor
-the plain ``ops/attention.py::windowed_attention_flat``, on a CUDA tensor K5
-(``csrc/window_attention.cu::window_attention_fwd``, replaces
-``_wflat_fwd_kernel``). Its backward (K6) is not ported: a CUDA tensor that
-needs a gradient is refused. ``window_attention_lse_cuda`` is K5 plus each
-row's log-sum-exp (replaces ``_wflat_fwd_stats_kernel``), which that backward
-will read.
+flash_attention.py::flash_attention_bias_flat``. On a CPU tensor it runs the
+plain ``ops/attention.py::windowed_attention_flat`` under torch autograd; on a
+CUDA tensor, with no fallback:
+
+- K5 (``csrc/window_attention.cu::window_attention_fwd``, replaces
+  ``_wflat_fwd_kernel``) when no gradient is needed: serving;
+- under grad, the ``torch.autograd.Function`` ``WindowAttention``: its forward
+  launches K5's log-sum-exp entry (``window_attention_fwd_lse``, replaces
+  ``_wflat_fwd_stats_kernel``; it also keeps the output before its rounding,
+  in fp32, for the backward's delta) and its backward K6
+  (``csrc/window_attention_bwd.cu``; replaces ``_wflat_bwd_kernel``,
+  ``_wflat_bwd_stats_kernel`` and ``_wflat_bwd_delta_kernel``), which returns
+  dq, dk, dv and the bias gradient. The mask is a constant: one that needs a
+  gradient is refused, it never silently gets zeros.
 
 Each kernel's wrapper counts its launches in its ``launches`` attribute:
 ``flash_attention_qkvb.launches`` (K1), ``qkvb_attention_lse_cuda.launches``
 (K2), ``qkvb_attention_bwd_cuda.launches`` (K3),
 ``flash_attention_bias_flat.launches`` (K5),
-``window_attention_lse_cuda.launches`` (K5 with the log-sum-exp).
+``window_attention_lse_cuda.launches`` (K5 with the log-sum-exp),
+``window_attention_bwd_cuda.launches`` (K6).
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from fedvit_torch.ops.attention import (attention_from_qkvb,
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64,)          # K1-K3: ViT-Ti/S/B/L all have d = 64
-_WINDOW_HEAD_DIMS = (32,)   # K5: every SwinV2 the registry builds has d = 32
+_WINDOW_HEAD_DIMS = (32,)   # K5, K6: every SwinV2 the registry builds has d = 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -213,7 +221,7 @@ qkvb_attention_bwd_cuda.launches = 0
 def _window_library() -> ctypes.CDLL:
     lib = kernels.load("window_attention")
     lib.window_attention_fwd.argtypes = [_P] * 6 + [_I] * 6 + [_P]
-    lib.window_attention_fwd_lse.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    lib.window_attention_fwd_lse.argtypes = [_P] * 8 + [_I] * 6 + [_P]
     lib.window_attention_fwd.restype = _I
     lib.window_attention_fwd_lse.restype = _I
     return lib
@@ -223,19 +231,13 @@ def _check_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   bias: torch.Tensor, mask: Optional[torch.Tensor],
                   num_heads: int) -> Tuple[int, int, int, int, torch.Tensor,
                                            torch.Tensor]:
-    """Raise on what K5 does not take; returns (W0·B, N, E, W0) and the bias
-    and mask as contiguous fp32 (the mask zeros (1, N, N) for None)."""
+    """Raise on what K5 and K6 do not take; returns (W0·B, N, E, W0) and the
+    bias and mask as contiguous fp32 (the mask zeros (1, N, N) for None)."""
     if q.device.type != "cuda" or any(
             t.device != q.device for t in (k, v, bias)) or (
             mask is not None and mask.device != q.device):
         raise ValueError(f"q, k, v, bias and mask must be on one CUDA device, "
                          f"got q on {q.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, bias, mask)):
-        raise NotImplementedError(
-            "flash_attention_bias_flat has no backward on CUDA yet (K6, the "
-            "windowed attention's backward, comes with Swin training); run it "
-            "under torch.no_grad() or torch.inference_mode()")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k and v must share a dtype of float32 or "
                         f"bfloat16, got {q.dtype}, {k.dtype} and {v.dtype}")
@@ -282,19 +284,101 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def window_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, bias: torch.Tensor,
                               mask: Optional[torch.Tensor], num_heads: int
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5's output, bit for bit, and each row's log-sum-exp of the biased,
-    masked scores, (W0·B, H, N) fp32."""
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """K5's output, bit for bit, and what K6 reads: each row's log-sum-exp of
+    the biased, masked scores, (W0·B, H, N) fp32, and the output before its
+    rounding to q's type, (W0·B, N, E) fp32."""
     rows, n, e, w0, bias, mask = _check_window(q, k, v, bias, mask, num_heads)
     out = torch.empty_like(q)
-    lse = torch.empty((rows, num_heads, n), dtype=torch.float32,
-                      device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse = torch.empty((rows, num_heads, n), **f32)
+    out32 = torch.empty((rows, n, e), **f32)
     _raise_on(_window_library().window_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), lse.data_ptr(), rows, n, e, num_heads,
-        w0, _DTYPES[q.dtype], _stream(q)), "window_attention_fwd_lse")
+        mask.data_ptr(), out.data_ptr(), lse.data_ptr(), out32.data_ptr(), rows,
+        n, e, num_heads, w0, _DTYPES[q.dtype], _stream(q)),
+        "window_attention_fwd_lse")
     window_attention_lse_cuda.launches += 1
-    return out, lse
+    return out, lse, out32
+
+
+@functools.cache
+def _window_bwd_library() -> ctypes.CDLL:
+    lib = kernels.load("window_attention_bwd")
+    lib.window_attention_bwd.argtypes = [_P] * 14 + [_I] * 7 + [_P]
+    lib.window_attention_bwd_row_groups.argtypes = [_I] * 6
+    lib.window_attention_bwd_max_n.argtypes = []
+    for name in ("window_attention_bwd", "window_attention_bwd_row_groups",
+                 "window_attention_bwd_max_n"):
+        getattr(lib, name).restype = _I
+    return lib
+
+
+def window_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias: torch.Tensor,
+                              mask: Optional[torch.Tensor], out32: torch.Tensor,
+                              dout: torch.Tensor, lse: torch.Tensor,
+                              num_heads: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor, torch.Tensor]:
+    """K6: (dq, dk, dv (W0·B, N, E) in q's type, dbias (H, N, N) fp32) from
+    the forward's inputs, its unrounded fp32 output and lse
+    (``window_attention_lse_cuda``), and the output's gradient. The mask gets
+    no gradient."""
+    rows, n, e, w0, bias, mask = _check_window(q, k, v, bias, mask, num_heads)
+    for name, t, shape, dtype in (
+            ("out32", out32, (rows, n, e), torch.float32),
+            ("dout", dout, (rows, n, e), q.dtype),
+            ("lse", lse, (rows, num_heads, n), torch.float32)):
+        if (t.shape != shape or t.dtype != dtype or t.device != q.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, aligned {shape} "
+                             f"{dtype} tensor on {q.device}")
+    lib = _window_bwd_library()
+    if n > lib.window_attention_bwd_max_n():
+        raise ValueError(f"N={n}: the windowed attention's backward takes at "
+                         f"most {lib.window_attention_bwd_max_n()} tokens")
+    groups = lib.window_attention_bwd_row_groups(rows, n, e, num_heads, w0,
+                                                 _DTYPES[q.dtype])
+    if groups < 1:
+        raise RuntimeError("window_attention_bwd_row_groups failed")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((rows, num_heads, n), **f32)
+    # one group of rows writes dbias itself; more write a tile each
+    partial = torch.empty((groups if groups > 1 else 0, num_heads, n, n), **f32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dbias = torch.empty((num_heads, n, n), **f32)
+    _raise_on(lib.window_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        mask.data_ptr(), out32.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), partial.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dbias.data_ptr(), rows, n, e, num_heads, w0,
+        _DTYPES[q.dtype], partial.shape[0], _stream(q)), "window_attention_bwd")
+    window_attention_bwd_cuda.launches += 1
+    return dq, dk, dv, dbias
+
+
+class WindowAttention(torch.autograd.Function):
+    """K5's log-sum-exp entry forward, K6 backward. Saves q, k, v, the bias,
+    the mask, the unrounded fp32 output and the log-sum-exp; the bias gradient
+    comes back in the bias's dtype and the mask gets none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, num_heads):
+        out, lse, out32 = window_attention_lse_cuda(q, k, v, bias, mask,
+                                                    num_heads)
+        ctx.save_for_backward(q, k, v, bias, mask, out32, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, mask, out32, lse = ctx.saved_tensors
+        dq, dk, dv, dbias = window_attention_bwd_cuda(
+            q, k, v, bias, mask, out32, dout.to(q.dtype).contiguous(), lse,
+            ctx.num_heads)
+        return dq, dk, dv, dbias.to(bias.dtype), None, None
 
 
 def flash_attention_bias_flat(q: torch.Tensor, k: torch.Tensor,
@@ -304,14 +388,22 @@ def flash_attention_bias_flat(q: torch.Tensor, k: torch.Tensor,
     """Windowed attention softmax(q_h·k_hᵀ + bias[h] + mask[w])·v_h.
 
     q, k, v: (W0·B, N, E) window-major flat; bias (H, N, N); mask (W0, N, N)
-    additive, or None. The caller folds any score scale into q. CPU tensors
-    take the plain version; CUDA tensors K5, which has no backward yet and
-    refuses a tensor that needs a gradient.
+    additive, or None. The caller folds any score scale into q. The mask is a
+    constant: one that needs a gradient raises. CPU tensors take the plain
+    version; CUDA tensors the kernels: K5's log-sum-exp entry and K6 when a
+    gradient is needed, else K5.
     ``flash_attention_bias_flat.launches`` counts K5's launches."""
+    if mask is not None and mask.requires_grad:
+        raise ValueError("the mask of flash_attention_bias_flat is a constant "
+                         "and gets no gradient; detach it")
     if q.device.type == "cpu":
         return windowed_attention_flat(q, k, v, bias, mask, num_heads)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, bias)):
+        return WindowAttention.apply(q, k, v, bias, mask, num_heads)
     return window_attention_cuda(q, k, v, bias, mask, num_heads)
 
 
 flash_attention_bias_flat.launches = 0
 window_attention_lse_cuda.launches = 0
+window_attention_bwd_cuda.launches = 0

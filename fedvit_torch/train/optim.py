@@ -40,9 +40,14 @@ def llrd_scale_map(names: Iterable[str], decay: float = 0.75,
     port's timm names), with n the backbone's block count:
 
     ``backbone.patch_embed.*``, ``backbone.cls_token``, ``backbone.pos_embed``
-    : d^(n+1); ``backbone.blocks.{i}.*`` : d^(n−i); other backbone parameters
-    (the final ``backbone.norm``) : 1; everything else (head, metadata) :
-    ``head_mult``."""
+    : d^(n+1); ``backbone.blocks.{i}.*`` and ``backbone.layers.{i}.*`` :
+    d^(n−i); other backbone parameters (the final ``backbone.norm``) : 1;
+    everything else (head, metadata) : ``head_mult``.
+
+    A SwinV2 patch merging is ``backbone.layers.{s}.downsample.*`` here (timm
+    puts it at the start of the stage it feeds) and ``layers_{s−1}/downsample``
+    in the JAX tree (at the end of the stage it follows): it takes stage
+    s−1's scale, d^(n−s+1), as the JAX package gives it."""
     names = list(names)
     stages = [int(m.group(2)) for m in map(_STAGE.match, names) if m]
     n = max(stages) + 1 if stages else 0
@@ -55,7 +60,8 @@ def llrd_scale_map(names: Iterable[str], decay: float = 0.75,
             return decay ** (n + 1)
         m = _STAGE.match(name)
         if m:
-            return decay ** (n - int(m.group(2)))
+            i = int(m.group(2)) - (parts[3] == "downsample")
+            return decay ** (n - i)
         return 1.0
 
     return {name: scale_for(name) for name in names}

@@ -19,9 +19,10 @@ Parameters are fp32 and are cast to the compute dtype where they are used
 (``models/layers.py::Dense``), as flax does: no ``torch.autocast`` and no
 GradScaler, since bf16 has fp32's exponent range.
 
-On a CUDA model every attention runs K2 forward and K3 backward and every
-LayerNorm K4 backward (``ops/``): per micro-batch of a ViT-B, 12, 12 and 25
-launches.
+On a CUDA model every LayerNorm runs K4 backward and every attention a
+forward and a backward kernel (``ops/``): K2 and K3 in a ViT (per micro-batch
+of a ViT-B, 12, 12 and 25 K4 launches), K5's log-sum-exp entry and K6 in a
+SwinV2 (per micro-batch of a SwinV2-L, 24, 24 and 53 K4 launches).
 """
 
 from __future__ import annotations
@@ -119,8 +120,7 @@ def make_train_step(cfg: Config, loss_fn: LossFn,
                     augment: Optional[Callable] = None) -> TrainStep:
     """The train step for ``cfg``. The batch arrives already augmented:
     ``augment`` (the on-device train augment) is not ported yet and raises,
-    as do ``model.remat`` and a Swin backbone (its attention has no backward
-    kernel yet)."""
+    as does ``model.remat``."""
     if augment is not None:
         raise NotImplementedError(
             "the on-device train augment is not ported yet; pass batches "
@@ -128,9 +128,4 @@ def make_train_step(cfg: Config, loss_fn: LossFn,
     if cfg.model.remat:
         raise NotImplementedError("model.remat (rematerialised blocks) is not "
                                   "ported yet")
-    if cfg.model.backbone.startswith("swin"):
-        raise NotImplementedError(
-            f"{cfg.model.backbone}: Swin training is not ported yet; it needs "
-            f"K6, the backward of the windowed attention "
-            f"(flash_attention_bias_flat), and only its forward (K5) is ported")
     return TrainStep(cfg, loss_fn)

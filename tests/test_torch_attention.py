@@ -263,3 +263,112 @@ def test_window_wrapper_counts_only_kernel_launches_and_refuses_cpu_tensors():
         fa.window_attention_cuda(q, k, v, bias, mask, 1)
     with pytest.raises(ValueError, match="CUDA"):
         fa.window_attention_lse_cuda(q, k, v, bias, mask, 1)
+
+
+# --- the windowed backward ---------------------------------------------------
+# The port's CPU path is the plain version under torch autograd; K6 is held to
+# it on the card. Here its gradients (dq, dk, dv, dbias; the mask gets none)
+# are held to jax.vjp of the Pallas kernel in interpret mode in every TPU
+# backward variant — the plain recompute kernel, the saved-statistics kernel
+# (the default) and the statistics + delta kernel, chosen by the JAX package's
+# own switches — and of the XLA branch, at the shapes with several windows and
+# several rows a window, with the mask and with ``mask=None``. Tolerance: atol
+# 2e-5 plus rtol 1e-5 for dq, dk, dv (fp32, sums over up to 144 keys in another
+# order; gradients reach several units, where an fp32 ulp is 5e-7), atol 1e-4
+# for dbias (fp32 sums of dS over up to 12 rows, values of size ~1).
+
+WFLAT_GRAD_SHAPES = [s for s in WFLAT_SHAPES if s[0] > 1 and s[1] > 1]
+_WINDOW_VARIANTS = {"plain": {"FEDVIT_WATTN_STATS": "0"}, "stats": {},
+                    "stats_delta": {"FEDVIT_WATTN_DELTA": "1"}}
+
+
+def _port_window_grads(q, k, v, bias, mask, h, dout):
+    from fedvit_torch.ops.flash_attention import flash_attention_bias_flat
+    leaves = [torch.from_numpy(t).requires_grad_() for t in (q, k, v, bias)]
+    out = flash_attention_bias_flat(
+        *leaves, None if mask is None else torch.from_numpy(mask), h)
+    out.backward(torch.from_numpy(dout))
+    return [t.grad.numpy() for t in leaves]
+
+
+def _jax_window_vjp(fn, q, k, v, bias, dout):
+    _, vjp = jax.vjp(fn, *(jnp.asarray(t) for t in (q, k, v, bias)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+def _assert_window_grads(got, want):
+    assert len(got) == len(want) == 4
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(g, w, atol=WFLAT_ATOL, rtol=1e-5)
+    np.testing.assert_allclose(got[3], want[3], atol=1e-4)
+
+
+def _window_grad_case(w0, b, n, h, d, masked, seed):
+    if not masked:
+        w0, b = 1, w0 * b           # no mask: one group of all rows
+    q, k, v, bias, mask = _window_inputs(w0, b, n, h, d, seed, masked=masked)
+    dout = np.random.default_rng(seed + 1).normal(
+        size=(w0 * b, n, h * d)).astype(np.float32)
+    return q, k, v, bias, mask, dout
+
+
+@pytest.mark.parametrize("variant", list(_WINDOW_VARIANTS))
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "mask_none"])
+@pytest.mark.parametrize("w0,b,n,h,d", WFLAT_GRAD_SHAPES)
+def test_windowed_backward_matches_pallas_kernels_in_interpret_mode(
+        monkeypatch, w0, b, n, h, d, masked, variant):
+    from fedvit_tpu.ops.flash_attention import flash_attention_bias_flat
+    for key, val in _WINDOW_VARIANTS[variant].items():
+        monkeypatch.setenv(key, val)
+    q, k, v, bias, mask, dout = _window_grad_case(w0, b, n, h, d, masked,
+                                                  seed=n + w0 + 3)
+    jmask = jnp.zeros((1, n, n), jnp.float32) if mask is None else \
+        jnp.asarray(mask)
+    want = _jax_window_vjp(
+        lambda q_, k_, v_, b_: flash_attention_bias_flat(
+            q_, k_, v_, b_, jmask, h, interpret=True), q, k, v, bias, dout)
+    _assert_window_grads(_port_window_grads(q, k, v, bias, mask, h, dout), want)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["mask", "mask_none"])
+@pytest.mark.parametrize("w0,b,n,h,d", WFLAT_GRAD_SHAPES)
+def test_windowed_backward_matches_jax_xla_branch(w0, b, n, h, d, masked):
+    q, k, v, bias, mask, dout = _window_grad_case(w0, b, n, h, d, masked,
+                                                  seed=n + b + 5)
+    jmask = None if mask is None else jnp.asarray(mask)
+    want = _jax_window_vjp(
+        lambda q_, k_, v_, b_: jattn.windowed_attention_flat(
+            q_, k_, v_, b_, jmask, h, impl="xla"), q, k, v, bias, dout)
+    _assert_window_grads(_port_window_grads(q, k, v, bias, mask, h, dout), want)
+
+
+def test_windowed_mask_that_needs_a_gradient_raises():
+    """The mask is a constant of the model: its cotangent is structurally zero
+    in the JAX package, so the port refuses a mask that asks for one instead of
+    handing it zeros."""
+    from fedvit_torch.ops.flash_attention import flash_attention_bias_flat
+    q, k, v, bias, mask = (torch.from_numpy(t) for t in
+                           _window_inputs(2, 2, 16, 1, 32, seed=1))
+    with pytest.raises(ValueError, match="mask"):
+        flash_attention_bias_flat(q, k, v, bias, mask.requires_grad_(), 1)
+
+
+def test_windowed_cpu_grad_path_launches_no_kernel():
+    from fedvit_torch.ops import flash_attention as fa
+    q, k, v, bias, mask = _window_inputs(2, 2, 16, 1, 32, seed=2)
+    counted = (fa.flash_attention_bias_flat, fa.window_attention_lse_cuda,
+               fa.window_attention_bwd_cuda)
+    counts = [fn.launches for fn in counted]
+    grads = _port_window_grads(q, k, v, bias, mask, 1,
+                               np.ones((4, 16, 32), np.float32))
+    assert [fn.launches for fn in counted] == counts
+    assert all(np.isfinite(g).all() and np.abs(g).max() > 0 for g in grads)
+
+
+def test_kernel_wrapper_of_the_windowed_backward_refuses_cpu_tensors():
+    from fedvit_torch.ops import flash_attention as fa
+    q, k, v, bias, mask = (torch.from_numpy(t) for t in
+                           _window_inputs(2, 2, 16, 1, 32, seed=0))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.window_attention_bwd_cuda(q, k, v, bias, mask, q, q,
+                                     torch.zeros(4, 1, 16), 1)

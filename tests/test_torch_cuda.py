@@ -28,6 +28,15 @@ Tolerances:
   rounds the softmax weights to bf16 before P·V). The log-sum-exp variant's
   output is K5's, bit for bit; its LSE atol 1e-4 against ``torch.logsumexp`` of
   the plain fp32 scores.
+- K6 (dq, dk, dv, dbias) against autograd of ``windowed_attention_flat``:
+  fp32 1e-4 of the largest |value| (sums over N keys and, for dbias, W0·B rows
+  in another order); bf16 2^-6 as the RMS of the difference over the RMS of the
+  plain gradient (the kernel rounds dS to bf16 before dq and dk, the plain
+  backward rounds dP instead; both round P before dv: each term a bf16
+  rounding apart, some 2^-8 of the RMS in all). The log-sum-exp entry's
+  unrounded fp32 output, which K6's delta reads, rounds to its output.
+- A tiny SwinV2 train step on the card against the CPU, fp32: loss rtol 1e-4,
+  each leaf's gradient atol 1e-4 plus rtol 1e-3, as for the ViT.
 """
 
 import pytest
@@ -179,7 +188,10 @@ def test_k3_dbias_sums_the_rounded_dqkv(cuda):
 @pytest.mark.parametrize("shape,dtype,dx_tol", [
     ((37, 192), torch.float32, 1e-5), ((3, 197, 768), torch.float32, 1e-5),
     ((2, 65, 1024), torch.float32, 1e-5), ((64, 197, 768), torch.bfloat16, 2.0 ** -6),
-    ((5, 37, 192), torch.bfloat16, 2.0 ** -6), ((1, 1, 768), torch.bfloat16, 2.0 ** -6)])
+    ((5, 37, 192), torch.bfloat16, 2.0 ** -6), ((1, 1, 768), torch.bfloat16, 2.0 ** -6),
+    # SwinV2-L's widths: 24 and 48 vectors a row (lanes idle), 1536 in both types
+    ((9, 48, 384), torch.bfloat16, 2.0 ** -6), ((70, 1536), torch.bfloat16, 2.0 ** -6),
+    ((70, 1536), torch.float32, 1e-5), ((3, 2048), torch.float32, 1e-5)])
 def test_k4_matches_plain(cuda, shape, dtype, dx_tol):
     g = torch.Generator(device="cuda").manual_seed(shape[-1])
     x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
@@ -198,9 +210,10 @@ def test_k4_matches_plain(cuda, shape, dtype, dx_tol):
 
 
 def test_k4_refuses_d_over_its_cap(cuda):
-    x = torch.randn(2, 1028, device="cuda")
-    with pytest.raises(ValueError, match="at most 1024"):
-        ln.layer_norm_bwd_cuda(x, torch.ones(1028, device="cuda"), x)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(2, 2056, device="cuda").to(dtype)
+        with pytest.raises(ValueError, match="at most 2048"):
+            ln.layer_norm_bwd_cuda(x, torch.ones(2056, device="cuda"), x)
 
 
 def test_k3_k4_refuse_a_short_workspace(cuda):
@@ -337,11 +350,13 @@ def test_window_lse_variant_is_k5_plus_lse(cuda, w0, b, n, heads, dtype):
     q, k, v, bias, mask = _window_inputs(w0, b, n, heads, dtype, seed=n)
     counts = (fa.flash_attention_bias_flat.launches,
               fa.window_attention_lse_cuda.launches)
-    out, lse = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
+    out, lse, out32 = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
     torch.cuda.synchronize()
     assert (fa.flash_attention_bias_flat.launches,
             fa.window_attention_lse_cuda.launches) == (counts[0], counts[1] + 1)
     assert torch.equal(out, fa.window_attention_cuda(q, k, v, bias, mask, heads))
+    # the unrounded output: fp32, and out is its rounding to q's type
+    assert out32.dtype == torch.float32 and torch.equal(out32.to(dtype), out)
     qh, kh = (t.reshape(w0, b, n, heads, 32).float() for t in (q, k))
     s = torch.einsum("wbnhd,wbmhd->wbhnm", qh, kh) + bias + mask[:, None, None]
     assert lse.shape == (w0 * b, heads, n) and lse.dtype == torch.float32
@@ -373,21 +388,22 @@ def test_window_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         fa.window_attention_cuda(q.cpu(), k.cpu(), v.cpu(), bias.cpu(),
                                  mask.cpu(), 2)
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(ValueError, match="mask"):     # the mask is a constant
+        fa.flash_attention_bias_flat(q, k, v, bias, mask.clone().requires_grad_(),
+                                     2)
+    counts = (fa.flash_attention_bias_flat.launches,
+              fa.window_attention_lse_cuda.launches)
+    with torch.no_grad():      # without grad mode a leaf is served by K5
         fa.flash_attention_bias_flat(q.clone().requires_grad_(), k, v, bias,
                                      mask, 2)
-    with pytest.raises(NotImplementedError, match="K6"):
-        fa.flash_attention_bias_flat(q, k, v, bias.clone().requires_grad_(),
-                                     mask, 2)
-    with torch.no_grad():      # without grad mode the same tensor is served
-        fa.flash_attention_bias_flat(q.clone().requires_grad_(), k, v, bias,
-                                     mask, 2)
+    assert (fa.flash_attention_bias_flat.launches,
+            fa.window_attention_lse_cuda.launches) == (counts[0] + 1, counts[1])
 
 
 def test_tiny_swin_model_on_the_card_matches_the_cpu(cuda):
     """A SwinV2-tiny ISICClassifier at image_size 64 (windows of 8: stage 0
     shifts, the others clamp): one K5 launch per block, none of K1-K4, logits
-    equal to the CPU's plain path; under grad the card's path refuses."""
+    equal to the CPU's plain path."""
     from fedvit_torch.core.config import from_dict
     from fedvit_torch.models import build_model
 
@@ -414,5 +430,170 @@ def test_tiny_swin_model_on_the_card_matches_the_cpu(cuda):
              fa.qkvb_attention_bwd_cuda.launches, ln.layer_norm_bwd_cuda.launches)
     assert [a - c for a, c in zip(after, counts)] == [12, 0, 0, 0, 0]
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError, match="K6"):
-        gpu(x.cuda(), meta.cuda())
+
+
+# --- K6: the windowed attention's backward -----------------------------------
+
+def _plain_window_grads(q, k, v, bias, mask, heads, dout):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+    out = windowed_attention_flat(*leaves, mask, heads)
+    return torch.autograd.grad(out, leaves, dout)
+
+
+def _rel_rms(got, want):
+    got, want = got.float(), want.float()
+    return float(((got - want).square().mean() / want.square().mean()).sqrt())
+
+
+@pytest.mark.parametrize("w0,b,n,heads,dtype,masked", [
+    (4, 3, 49, 2, torch.float32, True),       # ragged N, W0 > 1 and B > 1
+    (9, 2, 16, 3, torch.float32, True),
+    (1, 5, 64, 6, torch.float32, False),
+    (3, 2, 1, 1, torch.float32, True),
+    (2, 3, 144, 4, torch.float32, True),      # 4.5 query tiles, 2.25 key tiles
+    (1, 40, 33, 2, torch.float32, False),     # more rows than row groups
+    (4, 3, 49, 2, torch.bfloat16, True),
+    (4, 2, 576, 6, torch.bfloat16, True),
+    (1, 3, 144, 48, torch.bfloat16, False),
+])
+def test_k6_matches_plain_backward(cuda, w0, b, n, heads, dtype, masked):
+    q, k, v, bias, mask = _window_inputs(w0, b, n, heads, dtype, seed=n + w0 + 1,
+                                         masked=masked)
+    g = torch.Generator(device="cuda").manual_seed(n)
+    dout = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    counted = (fa.flash_attention_bias_flat, fa.window_attention_lse_cuda,
+               fa.window_attention_bwd_cuda)
+    counts = [fn.launches for fn in counted]
+    out = fa.flash_attention_bias_flat(*leaves, mask, heads)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    # under grad: the log-sum-exp entry and K6, not the plain K5
+    assert [fn.launches - c for fn, c in zip(counted, counts)] == [0, 1, 1]
+    want = _plain_window_grads(q, k, v, bias, mask, heads, dout)
+    assert [t.dtype for t in got] == [dtype] * 3 + [torch.float32]
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.shape == w.shape and torch.isfinite(a).all(), name
+        if dtype == torch.float32:
+            assert _rel_err(a, w) <= 1e-4, name
+        else:
+            assert _rel_rms(a, w) <= 2.0 ** -6, name
+
+
+def test_k6_rows_are_window_major_and_every_run_gives_the_same_bits(cuda):
+    w0, b, n, heads = 4, 3, 49, 2
+    q, k, v, bias, mask = _window_inputs(w0, b, n, heads, torch.float32, seed=3)
+    out, lse, out32 = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
+    dout = torch.randn_like(out)
+    got = fa.window_attention_bwd_cuda(q, k, v, bias, mask, out32, dout, lse, heads)
+    again = fa.window_attention_bwd_cuda(q, k, v, bias, mask, out32, dout, lse, heads)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    # each window's rows alone, with that window's mask: dq, dk, dv of those
+    # rows, and dbias the sum over the windows
+    dbias = torch.zeros_like(got[3])
+    for w in range(w0):
+        rows = slice(w * b, (w + 1) * b)
+        one = _plain_window_grads(q[rows], k[rows], v[rows], bias, mask[w:w + 1],
+                                  heads, dout[rows])
+        for a, c in zip(got[:3], one[:3]):
+            assert _rel_err(a[rows], c) <= 1e-4
+        dbias += one[3]
+    assert _rel_err(got[3], dbias) <= 1e-4
+
+
+def test_k6_refuses_what_it_does_not_take(cuda):
+    q, k, v, bias, mask = _window_inputs(2, 2, 16, 2, torch.float32)
+    out, lse, out32 = fa.window_attention_lse_cuda(q, k, v, bias, mask, 2)
+    with pytest.raises(ValueError, match="dout"):
+        fa.window_attention_bwd_cuda(q, k, v, bias, mask, out32, out[:, 1:], lse, 2)
+    with pytest.raises(ValueError, match="lse"):
+        fa.window_attention_bwd_cuda(q, k, v, bias, mask, out32, out, lse.double(), 2)
+    with pytest.raises(ValueError, match="out32"):     # the fp32 output, not out
+        fa.window_attention_bwd_cuda(q, k, v, bias, mask, out32.bfloat16(), out,
+                                     lse, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.window_attention_bwd_cuda(q, k, v, bias[:1], mask, out, out, lse, 1)
+    lib = fa._window_bwd_library()
+    n = lib.window_attention_bwd_max_n() + 1
+    big = torch.zeros(1, n, 32, device="cuda")
+    with pytest.raises(ValueError, match="at most"):
+        fa.window_attention_bwd_cuda(big, big, big, torch.zeros(1, n, n, device="cuda"),
+                                     None, big, big, torch.zeros(1, 1, n, device="cuda"), 1)
+
+
+def test_k6_refuses_a_short_workspace(cuda):
+    """With more than one group of rows the C entry point needs a tile of
+    (H, N, N) per group and returns an error for fewer, instead of writing
+    past the buffer."""
+    rows, n, heads = 64, 64, 1
+    lib = fa._window_bwd_library()
+    groups = lib.window_attention_bwd_row_groups(rows, n, 32 * heads, heads, 1, 0)
+    assert groups > 1
+    q, k, v, bias, _ = _window_inputs(1, rows, n, heads, torch.float32, masked=False)
+    mask = torch.zeros(1, n, n, device="cuda")
+    out, lse, out32 = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
+    delta = torch.empty_like(lse)
+    partial = torch.empty(groups - 1, heads, n, n, device="cuda")
+    outs = [torch.empty_like(q) for _ in range(3)] + [torch.empty_like(bias)]
+    args = [t.data_ptr() for t in (q, k, v, bias, mask, out32, out, lse, delta,
+                                   partial, *outs)]
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.window_attention_bwd(*args, rows, n, 32 * heads, heads, 1, 0,
+                                    groups - 1, stream) != 0
+    assert lib.window_attention_bwd_row_groups(rows, n, 64, heads, 1, 0) == 0
+
+
+def test_tiny_swin_train_step_on_the_card_matches_the_cpu(cuda):
+    """One accumulation of a SwinV2-tiny train step at image_size 64 (windows
+    of 8: stage 0 shifts and takes the mask), fp32, drop-path and dropouts off
+    and no mixing so both devices compute the same function: per micro-batch
+    one launch of K5's log-sum-exp entry and of K6 per block, one K4 per
+    LayerNorm, none of K1-K3 nor of the plain K5; loss and every leaf's
+    gradient equal to the CPU's plain path."""
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.models import build_model
+    from fedvit_torch.train.losses import build_loss
+    from fedvit_torch.train.optim import build_optimizer
+    from fedvit_torch.train.state import TrainState
+    from fedvit_torch.train.step import make_train_step
+
+    cfg = from_dict({
+        "model": {"backbone": "swinv2_tiny_window8_64", "image_size": 64,
+                  "compute_dtype": "float32", "drop_path_rate": 0.0,
+                  "metadata": {"dropout": 0.0}, "classifier": {"dropout": 0.0}},
+        "data": {"use_segmentation_mask": True},
+        "training": {"batch_size": 2, "gradient_accumulation_steps": 2,
+                     "scheduler": {"warmup_epochs": 0}},
+        "augmentation": {"mixup": {"enabled": False},
+                         "cutmix": {"enabled": False}}})
+    cpu = build_model(cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():       # non-zero biases, peaked attention
+        for p in cpu.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=g))
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    batch = {"image": torch.randn(4, 64, 64, 4, generator=g).numpy(),
+             "label": torch.randint(0, 8, (4,), generator=g).numpy(),
+             "metadata": torch.rand(4, 13, generator=g).numpy()}
+    step = make_train_step(cfg, build_loss(cfg))
+    grads, losses = {}, {}
+    counted = (fa.flash_attention_bias_flat, fa.window_attention_lse_cuda,
+               fa.window_attention_bwd_cuda, ln.layer_norm_bwd_cuda,
+               fa.flash_attention_qkvb, fa.qkvb_attention_lse_cuda,
+               fa.qkvb_attention_bwd_cuda)
+    counts = [fn.launches for fn in counted]
+    for name, model in (("cuda", gpu), ("cpu", cpu)):
+        tx, _ = build_optimizer(cfg, model, steps_per_epoch=10)
+        state = TrainState.create(model, tx, seed=0)
+        got, loss, _ = step.accumulate_grads(state, batch)
+        grads[name] = {n: t.detach().cpu().clone() for n, t in got.items()}
+        losses[name] = float(loss)
+    norms = sum(isinstance(m, ln.LayerNorm) for m in gpu.modules())
+    assert norms == 1 + 2 * 12 + 3 + 1
+    assert [fn.launches - c for fn, c in zip(counted, counts)] == [
+        0, 2 * 12, 2 * 12, 2 * norms, 0, 0, 0]
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+    for n, want in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][n], want, atol=1e-4, rtol=1e-3,
+                                   msg=n)

@@ -86,13 +86,16 @@ def test_unported_branches_raise():
             m.__class__(**{**m.__dict__, "segmentation": m.segmentation.__class__(enabled=True)})):
         with pytest.raises(NotImplementedError):
             build_model(tcfg.replace(model=model_cfg), device="cpu")
-    # a Swin model builds and serves, but its training step waits for K6
+    # a Swin model trains like a ViT; rematerialised blocks are not ported
     from fedvit_torch.train.losses import build_loss
-    from fedvit_torch.train.step import make_train_step
+    from fedvit_torch.train.step import TrainStep, make_train_step
     swin = tcfg.replace(model=m.__class__(
         **{**m.__dict__, "backbone": "swin_small_patch4_window12_384"}))
-    with pytest.raises(NotImplementedError, match="K6"):
-        make_train_step(swin, build_loss(swin))
+    assert isinstance(make_train_step(swin, build_loss(swin)), TrainStep)
+    remat = tcfg.replace(model=m.__class__(
+        **{**swin.model.__dict__, "remat": True}))
+    with pytest.raises(NotImplementedError, match="remat"):
+        make_train_step(remat, build_loss(remat))
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla", "packed", "mega"])

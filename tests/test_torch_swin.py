@@ -7,11 +7,15 @@ with ``state_dict_from_jax``) go through ``fedvit_tpu/models/swin.py`` and
 two-stage SwinV2 (``torch_parity.SWIN_SPEC``: at image_size 32 one stage
 shifts and takes the mask, the other clamps its window to the map) through the
 forward and through ``_evaluate``. On the CPU the port's attention is the
-plain version of K5.
+plain version of K5 and, under grad, of K6. The gradients of
+``WindowAttentionV2`` and of one shifted ``SwinBlockV2`` (input and every
+parameter) are held to ``jax.grad`` of the JAX modules on the same weights.
 
 Tolerances: the integer and table helpers are exact; module outputs atol 1e-5
 and model logits, features and probabilities atol 1e-4 — fp32 throughout, the
-two frameworks sum in other orders through 4 blocks, as for the ViT.
+two frameworks sum in other orders through 4 blocks, as for the ViT. Module
+gradients: atol 1e-4 plus rtol 1e-4 (sums over up to 192 rows of 16 tokens of
+terms of size ~1, in another order).
 """
 
 import jax
@@ -35,6 +39,7 @@ from torch_parity import (SWIN_SPEC, configs, flat, jax_variables,
 
 ATOL = 1e-4
 MODULE_ATOL = 1e-5
+GRAD_ATOL = 1e-4
 
 
 # --- helpers -----------------------------------------------------------------
@@ -130,6 +135,79 @@ def test_window_attention_v2_matches_jax(masked):
         got = tmod(torch.from_numpy(x),
                    None if mask is None else torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=MODULE_ATOL)
+
+
+def _grads_match(tmod, prefix, jgrads, x_t, jgx):
+    """Every parameter's gradient and the input's against the JAX ones, the
+    parameter tree renamed by ``state_dict_from_jax`` under ``prefix``."""
+    want = state_dict_from_jax({"params": jgrads})
+    got = dict(tmod.named_parameters())
+    assert {prefix + n for n in got} == set(want)
+    for n, p in got.items():
+        assert p.grad is not None and float(p.grad.abs().max()) > 0, n
+        np.testing.assert_allclose(p.grad.numpy(), want[prefix + n].numpy(),
+                                   atol=GRAD_ATOL, rtol=GRAD_ATOL, err_msg=n)
+    np.testing.assert_allclose(x_t.grad.numpy(), np.asarray(jgx),
+                               atol=GRAD_ATOL, rtol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["shift_mask", "no_mask"])
+def test_window_attention_v2_grads_match_jax(masked):
+    """Through the clamped logit scale, the cosine norms, the q and v biases
+    and the CPB MLP (reached only through the bias's gradient and the
+    expansion of the bias table)."""
+    heads, window, c, b = 2, 4, 64, 3
+    mask = jswin.shift_attention_mask(8, 8, window, 2) if masked else None
+    w0 = 4 if masked else 1
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(w0 * b, window ** 2, c)).astype(np.float32)
+    dout = rng.normal(size=x.shape).astype(np.float32)
+    jmod = jswin.WindowAttentionV2(heads, window, pretrained_window=2,
+                                   attention_impl="xla")
+    variables = _moved(jax.device_get(
+        jmod.init(jax.random.key(0), jnp.asarray(x), mask)), seed=12)
+    jgp, jgx = jax.grad(
+        lambda p, xx: jnp.sum(jmod.apply({"params": p}, xx, mask) * dout),
+        argnums=(0, 1))(variables["params"], jnp.asarray(x))
+
+    tmod = tswin.WindowAttentionV2(c, heads, window, pretrained_window=2)
+    prefix = "backbone.layers.0.blocks.0.attn."
+    nest = lambda t: {"backbone": {"layers_0": {"blocks_0": {"attn": t}}}}
+    sd = state_dict_from_jax({"params": nest(variables["params"])})
+    tmod.load_state_dict({k[len(prefix):]: v for k, v in sd.items()})
+    x_t = torch.from_numpy(x).requires_grad_()
+    out = tmod(x_t, None if mask is None else torch.from_numpy(mask))
+    out.backward(torch.from_numpy(dout))
+    _grads_match(tmod, prefix, nest(jax.device_get(jgp)), x_t, jgx)
+
+
+def test_shifted_swin_block_v2_grads_match_jax():
+    """One post-norm block with a shift: the roll, the window partition and
+    its inverse, the real shift mask, both LayerNorms and the MLP under
+    grad."""
+    heads, window, c, b = 2, 4, 64, 3
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(b, 8, 8, c)).astype(np.float32)
+    dout = rng.normal(size=x.shape).astype(np.float32)
+    jmod = jswin.SwinBlockV2(heads, window, shift=2, pretrained_window=2,
+                             attention_impl="xla")
+    variables = _moved(jax.device_get(
+        jmod.init(jax.random.key(0), jnp.asarray(x))), seed=14)
+    jgp, jgx = jax.grad(
+        lambda p, xx: jnp.sum(jmod.apply({"params": p}, xx) * dout),
+        argnums=(0, 1))(variables["params"], jnp.asarray(x))
+
+    tmod = tswin.SwinBlockV2(c, (8, 8), heads, window, shift=2,
+                             pretrained_window=2)
+    assert tuple(tmod.attn_mask.shape) == (4, 16, 16)
+    prefix = "backbone.layers.0.blocks.1."
+    nest = lambda t: {"backbone": {"layers_0": {"blocks_1": t}}}
+    sd = state_dict_from_jax({"params": nest(variables["params"])})
+    tmod.load_state_dict({k[len(prefix):]: v for k, v in sd.items()})
+    tmod.eval()                                    # drop-path off, as in JAX
+    x_t = torch.from_numpy(x).requires_grad_()
+    tmod(x_t).backward(torch.from_numpy(dout))
+    _grads_match(tmod, prefix, nest(jax.device_get(jgp)), x_t, jgx)
 
 
 def test_relative_position_bias_matches_jax_cpb():
