@@ -76,7 +76,32 @@ Phases, one line of output each (or a few):
       attention); the kernel path twice for the same bits; and a control with
       K6's bias gradient zeroed that must fail the check on every ``cpb_mlp``
       leaf;
-   with ``--trace``, a ``torch.profiler`` trace of one SwinV2-L training step.
+   with ``--trace``, a ``torch.profiler`` trace of one SwinV2-L training step;
+9. the train augment and the fold trainer:
+   a. K7 (row and column shifts) against its plain version, bit for bit:
+      small fp32 cases (C of 1, 3, 4, a ragged W, H ≠ W, ties, shifts past
+      the extent), then the rotation's and RandAugment's shapes at a ViT-B@224
+      macro batch of 128 and a SwinV2-L@384 macro batch of 16, rows and
+      columns, with the time, the plain version's, ``torch.gather``'s and the
+      bound;
+   b. K8 (equalize) the same way at (128, 224, 224, 3) and (16, 384, 384, 3),
+      with a constant channel and a nearly constant one;
+   c. ``make_device_augment(cfg, train=True)`` on seeded 272² and 448²
+      4-channel canvases at those macro batches: ms a call, 12 K7 and 3 K8
+      launches a call, the output bit-equal to the same call through the
+      plain shifts and equalize from the same generator state, every
+      RandAugment op chosen by some sample, mask values ±1;
+   d. ``train_fold`` on ViT-B/16@224 (the recipe of 6b with the train augment,
+      data made resident on the card): 2 epochs of 1,280 images (10 steps
+      an epoch) with best and resume checkpoints, validation on 64, an
+      8-view TTA test on 40; then a resumed run to 3 epochs that must run
+      epoch 3 alone and restore every tensor bit for bit; train img/s a
+      epoch and the fold rate over epochs 2 and 3 (the first warms up),
+      validation img/s, checkpoint seconds and
+      bytes, peak memory, launches a step (12 K7, 3 K8, 2 × (12 K2, 12 K3, 25
+      K4)); then ``auto_batch_size`` at its defaults;
+   with ``--trace``, the augment's and the step's share of a fold step and a
+   profile of one.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -223,6 +248,28 @@ K6_RTOL_BF16 = 2.0 ** -6
 # the median leaf by 0.12 and the check could tell little.
 SWIN_GRAD_RTOL_BF16 = 0.05
 NOISY_LEAF = 0.25
+# Phase 9: the train augment at each configuration's macro batch (name,
+# backbone, macro batch, canvas, image size), and the fold's images (train,
+# validation, test; the test's last TTA batch of 16 is ragged). 1,280 train
+# images make 10 steps an epoch, enough to time an epoch after the first.
+AUG_CASES = (("vit", "vit_base_patch16_224", MICRO * ACCUM, 272, 224),
+             ("swin", SWIN, SWIN_MICRO * SWIN_ACCUM, 448, SWIN_SIZE))
+FOLD_IMAGES = (1280, 64, 40)
+FOLD_WORKDIR = Path(__file__).resolve().parent / "build" / "chip_smoke_fold"
+# K7 and K8 against their plain versions, the train augment through them
+# against the same call through the plain versions: bit for bit (a shift
+# moves values; equalize's fp32 values are integers below 2^24 and both
+# divide correctly rounded).
+
+
+def shift_shapes(macro: int, size: int):
+    """K7's shapes in a train augment call: the rotation's canvas, padded by
+    size // 3 with the mask as a 4th channel, and RandAugment's, padded by its
+    rotation pad (ops/randaugment.py)."""
+    rot = size + 2 * (size // 3)
+    chain = size + 2 * max(8, int(math.tan(math.radians(12.0) / 2)
+                                  * (size / 2)) + 2)
+    return (macro, rot, rot, 4), (macro, chain, chain, 3)
 
 
 def log(*parts) -> None:
@@ -312,11 +359,11 @@ def check_k1(fa, attention_from_qkvb, b, n, heads, d, dtype, atol, timed):
     return rec
 
 
-def serving_inputs(n_images: int, canvas: int):
+def serving_inputs(n_images: int, canvas: int, seed: int = SEED):
     from fedvit_torch.data.constants import encode_metadata_batch
     from fedvit_torch.data.pipeline import ArrayDataSource
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     img = rng.integers(0, 256, size=(n_images, canvas, canvas, 3), dtype=np.uint8)
     mask = (rng.random((n_images, canvas, canvas, 1)) > 0.5).astype(np.uint8) * 255
     meta = encode_metadata_batch(rng.random(n_images),
@@ -1321,11 +1368,419 @@ def swin_train_phase(fa, ln, smi, trace):
     return k6, k5_lse, k4, counts
 
 
+# ---------------------------------------------------------------------------
+# 9. The train augment (K7, K8) and the fold trainer
+# ---------------------------------------------------------------------------
+
+def shift_inputs(shape, axis, seed):
+    """An image and the shift field of a rotation by up to 30° along
+    ``axis`` (2: each row along W, 1: each column along H), with ties and
+    shifts past the image's extent in its first row."""
+    b, h, w, _ = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand(shape, device="cuda", generator=g)
+    extent, n = (w, h) if axis == 2 else (h, w)
+    theta = (torch.rand(b, 1, device="cuda", generator=g) - 0.5) * math.radians(60)
+    coord = torch.arange(n, device="cuda") - (n - 1) / 2.0
+    shift = (-torch.tan(theta / 2) if axis == 2 else torch.sin(theta)) * coord
+    shift[0, :6] = torch.tensor([0.5, -0.5, 1.5, -2.5, extent + 0.5,
+                                 -extent - 0.5], device="cuda")
+    return img, shift, extent
+
+
+def check_k7(rs, shape, axis, seed, timed):
+    """K7 through the wrapper the augment calls against its plain version:
+    bit for bit; returns its record."""
+    img, shift, extent = shift_inputs(shape, axis, seed)
+    kernel = rs.row_shift if axis == 2 else rs.col_shift
+    plain = rs.row_shift_plain if axis == 2 else rs.col_shift_plain
+    got = kernel(img, shift)
+    torch.cuda.synchronize()
+    want = plain(img, shift)
+    err = float((got - want).abs().max())
+    kind = "rows" if axis == 2 else "columns"
+    log(f"[k7] {kind} {tuple(shape)}: bit-equal to the plain version "
+        f"{torch.equal(got, want)}, max_abs_err {err!r}")
+    if not torch.equal(got, want):
+        raise RuntimeError(f"K7 {kind} {tuple(shape)} disagrees with its plain version")
+    rec = {"shape": list(shape), "axis": kind, "max_abs_err": err}
+    if timed:
+        s = rs._shift_amount(shift, extent)
+        src = (torch.arange(extent, device="cuda").view(
+            (1, 1, extent) if axis == 2 else (1, extent, 1))
+            + (s.view(shape[0], shape[1], 1) if axis == 2
+               else s.view(shape[0], 1, shape[2])))
+        # one int64 index per pixel, broadcast over the channels with stride
+        # 0: the least index torch.gather takes
+        idx = src.clamp(0, extent - 1).unsqueeze(-1).expand(shape)
+        rec["ms"] = cuda_ms(lambda: rs.shift_cuda(img, s, axis))
+        rec["plain_ms"] = cuda_ms(lambda: plain(img, shift), iters=5, warmup=1)
+        rec["library_ms"] = cuda_ms(lambda: torch.gather(img, axis, idx))
+        nbytes = 2 * img.numel() * 4 + s.numel() * 4
+        lib_bytes = 2 * img.numel() * 4 + src.numel() * 8
+        rec.update(bound(nbytes, 0.0, torch.float32))
+        log(f"[k7] kernel {rec['ms']!r} ms ({nbytes} B, "
+            f"{nbytes / rec['ms'] / 1e9!r} TB/s), plain {rec['plain_ms']!r} ms, "
+            f"torch.gather (clamped int64 index per pixel, no zero fill) "
+            f"{rec['library_ms']!r} ms ({lib_bytes} B, "
+            f"{lib_bytes / rec['library_ms'] / 1e9!r} TB/s), bound "
+            f"{rec['bound_ms']!r} ms by {rec['bound_by']}")
+    return rec
+
+
+def check_k8(ra, shape, seed, timed):
+    """K8 through ``equalize`` against ``equalize_plain``: bit for bit, with
+    one constant channel (step 0, passed through) and one of a single value
+    but for six pixels."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand(shape, device="cuda", generator=g)
+    img[0, ..., 0] = 0.5
+    img[-1, ..., 1] = 0.25
+    img[-1, :2, :3, 1] = 0.9
+    got = ra.equalize(img)
+    torch.cuda.synchronize()
+    want = ra.equalize_plain(img)
+    err = float((got - want).abs().max())
+    passed = torch.equal(got[0, ..., 0], img[0, ..., 0])
+    log(f"[k8] {tuple(shape)}: bit-equal to the plain version "
+        f"{torch.equal(got, want)}, max_abs_err {err!r}; constant channel "
+        f"passed through: {passed}")
+    if not (torch.equal(got, want) and passed):
+        raise RuntimeError(f"K8 {tuple(shape)} disagrees with its plain version")
+    rec = {"shape": list(shape), "max_abs_err": err}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: ra.equalize_cuda(img))
+        rec["plain_ms"] = cuda_ms(lambda: ra.equalize_plain(img), iters=5,
+                                  warmup=1)
+        rec["library_ms"] = None        # no one PyTorch call computes it
+        nbytes = 2 * img.numel() * 4
+        rec.update(bound(nbytes, 0.0, torch.float32))
+        log(f"[k8] kernel {rec['ms']!r} ms ({shape[0] * shape[3]} blocks), "
+            f"plain {rec['plain_ms']!r} ms, bound {rec['bound_ms']!r} ms by "
+            f"{rec['bound_by']} ({nbytes} B)")
+    return rec
+
+
+def augment_kernels_replaced_by_plain(rs, ra):
+    """Run the augment's shifts and equalize through their plain versions."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(rebound(rs, "row_shift", rs.row_shift_plain))
+    stack.enter_context(rebound(rs, "col_shift", rs.col_shift_plain))
+    stack.enter_context(rebound(ra, "equalize", ra.equalize_plain))
+    return stack
+
+
+def augment_phase(rs, ra, smi):
+    """9c: the train augment at ViT-B@224 and SwinV2-L@384 macro batches."""
+    from fedvit_torch.core.config import Config, DataConfig, ModelConfig
+    from fedvit_torch.data.pipeline import make_device_augment
+    from fedvit_torch.eval.serve import _to_device
+    from fedvit_torch.ops import image as I
+
+    records = {}
+    for name, backbone, macro, canvas, size in AUG_CASES:
+        cfg = Config(data=DataConfig(use_segmentation_mask=True),
+                     model=ModelConfig(backbone=backbone, image_size=size))
+        augment = make_device_augment(cfg, train=True)
+        batch = _to_device(serving_inputs(macro, canvas, SEED + 90).gather(
+            np.arange(macro)), torch.device("cuda"))
+        g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        start = g.get_state()
+        augment(batch, g)                                      # warm-up
+        torch.cuda.synchronize()
+        g.set_state(start)
+        before = (rs.shift_cuda.launches, ra.equalize_cuda.launches)
+        out = augment(batch, g)["image"]
+        torch.cuda.synchronize()
+        launched = (rs.shift_cuda.launches - before[0],
+                    ra.equalize_cuda.launches - before[1])
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            augment(batch, g)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        g.set_state(start)
+        with augment_kernels_replaced_by_plain(rs, ra):
+            t0 = time.perf_counter()
+            plain = augment(batch, g)["image"]
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        g.set_state(start)
+        aug = cfg.augmentation.train
+        cj = aug.color_jitter
+        draws = I.draw_train(g, macro, canvas, canvas,
+                             aug.random_resized_crop.scale,
+                             aug.random_resized_crop.ratio, aug.horizontal_flip,
+                             aug.vertical_flip, aug.rotation,
+                             (cj.brightness, cj.contrast, cj.saturation, cj.hue),
+                             aug.randaugment.n)
+        ops = sorted(set(torch.cat([op for op, _ in draws.randaugment]).tolist()))
+        mask = sorted(out[..., 3].unique().tolist())
+        ms = float(np.median(times))
+        log(f"[augment-{name}] ({macro}, {canvas}, {canvas}, 4) uint8 → "
+            f"{tuple(out.shape)}: {ms!r} ms a call synchronised (median of 5, "
+            f"{times}), through the plain shifts and equalize {plain_ms!r} ms "
+            f"({smi}); launches a call K7 {launched[0]}, K8 {launched[1]} (want "
+            f"12, 3); bit-equal to the plain path {torch.equal(out, plain)}; "
+            f"RandAugment ops chosen {ops}; mask values {mask}")
+        if launched != (12, 3) or not torch.equal(out, plain):
+            raise RuntimeError(f"the {name} train augment did not launch K7 and "
+                               f"K8 as it should or disagrees with the plain path")
+        if out.shape != (macro, size, size, 4) or not bool(torch.isfinite(out).all()) \
+                or not set(mask) <= {-1.0, 1.0}:
+            raise RuntimeError(f"the {name} train augment's output is wrong")
+        records[name] = {"ms": ms, "plain_ms": plain_ms, "ops": ops}
+    if records["vit"]["ops"] != list(range(14)):
+        raise RuntimeError("a RandAugment op was chosen by no sample of 384")
+    return records
+
+
+def fold_config(epochs):
+    from fedvit_torch.core.config import (AugmentationConfig, Config,
+                                          DataConfig, EMAConfig, LLRDConfig,
+                                          LossConfig, ModelConfig,
+                                          OptimizerConfig, SchedulerConfig,
+                                          TrainingConfig)
+    return Config(
+        data=DataConfig(use_segmentation_mask=True),
+        model=ModelConfig(backbone="vit_base_patch16_224", image_size=224,
+                          compute_dtype="bfloat16", drop_path_rate=0.1),
+        training=TrainingConfig(
+            epochs=epochs, batch_size=MICRO, gradient_accumulation_steps=ACCUM,
+            optimizer=OptimizerConfig(lr=1e-4),
+            scheduler=SchedulerConfig(warmup_epochs=0),
+            llrd=LLRDConfig(decay_rate=0.75, head_lr_mult=10.0),
+            grad_clip=1.0, ema=EMAConfig(decay=0.9995)),
+        augmentation=AugmentationConfig(),      # the default train recipe
+        loss=LossConfig(type="asymmetric"))
+
+
+def expect_restored(path, state) -> None:
+    """Every tensor of ``state`` equals the checkpoint's at ``path``."""
+    saved = torch.load(Path(path) / "state.pt", map_location="cuda",
+                       weights_only=True)
+    pairs = [(saved["model"], state.model.state_dict()), (saved["ema"], state.ema),
+             (saved["opt_state"]["mu"], state.opt_state["mu"]),
+             (saved["opt_state"]["nu"], state.opt_state["nu"])]
+    differ = [k for a, b in pairs for k in a if not torch.equal(a[k], b[k])]
+    same = (not differ and saved["step"] == state.step
+            and torch.equal(saved["generator"].cpu(), state.generator.get_state())
+            and saved["np_rng"] == state.np_rng.bit_generator.state)
+    log(f"[fold] restored from {Path(path).name}: {sum(len(a) for a, _ in pairs)} "
+        f"tensors, step {state.step}, both generators; bit-equal: {same} "
+        f"{differ[:3]}")
+    if not same:
+        raise RuntimeError("the checkpoint did not restore the state bit for bit")
+
+
+def fold_phase(fa, ln, rs, ra, smi, trace):
+    """9d: train_fold on ViT-B/16@224 with the train augment — 2 epochs,
+    resumed into a third, tested with TTA — then the batch-size probe."""
+    import dataclasses
+    import shutil
+
+    from fedvit_torch.data.pipeline import canvas_size
+    from fedvit_torch.train import checkpoint, loop
+    from fedvit_torch.train.probe import auto_batch_size
+
+    cfg = fold_config(epochs=2)
+    canvas = canvas_size(cfg.model.image_size)
+    train, val, test = (serving_inputs(n, canvas, SEED + 91 + i)
+                        for i, n in enumerate(FOLD_IMAGES))
+    fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
+    macro = MICRO * ACCUM
+    epochs, evals, saves = [], [], []
+
+    def timed_epoch(step, state, source, macro_bs, *args):
+        torch.cuda.synchronize()
+        before = {k: fn.launches for k, fn in fns.items()}
+        t0 = time.perf_counter()
+        state, loss = train_epoch(step, state, source, macro_bs, *args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = len(source) // macro_bs
+        per_step = {k: (fn.launches - before[k]) / steps for k, fn in fns.items()}
+        epochs.append({"s": dt, "img_s": steps * macro_bs / dt,
+                       "per_step": per_step})
+        return state, loss
+
+    def timed_evaluate(step, source, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate(step, source, *args, **kwargs)
+        torch.cuda.synchronize()
+        evals.append(len(source) / (time.perf_counter() - t0))
+        return out
+
+    def timed_save(path, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(path, *args, **kwargs)
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        saves.append((time.perf_counter() - t0, nbytes))
+
+    def checked_load(path, state):
+        meta = load(path, state)
+        expect_restored(path, state)
+        return meta
+
+    train_epoch, evaluate = loop._train_epoch, loop._evaluate
+    save, load = checkpoint.save_checkpoint, checkpoint.load_checkpoint
+    lines = []
+    want = {k: 0.0 for k in fns} | {"K7": 12.0, "K8": 3.0, "K2": ACCUM * BLOCKS,
+                                      "K3": ACCUM * BLOCKS, "K4": ACCUM * NORMS}
+    try:
+        with contextlib.ExitStack() as stack:
+            for module, name, fn in ((loop, "_train_epoch", timed_epoch),
+                                     (loop, "_evaluate", timed_evaluate),
+                                     (checkpoint, "save_checkpoint", timed_save),
+                                     (checkpoint, "load_checkpoint", checked_load)):
+                stack.enter_context(rebound(module, name, fn))
+            torch.cuda.reset_peak_memory_stats()
+            for fn in fns.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            first = loop.train_fold(cfg, 0, train, val, test,
+                                    workdir=str(FOLD_WORKDIR), log=lines.append)
+            fold_s = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in fns.items()}
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            resumed = []
+            t0 = time.perf_counter()
+            second = loop.train_fold(
+                cfg.replace(training=dataclasses.replace(cfg.training, epochs=3)),
+                0, train, val, test, workdir=str(FOLD_WORKDIR),
+                log=resumed.append, resume=True)
+            resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(FOLD_WORKDIR, ignore_errors=True)
+    for line in lines + resumed:
+        if line.startswith("  E") or "Resumed" in line or "best" in line \
+                or "Test" in line:
+            log(f"[fold] {line.strip()}")
+    epoch_lines = [ln_[:5] for ln_ in resumed if ln_.startswith("  E0")]
+    log(f"[fold] launches in the first run (2 epochs of "
+        f"{FOLD_IMAGES[0] // macro} steps, validation, TTA test): {counts}")
+    for i, e in enumerate(epochs):
+        log(f"[fold] epoch {i + 1}: {e['s']!r} s = {e['img_s']!r} train img/s "
+            f"synchronised (gather, augment and step, macro batch {macro}); "
+            f"launches a step {e['per_step']}")
+    steady = epochs[1:]
+    log(f"[fold] fold rate over epochs 2 and 3 (the first warms up): "
+        f"{sum(FOLD_IMAGES[0] for _ in steady) / sum(e['s'] for e in steady)!r} "
+        f"train img/s ({smi})")
+    log(f"[fold] validation {[round(v, 2) for v in evals]} img/s; checkpoint "
+        f"writes {[(round(t, 3), b) for t, b in saves]} (s, bytes); peak "
+        f"{peak_gb!r} GiB; first run {fold_s!r} s, resumed run {resume_s!r} s "
+        f"({smi})")
+    for name, res in (("first", first), ("resumed", second)):
+        log(f"[fold] {name} run's test (8-view TTA): logits {res.logits.shape}, "
+            f"finite {bool(np.isfinite(res.logits).all())}, metrics "
+            f"{ {k: round(float(v), 4) for k, v in res.metrics.items() if k != 'confusion_matrix' and np.ndim(v) == 0} }")
+        if res.logits.shape != (FOLD_IMAGES[2], 8) or \
+                not np.isfinite(res.logits).all() or \
+                not {"accuracy", "balanced_accuracy", "macro_f1", "auroc",
+                     "confusion_matrix"} <= set(res.metrics):
+            raise RuntimeError(f"the {name} fold's test result is wrong")
+    if not any("Resumed from epoch 2" in x for x in resumed) or \
+            epoch_lines != ["  E03"]:
+        raise RuntimeError(f"the resumed fold did not run epoch 3 alone: "
+                           f"{epoch_lines}")
+    if len(epochs) != 3 or any(e["per_step"] != want for e in epochs):
+        raise RuntimeError(f"a fold step did not launch the kernels as it "
+                           f"should: want {want} a step")
+    if counts["K7"] == 0 or counts["K8"] == 0:
+        raise RuntimeError("the fold launched no K7 or K8")
+
+    t0 = time.perf_counter()
+    probed = auto_batch_size(cfg, log=lambda s: None)
+    log(f"[fold] auto_batch_size at its defaults (8 to 64 by 2): {probed} in "
+        f"{time.perf_counter() - t0!r} s")
+    if trace:
+        trace_fold_step(cfg, train, rs, ra, smi)
+    return counts, {"epochs": epochs, "val_img_s": evals, "saves": saves,
+                    "peak_gib": peak_gb}
+
+
+def trace_fold_step(cfg, train, rs, ra, smi) -> None:
+    """One fold step, augment included: the augment's and the step's
+    synchronised times, then a profile of both by kernel."""
+    from fedvit_torch.data.pipeline import DeviceDataSource, make_device_augment
+    from fedvit_torch.train.loop import init_model_state
+    from fedvit_torch.train.losses import build_loss
+    from fedvit_torch.train.step import make_train_step
+
+    _, state = init_model_state(cfg, SEED, device="cuda", steps_per_epoch=2)
+    step = make_train_step(cfg, build_loss(cfg))
+    augment = make_device_augment(cfg, train=True)
+    batch = DeviceDataSource(train, "cuda").gather(np.arange(MICRO * ACCUM))
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    stages = {"augment": [], "step": []}
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aug = augment(batch, g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = step(state, aug)
+        torch.cuda.synchronize()
+        if i:                                          # the first warms up
+            stages["augment"].append((t1 - t0) * 1e3)
+            stages["step"].append((time.perf_counter() - t1) * 1e3)
+    a, s = (float(np.median(v)) for v in stages.values())
+    log(f"[stages-fold] median of 3 ({smi}): augment {a!r} ms, step {s!r} ms; "
+        f"the augment is {100 * a / (a + s):.1f}% of a fold step")
+    trace_training("profile-fold", lambda st, b: step(st, augment(b, g)), state,
+                   batch, smi, {
+                       "K7": ("shift_kernel",), "K8": ("equalize_kernel",),
+                       "K2": ("qkvb_attention_fwd_kernel",),
+                       "K3": ("delta_kernel", "dkdv_kernel", "dq_kernel",
+                              "column_sum_kernel"),
+                       "K4": ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")})
+
+
+def train_augment_phase(fa, ln, smi, trace):
+    """Phase 9; returns the records of K7 and K8 with the fold's launches."""
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+
+    # 9a. K7: small cases (ragged W, C of 1, 3, 4, ties, shifts past the
+    # extent, H ≠ W), then the four shapes of the two configurations
+    for c in (1, 3, 4):
+        for axis in (2, 1):
+            check_k7(rs, (3, 14, 19, c), axis, SEED + c, timed=False)
+    k7 = []
+    for _, _, macro, _, size in AUG_CASES:
+        rot, chain = shift_shapes(macro, size)
+        for shape in (rot, chain):
+            for axis in (2, 1):
+                k7.append(check_k7(rs, shape, axis, SEED + shape[1], timed=True))
+    per_call = [2 * k7[i]["ms"] + k7[i + 1]["ms"] + 6 * k7[i + 2]["ms"]
+                + 3 * k7[i + 3]["ms"] for i in (0, 4)]
+    log(f"[k7] a train augment call (the rotation's 2 row and 1 column shifts, "
+        f"RandAugment's 6 and 3): ViT-B {per_call[0]!r} ms, SwinV2-L "
+        f"{per_call[1]!r} ms of K7")
+    # 9b. K8
+    check_k8(ra, (2, 24, 20, 3), SEED, timed=False)
+    k8 = [check_k8(ra, (macro, size, size, 3), SEED + size, timed=True)
+          for _, _, macro, _, size in AUG_CASES]
+    torch.cuda.empty_cache()
+    # 9c, 9d
+    augmented = augment_phase(rs, ra, smi)
+    torch.cuda.empty_cache()
+    counts, fold = fold_phase(fa, ln, rs, ra, smi, trace)
+    return ({"launches": counts["K7"], **k7[0], "shapes": k7},
+            {"launches": counts["K8"], **k8[0], "shapes": k8},
+            augmented, fold)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
                         help="also break the time of a serving batch (phases 5 "
-                             "and 7) and of a training step (phase 6) down")
+                             "and 7), of a training step (phases 6 and 8) and "
+                             "of a fold step (phase 9) down")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -1446,6 +1901,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     k6, k5_lse, k4_swin, swin_counts = swin_train_phase(fa, ln, smi, args.trace)
 
+    # 9. the train augment (K7, K8) and the fold trainer
+    torch.cuda.empty_cache()
+    k7, k8, _, _ = train_augment_phase(fa, ln, smi, args.trace)
+
     log(smi)
     log(json.dumps({"kernels": [
         {"name": "qkvb_attention_fwd", "route": "cuda",
@@ -1475,7 +1934,13 @@ def main() -> int:
         {"name": "window_attention_bwd", "route": "cuda",
          "source": "fedvit_torch/csrc/window_attention_bwd.cu",
          "replaces": "fedvit_tpu/ops/flash_attention.py:1028",
-         "launches": swin_counts["K6"], **k6}]}))
+         "launches": swin_counts["K6"], **k6},
+        {"name": "row_shift", "route": "cuda",
+         "source": "fedvit_torch/csrc/row_shift.cu",
+         "replaces": "fedvit_tpu/ops/row_shift.py:80", **k7},
+        {"name": "equalize", "route": "cuda",
+         "source": "fedvit_torch/csrc/equalize.cu",
+         "replaces": "fedvit_tpu/ops/randaugment.py:206", **k8}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

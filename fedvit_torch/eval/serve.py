@@ -3,9 +3,11 @@
 Counterparts: ``fedvit_tpu/train/step.py::make_eval_step`` and
 ``fedvit_tpu/train/loop.py``'s ``_pad_batch``, ``_evaluate``, ``_softmax``,
 ``_make_tta_step`` and ``evaluate_with_tta``. The model carries its own
-weights (the JAX functions take ``params``/``batch_stats``), batches arrive
-as host numpy dicts of uint8 canvases and go to the model's device, and every
-forward runs under ``torch.inference_mode()``.
+weights (the JAX functions take ``params``/``batch_stats``; the fold trainer
+evaluates on the EMA shadow by swapping it into the model, ``TrainState.
+ema_weights``), batches arrive as dicts of uint8 canvases, numpy on the host
+or tensors already on the device (``DeviceDataSource``), and go to the
+model's device, and every forward runs under ``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ def make_eval_step(model: nn.Module, cfg: Config,
     ``batch`` is a host dict of numpy arrays; with ``augment`` (the eval
     transform from ``make_device_augment``) its "image" is the raw uint8
     canvas. The model runs in evaluation mode (``deterministic=True`` in
-    the JAX step), whatever mode a train step left it in. The JAX step's
-    loss comes with the fold trainer."""
+    the JAX step), whatever mode a train step left it in. ``_evaluate``
+    computes the loss the JAX step returns beside the logits."""
     use_meta = cfg.model.metadata.enabled
     device = _device_of(model)
 
@@ -58,13 +60,22 @@ def make_eval_step(model: nn.Module, cfg: Config,
 
 
 def _pad_batch(batch: Dict, batch_size: int) -> Dict:
-    """Pad every value to batch_size rows by repeating the last row."""
+    """Pad every value to batch_size rows by repeating the last row — on its
+    device for a tensor, in numpy otherwise."""
     out = {}
     for k, v in batch.items():
         pad = batch_size - v.shape[0]
-        out[k] = v if pad <= 0 else np.concatenate(
-            [v, np.repeat(v[-1:], pad, 0)])
+        if pad <= 0:
+            out[k] = v
+        elif isinstance(v, torch.Tensor):
+            out[k] = torch.cat([v, v[-1:].expand((pad,) + v.shape[1:])])
+        else:
+            out[k] = np.concatenate([v, np.repeat(v[-1:], pad, 0)])
     return out
+
+
+def _host(v) -> np.ndarray:
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 def _softmax(logits: np.ndarray) -> np.ndarray:
@@ -73,19 +84,27 @@ def _softmax(logits: np.ndarray) -> np.ndarray:
 
 
 def _evaluate(eval_step: Callable, source, batch_size: int,
-              num_classes: int) -> Dict:
+              num_classes: int, loss_fn: Optional[Callable] = None) -> Dict:
     """Full-dataset eval → metric dict (reference validate/evaluate), plus
-    "probs" and raw "logits". A ragged last batch is padded to batch_size
-    (every forward sees one shape) and its outputs trimmed."""
+    "loss", "probs" and raw "logits". A ragged last batch is padded to
+    batch_size (every forward sees one shape) and its outputs trimmed. The
+    loss (``loss_fn`` of the trimmed logits and labels, on the model's
+    device; 0 without one) is the mean over batches weighted by each batch's
+    size, so the padding does not bias it."""
     y_true: List[int] = []
     y_pred: List[int] = []
     all_logits: List[np.ndarray] = []
+    losses: List[Tuple[float, int]] = []
     for batch in source.sequential_batches(batch_size):
         n = len(batch["label"])
         if n < batch_size:
             batch = _pad_batch(batch, batch_size)
-        logits_n = eval_step(batch)[:n].float().cpu().numpy()
-        labels_n = np.asarray(batch["label"])[:n]
+        logits = eval_step(batch)[:n]
+        labels_n = _host(batch["label"])[:n]
+        if loss_fn is not None:
+            labels = torch.as_tensor(labels_n, device=logits.device).long()
+            losses.append((float(loss_fn(logits.float(), labels)), n))
+        logits_n = logits.float().cpu().numpy()
         y_true.extend(labels_n.tolist())
         y_pred.extend(logits_n.argmax(-1).tolist())
         all_logits.append(logits_n)
@@ -94,6 +113,8 @@ def _evaluate(eval_step: Callable, source, batch_size: int,
     probs = _softmax(logits_all) if all_logits else np.zeros((0, num_classes))
     m = compute_metrics(y_true, y_pred, num_classes,
                         probs if all_logits else None)
+    total = sum(n for _, n in losses) or 1
+    m["loss"] = sum(value * n for value, n in losses) / total
     m["probs"] = probs
     m["logits"] = logits_all
     return m
@@ -146,7 +167,7 @@ def evaluate_with_tta(cfg: Config, model: nn.Module, source,
                           "metadata": batch["metadata"]}, device)
         logits = tta_step(dev["image"], dev["metadata"])[:n]
         logits = logits.float().cpu().numpy()
-        y_true.extend(np.asarray(batch["label"])[:n].tolist())
+        y_true.extend(_host(batch["label"])[:n].tolist())
         y_pred.extend(logits.argmax(-1).tolist())
         all_logits.append(logits)
     return y_pred, y_true, (np.concatenate(all_logits) if all_logits

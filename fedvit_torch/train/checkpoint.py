@@ -1,0 +1,157 @@
+"""Checkpoints — the whole train state, for a true resume
+(``fedvit_tpu/train/checkpoint.py``), and pretrained starting points.
+
+A checkpoint is a directory:
+
+- ``state.pt`` (``torch.save``): the model's ``state_dict`` (parameters and
+  BatchNorm statistics), ``opt_state``, the EMA shadow, ``step``, the
+  ``torch.Generator`` state and the numpy ``bit_generator.state``;
+- ``meta.json``: the JAX package's keys ``epoch``, ``best_metric``,
+  ``epochs_without_improve`` and ``config``.
+
+Restoring both generators makes a resumed run draw what the uninterrupted
+one would have drawn from them. Files are read with ``weights_only=True``.
+Checkpoints written by ``fedvit_tpu`` (orbax) are not read here.
+
+A pretrained starting point (``save_pretrained``) is a ``variables.pt``
+state dict and ``pretrained_meta.json`` (its backbone, image size and input
+channels); ``load_pretrained`` refuses one converted for another model.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from fedvit_torch.core.config import Config, to_dict
+
+
+def _state_tree(state) -> Dict[str, Any]:
+    return {
+        "step": int(state.step),
+        "model": state.model.state_dict(),
+        "opt_state": state.opt_state,
+        "ema": state.ema,
+        "generator": state.generator.get_state(),
+        "np_rng": state.np_rng.bit_generator.state,
+    }
+
+
+def _atomic_save(obj, path: Path) -> None:
+    tmp = path.with_suffix(path.suffix + ".tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, state, epoch: int, best_metric: float,
+                    epochs_without_improve: int = 0,
+                    cfg: Optional[Config] = None) -> None:
+    """Write a full training checkpoint of ``state`` to ``path`` (a
+    directory)."""
+    path = Path(path).absolute()
+    path.mkdir(parents=True, exist_ok=True)
+    _atomic_save(_state_tree(state), path / "state.pt")
+    meta = {
+        "epoch": int(epoch),
+        "best_metric": float(best_metric),
+        "epochs_without_improve": int(epochs_without_improve),
+        "config": to_dict(cfg) if cfg is not None else None,
+    }
+    (path / "meta.json").write_text(json.dumps(meta, indent=2, default=str))
+
+
+def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
+    if dst.keys() != src.keys():
+        raise ValueError(f"checkpoint holds {sorted(set(src) ^ set(dst))[:5]} "
+                         f"where the state does not, or the reverse")
+    with torch.no_grad():
+        for k, t in dst.items():
+            t.copy_(src[k])
+
+
+def load_checkpoint(path: str, state) -> Dict[str, Any]:
+    """Restore a checkpoint into ``state`` (built for the same config), in
+    place: the model's weights and statistics, the optimizer state, the EMA
+    shadow, the step and both generators.
+
+    Returns {"state": state, "epoch", "best_metric",
+    "epochs_without_improve", "config"}."""
+    path = Path(path).absolute()
+    device = next(state.model.parameters()).device
+    saved = torch.load(path / "state.pt", map_location=device,
+                       weights_only=True)
+    state.model.load_state_dict(saved["model"])
+    opt = saved["opt_state"]
+    _copy_into(state.opt_state["mu"], opt["mu"])
+    _copy_into(state.opt_state["nu"], opt["nu"])
+    state.opt_state["count"] = int(opt["count"])
+    if (state.ema is None) != (saved["ema"] is None):
+        raise ValueError(f"checkpoint at {path} has EMA "
+                         f"{saved['ema'] is not None}, the state "
+                         f"{state.ema is not None}")
+    if state.ema is not None:
+        _copy_into(state.ema, saved["ema"])
+    state.step = int(saved["step"])
+    state.generator.set_state(saved["generator"].cpu())
+    state.np_rng.bit_generator.state = saved["np_rng"]
+    meta = json.loads((path / "meta.json").read_text())
+    meta["state"] = state
+    return meta
+
+
+def checkpoint_exists(path: str) -> bool:
+    p = Path(path)
+    return (p / "meta.json").exists() and (p / "state.pt").exists()
+
+
+# --- pretrained starting points ----------------------------------------------
+#
+# A pretrained checkpoint is a model's state dict plus its provenance: a
+# starting point, with no optimizer, EMA or step state.
+
+def save_pretrained(path: str, model: nn.Module, cfg: Optional[Config] = None,
+                    source: str = "") -> None:
+    """Write ``model``'s state dict as a pretrained starting point."""
+    path = Path(path).absolute()
+    path.mkdir(parents=True, exist_ok=True)
+    _atomic_save(model.state_dict(), path / "variables.pt")
+    meta = {
+        "kind": "pretrained",
+        "source": source,
+        "backbone": cfg.model.backbone if cfg else None,
+        "image_size": cfg.model.image_size if cfg else None,
+        "in_channels": cfg.in_channels if cfg else None,
+    }
+    (path / "pretrained_meta.json").write_text(json.dumps(meta, indent=2))
+
+
+def load_pretrained(path: str, model: nn.Module,
+                    cfg: Optional[Config] = None) -> nn.Module:
+    """Load a pretrained starting point into ``model`` (in place, strict);
+    refuses one converted for another backbone, image size or channel
+    count than ``cfg``'s."""
+    path = Path(path).absolute()
+    meta = json.loads((path / "pretrained_meta.json").read_text())
+    if cfg is not None and meta.get("backbone") is not None:
+        for got, want, name in (
+                (meta["backbone"], cfg.model.backbone, "backbone"),
+                (meta["image_size"], cfg.model.image_size, "image_size"),
+                (meta["in_channels"], cfg.in_channels, "in_channels")):
+            if got != want:
+                raise ValueError(
+                    f"pretrained checkpoint at {path} was converted for "
+                    f"{name}={got!r} but the config wants {want!r}")
+    device = next(model.parameters()).device
+    model.load_state_dict(torch.load(path / "variables.pt", map_location=device,
+                                     weights_only=True))
+    return model
+
+
+def pretrained_exists(path: str) -> bool:
+    p = Path(path)
+    return (p / "pretrained_meta.json").exists() and (p / "variables.pt").exists()

@@ -14,6 +14,11 @@ chain (:112-128), in this order, for every parameter:
 
 It is written as ``torch._foreach_*`` passes over all parameters at once
 and updates them in place.
+
+``build_head_optimizer`` is the stage-1 transform of the two-stage schedule
+(:131-154): the same clip, Adam and weight decay at a constant LR on the
+parameters outside the backbone only (the clip's norm taken over those), and
+a zero update for the backbone, whose parameters it leaves alone.
 """
 
 from __future__ import annotations
@@ -68,9 +73,10 @@ def llrd_scale_map(names: Iterable[str], decay: float = 0.75,
 
 
 class AdamWLLRD:
-    """clip → Adam → weight decay → LLRD → −lr(count), over a model's
-    parameters. ``init`` makes the state; ``step`` applies one update in
-    place and returns the global gradient norm before clipping."""
+    """clip → Adam → weight decay → LLRD → −lr(count), over the parameters
+    named in ``scales``. ``init`` makes the state; ``step`` applies one update
+    in place and returns the global norm of those parameters' gradients
+    before clipping."""
 
     def __init__(self, scales: Dict[str, float],
                  schedule: Callable[[int], float], grad_clip: float = 1.0,
@@ -85,7 +91,9 @@ class AdamWLLRD:
         self.mu_dtype = mu_dtype
 
     def init(self, model: nn.Module) -> Dict:
-        params = dict(model.named_parameters())
+        """The state of the parameters this transform updates: those named
+        in ``scales``."""
+        params = {n: p for n, p in model.named_parameters() if n in self.scales}
         return {"count": 0,
                 "mu": {n: torch.zeros_like(p, dtype=self.mu_dtype)
                        for n, p in params.items()},
@@ -99,7 +107,7 @@ class AdamWLLRD:
         params = [pmap[n] for n in names]
         g = [grads[n].float() for n in names]
 
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        norm = global_norm(g)
         if self.grad_clip and self.grad_clip > 0:
             factor = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                                  self.grad_clip / norm)
@@ -133,6 +141,13 @@ class AdamWLLRD:
         return norm
 
 
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """optax's ``global_norm``: the 2-norm of all the tensors' elements, in
+    fp32."""
+    return torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm([t.float() for t in tensors])))
+
+
 def build_optimizer(cfg: Config, model: nn.Module, steps_per_epoch: int
                     ) -> Tuple[AdamWLLRD, Callable[[int], float]]:
     """The training transform for ``cfg`` and ``model``: (optimizer,
@@ -150,3 +165,21 @@ def build_optimizer(cfg: Config, model: nn.Module, steps_per_epoch: int
     tx = AdamWLLRD(scales, schedule, t.grad_clip or 0.0, opt.b1, opt.b2,
                    opt.eps, opt.weight_decay, DTYPES[opt.mu_dtype])
     return tx, schedule
+
+
+def head_only_mask(model: nn.Module) -> Dict[str, bool]:
+    """True for every parameter outside the backbone (the head, the metadata
+    branch): the leaves stage 1 of the two-stage schedule trains
+    (train_old.py:433-498)."""
+    return {n: not n.startswith("backbone.") for n, _ in model.named_parameters()}
+
+
+def build_head_optimizer(cfg: Config, model: nn.Module, lr: float) -> AdamWLLRD:
+    """Stage-1 optimizer: clip (``grad_clip``, or 1.0 when unset) → Adam →
+    weight decay → −lr on the head's parameters; the backbone is frozen (a
+    zero update). Adam's first moment is fp32, as optax's default."""
+    opt = cfg.training.optimizer
+    head = [n for n, keep in head_only_mask(model).items() if keep]
+    return AdamWLLRD({n: 1.0 for n in head}, lambda count: lr,
+                     cfg.training.grad_clip or 1.0, opt.b1, opt.b2, opt.eps,
+                     opt.weight_decay)

@@ -7,12 +7,17 @@ parameter name; randomness comes from two explicit generators: a
 ``torch.Generator`` on the model's device (dropout, drop-path, mix
 permutations) and a ``numpy.random.Generator`` on the host (mix λ, choice and
 box).
+
+Validation runs on the EMA shadow (``fedvit_tpu``'s ``state.eval_params()``):
+``ema_weights()`` puts the shadow in the model's parameters for the length of
+a ``with`` block and the trained weights back after it, without a copy.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -48,3 +53,35 @@ class TrainState:
         if self.ema is not None:
             sd.update(self.ema)
         return sd
+
+    @contextlib.contextmanager
+    def ema_weights(self) -> Iterator[nn.Module]:
+        """The model with the EMA shadow as its parameters inside the block
+        (the model itself when EMA is off), and with its trained parameters
+        again after it, whatever the block raised. The parameters point at
+        the shadow's tensors for the length of the block: nothing is copied,
+        and the optimizer and the next step see the trained tensors."""
+        if self.ema is None:
+            yield self.model
+            return
+        params = dict(self.model.named_parameters())
+        trained = {n: p.data for n, p in params.items()}
+        for n, shadow in self.ema.items():
+            params[n].data = shadow
+        try:
+            yield self.model
+        finally:
+            for n, p in params.items():
+                p.data = trained[n]
+
+    def fork(self, tx: AdamWLLRD) -> "TrainState":
+        """A state on the same model with optimizer ``tx``, no EMA, step 0,
+        and copies of this state's generators (stage 1 of the two-stage
+        schedule trains on it and leaves this state's draws as they were)."""
+        generator = torch.Generator(device=self.generator.device)
+        generator.set_state(self.generator.get_state())
+        np_rng = np.random.default_rng()
+        np_rng.bit_generator.state = self.np_rng.bit_generator.state
+        return TrainState(step=0, model=self.model, tx=tx,
+                          opt_state=tx.init(self.model), ema=None,
+                          generator=generator, np_rng=np_rng)

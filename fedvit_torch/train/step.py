@@ -1,7 +1,11 @@
 """The train step (``fedvit_tpu/train/step.py::make_train_step``).
 
-One step takes a macro batch of ``accum · micro`` already-augmented images
-(NHWC, normalised), labels and metadata:
+One step takes a macro batch of ``accum · micro`` images, labels and metadata.
+The images arrive already augmented (NHWC, normalised), or, when the step is
+built with ``augment`` (``data/pipeline.py::make_device_augment(cfg, True)``),
+as raw uint8 canvases that the augment turns into model input on the device,
+drawing from the state's ``torch.Generator`` (``fedvit_tpu``'s fused augment,
+step.py:106-111). Then:
 
 1. ``accumulate_grads``: the macro batch is cut into ``accum`` micro-batches,
    run in order with the model in training mode (BatchNorm statistics thread
@@ -22,7 +26,9 @@ GradScaler, since bf16 has fp32's exponent range.
 On a CUDA model every LayerNorm runs K4 backward and every attention a
 forward and a backward kernel (``ops/``): K2 and K3 in a ViT (per micro-batch
 of a ViT-B, 12, 12 and 25 K4 launches), K5's log-sum-exp entry and K6 in a
-SwinV2 (per micro-batch of a SwinV2-L, 24, 24 and 53 K4 launches).
+SwinV2 (per micro-batch of a SwinV2-L, 24, 24 and 53 K4 launches). The train
+augment, fused or called before the step, launches 12 K7 and 3 K8 a macro
+batch (``ops/row_shift.py``, ``ops/randaugment.py``).
 """
 
 from __future__ import annotations
@@ -36,15 +42,18 @@ from fedvit_torch.eval.serve import _to_device
 from fedvit_torch.train.ema import ema_update
 from fedvit_torch.train.losses import LossFn, mixup_criterion
 from fedvit_torch.train.mixup import make_mix_fn
+from fedvit_torch.train.optim import global_norm
 from fedvit_torch.train.state import TrainState
 
 
 class TrainStep:
     """``step(state, batch) → (state, metrics)``, and its two halves."""
 
-    def __init__(self, cfg: Config, loss_fn: LossFn):
+    def __init__(self, cfg: Config, loss_fn: LossFn,
+                 augment: Optional[Callable] = None):
         t = cfg.training
         self.loss_fn = loss_fn
+        self.augment = augment
         self.accum = max(1, t.gradient_accumulation_steps)
         self.use_meta = cfg.model.metadata.enabled
         self.ema_enabled = t.ema.enabled
@@ -61,6 +70,8 @@ class TrainStep:
         model.train()
         device = next(model.parameters()).device
         batch = _to_device(batch, device)
+        if self.augment is not None:
+            batch = self.augment(batch, state.generator)
         images, labels = batch["image"], batch["label"].long()
         metadata = batch.get("metadata") if self.use_meta else None
         b = images.shape[0]
@@ -100,8 +111,10 @@ class TrainStep:
     def apply_update(self, state: TrainState,
                      grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Optimizer update, EMA and ``step += 1``, in place; returns the
-        global norm of ``grads`` before clipping."""
-        grad_norm = state.tx.step(state.model, grads, state.opt_state)
+        global norm of ``grads`` before clipping (all of them, also where the
+        optimizer updates only the head)."""
+        grad_norm = global_norm(grads.values())
+        state.tx.step(state.model, grads, state.opt_state)
         if self.ema_enabled and state.ema is not None:
             ema_update(state.ema, state.model, self.ema_decay)
         for p in state.model.parameters():
@@ -118,14 +131,11 @@ class TrainStep:
 
 def make_train_step(cfg: Config, loss_fn: LossFn,
                     augment: Optional[Callable] = None) -> TrainStep:
-    """The train step for ``cfg``. The batch arrives already augmented:
-    ``augment`` (the on-device train augment) is not ported yet and raises,
-    as does ``model.remat``."""
-    if augment is not None:
-        raise NotImplementedError(
-            "the on-device train augment is not ported yet; pass batches "
-            "that are already augmented and normalised (augment=None)")
+    """The train step for ``cfg``. With ``augment`` (fn(batch, generator),
+    the on-device train augment) the batch arrives as raw uint8 canvases;
+    without it, already augmented. ``model.remat`` is not ported and
+    raises."""
     if cfg.model.remat:
         raise NotImplementedError("model.remat (rematerialised blocks) is not "
                                   "ported yet")
-    return TrainStep(cfg, loss_fn)
+    return TrainStep(cfg, loss_fn, augment)

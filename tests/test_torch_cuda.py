@@ -37,6 +37,11 @@ Tolerances:
   unrounded fp32 output, which K6's delta reads, rounds to its output.
 - A tiny SwinV2 train step on the card against the CPU, fp32: loss rtol 1e-4,
   each leaf's gradient atol 1e-4 plus rtol 1e-3, as for the ViT.
+- K7 (row/column shift) and K8 (equalize) against their plain versions:
+  exact. A shift moves values; equalize's fp32 values are integers below
+  2^24 and both divide correctly rounded. The train augment through them
+  against the same call through the plain versions, from one generator
+  state: exact (nothing else differs between the two).
 """
 
 import pytest
@@ -597,3 +602,110 @@ def test_tiny_swin_train_step_on_the_card_matches_the_cpu(cuda):
     for n, want in grads["cpu"].items():
         torch.testing.assert_close(grads["cuda"][n], want, atol=1e-4, rtol=1e-3,
                                    msg=n)
+
+
+# --- K7, K8 and the train augment ------------------------------------------------
+
+def _shift_inputs(b, h, w, c, axis, seed):
+    from fedvit_torch.ops.row_shift import _shift_amount
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.rand(b, h, w, c, device="cuda", generator=g)
+    extent = w if axis == 2 else h
+    n = h if axis == 2 else w
+    shift = (torch.rand(b, n, device="cuda", generator=g) - 0.5) * 3.2 * extent
+    ties = torch.tensor([0.5, -0.5, 1.5, -2.5, extent + 0.5, -extent - 0.5],
+                        device="cuda")[:n]
+    shift[0, :len(ties)] = ties
+    return img, shift, _shift_amount(shift, extent)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(3, 14, 19, 1), (3, 14, 19, 3),
+                                     (2, 37, 29, 4), (4, 250, 250, 3),
+                                     (2, 372, 372, 4)])
+@pytest.mark.parametrize("axis", [2, 1])
+def test_k7_matches_plain(cuda, b, h, w, c, axis):
+    from fedvit_torch.ops import row_shift as rs
+    img, shift, s = _shift_inputs(b, h, w, c, axis, seed=h + c + axis)
+    before = rs.shift_cuda.launches
+    got = (rs.row_shift if axis == 2 else rs.col_shift)(img, shift)
+    torch.cuda.synchronize()
+    assert rs.shift_cuda.launches == before + 1
+    want = (rs.row_shift_plain if axis == 2 else rs.col_shift_plain)(img, shift)
+    assert torch.equal(got, want)
+    assert torch.equal(rs.shift_cuda(img, s, axis), got)
+    assert bool((got == 0).any()) and bool((got != 0).any())
+
+
+def test_k7_refuses_what_it_does_not_take(cuda):
+    from fedvit_torch.ops import row_shift as rs
+    img, _, s = _shift_inputs(2, 8, 6, 3, 2, seed=0)
+    with pytest.raises(TypeError):
+        rs.shift_cuda(img.double(), s, 2)
+    with pytest.raises(TypeError):
+        rs.shift_cuda(img, s.long(), 2)
+    with pytest.raises(ValueError, match="shifts must be"):
+        rs.shift_cuda(img, s, 1)                 # (B, H) shifts for columns
+    with pytest.raises(ValueError, match="contiguous"):
+        rs.shift_cuda(img.transpose(1, 2), s[:, :6].contiguous(), 2)
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 24, 20, 3), (3, 37, 41, 3),
+                                     (2, 224, 224, 3), (1, 384, 384, 3)])
+def test_k8_matches_plain(cuda, b, h, w, c):
+    from fedvit_torch.ops import randaugment as ra
+    g = torch.Generator(device="cuda").manual_seed(h)
+    img = torch.rand(b, h, w, c, device="cuda", generator=g)
+    img[0, ..., 0] = 0.5                              # step == 0: passthrough
+    img[-1, ..., 1] = 0.25                            # one value and a few others
+    img[-1, :2, :3, 1] = 0.9
+    before = ra.equalize_cuda.launches
+    got = ra.equalize(img)
+    torch.cuda.synchronize()
+    assert ra.equalize_cuda.launches == before + 1
+    assert torch.equal(got, ra.equalize_plain(img))
+    assert torch.equal(got[0, ..., 0], img[0, ..., 0])
+
+
+def test_k8_refuses_what_it_does_not_take(cuda):
+    from fedvit_torch.ops import randaugment as ra
+    img = torch.rand(2, 8, 8, 3, device="cuda")
+    with pytest.raises(TypeError):
+        ra.equalize_cuda(img.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ra.equalize_cuda(img.transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        ra.equalize_cuda(img.cpu())
+
+
+def test_train_augment_through_the_kernels_equals_the_plain_path(cuda):
+    """make_device_augment(train=True) on a card batch: 12 K7 and 3 K8
+    launches a call, and bit for bit the output of the same call with the
+    plain shifts and equalize, from the same generator state."""
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.data.pipeline import make_device_augment
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+
+    cfg = from_dict({"model": {"image_size": 64},
+                     "data": {"use_segmentation_mask": True}})
+    augment = make_device_augment(cfg, train=True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    raw = torch.randint(0, 256, (8, 80, 80, 4), device="cuda", generator=g,
+                        dtype=torch.uint8)
+    raw[..., 3] = torch.where(raw[..., 3] > 127, 255, 0)
+    start = g.get_state()
+    counts = (rs.shift_cuda.launches, ra.equalize_cuda.launches)
+    got = augment({"image": raw}, g)["image"]
+    torch.cuda.synchronize()
+    assert (rs.shift_cuda.launches - counts[0],
+            ra.equalize_cuda.launches - counts[1]) == (12, 3)
+    g.set_state(start)
+    kernels = (rs.row_shift, rs.col_shift, ra.equalize)
+    try:
+        rs.row_shift, rs.col_shift = rs.row_shift_plain, rs.col_shift_plain
+        ra.equalize = ra.equalize_plain
+        want = augment({"image": raw}, g)["image"]
+    finally:
+        rs.row_shift, rs.col_shift, ra.equalize = kernels
+    assert got.shape == (8, 64, 64, 4) and torch.equal(got, want)
+    assert set(got[..., 3].unique().tolist()) <= {-1.0, 1.0}

@@ -4,19 +4,23 @@ the CPU from those same variables."""
 
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from fedvit_torch.core import config as tconfig
 from fedvit_torch.models import build_model as build_torch_model
 from fedvit_torch.models import registry as tregistry
+from fedvit_torch.models import vit as tvit
 from fedvit_torch.models.import_weights import state_dict_from_jax
 from fedvit_tpu.core import config as jconfig
 from fedvit_tpu.models import build_model as build_jax_model
 from fedvit_tpu.models import registry as jregistry
+from fedvit_tpu.models import vit as jvit
 
 TINY = {
     "model": {"backbone": "vit_tiny_patch16_224", "image_size": 32,
@@ -37,6 +41,16 @@ SWIN_SPEC = dict(family="swinv2", embed_dim=32, depths=(2, 2),
 jregistry.BACKBONE_SPECS[SWIN_NAME] = SWIN_SPEC
 tregistry.BACKBONE_SPECS[SWIN_NAME] = SWIN_SPEC
 BACKBONES = {"vit": TINY["model"]["backbone"], "swin": SWIN_NAME}
+
+
+@contextlib.contextmanager
+def shallow_vit():
+    """``vit_tiny`` cut to 2 blocks in both packages' ``VIT_CONFIGS`` inside
+    the block: its width and heads, a sixth of the XLA compile of a step."""
+    with pytest.MonkeyPatch.context() as mp:
+        for configs_ in (jvit.VIT_CONFIGS, tvit.VIT_CONFIGS):
+            mp.setitem(configs_, "tiny", dict(configs_["tiny"], depth=2))
+        yield
 
 
 def raw_config(use_mask: bool = True, metadata: bool = True,
@@ -64,7 +78,9 @@ def jax_variables(cfg, seed: int = 0):
     x = jnp.zeros((2, s, s, cfg.in_channels), jnp.float32)
     meta = jnp.zeros((2, 13), jnp.float32)
     key = jax.random.key(seed)
-    v = jax.device_get(model.init({"params": key, "dropout": key}, x, meta))
+    # jitted: one XLA compile, where an eager init compiles op by op
+    init = jax.jit(lambda k: model.init({"params": k, "dropout": k}, x, meta))
+    v = jax.device_get(init(key))
     rng = np.random.default_rng(seed)
 
     def move(path, leaf):
