@@ -11,9 +11,10 @@ Phases, one line of output each (or a few):
    build of every hand-written kernel from ``fedvit_torch/csrc`` with ``nvcc``
    (one compiler per source, all at once);
 2. each kernel against its plain PyTorch version on the card, at the shape
-   the serving path gives it (and a small fp32 case), with its time, the
-   plain version's, one PyTorch library call's for the same function, and
-   the least time the card could take (the bound);
+   the serving path gives it (and a small fp32 case, and ViT-H's head width
+   d = 80 at a small batch), with its time, the plain version's, one PyTorch
+   library call's for the same function, and the least time the card could
+   take (the bound);
 3. serving: a ViT-B/16@224 ``ISICClassifier`` (4 channels, metadata, bf16,
    seeded random weights) takes seeded 272² uint8 canvases through the eval
    augment and forward (``eval/serve.py::_evaluate``) at batch 256, with a
@@ -25,7 +26,8 @@ Phases, one line of output each (or a few):
    ``_evaluate`` (device time by kernel, the device's busy share);
 6. training (``fedvit_torch/train/step.py::make_train_step``):
    a. K2, K3 and K4 against their plain versions at the shapes a ViT-B
-      micro-batch of 64 gives them (and small fp32 cases), with their times,
+      micro-batch of 64 gives them (and small fp32 cases, and K2 and K3 at
+      d = 80), with their times,
       the plain versions', a PyTorch library call's and the bound;
    b. the step: ViT-B/16@224 (4 channels, metadata, bf16, drop-path 0.1 and
       the default dropouts, seeded perturbed weights), asymmetric loss,
@@ -101,7 +103,32 @@ Phases, one line of output each (or a few):
       bytes, peak memory, launches a step (12 K7, 3 K8, 2 × (12 K2, 12 K3, 25
       K4)); then ``auto_batch_size`` at its defaults;
    with ``--trace``, the augment's and the step's share of a fold step and a
-   profile of one.
+   profile of one;
+10. ViT-B/16@224 with ``model.attention_impl`` ``packed`` (K10, attention on
+   the qkv Dense's output with its bias) and ``mega`` (K11, the projection
+   inside the kernel):
+   a. each entry of K10 and K11 (forward, the forward with the log-sum-exp,
+      backward) against its plain version: small fp32 cases (N of 37 and 197,
+      3 batch rows, d of 64 and 80), then bf16 at the serving shape (batch
+      256, forward) and the micro-batch of 64 (log-sum-exp entry, backward),
+      K11's dx, dW and db each, its backward twice for the same bits; the
+      time, the plain version's, the library yardstick's (SDPA on the q/k/v
+      views; ``F.linear`` then SDPA for K11) and the bound;
+   b. serving and 8-view TTA as phases 3 and 4 with each value: 12 K10 (or
+      K11) launches a forward and no other attention kernel, the logits
+      against the same model with the plain attention, a control that must
+      fail the check (``packed``: the qkv Dense without its bias; ``mega``:
+      the plain K11 with its bias zeroed), img/s and peak memory beside
+      ``auto``'s from phase 3; with ``--trace`` a serving profile;
+   c. the training step of phase 6 with each value: a warm-up and 5 timed
+      steps, 12 log-sum-exp entries, 12 backwards and 25 K4 a micro-batch
+      and no other kernel, the parameters and the EMA shadow moving, then one
+      macro batch's gradients leaf by leaf (and the q, k and v rows of every
+      qkv weight) against the plain path as in 6c, the rows each allowed the
+      limit plus twice their own rounding noise as in 8c, with a control
+      that must fail (``mega``: K11 with dW zeroed, on every qkv
+      weight; ``packed``: K10 with the k third of dqkv zeroed, on every qkv
+      weight's k rows); with ``--trace`` a profile of a step.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -115,6 +142,7 @@ import argparse
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -174,6 +202,20 @@ K2_LSE_ATOL = 1e-4
 # bf16, four bf16 ulps of the largest value — the plain backward rounds P, dP
 # and dS to bf16 at each cast of its forward, the kernel keeps them fp32.
 K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+
+# K10 is K1-K3 without the bias: K1's, K2's and K3's tolerances, for their
+# reasons. K11's output: fp32 atol 1e-4, the qkv its GEMM sums over D = 768
+# products in another order than the plain fp32 matmul (~1e-6 of |qkv|) feeds
+# the attention, then K1's 2e-5; bf16 2^-5 as K1 (qkv rounds to the same bf16
+# value unless the two fp32 sums straddle a rounding boundary, and the plain
+# version rounds the softmax weights where the kernel does not). K11's dx, dW
+# and db, as shares of the largest |value|: fp32 1e-4 (sums over N keys, B·N
+# rows and 3E columns in another order); bf16 2^-5, four bf16 ulps of the
+# largest value, as K3 (its dqkv carries K3's difference; each of dx, dW and
+# db sums it in fp32 and rounds once).
+K11_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+K11_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
+
 # K4 against ln_bwd_plain, as a share of the largest |value|: dx fp32 1e-5,
 # bf16 2^-6 (both round dx to bf16, one ulp apart from fp32 sums in another
 # order); dgamma and dbeta 1e-4 (fp32 sums over the rows in another order).
@@ -440,6 +482,32 @@ def expect_launches(name, fa, forwards):
     return got
 
 
+# The names of the ViT attention kernels in a device profile: the demangled
+# instances of attention_fwd.cuh's fwd_kernel<T, D, kBias, kLse> and
+# attention_bwd.cuh's kernels <T, D, kBias, kSum>, which K1-K3, K10 and K11
+# share, told apart by their flags. K11 adds gemm.cuh's products.
+K1_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, true, false>",)
+K2_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, true, true>",)
+K3_NAMES = (r"attn_bwd::delta_kernel<",
+            r"attn_bwd::(dkdv|dq)_kernel<[^>]*, true, true>",
+            r"column_sum_kernel<")
+K10_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, false, false>",)
+K10_LSE_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, false, true>",)
+K10_BWD_NAMES = (r"attn_bwd::delta_kernel<",
+                 r"attn_bwd::(dkdv|dq)_kernel<[^>]*, false, false>")
+K11_GEMM_NAMES = (r"gemm::gemm_kernel<",)
+K11_BWD_NAMES = (r"attn_bwd::delta_kernel<",
+                 r"attn_bwd::(dkdv|dq)_kernel<[^>]*, false, true>",
+                 r"column_sum_kernel<")
+K4_NAMES = ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")
+
+
+def in_group(key, patterns) -> bool:
+    """Whether a profile entry's name matches one of ``patterns`` (regular
+    expressions; a plain part of a name is one too)."""
+    return any(re.search(p, key) for p in patterns)
+
+
 def device_events(prof):
     """The profile's device-side entries (kernels, copies), longest first,
     and their total ms: an aten op's own entry repeats the time of the
@@ -452,10 +520,11 @@ def device_events(prof):
 
 
 def trace_serving(model, step, augment, source, cfg, smi, batch_size=SERVE_BATCH,
-                  kernel=("K1", "qkvb_attention"), tag="") -> None:
+                  kernel=("K1", K1_NAMES), tag="") -> None:
     """Stages of each full serving batch, then a profile of ``_evaluate``;
-    ``kernel`` is the attention kernel's label and a part of its name in the
-    profile, ``tag`` marks the lines of another model than the ViT."""
+    ``kernel`` is the attention kernel's label and the patterns of its names
+    in the profile (see in_group), ``tag`` marks the lines of another model
+    or attention than the ViT's ``auto``."""
     from torch.profiler import ProfilerActivity, profile
 
     from fedvit_torch.eval.serve import _evaluate, _to_device
@@ -503,9 +572,12 @@ def trace_serving(model, step, augment, source, cfg, smi, batch_size=SERVE_BATCH
         log(f"{profile_tag}   {ms / n!r} ms/batch ({100 * ms / device_ms:.1f}%) "
             f"x{e.count / n:g} {e.key[:90]}")
     k_ms = sum(e.self_device_time_total for e in events
-               if kernel[1] in e.key) / 1e3
+               if in_group(e.key, kernel[1])) / 1e3
     log(f"{profile_tag} {kernel[0]} {k_ms / n!r} ms/batch = "
         f"{100 * k_ms / device_ms:.1f}% of device time")
+    if not k_ms > 0:
+        raise RuntimeError(f"{profile_tag}: no device time under {kernel[0]}'s "
+                           f"names {kernel[1]}")
 
 
 def seeded(shape, dtype, seed, scale=1.0):
@@ -531,17 +603,21 @@ def attention_lse_plain(attention_from_qkvb, qkv, bias, heads):
     return attention_from_qkvb(qkv, bias, heads), torch.logsumexp(s, -1)
 
 
-def biased_views(qkv, bias, heads):
+def qkv_views(qkv, heads):
+    """q, k, v (B, H, N, d) views of a packed (B, N, 3E) tensor."""
     b, n, e3 = qkv.shape
-    x = (qkv + bias.to(qkv.dtype)).view(b, n, 3, heads, e3 // 3 // heads)
-    return x.permute(2, 0, 3, 1, 4).unbind(0)       # q, k, v (B, H, N, d)
+    return qkv.view(b, n, 3, heads, e3 // 3 // heads).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-def check_k2(fa, attention_from_qkvb, b, n, heads, dtype, timed):
+def biased_views(qkv, bias, heads):
+    return qkv_views(qkv + bias.to(qkv.dtype), heads)
+
+
+def check_k2(fa, attention_from_qkvb, b, n, heads, dtype, timed, d=64):
     """K2 through its wrapper: the output bit-identical to K1's and within
     K1's tolerance of the plain version, the log-sum-exp within
     K2_LSE_ATOL."""
-    e = heads * 64
+    e = heads * d
     qkv = seeded((b, n, 3 * e), dtype, SEED + 10 + n)
     bias = seeded((3 * e,), torch.float32, SEED + 11 + n, 0.5)
     out, lse = fa.qkvb_attention_lse_cuda(qkv, bias, heads)
@@ -567,17 +643,17 @@ def check_k2(fa, attention_from_qkvb, b, n, heads, dtype, timed):
         rec["library_ms"] = cuda_ms(lambda: sdpa(q, k, v))
         nbytes = ((qkv.numel() + bias.numel() + out.numel()) * qkv.element_size()
                   + lse.numel() * 4)
-        rec.update(bound(nbytes, 4.0 * b * heads * n * n * 64, dtype))
+        rec.update(bound(nbytes, 4.0 * b * heads * n * n * d, dtype))
         log(f"[k2] kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, sdpa "
             f"forward {rec['library_ms']!r} ms, bound {rec['bound_ms']!r} ms by "
             f"{rec['bound_by']} ({nbytes} B)")
     return rec
 
 
-def check_k3(fa, attention_from_qkvb, b, n, heads, dtype, timed):
+def check_k3(fa, attention_from_qkvb, b, n, heads, dtype, timed, d=64):
     """K3 through the autograd Function (K2 forward, K3 backward): dqkv and
     dbias against autograd of the plain version on the same seeded dout."""
-    e = heads * 64
+    e = heads * d
     qkv = seeded((b, n, 3 * e), dtype, SEED + 20 + n)
     bias = seeded((3 * e,), torch.float32, SEED + 21 + n, 0.5)
     dout = seeded((b, n, e), dtype, SEED + 22 + n)
@@ -610,11 +686,11 @@ def check_k3(fa, attention_from_qkvb, b, n, heads, dtype, timed):
         out_s = torch.nn.functional.scaled_dot_product_attention(
             *biased_views(qkv_s, bias_s, heads))
         rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-            out_s, (qkv_s, bias_s), dout.view(b, n, heads, 64).transpose(1, 2),
+            out_s, (qkv_s, bias_s), dout.view(b, n, heads, d).transpose(1, 2),
             retain_graph=True))
         nbytes = ((2 * qkv.numel() + 2 * o.numel() + bias.numel())
                   * qkv.element_size() + (lse.numel() + dbias.numel()) * 4)
-        rec.update(bound(nbytes, 10.0 * b * heads * n * n * 64, dtype))
+        rec.update(bound(nbytes, 10.0 * b * heads * n * n * d, dtype))
         log(f"[k3] kernel {rec['ms']!r} ms, plain backward {rec['plain_ms']!r} "
             f"ms, sdpa backward {rec['library_ms']!r} ms (on the biased views), "
             f"bound {rec['bound_ms']!r} ms by {rec['bound_by']} ({nbytes} B)")
@@ -666,6 +742,10 @@ def counted(fa, ln) -> dict:
     attention kernels only when ``ln`` is None)."""
     fns = {"K1": fa.flash_attention_qkvb, "K2": fa.qkvb_attention_lse_cuda,
            "K3": fa.qkvb_attention_bwd_cuda,
+           "K10": fa.flash_attention_qkv, "K10_lse": fa.qkv_attention_lse_cuda,
+           "K10_bwd": fa.qkv_attention_bwd_cuda,
+           "K11": fa.flash_attention_xqkv, "K11_lse": fa.xqkv_attention_lse_cuda,
+           "K11_bwd": fa.xqkv_attention_bwd_cuda,
            "K5": fa.flash_attention_bias_flat,
            "K5_lse": fa.window_attention_lse_cuda,
            "K6": fa.window_attention_bwd_cuda}
@@ -715,7 +795,8 @@ def training_batches(cfg, n_batches: int, macro: int):
                 for i in range(n_batches)]
 
 
-def training_setup(backbone, image_size, micro, accum, drop_path, llrd):
+def training_setup(backbone, image_size, micro, accum, drop_path, llrd,
+                   attention_impl="auto"):
     """The current-generation recipe on ``backbone``: (cfg, model, state,
     step, 1 + TIMED_STEPS macro batches)."""
     from fedvit_torch.core.config import (AugmentationConfig, Config,
@@ -732,7 +813,8 @@ def training_setup(backbone, image_size, micro, accum, drop_path, llrd):
     cfg = Config(
         data=DataConfig(use_segmentation_mask=True),
         model=ModelConfig(backbone=backbone, image_size=image_size,
-                          compute_dtype="bfloat16", drop_path_rate=drop_path),
+                          compute_dtype="bfloat16", drop_path_rate=drop_path,
+                          attention_impl=attention_impl),
         training=TrainingConfig(
             batch_size=micro, gradient_accumulation_steps=accum,
             optimizer=OptimizerConfig(lr=1e-4),
@@ -839,7 +921,8 @@ def grads_by_path(model, state, step, batch, paths):
     return got
 
 
-def compare_grads(tag, got, limit, control_leaves, control_name, report=()):
+def compare_grads(tag, got, limit, control_leaves, control_name, report=(),
+                  noisy=lambda name: True):
     """Each leaf's gradient, ``got["kernel"]`` against ``got["plain"]``, as the
     RMS of the difference over the RMS of the plain gradient; ``got["control"]``
     must fail the same check on every one of ``control_leaves``. Leaves whose
@@ -850,8 +933,9 @@ def compare_grads(tag, got, limit, control_leaves, control_name, report=()):
     (see NOISE_SHARE) are left out, the ZERO_GRAD ones required among them.
     With it (the plain path with its attention computed in fp32): ``limit``
     plus twice the leaf's own rounding noise, which is how far the plain path
-    is from that fp32 path; leaves whose noise exceeds NOISY_LEAF are left
-    out, the ZERO_GRAD ones required among them."""
+    is from that fp32 path, for the leaves that ``noisy`` picks (all by
+    default), ``limit`` for the others; leaves whose noise exceeds NOISY_LEAF
+    are left out, the ZERO_GRAD ones required among them."""
     (kernel, loss_k), (plain, loss_p) = got["kernel"], got["plain"]
     control = got["control"][0]
 
@@ -861,8 +945,8 @@ def compare_grads(tag, got, limit, control_leaves, control_name, report=()):
     if "fp32" in got:
         noise = errors(plain, got["fp32"][0], plain)
         left_out = {n: v for n, v in noise.items() if v > NOISY_LEAF}
-        allowed = {n: limit + 2 * v for n, v in noise.items()
-                   if n not in left_out}
+        allowed = {n: limit + 2 * v if noisy(n) else limit
+                   for n, v in noise.items() if n not in left_out}
         log(f"[{tag}] rounding noise of a leaf = plain path vs the plain path "
             f"with fp32 attention: median {float(np.median(list(noise.values())))!r}"
             f", largest by kind {group_max(noise)}; left out of the check "
@@ -949,16 +1033,14 @@ def train_phase(fa, ln, attention_from_qkvb, smi, trace):
                   "K3's dbias zeroed")
     if trace:
         trace_training("profile-train", step, state, batches[2], smi, {
-            "K2": ("qkvb_attention_fwd_kernel",),
-            "K3": ("delta_kernel", "dkdv_kernel", "dq_kernel",
-                   "column_sum_kernel"),
-            "K4": ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")})
+            "K2": K2_NAMES, "K3": K3_NAMES, "K4": K4_NAMES})
     return counts
 
 
 def trace_training(tag, step, state, batch, smi, groups) -> None:
     """A profile of one training step: device time by kernel, the busy share,
-    and the share of each group of kernels (label → parts of their names)."""
+    and the share of each group of kernels (label → patterns of their names,
+    see in_group); a group that reads no device time fails."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -976,9 +1058,12 @@ def trace_training(tag, step, state, batch, smi, groups) -> None:
             f"x{e.count} {e.key[:90]}")
     for k, names in groups.items():
         ms = sum(e.self_device_time_total for e in events
-                 if any(nm in e.key for nm in names)) / 1e3
+                 if in_group(e.key, names)) / 1e3
         log(f"[{tag}] {k} {ms!r} ms = {100 * ms / device_ms:.1f}% of "
             f"device time")
+        if not ms > 0:
+            raise RuntimeError(f"[{tag}]: no device time under {k}'s names "
+                               f"{names}")
 
 
 def window_inputs(w0, b, n, heads, dtype, side, seed):
@@ -1364,7 +1449,7 @@ def swin_train_phase(fa, ln, smi, trace):
             "K5 log-sum-exp entry": ("window_attention_fwd_kernel",),
             "K6": ("delta_kernel", "dkdv_kernel", "dq_dbias_kernel",
                    "group_sum_kernel"),
-            "K4": ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")})
+            "K4": K4_NAMES})
     return k6, k5_lse, k4, counts
 
 
@@ -1734,10 +1819,7 @@ def trace_fold_step(cfg, train, rs, ra, smi) -> None:
     trace_training("profile-fold", lambda st, b: step(st, augment(b, g)), state,
                    batch, smi, {
                        "K7": ("shift_kernel",), "K8": ("equalize_kernel",),
-                       "K2": ("qkvb_attention_fwd_kernel",),
-                       "K3": ("delta_kernel", "dkdv_kernel", "dq_kernel",
-                              "column_sum_kernel"),
-                       "K4": ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")})
+                       "K2": K2_NAMES, "K3": K3_NAMES, "K4": K4_NAMES})
 
 
 def train_augment_phase(fa, ln, smi, trace):
@@ -1773,6 +1855,464 @@ def train_augment_phase(fa, ln, smi, trace):
     return ({"launches": counts["K7"], **k7[0], "shapes": k7},
             {"launches": counts["K8"], **k8[0], "shapes": k8},
             augmented, fold)
+
+
+# ---------------------------------------------------------------------------
+# 10. ViT-B/16@224 with attention_impl packed (K10) and mega (K11)
+# ---------------------------------------------------------------------------
+
+def check_k10(fa, b, n, heads, d, dtype, entries, timed):
+    """K10's ``entries`` (of "fwd", "lse", "bwd") through their wrappers
+    against the plain version on the same seeded inputs; returns a record per
+    entry, timed when ``timed``."""
+    from fedvit_torch.ops.attention import attention_from_qkv as plain
+
+    e = heads * d
+    qkv = seeded((b, n, 3 * e), dtype, SEED + 40 + n + d)
+    dout = seeded((b, n, e), dtype, SEED + 41 + n + d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 4.0 * b * heads * n * n * d
+    tag = f"[k10] qkv {tuple(qkv.shape)} {short(dtype)} heads {heads} (d {d})"
+    atol = K1_ATOL_FP32 if dtype == torch.float32 else K1_ATOL_BF16
+    recs = {}
+    if "fwd" in entries:
+        out = fa.flash_attention_qkv(qkv, heads)
+        torch.cuda.synchronize()
+        err = float((out.float() - plain(qkv, heads).float()).abs().max())
+        log(f"{tag}: forward max_abs_err {err!r} (tolerance {atol!r})")
+        if not (err <= atol and bool(torch.isfinite(out).all())):
+            raise RuntimeError("K10 disagrees with its plain version")
+        rec = recs["fwd"] = {"max_abs_err": err}
+        if timed:
+            rec["ms"] = cuda_ms(lambda: fa.flash_attention_qkv(qkv, heads))
+            rec["plain_ms"] = cuda_ms(lambda: plain(qkv, heads))
+            rec["library_ms"] = cuda_ms(lambda: sdpa(*qkv_views(qkv, heads)))
+            nbytes = (qkv.numel() + out.numel()) * qkv.element_size()
+            rec.update(bound(nbytes, flops, dtype))
+    if "lse" in entries:
+        out, lse = fa.qkv_attention_lse_cuda(qkv, heads)
+        torch.cuda.synchronize()
+        q, k, _ = (t.float() for t in qkv_views(qkv, heads))
+        want_lse = torch.logsumexp(q @ k.transpose(-1, -2) / math.sqrt(d), -1)
+        same = torch.equal(out, fa.qkv_attention_cuda(qkv, heads))
+        err = float((out.float() - plain(qkv, heads).float()).abs().max())
+        lse_err = float((lse - want_lse).abs().max())
+        log(f"{tag}: log-sum-exp entry max_abs_err {err!r}, bit-identical to "
+            f"the forward: {same}; lse max_abs_err {lse_err!r} (tolerance "
+            f"{K2_LSE_ATOL!r})")
+        if not (same and err <= atol and lse_err <= K2_LSE_ATOL):
+            raise RuntimeError("K10's log-sum-exp entry disagrees")
+        rec = recs["lse"] = {"max_abs_err": err}
+        if timed:
+            rec["ms"] = cuda_ms(lambda: fa.qkv_attention_lse_cuda(qkv, heads))
+            rec["plain_ms"] = cuda_ms(lambda: plain(qkv, heads))
+            rec["library_ms"] = cuda_ms(lambda: sdpa(*qkv_views(qkv, heads)))
+            nbytes = (qkv.numel() + out.numel()) * qkv.element_size() + lse.numel() * 4
+            rec.update(bound(nbytes, flops, dtype))
+    if "bwd" in entries:
+        qkv_g = qkv.clone().requires_grad_()
+        (dqkv,) = torch.autograd.grad(fa.flash_attention_qkv(qkv_g, heads),
+                                      qkv_g, dout)
+        torch.cuda.synchronize()
+        qkv_p = qkv.clone().requires_grad_()
+        out_p = plain(qkv_p, heads)
+        (want,) = torch.autograd.grad(out_p, qkv_p, dout, retain_graph=True)
+        err = float((dqkv.float() - want.float()).abs().max())
+        rel = rel_max(dqkv, want)
+        log(f"{tag}: backward dqkv max_abs_err {err!r}, {rel!r} of max |dqkv| "
+            f"(tolerance {K3_TOL[dtype]!r})")
+        if not (rel <= K3_TOL[dtype] and bool(torch.isfinite(dqkv).all())
+                and dqkv.dtype == dtype):
+            raise RuntimeError("K10's backward disagrees with its plain version")
+        rec = recs["bwd"] = {"max_abs_err": err}
+        if timed:
+            o, lse = fa.qkv_attention_lse_cuda(qkv, heads)
+            rec["ms"] = cuda_ms(
+                lambda: fa.qkv_attention_bwd_cuda(qkv, o, dout, lse, heads))
+            rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out_p, qkv_p, dout, retain_graph=True))
+            qkv_s = qkv.clone().requires_grad_()
+            out_s = sdpa(*qkv_views(qkv_s, heads))
+            dout_s = dout.view(b, n, heads, d).transpose(1, 2)
+            rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out_s, qkv_s, dout_s, retain_graph=True))
+            nbytes = ((2 * qkv.numel() + 2 * o.numel()) * qkv.element_size()
+                      + lse.numel() * 4)
+            rec.update(bound(nbytes, 2.5 * flops, dtype))
+    for name, rec in recs.items():
+        if "ms" in rec:
+            log(f"{tag}: {name} kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r}"
+                f" ms, sdpa {rec['library_ms']!r} ms, bound {rec['bound_ms']!r} "
+                f"ms by {rec['bound_by']}")
+    return recs
+
+
+def x_inputs(b, n, dim, e, dtype, seed):
+    """x of unit entries, W (D, 3E) of N(0, 1/D), so that qkv is of unit size,
+    and a bias of 0.5, all in ``dtype``."""
+    return (seeded((b, n, dim), dtype, seed),
+            seeded((dim, 3 * e), dtype, seed + 1, 1.0 / math.sqrt(dim)),
+            seeded((3 * e,), dtype, seed + 2, 0.5))
+
+
+def linear_sdpa(x, w, bias, heads):
+    """K11's library yardstick: ``F.linear`` then SDPA on the q/k/v views."""
+    qkv = torch.nn.functional.linear(x, w.t(), bias)
+    b, n, _ = x.shape
+    out = torch.nn.functional.scaled_dot_product_attention(*qkv_views(qkv, heads))
+    return out.transpose(1, 2).reshape(b, n, -1)
+
+
+def check_k11(fa, b, n, dim, heads, d, dtype, entries, timed):
+    """K11's ``entries`` (of "fwd", "lse", "bwd") through their wrappers
+    against the plain version on the same seeded inputs; the backward's dx,
+    dW and db each against autograd of the plain version (dW there is the
+    fp32 product xᵀ·dqkv, rounded once), and run twice for the same bits.
+    Returns a record per entry, timed when ``timed``."""
+    from fedvit_torch.ops.attention import attention_from_x as plain
+
+    e = heads * d
+    x, w, bias = x_inputs(b, n, dim, e, dtype, SEED + 50 + n + d)
+    dout = seeded((b, n, e), dtype, SEED + 53 + n + d)
+    proj = 2.0 * b * n * dim * 3 * e
+    attn = 4.0 * b * heads * n * n * d
+    io = (x.numel() + w.numel() + bias.numel() + b * n * e) * x.element_size()
+    tag = (f"[k11] x {tuple(x.shape)} w {tuple(w.shape)} {short(dtype)} heads "
+           f"{heads} (d {d})")
+    atol = K11_ATOL[dtype]
+    recs = {}
+    if "fwd" in entries:
+        out = fa.flash_attention_xqkv(x, w, bias, heads)
+        torch.cuda.synchronize()
+        err = float((out.float() - plain(x, w, bias, heads).float()).abs().max())
+        log(f"{tag}: forward max_abs_err {err!r} (tolerance {atol!r})")
+        if not (err <= atol and bool(torch.isfinite(out).all())):
+            raise RuntimeError("K11 disagrees with its plain version")
+        rec = recs["fwd"] = {"max_abs_err": err}
+        if timed:
+            rec["ms"] = cuda_ms(lambda: fa.flash_attention_xqkv(x, w, bias, heads))
+            rec["plain_ms"] = cuda_ms(lambda: plain(x, w, bias, heads))
+            rec["library_ms"] = cuda_ms(lambda: linear_sdpa(x, w, bias, heads))
+            rec.update(bound(io, proj + attn, dtype))
+    if "lse" in entries:
+        out, lse = fa.xqkv_attention_lse_cuda(x, w, bias, heads)
+        torch.cuda.synchronize()
+        same = torch.equal(out, fa.xqkv_attention_cuda(x, w, bias, heads))
+        err = float((out.float() - plain(x, w, bias, heads).float()).abs().max())
+        log(f"{tag}: log-sum-exp entry max_abs_err {err!r}, bit-identical to "
+            f"the forward: {same}, lse finite {bool(torch.isfinite(lse).all())}")
+        if not (same and err <= atol and bool(torch.isfinite(lse).all())):
+            raise RuntimeError("K11's log-sum-exp entry disagrees")
+        rec = recs["lse"] = {"max_abs_err": err}
+        if timed:
+            rec["ms"] = cuda_ms(lambda: fa.xqkv_attention_lse_cuda(x, w, bias, heads))
+            rec["plain_ms"] = cuda_ms(lambda: plain(x, w, bias, heads))
+            rec["library_ms"] = cuda_ms(lambda: linear_sdpa(x, w, bias, heads))
+            rec.update(bound(io + lse.numel() * 4, proj + attn, dtype))
+    if "bwd" in entries:
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        got = torch.autograd.grad(fa.flash_attention_xqkv(*leaves, heads), leaves,
+                                  dout)
+        torch.cuda.synchronize()
+        plain_leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        out_p = plain(*plain_leaves, heads)
+        want = torch.autograd.grad(out_p, plain_leaves, dout, retain_graph=True)
+        rels = [rel_max(g, wt) for g, wt in zip(got, want)]
+        o, lse = fa.xqkv_attention_lse_cuda(x, w, bias, heads)
+        again = [fa.xqkv_attention_bwd_cuda(x, w, bias, o, dout, lse, heads)
+                 for _ in range(2)]
+        same = all(torch.equal(a, b_) for a, b_ in zip(*again))
+        err = float((got[0].float() - want[0].float()).abs().max())
+        log(f"{tag}: backward as shares of the largest |value|: dx {rels[0]!r}, "
+            f"dW {rels[1]!r} (against the plain fp32 product), db {rels[2]!r} "
+            f"(tolerance {K11_TOL[dtype]!r}); dx max_abs_err {err!r}; the "
+            f"backward twice gives the same bits: {same}")
+        if not (max(rels) <= K11_TOL[dtype] and same
+                and all(bool(torch.isfinite(g).all()) and g.dtype == dtype
+                        for g in got)):
+            raise RuntimeError("K11's backward disagrees with its plain version")
+        rec = recs["bwd"] = {"max_abs_err": err, "dw_rel_err": rels[1],
+                             "db_rel_err": rels[2]}
+        if timed:
+            rec["ms"] = cuda_ms(
+                lambda: fa.xqkv_attention_bwd_cuda(x, w, bias, o, dout, lse, heads))
+            rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out_p, plain_leaves, dout, retain_graph=True))
+            lib_leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+            out_l = linear_sdpa(*lib_leaves, heads)
+            rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out_l, lib_leaves, dout, retain_graph=True))
+            # x, w, b, out and dout read; dx, dw and db written
+            nbytes = 2 * io + lse.numel() * 4
+            rec.update(bound(nbytes, 3 * proj + 2.5 * attn, dtype))
+    for name, rec in recs.items():
+        if "ms" in rec:
+            log(f"{tag}: {name} kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r}"
+                f" ms, F.linear + sdpa {rec['library_ms']!r} ms, bound "
+                f"{rec['bound_ms']!r} ms by {rec['bound_by']}")
+    return recs
+
+
+IMPL_KERNELS = {"packed": ("K10", "flash_attention_qkv"),
+                "mega": ("K11", "flash_attention_xqkv")}
+# the groups of each impl's --trace profiles: serving, then a training step
+IMPL_TRACE = {
+    "packed": (("K10", K10_NAMES),
+               {"K10 log-sum-exp entry": K10_LSE_NAMES,
+                "K10 backward": K10_BWD_NAMES, "K4": K4_NAMES}),
+    "mega": (("K11", K11_GEMM_NAMES + K10_NAMES),
+             {"K11 products (gemm.cuh)": K11_GEMM_NAMES,
+              "K11 attention, log-sum-exp entry": K10_LSE_NAMES,
+              "K11 attention backward and db": K11_BWD_NAMES,
+              "K4": K4_NAMES})}
+
+
+def impl_replaced_by(impl, fn):
+    """Run the ViT's ``impl`` attention through ``fn`` instead of its kernel."""
+    from fedvit_torch.models import layers
+    return rebound(layers, IMPL_KERNELS[impl][1], fn)
+
+
+@contextlib.contextmanager
+def qkv_bias_zeroed(model):
+    """Every ``attn.qkv`` Dense of the model without its bias inside the
+    block: the control of ``packed``'s logits check."""
+    biases = [m.qkv.bias for m in model.modules() if hasattr(m, "qkv")]
+    saved = [b.detach().clone() for b in biases]
+    with torch.no_grad():
+        for b in biases:
+            b.zero_()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in zip(biases, saved):
+                b.copy_(v)
+
+
+def plain_attention(impl, fp32=False):
+    """``impl``'s plain attention in the model's place; with ``fp32``
+    computed in fp32 and cast back (the rounding-noise reference of 10c)."""
+    from fedvit_torch.ops.attention import attention_from_qkv, attention_from_x
+
+    if impl == "packed":
+        if fp32:
+            return lambda qkv, h: attention_from_qkv(qkv.float(), h).to(qkv.dtype)
+        return attention_from_qkv
+    if fp32:
+        return lambda x, w, b, h: attention_from_x(
+            x.float(), w.float(), b.float(), h).to(x.dtype)
+    return attention_from_x
+
+
+def logits_control(impl, model):
+    """The control of 10b's logits check, as context managers: for
+    ``packed`` the qkv Dense without its bias, for ``mega`` the plain K11
+    with its bias zeroed."""
+    plain = plain_attention(impl)
+    if impl == "packed":
+        return [qkv_bias_zeroed(model), impl_replaced_by(impl, plain)]
+    return [impl_replaced_by(impl, lambda x, w, b, h: plain(x, w, b * 0, h))]
+
+
+def impl_serving(fa, impl, smi, auto, trace):
+    """10b: ViT-B/16@224 serving and TTA with ``impl``: the launches, the
+    logits against the plain attention and the control, with ``trace`` the
+    profile; returns (the serving run's launch count, img/s, peak GiB)."""
+    from fedvit_torch.core.config import (Config, DataConfig, ModelConfig,
+                                          TrainingConfig)
+    from fedvit_torch.data.pipeline import canvas_size, make_device_augment
+    from fedvit_torch.eval.serve import (_evaluate, evaluate_with_tta,
+                                         make_eval_step)
+    from fedvit_torch.models import build_model
+
+    kernel = IMPL_KERNELS[impl][0]
+    tag = f"serve-{impl}"
+    cfg = Config(
+        data=DataConfig(use_segmentation_mask=True),
+        model=ModelConfig(backbone="vit_base_patch16_224", image_size=224,
+                          compute_dtype="bfloat16", drop_path_rate=0.0,
+                          attention_impl=impl),
+        training=TrainingConfig(batch_size=SERVE_BATCH))
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED))
+    perturb(model, SEED)
+    canvas = canvas_size(cfg.model.image_size)
+    source = serving_inputs(SERVE_IMAGES, canvas)
+    augment = make_device_augment(cfg, False)
+    step = make_eval_step(model, cfg, augment=augment)
+    _evaluate(step, serving_inputs(SERVE_BATCH, canvas), SERVE_BATCH,
+              cfg.num_classes)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(what, fn, forwards):
+        reset_counts(fa, None)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts(fa, None)
+        want = {k: 0 for k in counts} | {kernel: BLOCKS * forwards}
+        log(f"[{tag}] {what}: launches {counts} for {forwards} forwards")
+        if counts != want:
+            raise RuntimeError(f"{tag}: {what} did not launch {kernel} alone, "
+                               f"{BLOCKS} times a forward")
+        return out, seconds, counts[kernel]
+
+    def through(managers, fn):
+        with contextlib.ExitStack() as stack:
+            for ctx in managers:
+                stack.enter_context(ctx)
+            return fn()
+
+    serve = lambda: _evaluate(step, source, SERVE_BATCH, cfg.num_classes)["logits"]
+    served, serve_s, launches = run("serving", serve,
+                                    math.ceil(SERVE_IMAGES / SERVE_BATCH))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = through([impl_replaced_by(impl, plain_attention(impl))], serve)
+    compare_logits(tag, served, want)
+    ctrl = rel_rms(through(logits_control(impl, model), serve), want)
+    log(f"[{tag}] control, {'the qkv Dense without its bias' if impl == 'packed' else 'the plain K11 with its bias zeroed'}: "
+        f"RMS error {ctrl!r} x RMS logit (must exceed {LOGITS_RTOL_BF16!r})")
+    if not ctrl > LOGITS_RTOL_BF16:
+        raise RuntimeError(f"{tag}: the logits check cannot tell the control")
+    rate = SERVE_IMAGES / serve_s
+    log(f"[{tag}] ViT-B/16@224 bf16 4ch+meta attention_impl {impl} bs "
+        f"{SERVE_BATCH}: {SERVE_IMAGES} images in {serve_s!r} s = {rate!r} img/s, "
+        f"peak {peak_gb!r} GiB; auto in this run {auto['img_s']!r} img/s, peak "
+        f"{auto['peak_gib']!r} GiB ({smi})")
+
+    tta_source = serving_inputs(TTA_IMAGES, canvas)
+    tta = lambda: evaluate_with_tta(cfg, model, tta_source,
+                                    batch_size=TTA_BATCH)[2]
+    tta_logits, tta_s, _ = run("tta", tta, math.ceil(TTA_IMAGES / TTA_BATCH))
+    compare_logits(f"tta-{impl}", tta_logits, through(
+        [impl_replaced_by(impl, plain_attention(impl))], tta))
+    log(f"[tta-{impl}] 8 views bs {TTA_BATCH}: {TTA_IMAGES} images in {tta_s!r}"
+        f" s = {TTA_IMAGES / tta_s!r} img/s; auto in this run "
+        f"{auto['tta_img_s']!r} img/s ({smi})")
+    if trace:
+        trace_serving(model, step, augment, source, cfg, smi,
+                      kernel=IMPL_TRACE[impl][0], tag=f"-{impl}")
+    return launches, rate, peak_gb
+
+
+def impl_control_grads(fa, impl):
+    """The gradient check's control of ``impl``: for ``mega`` K11 with dW
+    zeroed, for ``packed`` K10 with the k third of dqkv zeroed."""
+    if impl == "mega":
+        class WithoutDw(fa.XqkvAttention):
+            @staticmethod
+            def backward(ctx, dout):
+                dx, dw, db, _ = fa.XqkvAttention.backward(ctx, dout)
+                return dx, torch.zeros_like(dw), db, None
+
+        return WithoutDw.apply, "K11 with dW zeroed (every qkv.weight leaf)"
+
+    class WithoutDk(fa.QkvAttention):
+        @staticmethod
+        def backward(ctx, dout):
+            dqkv, _ = fa.QkvAttention.backward(ctx, dout)
+            e = dqkv.shape[-1] // 3
+            dqkv[..., e:2 * e] = 0
+            return dqkv, None
+
+    return WithoutDk.apply, ("K10 with the k third of dqkv zeroed (the k rows "
+                             "of every qkv.weight)")
+
+
+def impl_train(fa, ln, impl, smi, trace):
+    """10c: the phase-6 recipe with ``impl``: a warm-up step, 5 timed steps
+    with their launches, then one macro batch's gradients against the plain
+    path with a control, and with ``trace`` the profile of a step; returns
+    the launch counts.
+
+    Each leaf is held to GRAD_RTOL_BF16 of the plain path's gradient, as
+    phase 6c holds K1-K3. The q, k and v rows of every qkv weight are judged
+    apart as well (the packed control zeroes only the k rows), each allowed
+    GRAD_RTOL_BF16 plus twice its own rounding noise, how far the plain path
+    is from the plain path with its attention in fp32, as phase 8c does. The
+    q and k rows carry dq and dk, sums that cancel (a row of dS sums to 0);
+    bf16 rounding moves them by about a tenth of their size, and the kernel
+    path is about as far from the fp32 plain path as from the bf16 one
+    (measured: 0.101-0.103 and 0.106-0.110 at blocks 10 and 11, against the
+    plain paths' 0.076 from each other), so neither reference holds them to
+    the flat limit. How far the kernel path is from each is printed."""
+    kernel = IMPL_KERNELS[impl][0]
+    tag = f"train-{impl}"
+    cfg, model, state, step, batches = training_setup(
+        "vit_base_patch16_224", 224, MICRO, ACCUM, 0.1, 0.75, attention_impl=impl)
+    state = warm_up_step(tag, cfg, model, state, step, batches[0])
+    micro_batches = TIMED_STEPS * ACCUM
+    want = {k: 0 for k in counted(fa, ln)} | {
+        f"{kernel}_lse": micro_batches * BLOCKS,
+        f"{kernel}_bwd": micro_batches * BLOCKS, "K4": micro_batches * NORMS}
+    state, counts = timed_steps(tag, f"ViT-B/16@224 bf16 4ch+meta {impl}", fa,
+                                ln, state, step, batches[1:], want, smi)
+    control, control_name = impl_control_grads(fa, impl)
+    plain_ln = layer_norm_backward_replaced_by
+    got = grads_by_path(model, state, step, batches[1], {
+        "kernel": (),
+        "plain": (impl_replaced_by(impl, plain_attention(impl)),
+                  plain_ln(ln.ln_bwd_plain)),
+        "fp32": (impl_replaced_by(impl, plain_attention(impl, fp32=True)),
+                 plain_ln(ln.ln_bwd_plain)),
+        "control": (impl_replaced_by(impl, control),)})
+    for grads, _ in got.values():      # the q, k and v rows of each qkv weight
+        for n in [n for n in grads if n.endswith("attn.qkv.weight")]:
+            for part, rows in zip("qkv", grads[n].chunk(3, dim=0)):
+                grads[f"{n}[{part}]"] = rows
+    report = ("qkv.weight[q]", "qkv.weight[k]", "qkv.weight[v]",
+              "attn.qkv.bias")
+    kernel_g, fp32_g = got["kernel"][0], got["fp32"][0]
+    for suffix in report:
+        off = [rel_rms(kernel_g[n].cpu().numpy(), fp32_g[n].cpu().numpy())
+               for n in fp32_g if n.endswith(suffix)]
+        log(f"[{tag}]   {suffix}: the kernel path vs the plain path with fp32 "
+            f"attention, median {float(np.median(off))!r}, largest {max(off)!r}")
+    suffix = "attn.qkv.weight" if impl == "mega" else "attn.qkv.weight[k]"
+    compare_grads(tag, got, GRAD_RTOL_BF16,
+                  [n for n in got["plain"][0] if n.endswith(suffix)],
+                  control_name, report=report,
+                  noisy=lambda name: name.endswith("]"))
+    if trace:
+        trace_training(f"profile-train-{impl}", step, state, batches[2], smi,
+                       IMPL_TRACE[impl][1])
+    return counts
+
+
+def packed_mega_phase(fa, ln, attention_from_qkvb, smi, auto, trace):
+    """Phase 10; returns the six records of K10's and K11's entries for the
+    kernels line."""
+    # 10a. the kernels: small fp32 cases (ragged N, several rows, d 64 and 80)
+    for n, d, heads in ((37, 64, 2), (197, 64, 12), (37, 80, 2), (197, 80, 2)):
+        check_k10(fa, 3, n, heads, d, torch.float32, ("fwd", "lse", "bwd"), False)
+        check_k11(fa, 3, n, heads * d, heads, d, torch.float32,
+                  ("fwd", "lse", "bwd"), False)
+    check_k11(fa, 2, 37, 128, 2, 80, torch.float32, ("fwd", "bwd"), False)  # D ≠ E
+    n = (224 // 16) ** 2 + 1
+    recs = {"K10": check_k10(fa, SERVE_BATCH, n, 12, 64, torch.bfloat16, ("fwd",),
+                             True),
+            "K11": check_k11(fa, SERVE_BATCH, n, 768, 12, 64, torch.bfloat16,
+                             ("fwd",), True)}
+    recs["K10"] |= check_k10(fa, MICRO, n, 12, 64, torch.bfloat16,
+                             ("lse", "bwd"), True)
+    recs["K11"] |= check_k11(fa, MICRO, n, 768, 12, 64, torch.bfloat16,
+                             ("lse", "bwd"), True)
+    torch.cuda.empty_cache()
+    # 10b, 10c
+    for impl in IMPL_KERNELS:
+        kernel = IMPL_KERNELS[impl][0]
+        launches, rate, peak = impl_serving(fa, impl, smi, auto, trace)
+        recs[kernel]["fwd"] |= {"launches": launches, "serve_img_s": rate,
+                                "serve_peak_gib": peak}
+        torch.cuda.empty_cache()
+        counts = impl_train(fa, ln, impl, smi, trace)
+        recs[kernel]["lse"]["launches"] = counts[f"{kernel}_lse"]
+        recs[kernel]["bwd"]["launches"] = counts[f"{kernel}_bwd"]
+        torch.cuda.empty_cache()
+    return recs
 
 
 def main() -> int:
@@ -1821,6 +2361,12 @@ def main() -> int:
              K1_ATOL_FP32, timed=False)
     k1 = check_k1(fa, attention_from_qkvb, SERVE_BATCH, n, 12, e // 12,
                   torch.bfloat16, K1_ATOL_BF16, timed=True)
+    # ViT-H's head width, d = 80, at a small batch
+    k1["d80_max_abs_err"] = max(
+        check_k1(fa, attention_from_qkvb, 3, n, 2, 80, torch.float32,
+                 K1_ATOL_FP32, timed=False)["max_abs_err"],
+        check_k1(fa, attention_from_qkvb, 8, n, 16, 80, torch.bfloat16,
+                 K1_ATOL_BF16, timed=False)["max_abs_err"])
 
     # 3. serving: eval augment + forward at batch 256, ragged last batch
     cfg = Config(
@@ -1875,6 +2421,8 @@ def main() -> int:
     compare_logits("tta", tta_logits, tta_plain)
     log(f"[tta] 8 views bs {TTA_BATCH}: {TTA_IMAGES} images in {tta_s!r} s = "
         f"{TTA_IMAGES / tta_s!r} img/s ({smi})")
+    auto = {"img_s": SERVE_IMAGES / serve_s, "peak_gib": peak_gb,
+            "tta_img_s": TTA_IMAGES / tta_s}
 
     # 5. where a serving batch's time goes
     if args.trace:
@@ -1887,6 +2435,12 @@ def main() -> int:
     check_k4(ln, (3, 37, e), torch.float32, False)
     k2 = check_k2(fa, attention_from_qkvb, MICRO, n, 12, torch.bfloat16, True)
     k3 = check_k3(fa, attention_from_qkvb, MICRO, n, 12, torch.bfloat16, True)
+    for check, rec in ((check_k2, k2), (check_k3, k3)):    # d = 80 (ViT-H)
+        rec["d80_max_abs_err"] = max(
+            check(fa, attention_from_qkvb, 3, 37, 2, torch.float32, False,
+                  d=80)["max_abs_err"],
+            check(fa, attention_from_qkvb, 8, n, 16, torch.bfloat16, False,
+                  d=80)["max_abs_err"])
     k4 = check_k4(ln, (MICRO, n, e), torch.bfloat16, True)
 
     # 6b, 6c. the training step
@@ -1904,6 +2458,22 @@ def main() -> int:
     # 9. the train augment (K7, K8) and the fold trainer
     torch.cuda.empty_cache()
     k7, k8, _, _ = train_augment_phase(fa, ln, smi, args.trace)
+
+    # 10. ViT-B/16@224 with attention_impl packed (K10) and mega (K11)
+    torch.cuda.empty_cache()
+    k10_k11 = packed_mega_phase(fa, ln, attention_from_qkvb, smi, auto,
+                                args.trace)
+    k10, k11 = k10_k11["K10"], k10_k11["K11"]
+    extra = [{"name": name, "route": "cuda", "source": f"fedvit_torch/csrc/{src}",
+              "replaces": f"fedvit_tpu/ops/flash_attention.py:{line}", **rec}
+             for name, src, line, rec in (
+                 ("qkv_attention_fwd", "qkvb_attention.cu", 129, k10["fwd"]),
+                 ("qkv_attention_fwd_lse", "qkvb_attention.cu", 129, k10["lse"]),
+                 ("qkv_attention_bwd", "qkvb_attention_bwd.cu", 143, k10["bwd"]),
+                 ("xqkv_attention_fwd", "xqkv_attention.cu", 748, k11["fwd"]),
+                 ("xqkv_attention_fwd_lse", "xqkv_attention.cu", 748, k11["lse"]),
+                 ("xqkv_attention_bwd", "xqkv_attention_bwd.cu", 766,
+                  k11["bwd"]))]
 
     log(smi)
     log(json.dumps({"kernels": [
@@ -1940,7 +2510,8 @@ def main() -> int:
          "replaces": "fedvit_tpu/ops/row_shift.py:80", **k7},
         {"name": "equalize", "route": "cuda",
          "source": "fedvit_torch/csrc/equalize.cu",
-         "replaces": "fedvit_tpu/ops/randaugment.py:206", **k8}]}))
+         "replaces": "fedvit_tpu/ops/randaugment.py:206", **k8},
+        *extra]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -1,19 +1,26 @@
 """Inference CLI — batch prediction from fold weights, on the GPU.
 
     python -m fedvit_torch.cli.predict --config config.yaml \
-        --checkpoint fold0.pt [--checkpoint fold1.pt ...] \
-        --images ./new_lesions/ --output predictions.csv [--tta] [--device cuda]
+        --checkpoint runs/best_fold0 [--checkpoint runs/best_fold1 ...] \
+        --images ./new_lesions/ --output predictions.csv [--tta] [--no-ema] \
+        [--device cuda]
 
-The port of ``fedvit_tpu/cli/predict.py``, with two differences:
+The port of ``fedvit_tpu/cli/predict.py``. ``--checkpoint`` is repeated for a
+fold ensemble, whose logits are averaged as in the reference
+(train.py:446-455). Each is either
 
-  * ``--checkpoint`` is a ``.pt`` file holding the port's ``state_dict``
+  * a checkpoint directory that ``train/loop.py::train_fold`` writes
+    (``best_fold{k}``, ``train/checkpoint.py::save_checkpoint``): served with
+    the EMA shadow in the model's parameters, as the JAX CLI serves
+    ``state.eval_params()``, or with the trained parameters under
+    ``--no-ema`` (and always when the run kept no shadow); or
+  * a ``.pt`` file holding the port's ``state_dict``
     (``torch.save(model.state_dict(), path)``, or
-    ``models/import_weights.py::state_dict_from_jax`` of JAX variables);
-    repeat it for a fold ensemble, whose logits are averaged as in the
-    reference (train.py:446-455). A ``.pt`` holds one parameter set, so
-    ``--no-ema`` changes nothing: save the EMA weights to serve them.
-  * ``--device`` picks the device, ``cuda`` by default; without a card the
-    command fails unless ``--device cpu`` is given.
+    ``models/import_weights.py::state_dict_from_jax`` of JAX variables). It
+    holds one parameter set, so ``--no-ema`` with a ``.pt`` is refused.
+
+``--device`` picks the device, ``cuda`` by default; without a card the
+command fails unless ``--device cpu`` is given.
 
 ``--images DIR`` reads a directory of JPEG/PNG images (no labels; the
 metadata branch gets the neutral unknown age/sex/site). ``--isic_dir`` waits
@@ -47,7 +54,8 @@ def main(argv=None) -> int:
         description="ISIC 2019 — batch inference (PyTorch/CUDA port)")
     parser.add_argument("--config", type=str, default="config.yaml")
     parser.add_argument("--checkpoint", action="append", required=True,
-                        metavar="PT", help=".pt file holding the port's "
+                        metavar="PATH", help="checkpoint directory written by "
+                        "train_fold, or a .pt file holding the port's "
                         "state_dict (repeat for a fold ensemble)")
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--images", type=str, help="Directory of images")
@@ -60,8 +68,8 @@ def main(argv=None) -> int:
                         help="8-view test-time augmentation")
     parser.add_argument("--batch_size", type=int, default=None)
     parser.add_argument("--no-ema", dest="ema", action="store_false",
-                        help="Accepted for compatibility; a .pt holds one "
-                        "parameter set")
+                        help="Serve a checkpoint directory's trained "
+                        "parameters instead of its EMA shadow")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
@@ -75,7 +83,17 @@ def main(argv=None) -> int:
     from fedvit_torch.eval.serve import (_evaluate, _softmax,
                                          evaluate_with_tta, make_eval_step)
     from fedvit_torch.models import build_model
+    from fedvit_torch.train import checkpoint as ckpt
 
+    for path in args.checkpoint:
+        if ckpt.checkpoint_exists(path):
+            continue
+        if not Path(path).is_file():
+            raise SystemExit(f"no checkpoint at {path}")
+        if not args.ema:
+            raise SystemExit(f"--no-ema needs checkpoint directories: {path} "
+                             f"is a .pt state dict, which holds one parameter "
+                             f"set")
     if args.isic_dir is not None:
         raise NotImplementedError(
             "--isic_dir needs data/isic.py, which is not yet ported")
@@ -92,10 +110,14 @@ def main(argv=None) -> int:
                                augment=make_device_augment(cfg, train=False))
     fold_logits = []
     for path in args.checkpoint:
-        if not Path(path).is_file():
-            raise SystemExit(f"no checkpoint at {path}")
-        model.load_state_dict(torch.load(path, map_location=device,
-                                         weights_only=True))
+        if ckpt.checkpoint_exists(path):
+            shadow = ckpt.load_serving_weights(path, model, ema=args.ema)
+            print(f"[predict] {path}: "
+                  f"{'EMA shadow' if shadow else 'trained parameters'}",
+                  file=sys.stderr)
+        else:
+            model.load_state_dict(torch.load(path, map_location=device,
+                                             weights_only=True))
         if args.tta:
             _, _, logits = evaluate_with_tta(cfg, model, source, batch_size=bs)
         else:

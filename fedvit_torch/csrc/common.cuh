@@ -1,6 +1,6 @@
 // Helpers shared by the kernels in this directory: 16-byte loads of fp32 or
-// bf16 into fp32 registers, rounding to the storage type, and warp
-// reductions.
+// bf16 into fp32 registers, rounding to the storage type, warp reductions,
+// and the in-order column sum of an fp32 workspace.
 
 #pragma once
 
@@ -83,4 +83,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// out[c] = sum_r partial[r, c] over `rows` rows in order, rounded to T; one
+// thread a column
+template <typename T>
+__global__ void column_sum_kernel(const float* __restrict__ partial,
+                                  T* __restrict__ out, int rows, int cols) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= cols) return;
+  float sum = 0.f;
+  for (int r = 0; r < rows; ++r) sum += partial[static_cast<size_t>(r) * cols + c];
+  Io<T>::template store<1>(out + c, &sum);
 }

@@ -1,230 +1,37 @@
-// Multi-head softmax attention on the bias-free packed QKV projection output,
-// with the projection bias added on load: the forward of K1 (no grad) and K2
-// (the forward under grad, which also writes each row's log-sum-exp).
+// Multi-head softmax attention on the packed QKV projection output: the
+// forward of K1 (no grad) and K2 (the forward under grad, which also writes
+// each row's log-sum-exp), both with the projection bias added on load, and
+// of K10, the same without a bias. The kernel is attention_fwd.cuh.
 //
-// Replaces the TPU kernels fedvit_tpu/ops/flash_attention.py::_qkvb_fwd_kernel
-// (K1) and ::_qkvb_fwd_stats_kernel (K2), both launched by _qkvb_fwd_rule
-// through pl.pallas_call. The TPU's K2 saves the row max and 1/sum in a
-// (B, N, 128) block; this one saves lse = max + log(sum), (B, H, N) fp32,
-// which is what the backward in qkvb_attention_bwd.cu needs to rebuild P.
+// K1 and K2 replace the TPU kernels fedvit_tpu/ops/flash_attention.py::
+// _qkvb_fwd_kernel and ::_qkvb_fwd_stats_kernel, both launched by
+// _qkvb_fwd_rule through pl.pallas_call. The TPU's K2 saves the row max and
+// 1/sum in a (B, N, 128) block; this one saves lse = max + log(sum),
+// (B, H, N) fp32, which is what the backward in qkvb_attention_bwd.cu needs to
+// rebuild P. K10's forward entries replace ::_qkv_fwd_kernel (launched by
+// _qkv_fwd_rule): the `packed` ViT attention, whose projection has already
+// added the bias. The bias-free kernel is a compile-time variant, so K10 reads
+// no bias at all.
 //
-//   qkv  (B, N, 3E)  heads head-major along the last dim: [q_0..q_{H-1} |
-//                    k_0..k_{H-1} | v_0..v_{H-1}], each head d = E/H = 64
-//                    wide (the head width of ViT-Ti/S/B/L; others refused)
-//   bias (3E,)       the projection bias, already in qkv's type
-//   out  (B, N, E)   head h writes its column slice [h*d, (h+1)*d)
-//   lse  (B, H, N)   K2 only: log sum_j exp(s_ij), s = (q.k) / sqrt(d), fp32
-//
-//   out_h = softmax((q_h + b_q)(k_h + b_k)^T / sqrt(d)) (v_h + b_v)
-//
-// The biased q/k/v are rounded to the input type, as the reference adds the
-// bias in that type. Scores, the running max and the running sum are fp32.
-// K2 is K1's code with one more store, so its output is bit-identical to K1's.
+//   qkv  (B, N, 3E)  heads head-major, d = E/H = 64 (ViT-Ti/S/B/L) or 80 (ViT-H)
+//   bias (3E,)       K1 and K2 only, in qkv's type
+//   out  (B, N, E),  lse (B, H, N) fp32 for the _lse entries
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the ViT-B/16@224
 // serving shape, B=256, N=197, E=768, H=12, d=64, bf16:
 //   bytes: qkv read 256*197*2304*2 = 232.4 MB, out write 77.5 MB
-//          -> 309.9 MB / 3.35 TB/s = 92.5 us
+//          -> 309.9 MB / 3.35 TB/s = 92.5 us (K10: the same less 4.6 KB of bias)
 //   flops: 4*197^2*64*12*256 = 30.5 GFLOP -> 30.8 us at the bf16 tensor peak
-// so the kernel is bound by bytes, and a forward launches it 12 times. K2 at
-// the training micro-batch of 64 adds 0.6 MB of lse to 77.5 MB: ~23 us.
+// so the kernel is bound by bytes, and a forward launches it 12 times. The
+// _lse entries at the training micro-batch of 64 add 0.6 MB of lse to 77.5
+// MB: ~23 us.
 //
-// Design. This first version is plain SIMT code, written to be right and
-// readable; it runs its arithmetic on the fp32 cores, not the tensor cores,
-// so it sits well above the bound (see PERF.md). One block takes one
-// (batch, head, 32-query tile). Its 32 biased query rows are staged once in
-// shared memory as fp32; the keys and values pass through shared memory in
-// tiles of 64 rows, so any N works and nothing is re-read from device memory
-// within a block. Each of the 4 warps owns 8 query rows. For a chunk of 32
-// keys a lane holds one key row in registers and scores it against the
-// warp's 8 queries (the query rows are read as shared-memory broadcasts),
-// then the warp runs the online-softmax update and accumulates P.V with each
-// lane owning d/32 output columns. Rows past N (the ragged last tile at
-// N=197) are staged as zeros and masked with a score of -inf. Nothing is
-// written but the output, and no transposed copy of q, k or v is made.
+// Design (attention_fwd.cuh): plain SIMT code on the fp32 cores, written to
+// be right and readable, so it sits well above the bound (see PERF.md). The
+// head width d = 80 gives each lane 2 or 3 output columns and stages keys in
+// tiles of 32 rows; d = 64 keeps tiles of 64.
 
-#include <math.h>
-
-#include "common.cuh"
-
-namespace {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 8;
-constexpr int kQueryTile = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kKeyTile = 64;                        // key rows per staged tile
-
-template <typename T, int D, bool kLse>
-__global__ void __launch_bounds__(kThreads)
-qkvb_attention_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
-                          T* __restrict__ out, float* __restrict__ lse, int n,
-                          int e, float scale) {
-  constexpr int kVec = Io<T>::kVec;
-  constexpr int kVecPerRow = D / kVec;
-  constexpr int kStride = D + 4;  // padded fp32 row: conflict-free 16-byte reads
-  constexpr int kCols = D / 32;   // output columns per lane
-  constexpr int kR = kRowsPerWarp;
-
-  __shared__ __align__(16) float q_s[kQueryTile * kStride];
-  __shared__ __align__(16) float k_s[kKeyTile * kStride];
-  __shared__ __align__(16) float v_s[kKeyTile * D];
-  __shared__ __align__(16) float p_s[kWarps * kR * 32];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kQueryTile;
-  const int e3 = 3 * e;
-  const T* rows = qkv + static_cast<size_t>(b) * n * e3;
-
-  // rows [row0, row0 + count) of one head slice at column `off`, bias added
-  // and rounded to T, to fp32 shared memory; rows past n become zeros
-  auto stage = [&](float* dst, int stride, int row0, int count, int off) {
-    for (int i = tid; i < count * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * kVec;
-      float x[kVec];
-      if (row0 + r < n) {
-        float bv[kVec];
-        Io<T>::load(rows + static_cast<size_t>(row0 + r) * e3 + off + c, x);
-        Io<T>::load(bias + off + c, bv);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) x[j] = Io<T>::round(x[j] + bv[j]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) x[j] = 0.f;
-      }
-      float4* d4 = reinterpret_cast<float4*>(dst + r * stride + c);
-#pragma unroll
-      for (int j = 0; j < kVec / 4; ++j)
-        d4[j] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
-    }
-  };
-
-  stage(q_s, kStride, q0, kQueryTile, h * D);
-
-  float m[kR], l[kR], o[kR][kCols];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;  // this lane's share of the row sum
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) o[r][c] = 0.f;
-  }
-  float* p_w = p_s + warp * kR * 32;
-  const float* q_w = q_s + warp * kR * kStride;
-
-  for (int t0 = 0; t0 < n; t0 += kKeyTile) {
-    __syncthreads();  // the previous tile is consumed
-    stage(k_s, kStride, t0, kKeyTile, e + h * D);
-    stage(v_s, D, t0, kKeyTile, 2 * e + h * D);
-    __syncthreads();
-    const int nk = min(kKeyTile, n - t0);
-
-    for (int c0 = 0; c0 < nk; c0 += 32) {
-      const int key = c0 + lane;
-      float kr[D];
-      const float4* k4 = reinterpret_cast<const float4*>(k_s + key * kStride);
-#pragma unroll
-      for (int v = 0; v < D / 4; ++v) {
-        const float4 t = k4[v];
-        kr[4 * v] = t.x; kr[4 * v + 1] = t.y; kr[4 * v + 2] = t.z; kr[4 * v + 3] = t.w;
-      }
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const float4* q4 = reinterpret_cast<const float4*>(q_w + r * kStride);
-        float acc = 0.f;
-#pragma unroll
-        for (int v = 0; v < D / 4; ++v) {
-          const float4 t = q4[v];
-          acc = fmaf(t.x, kr[4 * v], acc);
-          acc = fmaf(t.y, kr[4 * v + 1], acc);
-          acc = fmaf(t.z, kr[4 * v + 2], acc);
-          acc = fmaf(t.w, kr[4 * v + 3], acc);
-        }
-        const float s = key < nk ? acc * scale : -INFINITY;
-        // lane 0 always holds a real key, so the chunk max is finite
-        const float m_new = fmaxf(m[r], warp_max(s));
-        const float corr = __expf(m[r] - m_new);
-        const float p = __expf(s - m_new);
-        m[r] = m_new;
-        l[r] = l[r] * corr + p;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) o[r][c] *= corr;
-        p_w[r * 32 + lane] = p;
-      }
-      __syncwarp();
-      // keys past nk have p = 0 and zero-staged values
-      const int kend = min(32, nk - c0);
-      for (int kk = 0; kk < kend; kk += 4) {
-        float vv[4][kCols];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            vv[j][c] = v_s[(c0 + kk + j) * D + lane * kCols + c];
-#pragma unroll
-        for (int r = 0; r < kR; ++r) {
-          const float4 p4 = *reinterpret_cast<const float4*>(p_w + r * 32 + kk);
-#pragma unroll
-          for (int c = 0; c < kCols; ++c)
-            o[r][c] += p4.x * vv[0][c] + p4.y * vv[1][c] + p4.z * vv[2][c] +
-                       p4.w * vv[3][c];
-        }
-      }
-      __syncwarp();  // p_w is rewritten by the next chunk
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const float sum = warp_sum(l[r]);
-    const float inv = 1.f / sum;
-    const int row = q0 + warp * kR + r;
-    if (kLse && row < n && lane == 0)
-      lse[(static_cast<size_t>(b) * gridDim.y + h) * n + row] = m[r] + logf(sum);
-    if (row < n) {
-      float res[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) res[c] = o[r][c] * inv;
-      Io<T>::template store<kCols>(
-          out + (static_cast<size_t>(b) * n + row) * e + h * D + lane * kCols, res);
-    }
-  }
-}
-
-template <typename T, bool kLse>
-int launch(const void* qkv, const void* bias, void* out, float* lse, int batch,
-           int n, int e, int heads, float scale, cudaStream_t stream) {
-  const dim3 grid((n + kQueryTile - 1) / kQueryTile, heads, batch);
-  const T* q = static_cast<const T*>(qkv);
-  const T* bb = static_cast<const T*>(bias);
-  T* o = static_cast<T*>(out);
-  if (e / heads != 64) return static_cast<int>(cudaErrorInvalidValue);
-  qkvb_attention_fwd_kernel<T, 64, kLse>
-      <<<grid, kThreads, 0, stream>>>(q, bb, o, lse, n, e, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kLse>
-int dispatch(const void* qkv, const void* bias, void* out, float* lse, int batch,
-             int n, int e, int heads, int dtype, float scale, void* stream) {
-  if (batch <= 0 || n <= 0 || heads <= 0 || e % heads != 0 || batch > 65535 ||
-      heads > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, kLse>(qkv, bias, out, lse, batch, n, e, heads, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, kLse>(qkv, bias, out, lse, batch, n, e, heads,
-                                       scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace
+#include "attention_fwd.cuh"
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
 // The caller checks shapes, contiguity and 16-byte alignment.
@@ -233,8 +40,8 @@ int dispatch(const void* qkv, const void* bias, void* out, float* lse, int batch
 extern "C" int qkvb_attention_fwd(const void* qkv, const void* bias, void* out,
                                   int batch, int n, int e, int heads, int dtype,
                                   float scale, void* stream) {
-  return dispatch<false>(qkv, bias, out, nullptr, batch, n, e, heads, dtype,
-                         scale, stream);
+  return attn_fwd::launch<true, false>(qkv, bias, out, nullptr, batch, n, e,
+                                       heads, dtype, scale, stream);
 }
 
 // K2: out and lse (B, H, N) fp32.
@@ -242,6 +49,23 @@ extern "C" int qkvb_attention_fwd_lse(const void* qkv, const void* bias,
                                       void* out, void* lse, int batch, int n,
                                       int e, int heads, int dtype, float scale,
                                       void* stream) {
-  return dispatch<true>(qkv, bias, out, static_cast<float*>(lse), batch, n, e,
-                        heads, dtype, scale, stream);
+  return attn_fwd::launch<true, true>(qkv, bias, out, static_cast<float*>(lse),
+                                      batch, n, e, heads, dtype, scale, stream);
+}
+
+// K10, serving: out only, no bias.
+extern "C" int qkv_attention_fwd(const void* qkv, void* out, int batch, int n,
+                                 int e, int heads, int dtype, float scale,
+                                 void* stream) {
+  return attn_fwd::launch<false, false>(qkv, nullptr, out, nullptr, batch, n,
+                                        e, heads, dtype, scale, stream);
+}
+
+// K10 under grad: out and lse (B, H, N) fp32, no bias.
+extern "C" int qkv_attention_fwd_lse(const void* qkv, void* out, void* lse,
+                                     int batch, int n, int e, int heads,
+                                     int dtype, float scale, void* stream) {
+  return attn_fwd::launch<false, true>(qkv, nullptr, out,
+                                       static_cast<float*>(lse), batch, n, e,
+                                       heads, dtype, scale, stream);
 }

@@ -14,9 +14,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedvit_torch.ops.activations import GELU, gelu
-from fedvit_torch.ops.flash_attention import flash_attention_qkvb
+from fedvit_torch.ops.flash_attention import (flash_attention_qkv,
+                                              flash_attention_qkvb,
+                                              flash_attention_xqkv)
 
-ATTENTION_IMPLS = ("auto",)
+# the ViT's ``model.attention_impl`` values; ``xla`` is not ported (its port
+# would be the plain version on the card)
+VIT_ATTENTION_IMPLS = ("auto", "pallas", "packed", "mega")
 
 
 class Dense(nn.Linear):
@@ -135,14 +139,23 @@ class Mlp(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """The JAX package's default MHA branch: a bias-free ``x @ W_qkv`` matmul,
-    then attention with the projection bias applied inside the op, then
-    ``proj``. The ``qkv`` parameters keep nn.Linear's (timm) layout.
+    """The JAX package's MHA with its three compositions of the ``qkv``
+    projection and the attention, chosen by ``attention_impl``; then
+    ``proj``. The ``qkv`` parameters keep nn.Linear's (timm) layout in all
+    three, so the same weights load into each.
 
-    Attention is always ``flash_attention_qkvb``: the CUDA kernels on a GPU
-    tensor (K1 without grad, K2/K3 with), its plain version on a CPU tensor.
-    The projection stays bias-free, so the bias gradient comes only from the
-    attention's backward. Only ``attention_impl="auto"`` is ported."""
+    - ``auto``, ``pallas``: a bias-free ``x @ W_qkv`` matmul, then
+      ``flash_attention_qkvb`` with the projection bias applied inside the op
+      (K1 without grad, K2/K3 with), so the bias gradient comes only from the
+      attention's backward;
+    - ``packed``: the ``qkv`` Dense with its bias, in the compute dtype, then
+      ``flash_attention_qkv`` (K10);
+    - ``mega``: ``flash_attention_xqkv`` (K11) on x, W and the bias cast to
+      the compute dtype: the projection runs inside the kernel, its products
+      summed in fp32 with the bias and rounded once.
+
+    Each attention op runs its CUDA kernels on a GPU tensor and its plain
+    version on a CPU tensor."""
 
     def __init__(self, dim: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
@@ -150,19 +163,29 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
-        if attention_impl not in ATTENTION_IMPLS:
+        if attention_impl not in VIT_ATTENTION_IMPLS:
             raise NotImplementedError(
-                f"attention_impl={attention_impl!r} is not ported yet "
-                f"(ported: {ATTENTION_IMPLS})")
+                f"attention_impl={attention_impl!r} is not ported for the ViT "
+                f"(ported: {VIT_ATTENTION_IMPLS})")
         self.num_heads = num_heads
         self.compute_dtype = dtype
+        self.attention_impl = attention_impl
         self.qkv = Dense(dim, 3 * dim, dtype)
         self.proj = Dense(dim, dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        qkv = torch.matmul(x.to(dt), self.qkv.weight.to(dt).t())
-        return self.proj(flash_attention_qkvb(qkv, self.qkv.bias, self.num_heads))
+        if self.attention_impl == "packed":
+            out = flash_attention_qkv(self.qkv(x), self.num_heads)
+        elif self.attention_impl == "mega":
+            # the JAX kernel's (D, 3E) layout of nn.Linear's (3E, D) weight
+            w = self.qkv.weight.to(dt).t().contiguous()
+            out = flash_attention_xqkv(x.to(dt).contiguous(), w,
+                                       self.qkv.bias.to(dt), self.num_heads)
+        else:
+            qkv = torch.matmul(x.to(dt), self.qkv.weight.to(dt).t())
+            out = flash_attention_qkvb(qkv, self.qkv.bias, self.num_heads)
+        return self.proj(out)
 
 
 def trunc_normal_(t: torch.Tensor, generator: torch.Generator,
@@ -174,4 +197,4 @@ def trunc_normal_(t: torch.Tensor, generator: torch.Generator,
 
 __all__ = ["Dense", "TorchBatchNorm", "Dropout", "DropPath", "run_sequential",
            "Mlp", "MultiHeadAttention", "GELU", "trunc_normal_",
-           "ATTENTION_IMPLS"]
+           "VIT_ATTENTION_IMPLS"]

@@ -35,12 +35,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedvit_torch.models.layers import ATTENTION_IMPLS, Dense, DropPath, Mlp
+from fedvit_torch.models.layers import Dense, DropPath, Mlp
 from fedvit_torch.models.vit import PatchEmbed
 from fedvit_torch.ops.flash_attention import flash_attention_bias_flat
 from fedvit_torch.ops.layer_norm import LayerNorm
 
 LN_EPS = 1e-5
+# the SwinV2's ``model.attention_impl`` values: JAX maps ``pallas`` and
+# ``mega`` to the windowed kernel (``fedvit_tpu/ops/attention.py:162-167``),
+# K5/K6 here; ``packed`` and ``xla`` fall to its XLA branch, not ported
+SWIN_ATTENTION_IMPLS = ("auto", "pallas", "mega")
 
 
 # ---------------------------------------------------------------------------
@@ -151,10 +155,10 @@ class WindowAttentionV2(nn.Module):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
-        if attention_impl not in ATTENTION_IMPLS:
+        if attention_impl not in SWIN_ATTENTION_IMPLS:
             raise NotImplementedError(
-                f"attention_impl={attention_impl!r} is not ported yet "
-                f"(ported: {ATTENTION_IMPLS})")
+                f"attention_impl={attention_impl!r} is not ported for the "
+                f"SwinV2 (ported: {SWIN_ATTENTION_IMPLS})")
         self.num_heads = num_heads
         self.window = window
         self.compute_dtype = dtype

@@ -1,5 +1,5 @@
 """Plain PyTorch attention — the counterpart of ``fedvit_tpu/ops/attention.py``'s
-XLA branch, and the reference the CUDA kernel is held to.
+XLA branch, and the reference the CUDA kernels are held to.
 
 Layout as in the JAX package: q, k, v are (B, N, H, Dh); the packed QKV
 projection output is (B, N, 3E) with heads head-major along the last dim; the
@@ -30,18 +30,48 @@ def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(orig)
 
 
+def dot_product_attention_flat(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Bias-free attention on flat (B, N, E) operands, heads head-major along
+    E: the plain branch of ``fedvit_tpu/ops/attention.py::
+    dot_product_attention_flat``. Returns (B, N, E)."""
+    b, n, e = q.shape
+    d = e // num_heads
+    out = xla_attention(q.reshape(b, n, num_heads, d),
+                        k.reshape(b, n, num_heads, d),
+                        v.reshape(b, n, num_heads, d))
+    return out.reshape(b, n, e)
+
+
+def attention_from_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Bias-free attention on the packed (B, N, 3E) projection output (the
+    XLA branch of ``fedvit_tpu/ops/attention.py::attention_from_qkv``): the
+    plain version of K10. Returns (B, N, E)."""
+    e = qkv.shape[-1] // 3
+    return dot_product_attention_flat(qkv[..., :e], qkv[..., e:2 * e],
+                                      qkv[..., 2 * e:], num_heads)
+
+
 def attention_from_qkvb(qkv: torch.Tensor, bias: torch.Tensor,
                         num_heads: int) -> torch.Tensor:
     """Attention on the bias-free packed (B, N, 3E) projection output plus the
-    projection bias (3E,), which is cast to qkv's dtype and added first.
-    Returns (B, N, E)."""
-    b, n, e3 = qkv.shape
-    e = e3 // 3
-    d = e // num_heads
-    x = qkv + bias.reshape(1, 1, -1).to(qkv.dtype)
-    q, k, v = (x[..., i * e:(i + 1) * e].reshape(b, n, num_heads, d)
-               for i in range(3))
-    return xla_attention(q, k, v).reshape(b, n, e)
+    projection bias (3E,), which is cast to qkv's dtype and added first: the
+    plain version of K1-K3. Returns (B, N, E)."""
+    return attention_from_qkv(qkv + bias.reshape(1, 1, -1).to(qkv.dtype),
+                              num_heads)
+
+
+def attention_from_x(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     num_heads: int) -> torch.Tensor:
+    """The QKV projection and attention, attention(x·W + b), as the XLA
+    branch of ``fedvit_tpu/ops/attention.py::attention_from_x``: the plain
+    version of K11. x (B, N, D); w (D, 3E) packed [Wq | Wk | Wv], heads
+    head-major within each third; b (3E,). The products of x and W (cast to
+    x's dtype) are summed in fp32, the fp32 bias added, and qkv rounded once
+    to x's dtype. Returns (B, N, E)."""
+    qkv = (torch.matmul(x.float(), w.to(x.dtype).float())
+           + b.float()).to(x.dtype)
+    return attention_from_qkv(qkv, num_heads)
 
 
 def windowed_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,20 +1,34 @@
 """Fused attention: on the packed QKV projection with its backward (ViT),
 and windowed with a relative-position bias and a shift mask (SwinV2).
 
-``flash_attention_qkvb`` is the port of ``fedvit_tpu/ops/flash_attention.py::
-flash_attention_qkvb``. On a CPU tensor it runs the plain version,
-``ops/attention.py::attention_from_qkvb``, under torch autograd; the kernels
-are held to it. On a CUDA tensor it launches hand-written kernels, with no
-fallback:
+Three ViT attentions, one for each ``model.attention_impl``, each the port of
+the ``fedvit_tpu/ops/flash_attention.py`` function of the same name. On a CPU
+tensor each runs its plain version in ``ops/attention.py`` under torch
+autograd; the kernels are held to it. On a CUDA tensor each launches
+hand-written kernels, with no fallback: the plain forward when no gradient is
+needed, else a ``torch.autograd.Function`` whose forward also keeps each
+row's log-sum-exp and whose backward is a kernel too.
 
-- K1 (``csrc/qkvb_attention.cu::qkvb_attention_fwd``, replaces
-  ``_qkvb_fwd_kernel``) when no gradient is needed: serving;
-- under grad, the ``torch.autograd.Function`` ``QkvbAttention``: its forward
-  launches K2 (``qkvb_attention_fwd_lse``, K1 plus each row's log-sum-exp;
-  replaces ``_qkvb_fwd_stats_kernel``) and its backward K3
-  (``csrc/qkvb_attention_bwd.cu``; replaces ``_qkvb_bwd_kernel``,
-  ``_qkvb_bwd_stats_kernel`` and ``_qkvb_bwd_delta_kernel``), which returns
-  dqkv and the bias gradient, so the bias-free projection never counts it.
+- ``flash_attention_qkvb`` (``auto``, ``pallas``): the bias-free projection
+  output plus the bias, added inside the op. K1 (``csrc/qkvb_attention.cu::
+  qkvb_attention_fwd``, replaces ``_qkvb_fwd_kernel``); under grad
+  ``QkvbAttention``: K2 (``qkvb_attention_fwd_lse``, replaces
+  ``_qkvb_fwd_stats_kernel``) and K3 (``csrc/qkvb_attention_bwd.cu``;
+  replaces ``_qkvb_bwd_kernel``, ``_qkvb_bwd_stats_kernel`` and
+  ``_qkvb_bwd_delta_kernel``), which returns dqkv and the bias gradient, so
+  the bias-free projection never counts it.
+- ``flash_attention_qkv`` (``packed``): the projection output with its bias
+  already added. K10 (``qkv_attention_fwd``, ``qkv_attention_fwd_lse`` and
+  ``qkv_attention_bwd`` in the same two sources; replaces ``_qkv_fwd_kernel``
+  and ``_qkv_bwd_kernel``), the same kernels compiled without a bias; under
+  grad ``QkvAttention``, whose backward returns dqkv only.
+- ``flash_attention_xqkv`` (``mega``): the projection and the attention,
+  attention(x·W + b). K11 (``csrc/xqkv_attention.cu``,
+  ``csrc/xqkv_attention_bwd.cu``; replaces ``_xqkv_fwd_kernel`` and
+  ``_xqkv_bwd_kernel``), whose products run in its own tensor-core GEMM; under
+  grad ``XqkvAttention``, whose backward returns dx, dW and db.
+
+All of them take heads of d = 64 (ViT-Ti/S/B/L) or 80 (ViT-H).
 
 ``flash_attention_bias_flat`` is the port of ``fedvit_tpu/ops/
 flash_attention.py::flash_attention_bias_flat``. On a CPU tensor it runs the
@@ -35,6 +49,11 @@ CUDA tensor, with no fallback:
 Each kernel's wrapper counts its launches in its ``launches`` attribute:
 ``flash_attention_qkvb.launches`` (K1), ``qkvb_attention_lse_cuda.launches``
 (K2), ``qkvb_attention_bwd_cuda.launches`` (K3),
+``flash_attention_qkv.launches`` (K10), ``qkv_attention_lse_cuda.launches``
+(K10 with the log-sum-exp), ``qkv_attention_bwd_cuda.launches`` (K10's
+backward), ``flash_attention_xqkv.launches`` (K11),
+``xqkv_attention_lse_cuda.launches`` (K11 with the log-sum-exp),
+``xqkv_attention_bwd_cuda.launches`` (K11's backward),
 ``flash_attention_bias_flat.launches`` (K5),
 ``window_attention_lse_cuda.launches`` (K5 with the log-sum-exp),
 ``window_attention_bwd_cuda.launches`` (K6).
@@ -50,11 +69,12 @@ from typing import Optional, Tuple
 import torch
 
 from fedvit_torch.core import kernels
-from fedvit_torch.ops.attention import (attention_from_qkvb,
+from fedvit_torch.ops.attention import (attention_from_qkv,
+                                        attention_from_qkvb, attention_from_x,
                                         windowed_attention_flat)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64,)          # K1-K3: ViT-Ti/S/B/L all have d = 64
+_HEAD_DIMS = (64, 80)       # K1-K3, K10, K11: ViT-Ti/S/B/L d = 64, ViT-H 80
 _WINDOW_HEAD_DIMS = (32,)   # K5, K6: every SwinV2 the registry builds has d = 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -66,7 +86,12 @@ def _library() -> ctypes.CDLL:
     lib.qkvb_attention_fwd.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P]
     lib.qkvb_attention_fwd_lse.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                            _F, _P]
-    lib.qkvb_attention_fwd.restype = lib.qkvb_attention_fwd_lse.restype = _I
+    lib.qkv_attention_fwd.argtypes = [_P, _P, _I, _I, _I, _I, _I, _F, _P]
+    lib.qkv_attention_fwd_lse.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                          _P]
+    for name in ("qkvb_attention_fwd", "qkvb_attention_fwd_lse",
+                 "qkv_attention_fwd", "qkv_attention_fwd_lse"):
+        getattr(lib, name).restype = _I
     return lib
 
 
@@ -75,18 +100,18 @@ def _bwd_library() -> ctypes.CDLL:
     lib = kernels.load("qkvb_attention_bwd")
     lib.qkvb_attention_bwd.argtypes = [_P] * 9 + [_I] * 5 + [_F, _I, _P]
     lib.qkvb_attention_bwd_workspace_rows.argtypes = [_I, _I]
-    lib.qkvb_attention_bwd.restype = _I
-    lib.qkvb_attention_bwd_workspace_rows.restype = _I
+    lib.qkv_attention_bwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _P]
+    for name in ("qkvb_attention_bwd", "qkvb_attention_bwd_workspace_rows",
+                 "qkv_attention_bwd"):
+        getattr(lib, name).restype = _I
     return lib
 
 
-def _check(qkv: torch.Tensor, bias: torch.Tensor,
-           num_heads: int) -> Tuple[int, int, int, torch.Tensor]:
-    """Raise on what the kernels do not take; returns (B, N, E) and the bias
-    in qkv's type."""
-    if qkv.device.type != "cuda" or bias.device != qkv.device:
-        raise ValueError(f"qkv and bias must be on one CUDA device, got "
-                         f"{qkv.device} and {bias.device}")
+def _check_qkv(qkv: torch.Tensor, num_heads: int) -> Tuple[int, int, int]:
+    """Raise on a packed projection output the kernels do not take; returns
+    (B, N, E)."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"qkv must be on a CUDA device, got {qkv.device}")
     if qkv.dtype not in _DTYPES:
         raise TypeError(f"qkv dtype {qkv.dtype} not supported "
                         f"(float32 or bfloat16)")
@@ -97,14 +122,42 @@ def _check(qkv: torch.Tensor, bias: torch.Tensor,
     if e % num_heads or e // num_heads not in _HEAD_DIMS:
         raise ValueError(f"E={e} with {num_heads} heads: head dim must be one "
                          f"of {_HEAD_DIMS}")
-    if bias.shape != (e3,):
-        raise ValueError(f"bias must be ({e3},), got {tuple(bias.shape)}")
-    bias = bias.to(qkv.dtype).contiguous()
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
-    if qkv.data_ptr() % 16 or bias.data_ptr() % 16:
-        raise ValueError("qkv and bias must be 16-byte aligned")
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv must be 16-byte aligned")
+    return b, n, e
+
+
+def _check(qkv: torch.Tensor, bias: torch.Tensor,
+           num_heads: int) -> Tuple[int, int, int, torch.Tensor]:
+    """Raise on what K1-K3 do not take; returns (B, N, E) and the bias in
+    qkv's type."""
+    if bias.device != qkv.device:
+        raise ValueError(f"qkv and bias must be on one CUDA device, got "
+                         f"{qkv.device} and {bias.device}")
+    b, n, e = _check_qkv(qkv, num_heads)
+    if bias.shape != (3 * e,):
+        raise ValueError(f"bias must be ({3 * e},), got {tuple(bias.shape)}")
+    bias = bias.to(qkv.dtype).contiguous()
+    if bias.data_ptr() % 16:
+        raise ValueError("bias must be 16-byte aligned")
     return b, n, e, bias
+
+
+def _check_saved(ref: torch.Tensor, named) -> None:
+    """Raise unless each (name, tensor, shape, dtype) of ``named`` is a
+    contiguous, 16-byte aligned tensor of that shape and dtype on ``ref``'s
+    device."""
+    for name, t, shape, dtype in named:
+        if (t.shape != shape or t.dtype != dtype or t.device != ref.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous, aligned {shape} "
+                             f"{dtype} tensor on {ref.device}")
+
+
+def _scale(e: int, num_heads: int) -> float:
+    return 1.0 / math.sqrt(e // num_heads)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -124,7 +177,7 @@ def qkvb_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     out = torch.empty((b, n, e), dtype=qkv.dtype, device=qkv.device)
     _raise_on(_library().qkvb_attention_fwd(
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, n, e, num_heads,
-        _DTYPES[qkv.dtype], 1.0 / math.sqrt(e // num_heads), _stream(qkv)),
+        _DTYPES[qkv.dtype], _scale(e, num_heads), _stream(qkv)),
         "qkvb_attention_fwd")
     flash_attention_qkvb.launches += 1
     return out
@@ -139,7 +192,7 @@ def qkvb_attention_lse_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
     _raise_on(_library().qkvb_attention_fwd_lse(
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n,
-        e, num_heads, _DTYPES[qkv.dtype], 1.0 / math.sqrt(e // num_heads),
+        e, num_heads, _DTYPES[qkv.dtype], _scale(e, num_heads),
         _stream(qkv)), "qkvb_attention_fwd_lse")
     qkvb_attention_lse_cuda.launches += 1
     return out, lse
@@ -152,13 +205,9 @@ def qkvb_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
     """K3: (dqkv (B, N, 3E) in qkv's type, dbias (3E,) fp32) from the
     forward's inputs, its output and lse, and the output's gradient."""
     b, n, e, bias = _check(qkv, bias, num_heads)
-    for name, t, shape, dtype in (("out", out, (b, n, e), qkv.dtype),
-                                  ("dout", dout, (b, n, e), qkv.dtype),
-                                  ("lse", lse, (b, num_heads, n), torch.float32)):
-        if (t.shape != shape or t.dtype != dtype or t.device != qkv.device
-                or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"{name} must be a contiguous, aligned {shape} "
-                             f"{dtype} tensor on {qkv.device}")
+    _check_saved(qkv, (("out", out, (b, n, e), qkv.dtype),
+                       ("dout", dout, (b, n, e), qkv.dtype),
+                       ("lse", lse, (b, num_heads, n), torch.float32)))
     lib = _bwd_library()
     f32 = dict(dtype=torch.float32, device=qkv.device)
     delta = torch.empty((b, num_heads, n), **f32)
@@ -170,7 +219,7 @@ def qkvb_attention_bwd_cuda(qkv: torch.Tensor, bias: torch.Tensor,
         qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), partial.data_ptr(), dqkv.data_ptr(),
         dbias.data_ptr(), b, n, e, num_heads, _DTYPES[qkv.dtype],
-        1.0 / math.sqrt(e // num_heads), rows, _stream(qkv)),
+        _scale(e, num_heads), rows, _stream(qkv)),
         "qkvb_attention_bwd")
     qkvb_attention_bwd_cuda.launches += 1
     return dqkv, dbias
@@ -213,6 +262,254 @@ def flash_attention_qkvb(qkv: torch.Tensor, bias: torch.Tensor,
 flash_attention_qkvb.launches = 0
 qkvb_attention_lse_cuda.launches = 0
 qkvb_attention_bwd_cuda.launches = 0
+
+
+# --- K10: attention on the packed projection output with its bias ----------
+
+def qkv_attention_cuda(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K10 on the packed (B, N, 3E) ``qkv`` (its bias already added); returns
+    a new (B, N, E) tensor. Raises on anything it does not take."""
+    b, n, e = _check_qkv(qkv, num_heads)
+    out = torch.empty((b, n, e), dtype=qkv.dtype, device=qkv.device)
+    _raise_on(_library().qkv_attention_fwd(
+        qkv.data_ptr(), out.data_ptr(), b, n, e, num_heads, _DTYPES[qkv.dtype],
+        _scale(e, num_heads), _stream(qkv)), "qkv_attention_fwd")
+    flash_attention_qkv.launches += 1
+    return out
+
+
+def qkv_attention_lse_cuda(qkv: torch.Tensor, num_heads: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10's output, bit for bit, and each row's log-sum-exp of the scaled
+    scores, (B, H, N) fp32."""
+    b, n, e = _check_qkv(qkv, num_heads)
+    out = torch.empty((b, n, e), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=qkv.device)
+    _raise_on(_library().qkv_attention_fwd_lse(
+        qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n, e, num_heads,
+        _DTYPES[qkv.dtype], _scale(e, num_heads), _stream(qkv)),
+        "qkv_attention_fwd_lse")
+    qkv_attention_lse_cuda.launches += 1
+    return out, lse
+
+
+def qkv_attention_bwd_cuda(qkv: torch.Tensor, out: torch.Tensor,
+                           dout: torch.Tensor, lse: torch.Tensor,
+                           num_heads: int) -> torch.Tensor:
+    """K10's backward: dqkv (B, N, 3E) in qkv's type and layout from the
+    forward's input, its output and lse, and the output's gradient."""
+    b, n, e = _check_qkv(qkv, num_heads)
+    _check_saved(qkv, (("out", out, (b, n, e), qkv.dtype),
+                       ("dout", dout, (b, n, e), qkv.dtype),
+                       ("lse", lse, (b, num_heads, n), torch.float32)))
+    delta = torch.empty((b, num_heads, n), dtype=torch.float32,
+                        device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    _raise_on(_bwd_library().qkv_attention_bwd(
+        qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dqkv.data_ptr(), b, n, e, num_heads,
+        _DTYPES[qkv.dtype], _scale(e, num_heads), _stream(qkv)),
+        "qkv_attention_bwd")
+    qkv_attention_bwd_cuda.launches += 1
+    return dqkv
+
+
+class QkvAttention(torch.autograd.Function):
+    """K10's log-sum-exp entry forward, K10's backward. Saves qkv, the output
+    and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        out, lse = qkv_attention_lse_cuda(qkv, num_heads)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        dqkv = qkv_attention_bwd_cuda(qkv, out, dout.to(qkv.dtype).contiguous(),
+                                      lse, ctx.num_heads)
+        return dqkv, None
+
+
+def flash_attention_qkv(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Attention on the packed (B, N, 3E) projection output, its bias already
+    added; returns (B, N, E).
+
+    CPU tensors take the plain version; CUDA tensors the kernels: K10's
+    log-sum-exp entry and backward when a gradient is needed, else K10.
+    ``flash_attention_qkv.launches`` counts K10's serving launches."""
+    if qkv.device.type == "cpu":
+        return attention_from_qkv(qkv, num_heads)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return QkvAttention.apply(qkv, num_heads)
+    return qkv_attention_cuda(qkv, num_heads)
+
+
+flash_attention_qkv.launches = 0
+qkv_attention_lse_cuda.launches = 0
+qkv_attention_bwd_cuda.launches = 0
+
+
+# --- K11: the QKV projection and the attention --------------------------------
+
+@functools.cache
+def _xqkv_library() -> ctypes.CDLL:
+    lib = kernels.load("xqkv_attention")
+    lib.xqkv_attention_fwd.argtypes = [_P] * 5 + [_I] * 6 + [_F, _P]
+    lib.xqkv_attention_fwd_lse.argtypes = [_P] * 6 + [_I] * 6 + [_F, _P]
+    lib.xqkv_attention_fwd.restype = lib.xqkv_attention_fwd_lse.restype = _I
+    return lib
+
+
+@functools.cache
+def _xqkv_bwd_library() -> ctypes.CDLL:
+    lib = kernels.load("xqkv_attention_bwd")
+    lib.xqkv_attention_bwd.argtypes = [_P] * 13 + [_I] * 6 + [_F, _I, _P]
+    lib.xqkv_attention_bwd_workspace_rows.argtypes = [_I, _I]
+    lib.xqkv_attention_bwd.restype = _I
+    lib.xqkv_attention_bwd_workspace_rows.restype = _I
+    return lib
+
+
+def _check_x(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             num_heads: int) -> Tuple[int, int, int, int]:
+    """Raise on what K11 does not take; returns (B, N, D, E)."""
+    if x.device.type != "cuda" or w.device != x.device or b.device != x.device:
+        raise ValueError(f"x, w and b must be on one CUDA device, got "
+                         f"{x.device}, {w.device} and {b.device}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype or b.dtype != x.dtype:
+        raise TypeError(f"x, w and b must share a dtype of float32 or "
+                        f"bfloat16, got {x.dtype}, {w.dtype} and {b.dtype}")
+    if x.dim() != 3 or w.dim() != 2 or w.shape[0] != x.shape[-1] or \
+            w.shape[1] % 3 or b.shape != (w.shape[1],):
+        raise ValueError(f"x must be (B, N, D), w (D, 3E) and b (3E,), got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)} and "
+                         f"{tuple(b.shape)}")
+    bsz, n, dim = x.shape
+    e = w.shape[1] // 3
+    if e % num_heads or e // num_heads not in _HEAD_DIMS:
+        raise ValueError(f"E={e} with {num_heads} heads: head dim must be one "
+                         f"of {_HEAD_DIMS}")
+    if dim % 8:
+        raise ValueError(f"D={dim} must be a multiple of 8")
+    for name, t in (("x", x), ("w", w), ("b", b)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return bsz, n, dim, e
+
+
+def _xqkv_forward(x, w, b, num_heads, lse: bool):
+    bsz, n, dim, e = _check_x(x, w, b, num_heads)
+    qkv = torch.empty((bsz, n, 3 * e), dtype=x.dtype, device=x.device)
+    out = torch.empty((bsz, n, e), dtype=x.dtype, device=x.device)
+    args = (bsz, n, dim, e, num_heads, _DTYPES[x.dtype], _scale(e, num_heads),
+            _stream(x))
+    lib = _xqkv_library()
+    if not lse:
+        _raise_on(lib.xqkv_attention_fwd(x.data_ptr(), w.data_ptr(),
+                                         b.data_ptr(), qkv.data_ptr(),
+                                         out.data_ptr(), *args),
+                  "xqkv_attention_fwd")
+        return out, None
+    lse_t = torch.empty((bsz, num_heads, n), dtype=torch.float32,
+                        device=x.device)
+    _raise_on(lib.xqkv_attention_fwd_lse(x.data_ptr(), w.data_ptr(),
+                                         b.data_ptr(), qkv.data_ptr(),
+                                         out.data_ptr(), lse_t.data_ptr(),
+                                         *args), "xqkv_attention_fwd_lse")
+    return out, lse_t
+
+
+def xqkv_attention_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        num_heads: int) -> torch.Tensor:
+    """K11 on x (B, N, D), w (D, 3E) and b (3E,), all of one dtype; returns a
+    new (B, N, E) tensor. Raises on anything it does not take."""
+    out, _ = _xqkv_forward(x, w, b, num_heads, lse=False)
+    flash_attention_xqkv.launches += 1
+    return out
+
+
+def xqkv_attention_lse_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                            num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11's output, bit for bit, and each row's log-sum-exp of the scaled
+    scores, (B, H, N) fp32."""
+    out, lse = _xqkv_forward(x, w, b, num_heads, lse=True)
+    xqkv_attention_lse_cuda.launches += 1
+    return out, lse
+
+
+def xqkv_attention_bwd_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                            out: torch.Tensor, dout: torch.Tensor,
+                            lse: torch.Tensor, num_heads: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K11's backward: (dx (B, N, D), dw (D, 3E), db (3E,)) in x's dtype from
+    the forward's inputs, its output and lse, and the output's gradient."""
+    bsz, n, dim, e = _check_x(x, w, b, num_heads)
+    _check_saved(x, (("out", out, (bsz, n, e), x.dtype),
+                     ("dout", dout, (bsz, n, e), x.dtype),
+                     ("lse", lse, (bsz, num_heads, n), torch.float32)))
+    lib = _xqkv_bwd_library()
+    rows = lib.xqkv_attention_bwd_workspace_rows(bsz, n)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    qkv = torch.empty((bsz, n, 3 * e), dtype=x.dtype, device=x.device)
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty((bsz, num_heads, n), **f32)
+    partial = torch.empty((rows, 3 * e), **f32)
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    db = torch.empty((3 * e,), **f32)
+    _raise_on(lib.xqkv_attention_bwd(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), qkv.data_ptr(), dqkv.data_ptr(),
+        delta.data_ptr(), partial.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        db.data_ptr(), bsz, n, dim, e, num_heads, _DTYPES[x.dtype],
+        _scale(e, num_heads), rows, _stream(x)), "xqkv_attention_bwd")
+    xqkv_attention_bwd_cuda.launches += 1
+    return dx, dw, db.to(b.dtype)
+
+
+class XqkvAttention(torch.autograd.Function):
+    """K11's log-sum-exp entry forward, K11's backward. Saves x, w, b, the
+    output and the log-sum-exp (qkv is recomputed in the backward)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, num_heads):
+        out, lse = xqkv_attention_lse_cuda(x, w, b, num_heads)
+        ctx.save_for_backward(x, w, b, out, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, b, out, lse = ctx.saved_tensors
+        dx, dw, db = xqkv_attention_bwd_cuda(
+            x, w, b, out, dout.to(x.dtype).contiguous(), lse, ctx.num_heads)
+        return dx, dw, db, None
+
+
+def flash_attention_xqkv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+    """The QKV projection and attention, attention(x·W + b): x (B, N, D), w
+    (D, 3E) packed [Wq | Wk | Wv] with heads head-major within each third
+    (the JAX Dense kernel's layout), b (3E,); returns (B, N, E). On the card
+    x, w and b share one dtype.
+
+    CPU tensors take the plain version; CUDA tensors the kernels: K11's
+    log-sum-exp entry and backward when a gradient is needed, else K11.
+    ``flash_attention_xqkv.launches`` counts K11's serving launches."""
+    if x.device.type == "cpu":
+        return attention_from_x(x, w, b, num_heads)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+        return XqkvAttention.apply(x, w, b, num_heads)
+    return xqkv_attention_cuda(x, w, b, num_heads)
+
+
+flash_attention_xqkv.launches = 0
+xqkv_attention_lse_cuda.launches = 0
+xqkv_attention_bwd_cuda.launches = 0
 
 
 # --- windowed attention with a bias and a mask (SwinV2) ----------------------

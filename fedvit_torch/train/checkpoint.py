@@ -109,6 +109,24 @@ def checkpoint_exists(path: str) -> bool:
     return (p / "meta.json").exists() and (p / "state.pt").exists()
 
 
+def load_serving_weights(path: str, model: nn.Module, ema: bool = True) -> bool:
+    """Load what a checkpoint directory serves into ``model`` (in place,
+    strict): its weights and statistics, with the EMA shadow in place of the
+    parameters when ``ema`` and the run kept one (``fedvit_tpu``'s
+    ``state.eval_params()``), else the trained parameters. Returns whether
+    the shadow was loaded."""
+    path = Path(path).absolute()
+    device = next(model.parameters()).device
+    saved = torch.load(path / "state.pt", map_location=device,
+                       weights_only=True)
+    weights = dict(saved["model"])
+    shadow = ema and saved["ema"] is not None
+    if shadow:
+        weights.update(saved["ema"])
+    model.load_state_dict(weights)
+    return shadow
+
+
 # --- pretrained starting points ----------------------------------------------
 #
 # A pretrained checkpoint is a model's state dict plus its provenance: a

@@ -35,6 +35,21 @@ Tolerances:
   backward rounds dP instead; both round P before dv: each term a bf16
   rounding apart, some 2^-8 of the RMS in all). The log-sum-exp entry's
   unrounded fp32 output, which K6's delta reads, rounds to its output.
+- K1, K2 and K3 at d = 80 (ViT-H's head width): K1's and K3's tolerances.
+- K10 (attention on the packed projection output with its bias added, no
+  bias in the op) against ``attention_from_qkv``: its output and log-sum-exp
+  as K1's and K2's, dqkv as K3's, for K3's reasons.
+- K11 (the projection and the attention) against ``attention_from_x``: the
+  output fp32 atol 1e-4 (qkv's sums over D products in another order feed
+  the attention; K1's 2e-5 after it), bf16 atol 2^-5 as K1 (qkv rounds to
+  the same bf16 value unless the two fp32 sums straddle a rounding boundary;
+  the plain version rounds the softmax weights, the kernel does not); dx, dW
+  and db as shares of the largest |value|, fp32 1e-4 (sums over N keys, B·N
+  rows and 3E columns in another order), bf16 2^-5 as K3 (dqkv carries K3's
+  difference; each of dx, dW, db sums it in fp32 and rounds once). The
+  backward twice gives the same bits.
+- Tiny ``packed`` and ``mega`` train steps on the card against the CPU, fp32:
+  each leaf's gradient atol 1e-4 plus rtol 1e-3, as for ``auto``.
 - A tiny SwinV2 train step on the card against the CPU, fp32: loss rtol 1e-4,
   each leaf's gradient atol 1e-4 plus rtol 1e-3, as for the ViT.
 - K7 (row/column shift) and K8 (equalize) against their plain versions:
@@ -44,12 +59,15 @@ Tolerances:
   state: exact (nothing else differs between the two).
 """
 
+import math
+
 import pytest
 import torch
 
 from fedvit_torch.ops import flash_attention as fa
 from fedvit_torch.ops import layer_norm as ln
-from fedvit_torch.ops.attention import (attention_from_qkvb,
+from fedvit_torch.ops.attention import (attention_from_qkv,
+                                        attention_from_qkvb, attention_from_x,
                                         windowed_attention_flat)
 
 pytestmark = pytest.mark.cuda
@@ -709,3 +727,234 @@ def test_train_augment_through_the_kernels_equals_the_plain_path(cuda):
         rs.row_shift, rs.col_shift, ra.equalize = kernels
     assert got.shape == (8, 64, 64, 4) and torch.equal(got, want)
     assert set(got[..., 3].unique().tolist()) <= {-1.0, 1.0}
+
+
+# --- K1-K3 at d = 80; K10 and K11 ---------------------------------------------
+
+@pytest.mark.parametrize("b,n,dtype,tol", [
+    (2, 37, torch.float32, (2e-5, 1e-4)), (3, 197, torch.float32, (2e-5, 1e-4)),
+    (2, 197, torch.bfloat16, (2.0 ** -5, 2.0 ** -5)),
+    (2, 65, torch.bfloat16, (2.0 ** -5, 2.0 ** -5))])
+def test_k1_k2_k3_take_d80(cuda, b, n, dtype, tol):
+    """E = 160 in 2 heads of 80, ViT-H's head width."""
+    heads, e = 2, 160
+    qkv, bias = _inputs(b, n, e, dtype, seed=n + 80)
+    out = fa.flash_attention_qkvb(qkv, bias, heads)
+    out2, lse = fa.qkvb_attention_lse_cuda(qkv, bias, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    assert float((out.float() - attention_from_qkvb(qkv, bias, heads).float())
+                 .abs().max()) <= tol[0]
+    x = qkv + bias.to(dtype)
+    q = x[..., :e].reshape(b, n, heads, 80).float()
+    k = x[..., e:2 * e].reshape(b, n, heads, 80).float()
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) / math.sqrt(80)
+    assert float((lse - torch.logsumexp(s, -1)).abs().max()) <= 1e-4
+    g = torch.Generator(device="cuda").manual_seed(n)
+    dout = torch.randn(b, n, e, device="cuda", generator=g).to(dtype)
+    qkv_g, bias_g = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+    dqkv, dbias = torch.autograd.grad(fa.flash_attention_qkvb(qkv_g, bias_g, heads),
+                                      (qkv_g, bias_g), dout)
+    want_dqkv, want_dbias = _plain_grads(qkv, bias, heads, dout)
+    assert _rel_err(dqkv, want_dqkv) <= tol[1]
+    assert _rel_err(dbias, want_dbias) <= tol[1]
+
+
+@pytest.mark.parametrize("b,n,heads,d,dtype,tol", [
+    (2, 37, 2, 64, torch.float32, (2e-5, 1e-4)),
+    (3, 197, 12, 64, torch.float32, (2e-5, 1e-4)),
+    (2, 37, 2, 80, torch.float32, (2e-5, 1e-4)),
+    (2, 1, 2, 64, torch.float32, (2e-5, 1e-4)),
+    (4, 197, 12, 64, torch.bfloat16, (2.0 ** -5, 2.0 ** -5)),
+    (2, 197, 2, 80, torch.bfloat16, (2.0 ** -5, 2.0 ** -5))])
+def test_k10_matches_plain(cuda, b, n, heads, d, dtype, tol):
+    e = heads * d
+    qkv, bias = _inputs(b, n, e, dtype, seed=n + d)
+    qkv = qkv + bias.to(dtype)               # the packed Dense's output
+    counts = (fa.flash_attention_qkv.launches, fa.qkv_attention_lse_cuda.launches,
+              fa.qkv_attention_bwd_cuda.launches, fa.flash_attention_qkvb.launches)
+    out = fa.flash_attention_qkv(qkv, heads)
+    out2, lse = fa.qkv_attention_lse_cuda(qkv, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and out.dtype == dtype
+    assert float((out.float() - attention_from_qkv(qkv, heads).float())
+                 .abs().max()) <= tol[0]
+    q = qkv[..., :e].reshape(b, n, heads, d).float()
+    k = qkv[..., e:2 * e].reshape(b, n, heads, d).float()
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) / math.sqrt(d)
+    assert float((lse - torch.logsumexp(s, -1)).abs().max()) <= 1e-4
+    g = torch.Generator(device="cuda").manual_seed(n)
+    dout = torch.randn(b, n, e, device="cuda", generator=g).to(dtype)
+    qkv_g = qkv.clone().requires_grad_()
+    (dqkv,) = torch.autograd.grad(fa.flash_attention_qkv(qkv_g, heads), qkv_g, dout)
+    torch.cuda.synchronize()
+    qkv_p = qkv.clone().requires_grad_()
+    (want,) = torch.autograd.grad(attention_from_qkv(qkv_p, heads), qkv_p, dout)
+    assert dqkv.dtype == dtype and torch.isfinite(dqkv).all()
+    assert _rel_err(dqkv, want) <= tol[1]
+    after = (fa.flash_attention_qkv.launches, fa.qkv_attention_lse_cuda.launches,
+             fa.qkv_attention_bwd_cuda.launches, fa.flash_attention_qkvb.launches)
+    assert [a - c for a, c in zip(after, counts)] == [1, 2, 1, 0]
+
+
+def _x_inputs(b, n, dim, e, dtype, seed):
+    """x of unit entries, W of N(0, 1/D) (so qkv is of unit size) and a bias
+    of 0.5, all in ``dtype``; W in the JAX kernel's (D, 3E) layout."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, n, dim, device="cuda", generator=g)
+    w = torch.randn(dim, 3 * e, device="cuda", generator=g) / math.sqrt(dim)
+    bias = 0.5 * torch.randn(3 * e, device="cuda", generator=g)
+    return x.to(dtype), w.to(dtype), bias.to(dtype)
+
+
+def _plain_x_grads(x, w, bias, heads, dout):
+    x, w, bias = (t.detach().clone().requires_grad_() for t in (x, w, bias))
+    return torch.autograd.grad(attention_from_x(x, w, bias, heads), (x, w, bias),
+                               dout)
+
+
+@pytest.mark.parametrize("b,n,dim,heads,d,dtype,tol", [
+    (2, 37, 128, 2, 64, torch.float32, (1e-4, 1e-4)),
+    (3, 197, 768, 12, 64, torch.float32, (1e-4, 1e-4)),
+    (2, 37, 160, 2, 80, torch.float32, (1e-4, 1e-4)),
+    (2, 1, 64, 1, 64, torch.float32, (1e-4, 1e-4)),
+    (4, 197, 768, 12, 64, torch.bfloat16, (2.0 ** -5, 2.0 ** -5)),
+    (2, 197, 160, 2, 80, torch.bfloat16, (2.0 ** -5, 2.0 ** -5))])
+def test_k11_matches_plain(cuda, b, n, dim, heads, d, dtype, tol):
+    e = heads * d
+    x, w, bias = _x_inputs(b, n, dim, e, dtype, seed=n + dim)
+    counts = (fa.flash_attention_xqkv.launches, fa.xqkv_attention_lse_cuda.launches,
+              fa.xqkv_attention_bwd_cuda.launches)
+    out = fa.flash_attention_xqkv(x, w, bias, heads)
+    out2, lse = fa.xqkv_attention_lse_cuda(x, w, bias, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and out.dtype == dtype
+    assert float((out.float() - attention_from_x(x, w, bias, heads).float())
+                 .abs().max()) <= tol[0]
+    assert lse.shape == (b, heads, n) and torch.isfinite(lse).all()
+    g = torch.Generator(device="cuda").manual_seed(n)
+    dout = torch.randn(b, n, e, device="cuda", generator=g).to(dtype)
+    xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, bias))
+    got = torch.autograd.grad(fa.flash_attention_xqkv(xg, wg, bg, heads),
+                              (xg, wg, bg), dout)
+    torch.cuda.synchronize()
+    want = _plain_x_grads(x, w, bias, heads, dout)
+    for name, gt, wt in zip(("dx", "dw", "db"), got, want):
+        assert gt.dtype == dtype and gt.shape == wt.shape, name
+        assert torch.isfinite(gt).all(), name
+        assert _rel_err(gt, wt) <= tol[1], (name, _rel_err(gt, wt))
+    after = (fa.flash_attention_xqkv.launches, fa.xqkv_attention_lse_cuda.launches,
+             fa.xqkv_attention_bwd_cuda.launches)
+    assert [a - c for a, c in zip(after, counts)] == [1, 2, 1]
+
+
+def test_k11_backward_gives_the_same_bits_twice(cuda):
+    x, w, bias = _x_inputs(8, 197, 768, 768, torch.bfloat16, seed=3)
+    out, lse = fa.xqkv_attention_lse_cuda(x, w, bias, 12)
+    dout = torch.randn_like(out)
+    first = fa.xqkv_attention_bwd_cuda(x, w, bias, out, dout, lse, 12)
+    second = fa.xqkv_attention_bwd_cuda(x, w, bias, out, dout, lse, 12)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_k10_k11_refuse_what_they_do_not_take(cuda):
+    qkv, _ = _inputs(2, 9, 128, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_qkv(qkv, 4)                    # d = 32
+    with pytest.raises(TypeError):
+        fa.flash_attention_qkv(qkv.half(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_qkv(qkv[:, 1:], 2)
+    x, w, bias = _x_inputs(2, 9, 64, 128, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_xqkv(x, w, bias, 4)
+    with pytest.raises(TypeError):
+        fa.flash_attention_xqkv(x, w.bfloat16(), bias, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_xqkv(x.transpose(0, 1), w, bias, 2)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention_xqkv(x[..., :60].contiguous(), w[:60].contiguous(),
+                                bias, 2)
+    lib = fa._xqkv_bwd_library()
+    assert lib.xqkv_attention_bwd_workspace_rows(2, 197) == 8
+    ptr = x.data_ptr()
+    assert lib.xqkv_attention_bwd(*[ptr] * 13, 2, 197, 64, 128, 2, 0, 0.125, 7,
+                                  torch.cuda.current_stream().cuda_stream) != 0
+
+
+@pytest.mark.parametrize("impl", ["packed", "mega"])
+def test_tiny_packed_and_mega_training_matches_the_cpu(cuda, impl):
+    """Under grad a ViT forward and backward launches the impl's kernels once
+    per block (the log-sum-exp forward and the backward) and K4 once per
+    LayerNorm, and none of K1-K3 nor the other impl's; the grads match the
+    CPU's."""
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.models import build_model
+
+    cfg = from_dict({"model": {"backbone": "vit_tiny_patch16_224",
+                               "image_size": 32, "compute_dtype": "float32",
+                               "drop_path_rate": 0.0, "attention_impl": impl,
+                               "metadata": {"dropout": 0.0},
+                               "classifier": {"dropout": 0.0}},
+                     "data": {"use_segmentation_mask": True}})
+    cpu = build_model(cfg, device="cpu").train()
+    gpu = build_model(cfg, device="cuda").train()
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 32, 32, 4, generator=g)
+    meta = torch.randn(3, 13, generator=g)
+    fns = (fa.flash_attention_qkvb, fa.qkvb_attention_lse_cuda,
+           fa.qkvb_attention_bwd_cuda, fa.flash_attention_qkv,
+           fa.qkv_attention_lse_cuda, fa.qkv_attention_bwd_cuda,
+           fa.flash_attention_xqkv, fa.xqkv_attention_lse_cuda,
+           fa.xqkv_attention_bwd_cuda, ln.layer_norm_bwd_cuda)
+    counts = [f.launches for f in fns]
+    gpu(x.cuda(), meta.cuda())["logits"].square().sum().backward()
+    got = [f.launches - c for f, c in zip(fns, counts)]
+    want = [0] * 9 + [25]
+    first = 4 if impl == "packed" else 7
+    want[first:first + 2] = [12, 12]
+    assert got == want
+    cpu(x, meta)["logits"].square().sum().backward()
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-3,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("size", ["tiny", "small", "base", "large", "huge"])
+def test_every_vit_width_runs_on_the_card(cuda, size, monkeypatch):
+    """Each ViT width of the registry (heads of 64, ViT-H's of 80) takes every
+    ported attention_impl on the card, forward and backward, in bf16: cut to
+    2 blocks (the width, heads and head dim stay), at a 2 × 2 grid of
+    patches."""
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.models import build_model
+    from fedvit_torch.models import vit as tvit
+
+    monkeypatch.setitem(tvit.VIT_CONFIGS, size,
+                        dict(tvit.VIT_CONFIGS[size], depth=2))
+    patch = 14 if size == "huge" else 16
+    for impl, fns in (("auto", (fa.qkvb_attention_lse_cuda,
+                                fa.qkvb_attention_bwd_cuda)),
+                      ("packed", (fa.qkv_attention_lse_cuda,
+                                  fa.qkv_attention_bwd_cuda)),
+                      ("mega", (fa.xqkv_attention_lse_cuda,
+                                fa.xqkv_attention_bwd_cuda))):
+        cfg = from_dict({"model": {"backbone": f"vit_{size}_patch{patch}_224",
+                                   "image_size": 2 * patch,
+                                   "compute_dtype": "bfloat16",
+                                   "attention_impl": impl,
+                                   "drop_path_rate": 0.0,
+                                   "metadata": {"dropout": 0.0},
+                                   "classifier": {"dropout": 0.0}},
+                         "data": {"use_segmentation_mask": True}})
+        model = build_model(cfg, device="cuda").train()
+        before = [f.launches for f in fns]
+        x = torch.randn(2, 2 * patch, 2 * patch, 4, device="cuda")
+        logits = model(x, torch.randn(2, 13, device="cuda"))["logits"]
+        logits.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert [f.launches - b for f, b in zip(fns, before)] == [2, 2], impl
+        assert torch.isfinite(logits).all(), impl
+        assert all(torch.isfinite(p.grad).all() for p in model.parameters()
+                   if p.grad is not None), impl

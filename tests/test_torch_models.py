@@ -98,16 +98,54 @@ def test_unported_branches_raise():
         make_train_step(remat, build_loss(remat))
 
 
-@pytest.mark.parametrize("impl", ["pallas", "xla", "packed", "mega"])
-def test_attention_has_one_path(impl):
-    """Only attention_impl "auto" is ported: the model has one attention
-    path (the kernel on a CUDA tensor), and no setting routes around it."""
-    _, tcfg = configs(True)
-    from fedvit_torch.models import build_model
+def _with_impl(backbone, impl):
+    _, tcfg = configs(True, backbone=backbone)
     m = tcfg.model
-    model_cfg = m.__class__(**{**m.__dict__, "attention_impl": impl})
+    return tcfg.replace(model=m.__class__(**{**m.__dict__,
+                                             "attention_impl": impl}))
+
+
+@pytest.mark.parametrize("backbone,impl", [
+    ("vit", "xla"), ("swin", "xla"), ("swin", "packed")])
+def test_attention_has_one_path(backbone, impl):
+    """The values without a port are refused, so no setting routes around
+    the kernels: ``xla`` (its port would be the plain version on the card)
+    and, on the SwinV2, ``packed``, which JAX runs through its XLA branch."""
+    from fedvit_torch.models import build_model
     with pytest.raises(NotImplementedError, match="attention_impl"):
-        build_model(tcfg.replace(model=model_cfg), device="cpu")
+        build_model(_with_impl(backbone, impl), device="cpu")
+
+
+@pytest.mark.parametrize("backbone,impl", [
+    ("vit", "pallas"), ("vit", "packed"), ("vit", "mega"),
+    ("swin", "pallas"), ("swin", "mega")])
+def test_ported_attention_impls_build_and_agree_with_auto(backbone, impl):
+    """Each ported value builds, takes the ``auto`` model's weights (one key
+    set) and gives its logits: ``pallas`` and the SwinV2's ``mega`` are the
+    same path as ``auto`` (bit for bit); the ViT's ``packed`` and ``mega``
+    compose the projection and the attention otherwise (atol 1e-5, fp32
+    sums in another order)."""
+    from fedvit_torch.models import build_model
+    auto = build_model(_with_impl(backbone, "auto"), device="cpu")
+    _perturb(auto)
+    model = build_model(_with_impl(backbone, impl), device="cpu")
+    model.load_state_dict(auto.state_dict())
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, 32, 32, 4)).astype(np.float32))
+    with torch.inference_mode():
+        want, got = auto(x)["logits"], model(x)["logits"]
+    exact = impl == "pallas" or backbone == "swin"
+    torch.testing.assert_close(got, want, atol=0 if exact else 1e-5, rtol=0)
+
+
+def _perturb(model):
+    """chip_smoke.py's seeded perturbation: non-zero qkv biases, so that a
+    path that dropped or doubled them would show."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    chip_smoke.perturb(model, seed=0)
 
 
 def test_smoke_reference_attention_is_swapped_in_and_restored():
