@@ -128,7 +128,32 @@ Phases, one line of output each (or a few):
       limit plus twice their own rounding noise as in 8c, with a control
       that must fail (``mega``: K11 with dW zeroed, on every qkv
       weight; ``packed``: K10 with the k third of dqkv zeroed, on every qkv
-      weight's k rows); with ``--trace`` a profile of a step.
+      weight's k rows); with ``--trace`` a profile of a step;
+11. the op-level attention (``ops/attention.py``'s entries with JAX's
+   ``impl``) and its kernels, K9 (bias-free attention on flat q, k, v) and K12
+   (SwinV2's scaled-cosine windowed attention on raw q and k):
+   a. each entry of K9 (forward, the forward with the log-sum-exp, backward)
+      against its plain version: small fp32 cases (N of 37 and 197, 3 batch
+      rows, d of 64 and 80), then bf16 at ViT-B's serving shape (batch 256,
+      forward) and micro-batch of 64 (log-sum-exp entry, backward), and at
+      ViT-L/16@384's (16, 577, 1024, 16 heads); K9 on three (B, N, E) tensors
+      against K10 on their concatenation, bit for bit; the time, the plain
+      version's, SDPA's on the (B, H, N, d) views and the bound;
+   b. each entry of K12 against its plain version (the output, the
+      log-sum-exp, and dq, dk, dv, dscale, dbias; bf16 dscale against the
+      plain version in the TPU kernel's order): small fp32 cases (several
+      windows and rows a window, a ragged N, rows of q and k of norm 0 and
+      below 1e-6), then bf16 at SwinV2-L@384's four stage shapes with the
+      real shift mask where the stage has one, the forward at 32 images and
+      the backward at 8, scales exp(U[ln 10, ln 100]) as the model's
+      logit_scale; the backward twice for the same bits; the time, the plain
+      version's, ``F.normalize`` then SDPA's and the bound;
+   c. the entries on CUDA tensors with ``impl="auto"`` at those widths,
+      forward and under autograd, with every count set to 0 before: one
+      launch a call of the right kernel entry, none for
+      ``dot_product_attention`` with a bias (its plain body, as JAX's);
+   with controls that must fail the checks: K9 with the score scale 1, K12
+   with each head's scale 1, K12 with dscale zeroed.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -290,6 +315,35 @@ K6_RTOL_BF16 = 2.0 ** -6
 # the median leaf by 0.12 and the check could tell little.
 SWIN_GRAD_RTOL_BF16 = 0.05
 NOISY_LEAF = 0.25
+# Phase 11. K9 is K10's kernel on three tensors: K10's tolerances (K1's,
+# K2's and K3's), for their reasons; against K10 on the same values, the
+# same bits. K12 against its plain version: the output fp32 atol 1e-4 (K5's
+# 2e-5, and the two normalise in other orders, q·(r·s) against q/‖q‖·s, an
+# ulp or two apart on scores up to s + 16 = 116, where an fp32 ulp is 8e-6);
+# its gradients fp32 1e-4 of the largest |value|, as K6. bf16, each output and
+# gradient as the RMS of the difference over the RMS of the plain value,
+# 2^-6 as K6's: both round q̂ and k̂, P and dS to bf16 (K6's reasons), and an
+# element of q̂ or k̂ whose two fp32 values straddle a bf16 rounding boundary
+# moves its row's scores by a bf16 ulp of it, rarely, which a max would
+# charge in full. dscale = Σ q̂·dq̂n is a sum that cancels (Σ_j dS_ij = 0, so
+# it is Σ_j dS_ij·(s_ij − c) for any c). The kernel rounds dS to bf16 before
+# dq̂n, as the TPU kernel does; autograd of the plain version keeps dS fp32
+# and rounds dq̂n. The dS rounding moves dscale more: the kernel's bf16
+# dscale, and JAX's kernel's in interpret mode, sit further from the fp32
+# value than the plain version's (11b prints the kernel's and the plain
+# version's distances from the plain version run in fp32). So bf16 dscale is
+# held at the same 2^-6 to ``windowed_cosine_dscale``, the plain version in
+# the TPU kernel's order, from which the kernel differs only by summation
+# order and rare straddled roundings. K12's log-sum-exp against torch.logsumexp of the plain
+# version's fp32 scores: fp32 atol 1e-4 (values up to ~125; K5's reasons);
+# bf16 the mean |difference| at most 2^-8, a bf16 ulp of the scores below 1,
+# for the same rare straddles.
+K12_ATOL_FP32 = 1e-4
+K12_TOL_FP32 = 1e-4
+K12_RTOL_BF16 = 2.0 ** -6
+K12_LSE_ATOL_FP32 = 1e-4
+K12_LSE_MEAN_BF16 = 2.0 ** -8
+VIT_L_ATTENTION = (16, 577, 16, 64)   # ViT-L/16@384: (B, N, heads, d)
 # Phase 9: the train augment at each configuration's macro batch (name,
 # backbone, macro batch, canvas, image size), and the fold's images (train,
 # validation, test; the test's last TTA batch of 16 is ragged). 1,280 train
@@ -748,7 +802,12 @@ def counted(fa, ln) -> dict:
            "K11_bwd": fa.xqkv_attention_bwd_cuda,
            "K5": fa.flash_attention_bias_flat,
            "K5_lse": fa.window_attention_lse_cuda,
-           "K6": fa.window_attention_bwd_cuda}
+           "K6": fa.window_attention_bwd_cuda,
+           "K9": fa.flash_attention_flat, "K9_lse": fa.flat_attention_lse_cuda,
+           "K9_bwd": fa.flat_attention_bwd_cuda,
+           "K12": fa.flash_attention_cosine_flat,
+           "K12_lse": fa.cosine_window_attention_lse_cuda,
+           "K12_bwd": fa.cosine_window_attention_bwd_cuda}
     return fns if ln is None else fns | {"K4": ln.layer_norm_bwd_cuda}
 
 
@@ -2315,6 +2374,514 @@ def packed_mega_phase(fa, ln, attention_from_qkvb, smi, auto, trace):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# 11. The op-level attention: K9 (flat q, k, v) and K12 (scaled cosine)
+# ---------------------------------------------------------------------------
+
+def flat_views(q, k, v, heads):
+    """(B, H, N, d) views of flat (B, N, E) q, k, v, for SDPA."""
+    b, n, e = q.shape
+    return [t.view(b, n, heads, e // heads).transpose(1, 2) for t in (q, k, v)]
+
+
+def check_k9(fa, b, n, heads, d, dtype, entries, timed):
+    """K9's ``entries`` (of "fwd", "lse", "bwd") through their wrappers
+    against the plain version (``dot_product_attention_flat(impl="xla")``) on
+    the same seeded inputs; returns a record per entry, timed when
+    ``timed``."""
+    from fedvit_torch.ops.attention import dot_product_attention_flat
+
+    def plain(*t):
+        return dot_product_attention_flat(*t, heads, impl="xla")
+
+    e = heads * d
+    q, k, v = (seeded((b, n, e), dtype, SEED + 70 + n + d + i) for i in range(3))
+    dout = seeded((b, n, e), dtype, SEED + 73 + n + d)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flops = 4.0 * b * heads * n * n * d
+    io = 4 * q.numel() * q.element_size()           # q, k, v read, out written
+    tag = f"[k9] q, k, v {tuple(q.shape)} {short(dtype)} heads {heads} (d {d})"
+    atol = K1_ATOL_FP32 if dtype == torch.float32 else K1_ATOL_BF16
+    recs = {}
+    if "fwd" in entries:
+        out = fa.flash_attention_flat(q, k, v, heads)
+        torch.cuda.synchronize()
+        err = float((out.float() - plain(q, k, v).float()).abs().max())
+        log(f"{tag}: forward max_abs_err {err!r} (tolerance {atol!r})")
+        if not (err <= atol and bool(torch.isfinite(out).all())
+                and out.dtype == dtype):
+            raise RuntimeError("K9 disagrees with its plain version")
+        rec = recs["fwd"] = {"max_abs_err": err}
+        if timed:
+            rec["ms"] = cuda_ms(lambda: fa.flash_attention_flat(q, k, v, heads))
+            rec["plain_ms"] = cuda_ms(lambda: plain(q, k, v))
+            rec["library_ms"] = cuda_ms(lambda: sdpa(*flat_views(q, k, v, heads)))
+            rec.update(bound(io, flops, dtype))
+    if "lse" in entries:
+        out, lse = fa.flat_attention_lse_cuda(q, k, v, heads)
+        torch.cuda.synchronize()
+        qh, kh, _ = (t.float() for t in flat_views(q, k, v, heads))
+        want_lse = torch.logsumexp(qh @ kh.transpose(-1, -2) / math.sqrt(d), -1)
+        same = torch.equal(out, fa.flat_attention_cuda(q, k, v, heads))
+        err = float((out.float() - plain(q, k, v).float()).abs().max())
+        lse_err = float((lse - want_lse).abs().max())
+        log(f"{tag}: log-sum-exp entry max_abs_err {err!r}, bit-identical to "
+            f"the forward: {same}; lse max_abs_err {lse_err!r} (tolerance "
+            f"{K2_LSE_ATOL!r})")
+        if not (same and err <= atol and lse_err <= K2_LSE_ATOL):
+            raise RuntimeError("K9's log-sum-exp entry disagrees")
+        rec = recs["lse"] = {"max_abs_err": err}
+        if timed:
+            rec["ms"] = cuda_ms(lambda: fa.flat_attention_lse_cuda(q, k, v, heads))
+            rec["plain_ms"] = cuda_ms(lambda: plain(q, k, v))
+            rec["library_ms"] = cuda_ms(lambda: sdpa(*flat_views(q, k, v, heads)))
+            rec.update(bound(io + lse.numel() * 4, flops, dtype))
+    if "bwd" in entries:
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(fa.flash_attention_flat(*leaves, heads), leaves,
+                                  dout)
+        torch.cuda.synchronize()
+        plain_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out_p = plain(*plain_leaves)
+        want = torch.autograd.grad(out_p, plain_leaves, dout, retain_graph=True)
+        rels = [rel_max(g, w) for g, w in zip(got, want)]
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+        log(f"{tag}: backward dq, dk, dv {rels!r} of the largest |value| "
+            f"(tolerance {K3_TOL[dtype]!r}); max_abs_err {err!r}")
+        if not (max(rels) <= K3_TOL[dtype] and all(
+                bool(torch.isfinite(g).all()) and g.dtype == dtype for g in got)):
+            raise RuntimeError("K9's backward disagrees with its plain version")
+        rec = recs["bwd"] = {"max_abs_err": err}
+        if timed:
+            o, lse = fa.flat_attention_lse_cuda(q, k, v, heads)
+            rec["ms"] = cuda_ms(
+                lambda: fa.flat_attention_bwd_cuda(q, k, v, o, dout, lse, heads))
+            rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out_p, plain_leaves, dout, retain_graph=True))
+            lib_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out_s = sdpa(*flat_views(*lib_leaves, heads))
+            dout_s = dout.view(b, n, heads, d).transpose(1, 2)
+            rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out_s, lib_leaves, dout_s, retain_graph=True))
+            # q, k, v, dout read, dq, dk, dv written (the TPU kernel
+            # recomputes the softmax: out and lse are no bytes it needs)
+            rec.update(bound(7 * q.numel() * q.element_size(), 2.5 * flops,
+                             dtype))
+    for name, rec in recs.items():
+        if "ms" in rec:
+            log(f"{tag}: {name} kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r}"
+                f" ms, sdpa {rec['library_ms']!r} ms, bound {rec['bound_ms']!r} "
+                f"ms by {rec['bound_by']}")
+    return recs
+
+
+def check_k9_is_k10(fa, b, n, heads, d, dtype):
+    """K9 on three contiguous (B, N, E) tensors against K10 on their
+    concatenation: the same output, lse and (dq | dk | dv) bits."""
+    e = heads * d
+    qkv = seeded((b, n, 3 * e), dtype, SEED + 76 + n)
+    dout = seeded((b, n, e), dtype, SEED + 77 + n)
+    q, k, v = (t.contiguous() for t in qkv.split(e, dim=-1))
+    out, lse = fa.flat_attention_lse_cuda(q, k, v, heads)
+    out_p, lse_p = fa.qkv_attention_lse_cuda(qkv, heads)
+    same = {"fwd": torch.equal(fa.flat_attention_cuda(q, k, v, heads),
+                               fa.qkv_attention_cuda(qkv, heads)),
+            "lse": torch.equal(out, out_p) and torch.equal(lse, lse_p),
+            "bwd": torch.equal(
+                torch.cat(fa.flat_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                     heads), dim=-1),
+                fa.qkv_attention_bwd_cuda(qkv, out_p, dout, lse_p, heads))}
+    torch.cuda.synchronize()
+    log(f"[k9] against K10 on the same values, {tuple(qkv.shape)} "
+        f"{short(dtype)} heads {heads}: bit-identical {same}")
+    if not all(same.values()):
+        raise RuntimeError("K9 and K10 give other bits on the same values")
+
+
+def k9_control(fa, dtype):
+    """K9 launched with the score scale 1 instead of 1/√d must fail the
+    forward check."""
+    from fedvit_torch.ops.attention import dot_product_attention_flat
+
+    b, n, heads, d = 8, 197, 12, 64
+    q, k, v = (seeded((b, n, heads * d), dtype, SEED + 78 + i) for i in range(3))
+    out = torch.empty_like(q)
+    fa._raise_on(fa._library().flat_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
+        heads * d, heads, fa._DTYPES[dtype], 1.0, fa._stream(q)),
+        "flat_attention_fwd")
+    want = dot_product_attention_flat(q, k, v, heads, impl="xla")
+    err = float((out.float() - want.float()).abs().max())
+    log(f"[k9] control, the score scale 1: max_abs_err {err!r} (must exceed "
+        f"{K1_ATOL_BF16!r})")
+    if not err > K1_ATOL_BF16:
+        raise RuntimeError("the K9 check cannot tell a wrong score scale")
+
+
+def cosine_inputs(w0, b, n, heads, dtype, side, seed, zero_rows=False):
+    """K12's inputs: raw q, k, v of normal entries, each head's scale
+    exp(U[ln 10, ln 100]) as SwinV2's logit_scale, a bias of 16·sigmoid size
+    and the real shift mask of a ``side``² map (None: no mask). With
+    ``zero_rows``, some rows of q and k of norm 0 and below 1e-6."""
+    from fedvit_torch.models.swin import shift_attention_mask
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rows, e = w0 * b, 32 * heads
+    q, k, v = (torch.randn(rows, n, e, device="cuda", generator=g)
+               for _ in range(3))
+    if zero_rows:
+        q[:, :3] = 0
+        q[:, 3] *= 1e-8
+        k[:, 2:5] = 0
+        k[:, 6] = 1e-7 / math.sqrt(32)
+    lo, hi = math.log(10), math.log(100)
+    scale = torch.exp(lo + (hi - lo) * torch.rand(heads, device="cuda",
+                                                  generator=g))
+    bias = 16 * torch.sigmoid(
+        2 * torch.randn(heads, n, n, device="cuda", generator=g))
+    mask = None
+    if side is not None:
+        window = math.isqrt(n)
+        mask = torch.from_numpy(
+            shift_attention_mask(side, side, window, window // 2)).cuda()
+        if mask.shape != (w0, n, n):
+            raise RuntimeError(f"shift mask {tuple(mask.shape)} for W0 = {w0}")
+    return q.to(dtype), k.to(dtype), v.to(dtype), scale, bias, mask
+
+
+def cosine_scores_lse(q, k, scale, bias, mask, heads):
+    """torch.logsumexp of the plain version's fp32 scores: (W0·B, H, N)."""
+    rows, n, e = q.shape
+    w0 = 1 if mask is None else mask.shape[0]
+
+    def unit(t):
+        t = t.reshape(w0, rows // w0, n, heads, e // heads).float()
+        return t / t.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+
+    qh = (unit(q) * scale.reshape(1, 1, 1, heads, 1)).to(q.dtype).float()
+    kh = unit(k).to(q.dtype).float()
+    s = torch.einsum("wbnhd,wbmhd->wbhnm", qh, kh) + bias
+    if mask is not None:
+        s = s + mask[:, None, None]
+    return torch.logsumexp(s, -1).reshape(rows, heads, n)
+
+
+def held(got, want, dtype) -> float:
+    """K12's measure: fp32, max |difference| over max(1, max |plain|); bf16,
+    the RMS of the difference over the RMS of the plain value."""
+    if dtype == torch.float32:
+        return rel_max(got, want)
+    return rel_rms(got.float().cpu().numpy(), want.float().cpu().numpy())
+
+
+def times_norm(g, x, heads):
+    """g times max(‖x‖, 1e-6) of each row's head slice of x, fp32."""
+    rows, n, e = x.shape
+    split = (rows, n, heads, e // heads)
+    norm = torch.linalg.vector_norm(x.float().reshape(split), dim=-1,
+                                    keepdim=True).clamp(min=1e-6)
+    return (g.float().reshape(split) * norm).reshape(x.shape)
+
+
+def cosine_library(q, k, v, scale, attn_mask, heads):
+    """K12's library yardstick: ``F.normalize`` of q and k, q times its
+    head's scale, then SDPA with the summed bias and mask as ``attn_mask``."""
+    rows, n, e = q.shape
+    split = [t.view(rows, n, heads, e // heads) for t in (q, k, v)]
+    qn = (torch.nn.functional.normalize(split[0].float(), dim=-1, eps=1e-6)
+          * scale.view(1, 1, heads, 1)).to(q.dtype)
+    kn = torch.nn.functional.normalize(split[1].float(), dim=-1,
+                                       eps=1e-6).to(q.dtype)
+    return torch.nn.functional.scaled_dot_product_attention(
+        qn.transpose(1, 2), kn.transpose(1, 2), split[2].transpose(1, 2),
+        attn_mask=attn_mask, scale=1.0)
+
+
+def check_k12(fa, w0, b, n, heads, dtype, side, entries, timed,
+              zero_rows=False):
+    """K12's ``entries`` (of "fwd", "lse", "bwd") through their wrappers
+    against the plain version (``windowed_cosine_attention_flat(impl=
+    "xla")``) on the same seeded inputs; the backward's five gradients each,
+    and run twice for the same bits. Returns a record per entry, timed when
+    ``timed``."""
+    from fedvit_torch.ops.attention import (windowed_cosine_attention_flat,
+                                            windowed_cosine_dscale)
+
+    def plain(*t):
+        return windowed_cosine_attention_flat(*t, mask, heads, impl="xla")
+
+    q, k, v, scale, bias, mask = cosine_inputs(
+        w0, b, n, heads, dtype, side, SEED + 80 + n + heads + w0, zero_rows)
+    dout = seeded(q.shape, dtype, SEED + 81 + n + heads)
+    rows, e = w0 * b, heads * 32
+    shape = (f"(W0 {w0}, B {b}, N {n}, H {heads}, d 32) {short(dtype)}"
+             f"{', zero rows' if zero_rows else ''}")
+    tag = f"[k12] {shape}, mask {None if mask is None else tuple(mask.shape)}"
+    f32 = dtype == torch.float32
+    tol = K12_TOL_FP32 if f32 else K12_RTOL_BF16
+    how = "of the largest |value|" if f32 else "RMS error / RMS value"
+    extra = (bias.numel() + (0 if mask is None else mask.numel())
+             + scale.numel()) * 4
+    io = 4 * q.numel() * q.element_size() + extra
+    flops = 4.0 * rows * heads * n * n * 32 + 4.0 * 2 * rows * n * e  # + norms
+    attn_mask = None
+    if timed:
+        added = bias[None] if mask is None else bias[None] + mask[:, None]
+        attn_mask = added.to(dtype)[:, None].expand(
+            added.shape[0], b, heads, n, n).reshape(rows, heads, n, n)
+    recs = {}
+    if "fwd" in entries:
+        out = fa.flash_attention_cosine_flat(q, k, v, scale, bias, mask, heads)
+        torch.cuda.synchronize()
+        want = plain(q, k, v, scale, bias)
+        max_err = float((out.float() - want.float()).abs().max())
+        err = max_err if f32 else held(out, want, dtype)
+        atol = K12_ATOL_FP32 if f32 else K12_RTOL_BF16
+        log(f"{tag}: forward {'max_abs_err' if f32 else how} {err!r} "
+            f"(tolerance {atol!r})")
+        if not (err <= atol and bool(torch.isfinite(out).all())
+                and out.dtype == dtype):
+            raise RuntimeError(f"K12 {shape} disagrees with its plain version")
+        rec = recs["fwd"] = {"max_abs_err": max_err}
+        if timed:
+            rec["ms"] = cuda_ms(lambda: fa.flash_attention_cosine_flat(
+                q, k, v, scale, bias, mask, heads), iters=8, warmup=2)
+            rec["plain_ms"] = cuda_ms(lambda: plain(q, k, v, scale, bias),
+                                      iters=4, warmup=1)
+            rec["library_ms"] = cuda_ms(lambda: cosine_library(
+                q, k, v, scale, attn_mask, heads), iters=8, warmup=2)
+            rec.update(bound(io, flops, dtype))
+    if "lse" in entries:
+        out, lse, out32 = fa.cosine_window_attention_lse_cuda(
+            q, k, v, scale, bias, mask, heads)
+        torch.cuda.synchronize()
+        same = (torch.equal(out, fa.cosine_window_attention_cuda(
+            q, k, v, scale, bias, mask, heads))
+            and torch.equal(out32.to(dtype), out))
+        diff = (lse - cosine_scores_lse(q, k, scale, bias, mask, heads)).abs()
+        lse_err, lse_mean = float(diff.max()), float(diff.mean())
+        ok = lse_err <= K12_LSE_ATOL_FP32 if f32 else lse_mean <= K12_LSE_MEAN_BF16
+        log(f"{tag}: log-sum-exp entry bit-identical to the forward: {same}; "
+            f"lse max_abs_err {lse_err!r}, mean {lse_mean!r} (tolerance "
+            f"{K12_LSE_ATOL_FP32 if f32 else K12_LSE_MEAN_BF16!r}, "
+            f"{'max' if f32 else 'mean'})")
+        if not (same and ok and bool(torch.isfinite(lse).all())):
+            raise RuntimeError(f"K12's log-sum-exp entry disagrees at {shape}")
+        want = plain(q, k, v, scale, bias)
+        rec = recs["lse"] = {"max_abs_err": float(
+            (out.float() - want.float()).abs().max()), "lse_max_abs_err": lse_err}
+        if timed:
+            rec["ms"] = cuda_ms(lambda: fa.cosine_window_attention_lse_cuda(
+                q, k, v, scale, bias, mask, heads), iters=6, warmup=1)
+            rec["plain_ms"] = cuda_ms(lambda: plain(q, k, v, scale, bias),
+                                      iters=3, warmup=1)
+            with torch.no_grad():
+                rec["library_ms"] = cuda_ms(lambda: cosine_library(
+                    q, k, v, scale, attn_mask, heads), iters=6, warmup=1)
+            # the forward's bytes and lse; out32, the port's own leftover
+            # for its backward, is no byte the function needs
+            rec.update(bound(io + lse.numel() * 4, flops, dtype))
+    if "bwd" in entries:
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, scale, bias)]
+        before = launch_counts(fa, None)
+        got = torch.autograd.grad(fa.flash_attention_cosine_flat(
+            *leaves, mask, heads), leaves, dout)
+        torch.cuda.synchronize()
+        after = launch_counts(fa, None)
+        launched = {key: after[key] - before[key] for key in after}
+        if launched != {key: 0 for key in after} | {"K12_lse": 1, "K12_bwd": 1}:
+            raise RuntimeError(f"K12 {shape}: under grad the wrapper launched "
+                               f"{launched}")
+        plain_leaves = [t.clone().requires_grad_() for t in (q, k, v, scale, bias)]
+        out_p = plain(*plain_leaves)
+        want = torch.autograd.grad(out_p, plain_leaves, dout, retain_graph=True)
+        if not f32:      # dscale in the TPU kernel's order, dS rounded
+            leaves32 = [t.detach().float().requires_grad_()
+                        for t in (q, k, v, scale, bias)]
+            want32 = torch.autograd.grad(plain(*leaves32), leaves32,
+                                         dout.float())[3]
+            log(f"{tag}: dscale from the plain version in fp32: kernel "
+                f"{held(got[3], want32, dtype)!r}, plain bf16 "
+                f"{held(want[3], want32, dtype)!r}")
+            del leaves32, want32
+            want = (*want[:3], windowed_cosine_dscale(
+                q, k, v, scale, bias, mask, dout, heads), want[4])
+        names = ("dq", "dk", "dv", "dscale", "dbias")
+        errs = {nm: held(g, w, dtype) for nm, g, w in zip(names, got, want)}
+        if zero_rows:    # on x̂'s scale: a clamped row's dq, dk are 1e6·dx̂
+            errs["dq"], errs["dk"] = (held(times_norm(g, x, heads),
+                                           times_norm(w, x, heads), dtype)
+                                      for g, w, x in zip(got, want, (q, k)))
+        limits = dict.fromkeys(names, tol)
+        o, lse, o32 = fa.cosine_window_attention_lse_cuda(q, k, v, scale, bias,
+                                                          mask, heads)
+        again = [fa.cosine_window_attention_bwd_cuda(
+            q, k, v, scale, bias, mask, o32, dout, lse, heads) for _ in range(2)]
+        same = all(torch.equal(x, y) for x, y in zip(*again))
+        err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got[:3], want[:3]))
+        log(f"{tag}: backward {errs} {how} (tolerance {limits}); dq, dk, dv "
+            f"max_abs_err {err!r}; dscale {got[3].tolist()!r}; the backward "
+            f"twice gives the same bits: {same}")
+        ok = all(errs[nm] <= limits[nm] for nm in names) and same and all(
+            bool(torch.isfinite(g).all()) and g.shape == w.shape
+            for g, w in zip(got, want))
+        if not ok or any(g.dtype != dtype for g in got[:3]):
+            raise RuntimeError(f"K12's backward {shape} disagrees with its "
+                               f"plain version")
+        # the control: dscale zeroed must fail the same check
+        zeroed = held(torch.zeros_like(got[3]), want[3], dtype)
+        if not zeroed > limits["dscale"]:
+            raise RuntimeError("the K12 check cannot tell a zeroed dscale")
+        rec = recs["bwd"] = {"max_abs_err": err, **{
+            f"{nm}_err": x for nm, x in errs.items()}}
+        if timed:
+            rec["ms"] = cuda_ms(lambda: fa.cosine_window_attention_bwd_cuda(
+                q, k, v, scale, bias, mask, o32, dout, lse, heads),
+                iters=6, warmup=1)
+            rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out_p, plain_leaves, dout, retain_graph=True), iters=3, warmup=1)
+            lib_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out_s = cosine_library(*lib_leaves, scale, attn_mask, heads)
+            dout_s = dout.view(rows, n, heads, 32).transpose(1, 2)
+            rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+                out_s, lib_leaves, dout_s, retain_graph=True), iters=6, warmup=1)
+            # q, k, v, dout read and dq, dk, dv written; bias, mask, scale
+            # read, dbias and dscale written (the TPU kernel recomputes the
+            # softmax: out and lse are no bytes the function needs)
+            nbytes = (7 * q.numel() * q.element_size() + extra
+                      + (bias.numel() + scale.numel()) * 4)
+            rec.update(bound(nbytes, 10.0 * rows * heads * n * n * 32
+                             + 12.0 * 2 * rows * n * e, dtype))
+    for name, rec in recs.items():
+        if "ms" in rec:
+            log(f"{tag}: {name} kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r}"
+                f" ms, F.normalize + sdpa {rec['library_ms']!r} ms (bias + mask"
+                f" as attn_mask{'; no dbias or dscale' if name == 'bwd' else ''})"
+                f", bound {rec['bound_ms']!r} ms by {rec['bound_by']}")
+    return recs
+
+
+def k12_control(fa):
+    """K12 with each head's scale taken as 1 must fail the forward check."""
+    from fedvit_torch.ops.attention import windowed_cosine_attention_flat
+
+    w0, b, n, heads, side, _ = SWIN_STAGES[1]
+    q, k, v, scale, bias, mask = cosine_inputs(w0, 2, n, heads, torch.bfloat16,
+                                               side, SEED + 88)
+    out = fa.cosine_window_attention_cuda(q, k, v, torch.ones_like(scale), bias,
+                                          mask, heads)
+    want = windowed_cosine_attention_flat(q, k, v, scale, bias, mask, heads,
+                                          impl="xla")
+    err = held(out, want, torch.bfloat16)
+    log(f"[k12] control, each head's scale 1: RMS error / RMS value {err!r} "
+        f"(must exceed {K12_RTOL_BF16!r})")
+    if not err > K12_RTOL_BF16:
+        raise RuntimeError("the K12 check cannot tell a wrong per-head scale")
+
+
+def op_level_entries(fa, ln):
+    """11c: the op-level entries on CUDA tensors with impl="auto" at the
+    widths of 11a and 11b, forward and under autograd, with every count set
+    to 0 just before; returns the counts, each checked against the calls."""
+    from fedvit_torch.ops import attention as ops
+
+    n = (224 // 16) ** 2 + 1
+    reset_counts(fa, ln)
+    with torch.no_grad():
+        q, k, v = (seeded((SERVE_BATCH, n, 768), torch.bfloat16, SEED + 90 + i)
+                   for i in range(3))
+        outs = [ops.dot_product_attention_flat(q, k, v, 12)]
+        split = [t.view(SERVE_BATCH, n, 12, 64) for t in (q, k, v)]
+        outs.append(ops.dot_product_attention(*split, scale=0.5).reshape(q.shape))
+        biased = ops.dot_product_attention(
+            *[t[:8] for t in split], bias=torch.zeros(12, n, n, device="cuda"))
+        del q, k, v, split
+    b, n, heads, d = VIT_L_ATTENTION
+    leaves = [seeded((b, n, heads * d), torch.bfloat16, SEED + 93 + i)
+              .requires_grad_() for i in range(3)]
+    ops.dot_product_attention_flat(*leaves, heads).float().square().sum().backward()
+    views = [t.detach().view(b, n, heads, d).requires_grad_() for t in leaves]
+    ops.dot_product_attention(*views).float().square().sum().backward()
+    for w0, batch, n, heads, side, _ in SWIN_STAGES:
+        with torch.no_grad():    # serving's batch of 32
+            outs.append(ops.windowed_cosine_attention_flat(*cosine_inputs(
+                w0, batch, n, heads, torch.bfloat16, side, SEED + 95 + heads),
+                heads))
+        *grad_leaves, mask = cosine_inputs(w0, SWIN_MICRO, n, heads,
+                                           torch.bfloat16, side,
+                                           SEED + 96 + heads)
+        for t in grad_leaves:    # training's micro-batch of 8
+            t.requires_grad_()
+        ops.windowed_cosine_attention_flat(*grad_leaves, mask, heads).float() \
+            .square().sum().backward()
+        if not all(bool(torch.isfinite(t.grad).all()) for t in grad_leaves):
+            raise RuntimeError("11c: a gradient of K12 is not finite")
+        del grad_leaves
+    torch.cuda.synchronize()
+    got = launch_counts(fa, ln)
+    want = {key: 0 for key in got} | {
+        "K9": 2, "K9_lse": 2, "K9_bwd": 2, "K12": len(SWIN_STAGES),
+        "K12_lse": len(SWIN_STAGES), "K12_bwd": len(SWIN_STAGES)}
+    log(f"[op-level] launches: {got} (want {want}); the biased "
+        f"dot_product_attention ran the plain body, finite "
+        f"{bool(torch.isfinite(biased).all())}")
+    if got != want or not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise RuntimeError("11c: the op-level entries did not launch the "
+                           "kernels as they should")
+    return got
+
+
+def flat_cosine_phase(fa, ln):
+    """Phase 11; returns the records of K9's and K12's entries for the
+    kernels line."""
+    # 11a. K9
+    for n, d, heads in ((37, 64, 2), (197, 64, 12), (37, 80, 2), (197, 80, 2)):
+        check_k9(fa, 3, n, heads, d, torch.float32, ("fwd", "lse", "bwd"), False)
+    check_k9_is_k10(fa, 3, 197, 12, 64, torch.bfloat16)
+    check_k9_is_k10(fa, 2, 37, 2, 80, torch.float32)
+    n = (224 // 16) ** 2 + 1
+    k9 = check_k9(fa, SERVE_BATCH, n, 12, 64, torch.bfloat16, ("fwd",), True)
+    k9 |= check_k9(fa, MICRO, n, 12, 64, torch.bfloat16, ("lse", "bwd"), True)
+    b, n_l, heads_l, d_l = VIT_L_ATTENTION
+    vit_l = check_k9(fa, b, n_l, heads_l, d_l, torch.bfloat16,
+                     ("fwd", "lse", "bwd"), True)
+    for entry, rec in vit_l.items():
+        k9[entry]["vit_l_384"] = rec
+    k9_control(fa, torch.bfloat16)
+    torch.cuda.empty_cache()
+
+    # 11b. K12
+    for w0, b, n, heads, side in ((4, 3, 49, 2, 14), (9, 2, 16, 3, 12)):
+        check_k12(fa, w0, b, n, heads, torch.float32, side,
+                  ("fwd", "lse", "bwd"), False)
+    check_k12(fa, 1, 5, 144, 6, torch.float32, None, ("fwd", "lse", "bwd"),
+              False, zero_rows=True)
+    check_k12(fa, 2, 3, 33, 2, torch.float32, None, ("fwd", "lse", "bwd"), False)
+    stages = []
+    for (w0, b, n, heads, side, _), (_, micro, *_unused) in zip(
+            SWIN_STAGES, SWIN_TRAIN_STAGES):
+        rec = check_k12(fa, w0, b, n, heads, torch.bfloat16, side, ("fwd",), True)
+        rec |= check_k12(fa, w0, micro, n, heads, torch.bfloat16, side,
+                         ("lse", "bwd"), True)
+        stages.append(rec)
+        torch.cuda.empty_cache()
+    k12_control(fa)
+    k12 = {entry: {**stages[2][entry], "stages": [st[entry] for st in stages]}
+           for entry in ("fwd", "lse", "bwd")}
+    torch.cuda.empty_cache()
+
+    # 11c. the op-level entries, through which a user reaches both
+    counts = op_level_entries(fa, ln)
+    for key, rec in (("K9", k9["fwd"]), ("K9_lse", k9["lse"]),
+                     ("K9_bwd", k9["bwd"]), ("K12", k12["fwd"]),
+                     ("K12_lse", k12["lse"]), ("K12_bwd", k12["bwd"])):
+        rec["launches"] = counts[key]
+    torch.cuda.empty_cache()
+    return {"K9": k9, "K12": k12}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
@@ -2464,6 +3031,11 @@ def main() -> int:
     k10_k11 = packed_mega_phase(fa, ln, attention_from_qkvb, smi, auto,
                                 args.trace)
     k10, k11 = k10_k11["K10"], k10_k11["K11"]
+
+    # 11. the op-level attention: K9 and K12
+    torch.cuda.empty_cache()
+    k9_k12 = flat_cosine_phase(fa, ln)
+    k9, k12 = k9_k12["K9"], k9_k12["K12"]
     extra = [{"name": name, "route": "cuda", "source": f"fedvit_torch/csrc/{src}",
               "replaces": f"fedvit_tpu/ops/flash_attention.py:{line}", **rec}
              for name, src, line, rec in (
@@ -2473,7 +3045,17 @@ def main() -> int:
                  ("xqkv_attention_fwd", "xqkv_attention.cu", 748, k11["fwd"]),
                  ("xqkv_attention_fwd_lse", "xqkv_attention.cu", 748, k11["lse"]),
                  ("xqkv_attention_bwd", "xqkv_attention_bwd.cu", 766,
-                  k11["bwd"]))]
+                  k11["bwd"]),
+                 ("flat_attention_fwd", "qkvb_attention.cu", 91, k9["fwd"]),
+                 ("flat_attention_fwd_lse", "qkvb_attention.cu", 91, k9["lse"]),
+                 ("flat_attention_bwd", "qkvb_attention_bwd.cu", 103,
+                  k9["bwd"]),
+                 ("cosine_window_attention_fwd", "window_attention.cu", 1466,
+                  k12["fwd"]),
+                 ("cosine_window_attention_fwd_lse", "window_attention.cu", 1466,
+                  k12["lse"]),
+                 ("cosine_window_attention_bwd", "window_attention_bwd.cu", 1494,
+                  k12["bwd"]))]
 
     log(smi)
     log(json.dumps({"kernels": [

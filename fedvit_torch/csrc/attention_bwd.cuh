@@ -1,15 +1,19 @@
-// Backward of the multi-head attention on the packed QKV projection output,
-// with two compile-time flags: kBias adds the projection bias on load, kSum
-// sums the bias gradient. K3 takes both, K10's backward neither, and the
+// Backward of the multi-head attention on q, k and v read in place, with two
+// compile-time flags: kBias adds the projection bias on load, kSum sums the
+// bias gradient. K3 takes both, K10's and K9's backwards neither, and the
 // attention half of K11's backward (xqkv_attention_bwd.cu) kSum alone, for
 // its db. The sources qkvb_attention_bwd.cu and xqkv_attention_bwd.cu hold
 // the entry points and their design notes.
 //
-//   inputs   qkv (B, N, 3E), bias (3E,) in qkv's type (kBias only), out and
-//            dout (B, N, E), lse (B, H, N) fp32
-//   outputs  dqkv (B, N, 3E) in qkv's type, in qkv's layout
-//            kSum: dbias (3E,) fp32 = sum over the B*N rows of dqkv rounded
-//            to its type
+//   inputs   q, k, v (B, N, *) at row stride ld, as attention_fwd.cuh takes
+//            them (the packed (B, N, 3E) projection output at ld = 3E, or
+//            three flat (B, N, E) tensors at ld = E); bias (3E,) in their
+//            type (kBias only); out and dout (B, N, E); lse (B, H, N) fp32
+//   outputs  dq, dk, dv in the inputs' type and layout: three base pointers
+//            at the same row stride ld (the thirds of a packed dqkv, or three
+//            flat tensors)
+//            kSum: dbias (3E,) fp32 = sum over the B*N rows of [dq | dk | dv]
+//            rounded to their type
 //
 //   P = exp(s - lse), s = (q + b_q)(k + b_k)^T / sqrt(d)
 //   delta_i = sum_c dout_ic out_ic              (= sum_j dP_ij P_ij)
@@ -56,13 +60,12 @@ constexpr int kPStride = kTile + 1;  // padded fp32 row of P and dS
 template <int D>
 constexpr int kStrideOf = D + 4;  // padded fp32 row of q, k, v, dout
 
-// rows [row0, row0 + kTile) of a (rows, ld) matrix at column `off` (plus the
-// bias rounded to T when `bias` is given) into fp32 shared memory; rows past
-// n are zeros
+// rows [row0, row0 + kTile) of a head slice (src points at row 0 of it, rows
+// ld elements apart; plus the bias slice rounded to T when `bias` is given)
+// into fp32 shared memory; rows past n are zeros
 template <typename T, int D>
 __device__ void stage(float* dst, const T* __restrict__ src,
-                      const T* __restrict__ bias, int ld, int row0, int n,
-                      int off) {
+                      const T* __restrict__ bias, int ld, int row0, int n) {
   constexpr int kVec = Io<T>::kVec;
   constexpr int kVecPerRow = D / kVec;
   for (int i = threadIdx.x; i < kTile * kVecPerRow; i += kThreads) {
@@ -70,10 +73,10 @@ __device__ void stage(float* dst, const T* __restrict__ src,
     const int c = (i % kVecPerRow) * kVec;
     float x[kVec];
     if (row0 + r < n) {
-      Io<T>::load(src + static_cast<size_t>(row0 + r) * ld + off + c, x);
+      Io<T>::load(src + static_cast<size_t>(row0 + r) * ld + c, x);
       if (bias != nullptr) {
         float bv[kVec];
-        Io<T>::load(bias + off + c, bv);
+        Io<T>::load(bias + c, bv);
 #pragma unroll
         for (int j = 0; j < kVec; ++j) x[j] = Io<T>::round(x[j] + bv[j]);
       }
@@ -163,14 +166,14 @@ __device__ void stage_rows(float* lse_s, float* dl_s, const float* __restrict__ 
 }
 
 // Write rows ty + 16a (< n - row0) of a 64 x D fp32 tile, times `mul`, to
-// dqkv at column `col`, rounded to T; with kSum also the column sums of the
-// rounded values to partial[prow, col + c]. red is kTile*16 floats of shared
+// the head slice at dst (row 0 of it; rows ld elements apart), rounded to T;
+// with kSum also the column sums of the rounded values to partial[c], the
+// tile's slice of its row of the workspace. red is kTile*16 floats of shared
 // memory (at least D*16).
 template <typename T, int D, bool kSum>
 __device__ void write_tile(const float (&acc)[4][D / 16], float mul,
-                           T* __restrict__ dqkv, float* __restrict__ partial,
-                           float* red, int e3, size_t row_base, int row0, int n,
-                           int col, size_t prow) {
+                           T* __restrict__ dst, float* __restrict__ partial,
+                           float* red, int ld, int row0, int n) {
   constexpr int kC = D / 16;
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -187,7 +190,7 @@ __device__ void write_tile(const float (&acc)[4][D / 16], float mul,
         v[c] = Io<T>::round(acc[a][c] * mul);
         colsum[c] += v[c];
       }
-      Io<T>::template store<kC>(dqkv + (row_base + r) * e3 + col + tx * kC, v);
+      Io<T>::template store<kC>(dst + static_cast<size_t>(r) * ld + tx * kC, v);
     }
   }
   if constexpr (kSum) {
@@ -199,7 +202,7 @@ __device__ void write_tile(const float (&acc)[4][D / 16], float mul,
       float sum = 0.f;
 #pragma unroll
       for (int t = 0; t < 16; ++t) sum += red[threadIdx.x * 16 + t];
-      partial[prow * e3 + col + threadIdx.x] = sum;
+      partial[threadIdx.x] = sum;
     }
   }
 }
@@ -226,12 +229,39 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   if (lane == 0) delta[(static_cast<size_t>(b) * heads + h) * n + row] = s;
 }
 
+// the head-h slices of one batch row's operands, and of the bias (kBias) and
+// of the tile's row of the dbias workspace (kSum), which are null otherwise
+template <typename T>
+struct Slices {
+  const T* q; const T* k; const T* v; const T* dout;
+  const T* bq; const T* bk; const T* bv;
+  float* pq; float* pk; float* pv;
+};
+
+template <typename T, int D, bool kBias, bool kSum>
+__device__ Slices<T> slices(const T* q, const T* k, const T* v, int ld,
+                            const T* bias, const T* dout, float* partial,
+                            int n, int e, int b, int h, int tile) {
+  const size_t at = static_cast<size_t>(b) * n * ld + h * D;
+  const int col = h * D;
+  // one workspace row of 3E per (b, tile), as workspace_rows counts them
+  float* prow = kSum ? partial + (static_cast<size_t>(b) * gridDim.x + tile) * 3 * e
+                     : nullptr;
+  return {q + at, k + at, v + at, dout + static_cast<size_t>(b) * n * e + col,
+          kBias ? bias + col : nullptr, kBias ? bias + e + col : nullptr,
+          kBias ? bias + 2 * e + col : nullptr,
+          kSum ? prow + col : nullptr, kSum ? prow + e + col : nullptr,
+          kSum ? prow + 2 * e + col : nullptr};
+}
+
 template <typename T, int D, bool kBias, bool kSum>
 __global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, int ld, const T* __restrict__ bias,
             const T* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, T* __restrict__ dqkv,
-            float* __restrict__ partial, int n, int e, float scale) {
+            const float* __restrict__ delta, T* __restrict__ dk,
+            T* __restrict__ dv, float* __restrict__ partial, int n, int e,
+            float scale) {
   constexpr int kStride = kStrideOf<D>;
   constexpr int kC = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -249,27 +279,25 @@ dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int k0 = blockIdx.x * kTile;
-  const int e3 = 3 * e;
   const size_t bh = static_cast<size_t>(b) * gridDim.y + h;
-  const T* rows = qkv + static_cast<size_t>(b) * n * e3;
-  const T* drows = dout + static_cast<size_t>(b) * n * e;
+  const Slices<T> sl = slices<T, D, kBias, kSum>(q, k, v, ld, bias, dout,
+                                                 partial, n, e, b, h, blockIdx.x);
   const T* no_bias = nullptr;
-  const T* bb = kBias ? bias : no_bias;
 
-  stage<T, D>(k_s, rows, bb, e3, k0, n, e + h * D);
-  stage<T, D>(v_s, rows, bb, e3, k0, n, 2 * e + h * D);
+  stage<T, D>(k_s, sl.k, sl.bk, ld, k0, n);
+  stage<T, D>(v_s, sl.v, sl.bv, ld, k0, n);
   const int nk = min(kTile, n - k0);
 
-  float dk[4][kC], dv[4][kC];  // key rows ty + 16a, columns tx*kC + c
+  float gk[4][kC], gv[4][kC];  // dk, dv: key rows ty + 16a, columns tx*kC + c
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < kC; ++c) dk[a][c] = dv[a][c] = 0.f;
+    for (int c = 0; c < kC; ++c) gk[a][c] = gv[a][c] = 0.f;
 
   for (int q0 = 0; q0 < n; q0 += kTile) {
     __syncthreads();  // the previous query tile is consumed
-    stage<T, D>(q_s, rows, bb, e3, q0, n, h * D);
-    stage<T, D>(do_s, drows, no_bias, e, q0, n, h * D);
+    stage<T, D>(q_s, sl.q, sl.bq, ld, q0, n);
+    stage<T, D>(do_s, sl.dout, no_bias, e, q0, n);
     stage_rows(lse_s, dl_s, lse, delta, bh, q0, n);
     __syncthreads();
     const int nq = min(kTile, n - q0);
@@ -278,35 +306,33 @@ dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
     scores<D>(q_s, k_s, do_s, v_s, lse_s, dl_s, p_s, ds_s, nq, nk, scale);
     __syncthreads();
     for (int i = 0; i < nq; ++i) {
-      float g[kC], q[kC];
+      float g[kC], x[kC];
       load_cols<kC>(do_s + i * kStride + tx * kC, g);
-      load_cols<kC>(q_s + i * kStride + tx * kC, q);
+      load_cols<kC>(q_s + i * kStride + tx * kC, x);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const float p = p_s[i * kPStride + ty + 16 * a];
         const float ds = ds_s[i * kPStride + ty + 16 * a];
 #pragma unroll
         for (int c = 0; c < kC; ++c) {
-          dv[a][c] += p * g[c];
-          dk[a][c] += ds * q[c];
+          gv[a][c] += p * g[c];
+          gk[a][c] += ds * x[c];
         }
       }
     }
   }
 
-  const size_t prow = static_cast<size_t>(b) * gridDim.x + blockIdx.x;
-  const size_t row_base = static_cast<size_t>(b) * n;
-  write_tile<T, D, kSum>(dk, scale, dqkv, partial, p_s, e3, row_base, k0, n,
-                         e + h * D, prow);
-  write_tile<T, D, kSum>(dv, 1.f, dqkv, partial, p_s, e3, row_base, k0, n,
-                         2 * e + h * D, prow);
+  const size_t at = static_cast<size_t>(b) * n * ld + h * D;
+  write_tile<T, D, kSum>(gk, scale, dk + at, sl.pk, p_s, ld, k0, n);
+  write_tile<T, D, kSum>(gv, 1.f, dv + at, sl.pv, p_s, ld, k0, n);
 }
 
 template <typename T, int D, bool kBias, bool kSum>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, int ld, const T* __restrict__ bias,
           const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dqkv,
+          const float* __restrict__ delta, T* __restrict__ dq,
           float* __restrict__ partial, int n, int e, float scale) {
   constexpr int kStride = kStrideOf<D>;
   constexpr int kC = D / 16;
@@ -324,47 +350,44 @@ dq_kernel(const T* __restrict__ qkv, const T* __restrict__ bias,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * kTile;
-  const int e3 = 3 * e;
   const size_t bh = static_cast<size_t>(b) * gridDim.y + h;
-  const T* rows = qkv + static_cast<size_t>(b) * n * e3;
-  const T* drows = dout + static_cast<size_t>(b) * n * e;
+  const Slices<T> sl = slices<T, D, kBias, kSum>(q, k, v, ld, bias, dout,
+                                                 partial, n, e, b, h, blockIdx.x);
   const T* no_bias = nullptr;
-  const T* bb = kBias ? bias : no_bias;
 
-  stage<T, D>(q_s, rows, bb, e3, q0, n, h * D);
-  stage<T, D>(do_s, drows, no_bias, e, q0, n, h * D);
+  stage<T, D>(q_s, sl.q, sl.bq, ld, q0, n);
+  stage<T, D>(do_s, sl.dout, no_bias, e, q0, n);
   stage_rows(lse_s, dl_s, lse, delta, bh, q0, n);
   const int nq = min(kTile, n - q0);
 
-  float dq[4][kC];  // query rows ty + 16a, columns tx*kC + c
+  float gq[4][kC];  // dq: query rows ty + 16a, columns tx*kC + c
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < kC; ++c) dq[a][c] = 0.f;
+    for (int c = 0; c < kC; ++c) gq[a][c] = 0.f;
 
   for (int k0 = 0; k0 < n; k0 += kTile) {
     __syncthreads();  // the previous key tile is consumed
-    stage<T, D>(k_s, rows, bb, e3, k0, n, e + h * D);
-    stage<T, D>(v_s, rows, bb, e3, k0, n, 2 * e + h * D);
+    stage<T, D>(k_s, sl.k, sl.bk, ld, k0, n);
+    stage<T, D>(v_s, sl.v, sl.bv, ld, k0, n);
     __syncthreads();
     const int nk = min(kTile, n - k0);
     scores<D>(q_s, k_s, do_s, v_s, lse_s, dl_s, nullptr, ds_s, nq, nk, scale);
     __syncthreads();
     for (int j = 0; j < nk; ++j) {
-      float k[kC];
-      load_cols<kC>(k_s + j * kStride + tx * kC, k);
+      float x[kC];
+      load_cols<kC>(k_s + j * kStride + tx * kC, x);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const float ds = ds_s[(ty + 16 * a) * kPStride + j];
 #pragma unroll
-        for (int c = 0; c < kC; ++c) dq[a][c] += ds * k[c];
+        for (int c = 0; c < kC; ++c) gq[a][c] += ds * x[c];
       }
     }
   }
 
-  const size_t prow = static_cast<size_t>(b) * gridDim.x + blockIdx.x;
-  write_tile<T, D, kSum>(dq, scale, dqkv, partial, ds_s, e3,
-                         static_cast<size_t>(b) * n, q0, n, h * D, prow);
+  write_tile<T, D, kSum>(gq, scale, dq + static_cast<size_t>(b) * n * ld + h * D,
+                         sl.pq, ds_s, ld, q0, n);
 }
 
 template <int D>
@@ -383,17 +406,20 @@ inline int workspace_rows(int batch, int n) {
 }
 
 template <typename T, int D, bool kBias, bool kSum>
-int launch_d(const void* qkv, const void* bias, const void* out, const void* dout,
-             const void* lse, void* delta, void* partial, void* dqkv, void* dbias,
-             int batch, int n, int e, int heads, float scale, cudaStream_t stream) {
-  const T* q = static_cast<const T*>(qkv);
+int launch_d(const void* q, const void* k, const void* v, int ld,
+             const void* bias, const void* out, const void* dout,
+             const void* lse, void* delta, void* partial, void* dq, void* dk,
+             void* dv, void* dbias, int batch, int n, int e, int heads,
+             float scale, cudaStream_t stream) {
+  const T* qq = static_cast<const T*>(q);
+  const T* kk = static_cast<const T*>(k);
+  const T* vv = static_cast<const T*>(v);
   const T* bb = static_cast<const T*>(bias);
   const T* o = static_cast<const T*>(out);
   const T* g = static_cast<const T*>(dout);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   float* part = static_cast<float*>(partial);
-  T* dx = static_cast<T*>(dqkv);
   cudaError_t err;
 
   const int total = batch * n * heads;
@@ -407,7 +433,8 @@ int launch_d(const void* qkv, const void* bias, const void* out, const void* dou
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dkdv_kernel<T, D, kBias, kSum><<<grid, kThreads, kDkdvSmem, stream>>>(
-      q, bb, g, l, dl, dx, part, n, e, scale);
+      qq, kk, vv, ld, bb, g, l, dl, static_cast<T*>(dk), static_cast<T*>(dv),
+      part, n, e, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   constexpr size_t kDqSmem = dq_smem<D>();
@@ -415,7 +442,7 @@ int launch_d(const void* qkv, const void* bias, const void* out, const void* dou
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dq_kernel<T, D, kBias, kSum><<<grid, kThreads, kDqSmem, stream>>>(
-      q, bb, g, l, dl, dx, part, n, e, scale);
+      qq, kk, vv, ld, bb, g, l, dl, static_cast<T*>(dq), part, n, e, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   if constexpr (kSum) {
@@ -427,38 +454,57 @@ int launch_d(const void* qkv, const void* bias, const void* out, const void* dou
   return 0;
 }
 
-// The backward on one stream; d = e / heads must be 64 or 80, dtype 0 =
-// float32, 1 = bfloat16. kBias reads `bias`; kSum needs `partial` with
+// The backward on one stream: q, k, v and dq, dk, dv at row stride ld
+// (elements); d = e / heads must be 64 or 80, dtype 0 = float32,
+// 1 = bfloat16. kBias reads `bias`; kSum needs `partial` with
 // workspace_rows(B, N) rows of 3E and writes dbias. A pointer a flag does not
 // ask for may be null. Returns a cudaError_t (0 on success). The caller
-// checks shapes, contiguity and 16-byte alignment.
+// checks shapes, contiguity and 16-byte alignment (of the pointers and of
+// ld's rows).
 template <bool kBias, bool kSum>
-int launch(const void* qkv, const void* bias, const void* out, const void* dout,
-           const void* lse, void* delta, void* partial, void* dqkv, void* dbias,
-           int batch, int n, int e, int heads, int dtype, float scale,
-           void* stream) {
+int launch(const void* q, const void* k, const void* v, int ld,
+           const void* bias, const void* out, const void* dout,
+           const void* lse, void* delta, void* partial, void* dq, void* dk,
+           void* dv, void* dbias, int batch, int n, int e, int heads, int dtype,
+           float scale, void* stream) {
   if (batch <= 0 || n <= 0 || heads <= 0 || e % heads != 0 || batch > 65535 ||
-      heads > 65535 || dtype < 0 || dtype > 1)
+      heads > 65535 || dtype < 0 || dtype > 1 || ld < e)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d = e / heads;
   if (d == 64 && dtype == 0)
-    return launch_d<float, 64, kBias, kSum>(qkv, bias, out, dout, lse, delta,
-                                            partial, dqkv, dbias, batch, n, e,
-                                            heads, scale, s);
+    return launch_d<float, 64, kBias, kSum>(q, k, v, ld, bias, out, dout, lse,
+                                            delta, partial, dq, dk, dv, dbias,
+                                            batch, n, e, heads, scale, s);
   if (d == 64)
     return launch_d<__nv_bfloat16, 64, kBias, kSum>(
-        qkv, bias, out, dout, lse, delta, partial, dqkv, dbias, batch, n, e,
-        heads, scale, s);
+        q, k, v, ld, bias, out, dout, lse, delta, partial, dq, dk, dv, dbias,
+        batch, n, e, heads, scale, s);
   if (d == 80 && dtype == 0)
-    return launch_d<float, 80, kBias, kSum>(qkv, bias, out, dout, lse, delta,
-                                            partial, dqkv, dbias, batch, n, e,
-                                            heads, scale, s);
+    return launch_d<float, 80, kBias, kSum>(q, k, v, ld, bias, out, dout, lse,
+                                            delta, partial, dq, dk, dv, dbias,
+                                            batch, n, e, heads, scale, s);
   if (d == 80)
     return launch_d<__nv_bfloat16, 80, kBias, kSum>(
-        qkv, bias, out, dout, lse, delta, partial, dqkv, dbias, batch, n, e,
-        heads, scale, s);
+        q, k, v, ld, bias, out, dout, lse, delta, partial, dq, dk, dv, dbias,
+        batch, n, e, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward on the packed (B, N, 3E) projection output: q, k and v are
+// the thirds of qkv and dq, dk and dv those of dqkv, at row stride 3E.
+template <bool kBias, bool kSum>
+int launch_packed(const void* qkv, const void* bias, const void* out,
+                  const void* dout, const void* lse, void* delta,
+                  void* partial, void* dqkv, void* dbias, int batch, int n,
+                  int e, int heads, int dtype, float scale, void* stream) {
+  const size_t third = static_cast<size_t>(e) * (dtype == 0 ? 4 : 2);  // bytes
+  const char* p = static_cast<const char*>(qkv);
+  char* dp = static_cast<char*>(dqkv);
+  return launch<kBias, kSum>(p, p + third, p + 2 * third, 3 * e, bias, out,
+                             dout, lse, delta, partial, dp, dp + third,
+                             dp + 2 * third, dbias, batch, n, e, heads, dtype,
+                             scale, stream);
 }
 
 }  // namespace attn_bwd

@@ -1,6 +1,7 @@
 // Helpers shared by the kernels in this directory: 16-byte loads of fp32 or
 // bf16 into fp32 registers, rounding to the storage type, warp reductions,
-// and the in-order column sum of an fp32 workspace.
+// the in-order column sum of an fp32 workspace, and the row normalisation of
+// the scaled-cosine attention (K12).
 
 #pragma once
 
@@ -95,4 +96,29 @@ __global__ void column_sum_kernel(const float* __restrict__ partial,
   float sum = 0.f;
   for (int r = 0; r < rows; ++r) sum += partial[static_cast<size_t>(r) * cols + c];
   Io<T>::template store<1>(out + c, &sum);
+}
+
+// SwinV2's cosine attention: rows [0, count) of a staged fp32 tile (rows
+// `stride` floats apart) become x * (r * mul) rounded to T, with r =
+// 1 / max(||x||, kCosEps) and ||x|| the root of the row's D squares summed
+// in order; a row of zeros stays zeros. The intrinsics pin every rounding, so
+// each kernel that stages a tile gets the same bits. One thread a row,
+// threads `threads` apart; with `norms`, row r's ||x|| goes to norms[r].
+constexpr float kCosEps = 1e-6f;
+
+template <typename T, int D>
+__device__ __forceinline__ void normalize_rows(float* tile, int stride,
+                                               int count, float mul,
+                                               int threads, float* norms) {
+  for (int r = threadIdx.x; r < count; r += threads) {
+    float* x = tile + r * stride;
+    float ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < D; ++c) ss = __fmaf_rn(x[c], x[c], ss);
+    const float norm = __fsqrt_rn(ss);
+    const float m = __fmul_rn(__fdiv_rn(1.f, fmaxf(norm, kCosEps)), mul);
+#pragma unroll
+    for (int c = 0; c < D; ++c) x[c] = Io<T>::round(__fmul_rn(x[c], m));
+    if (norms != nullptr) norms[r] = norm;
+  }
 }

@@ -1,6 +1,7 @@
 // Windowed multi-head softmax attention with two additive fp32 score terms, a
 // per-head relative-position bias and a per-window shift mask: the forward of
-// K5, the attention of every SwinV2 block.
+// K5, the attention of every SwinV2 block; and of K12, the same with SwinV2's
+// scaled-cosine scores, q and k normalised inside the kernel.
 //
 // Replaces the TPU kernels fedvit_tpu/ops/flash_attention.py::_wflat_fwd_kernel
 // (no grad: serving) and ::_wflat_fwd_stats_kernel (under grad), launched by
@@ -29,6 +30,21 @@
 // No score scale: the caller folds it into q. Scores, the running max and the
 // running sum are fp32. The flagged entry is the same code with two more
 // stores, so its output is bit-identical to the flagless one's.
+//
+// K12 (the cosine_ entries) replaces ::_wcos_fwd_kernel (launched by
+// _wcos_fwd_rule): the op-level SwinV2 attention of
+// ops/attention.py::windowed_cosine_attention_flat on RAW q and k, with
+//
+//   scale   (H,)          fp32, head h's logit scale (exp of the clamped
+//                         logit_scale, as the model computes it)
+//   out_h = softmax(scale[h] q^_h k^_h^T + bias[h] + mask[w]) v_h,
+//   x^ = x / max(||x||, 1e-6) over each row's head slice of d = 32.
+//
+// It is K5's kernel compiled with kCosine: when a q or k tile is staged, each
+// row's head slice is normalised in place in fp32 and rounded to the input
+// type, q as q * (r * scale[h]) and k as k * r with r = 1 / max(||x||, 1e-6),
+// in the TPU kernel's order; the scores are then K5's. The operands' norm
+// costs 2 d operations a row of each tile, next to the 2 d N of its scores.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense) at the SwinV2-L@384
 // stage shapes for a batch of 32, bf16, (W0, N, E, H):
@@ -69,10 +85,11 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kQueryTile = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kKeyTile = 64;                        // key rows per staged tile
 
-template <typename T, int D, bool kLse>
+template <typename T, int D, bool kLse, bool kCosine>
 __global__ void __launch_bounds__(kThreads)
 window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v,
+                            const float* __restrict__ scale,
                             const float* __restrict__ bias,
                             const float* __restrict__ mask, T* __restrict__ out,
                             float* __restrict__ lse, float* __restrict__ out32,
@@ -127,6 +144,10 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   stage(q_s, kStride, q, q0, kQueryTile);
+  if constexpr (kCosine) {  // the key loop's first barrier orders it
+    __syncthreads();
+    normalize_rows<T, D>(q_s, kStride, kQueryTile, scale[h], kThreads, nullptr);
+  }
 
   float m[kR], l[kR], o[kR][kCols];
 #pragma unroll
@@ -145,6 +166,10 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage(k_s, kStride, k, t0, kKeyTile);
     stage(v_s, D, v, t0, kKeyTile);
     __syncthreads();
+    if constexpr (kCosine) {
+      normalize_rows<T, D>(k_s, kStride, kKeyTile, 1.f, kThreads, nullptr);
+      __syncthreads();
+    }
     const int nk = min(kKeyTile, n - t0);
 
     for (int c0 = 0; c0 < nk; c0 += 32) {
@@ -229,45 +254,48 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, bool kLse>
-int launch(const void* q, const void* k, const void* v, const float* bias,
-           const float* mask, void* out, float* lse, float* out32, int rows,
-           int n, int e, int heads, int w0, cudaStream_t stream) {
+template <typename T, bool kLse, bool kCosine>
+int launch(const void* q, const void* k, const void* v, const float* scale,
+           const float* bias, const float* mask, void* out, float* lse,
+           float* out32, int rows, int n, int e, int heads, int w0,
+           cudaStream_t stream) {
   if (e / heads != 32) return static_cast<int>(cudaErrorInvalidValue);
   const int q_tiles = (n + kQueryTile - 1) / kQueryTile;
   const long long blocks = static_cast<long long>(rows) * heads * q_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  window_attention_fwd_kernel<T, 32, kLse>
+  window_attention_fwd_kernel<T, 32, kLse, kCosine>
       <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), bias, mask, static_cast<T*>(out), lse, out32,
-          n, e, heads, rows / w0, w0, q_tiles);
+          static_cast<const T*>(v), scale, bias, mask, static_cast<T*>(out), lse,
+          out32, n, e, heads, rows / w0, w0, q_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kLse>
-int dispatch(const void* q, const void* k, const void* v, const void* bias,
-             const void* mask, void* out, float* lse, float* out32, int rows,
-             int n, int e, int heads, int w0, int dtype, void* stream) {
+template <bool kLse, bool kCosine>
+int dispatch(const void* q, const void* k, const void* v, const void* scale,
+             const void* bias, const void* mask, void* out, float* lse,
+             float* out32, int rows, int n, int e, int heads, int w0, int dtype,
+             void* stream) {
   if (rows <= 0 || n <= 0 || heads <= 0 || w0 <= 0 || e % heads != 0 ||
-      rows % w0 != 0)
+      rows % w0 != 0 || (kCosine && scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ss = static_cast<const float*>(scale);
   const float* bb = static_cast<const float*>(bias);
   const float* mm = static_cast<const float*>(mask);
   if (dtype == 0)
-    return launch<float, kLse>(q, k, v, bb, mm, out, lse, out32, rows, n, e,
-                               heads, w0, s);
+    return launch<float, kLse, kCosine>(q, k, v, ss, bb, mm, out, lse, out32,
+                                        rows, n, e, heads, w0, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, kLse>(q, k, v, bb, mm, out, lse, out32, rows, n,
-                                       e, heads, w0, s);
+    return launch<__nv_bfloat16, kLse, kCosine>(q, k, v, ss, bb, mm, out, lse,
+                                                out32, rows, n, e, heads, w0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// rows = W0 * B. dtype of q, k, v and out: 0 = float32, 1 = bfloat16; bias and
-// mask are float32. Returns a cudaError_t (0 on success). The caller checks
+// rows = W0 * B. dtype of q, k, v and out: 0 = float32, 1 = bfloat16; scale,
+// bias and mask are float32. Returns a cudaError_t (0 on success). The caller checks
 // shapes, contiguity and 16-byte alignment.
 
 // K5: out only.
@@ -275,8 +303,8 @@ extern "C" int window_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* bias, const void* mask,
                                     void* out, int rows, int n, int e, int heads,
                                     int w0, int dtype, void* stream) {
-  return dispatch<false>(q, k, v, bias, mask, out, nullptr, nullptr, rows, n, e,
-                         heads, w0, dtype, stream);
+  return dispatch<false, false>(q, k, v, nullptr, bias, mask, out, nullptr,
+                                nullptr, rows, n, e, heads, w0, dtype, stream);
 }
 
 // K5 with what the backward reads: out, lse (rows, H, N) fp32 and the
@@ -289,7 +317,36 @@ extern "C" int window_attention_fwd_lse(const void* q, const void* k,
                                         void* stream) {
   if (lse == nullptr || out32 == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<true>(q, k, v, bias, mask, out, static_cast<float*>(lse),
-                        static_cast<float*>(out32), rows, n, e, heads, w0, dtype,
-                        stream);
+  return dispatch<true, false>(q, k, v, nullptr, bias, mask, out,
+                               static_cast<float*>(lse),
+                               static_cast<float*>(out32), rows, n, e, heads, w0,
+                               dtype, stream);
+}
+
+// K12: out only, from raw q and k and the per-head scale (H,) fp32.
+extern "C" int cosine_window_attention_fwd(const void* q, const void* k,
+                                           const void* v, const void* scale,
+                                           const void* bias, const void* mask,
+                                           void* out, int rows, int n, int e,
+                                           int heads, int w0, int dtype,
+                                           void* stream) {
+  return dispatch<false, true>(q, k, v, scale, bias, mask, out, nullptr,
+                               nullptr, rows, n, e, heads, w0, dtype, stream);
+}
+
+// K12 with what its backward reads: out, lse (rows, H, N) fp32 and the
+// unrounded output out32 (rows, N, E) fp32.
+extern "C" int cosine_window_attention_fwd_lse(const void* q, const void* k,
+                                               const void* v, const void* scale,
+                                               const void* bias,
+                                               const void* mask, void* out,
+                                               void* lse, void* out32, int rows,
+                                               int n, int e, int heads, int w0,
+                                               int dtype, void* stream) {
+  if (lse == nullptr || out32 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true, true>(q, k, v, scale, bias, mask, out,
+                              static_cast<float*>(lse),
+                              static_cast<float*>(out32), rows, n, e, heads, w0,
+                              dtype, stream);
 }

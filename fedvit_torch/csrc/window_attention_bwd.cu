@@ -69,6 +69,28 @@
 // so bytes bound it, narrowly at stage 0: half of stage 2's bytes are bias and
 // dbias.
 //
+// K12's backward (the cosine_ entries) replaces ::_wcos_bwd_kernel (launched
+// by _wcos_bwd_rule through pl.pallas_call): the gradients of the scaled-
+// cosine attention of window_attention.cu's cosine entries with respect to
+// the RAW q and k, v, the bias and the per-head scale (H,). It is K6
+// compiled with kCosine: every q and k tile is normalised as it is staged,
+// exactly as the forward does (common.cuh::normalize_rows: q^n = round(q * (r_q
+// * scale[h])), k^n = round(k * r_k), r = 1 / max(||x||, 1e-6)), so the
+// passes above give dq^n, dk^n, dv and dbias of the normalised operands.
+// Then, as the TPU kernel, the chain rule through x^ = x * r:
+//
+//   dq = scale[h] r_q (dq^n - [||q|| > eps] q^ (q^ . dq^n)),  q^ = q r_q
+//   dk = r_k (dk^n - [||k|| > eps] k^ (k^ . dk^n)),           k^ = k r_k
+//   dscale[h] = sum over all W0*B*N rows of q^ . dq^n
+//
+// At the clamp r is a constant and dx = r dx^ stays finite on a row of
+// zeros. A d = 32 row of dq^n (dk^n) is held by 8 neighbouring lanes of pass
+// 3 (pass 2), 4 columns each: the row dot is summed over them with three
+// butterfly shuffles, which give every lane the same bits. dscale is the new
+// cross-block sum: each pass-3 block adds its rows' dots in order in
+// registers and writes one partial, (H, query tiles, groups) fp32, and a last
+// pass sums each head's partials in order: no atomics, as dbias.
+//
 // Design. As qkvb_attention_bwd.cu: plain SIMT code on the fp32 cores, written
 // to be right and readable, far above the bound (see PERF.md). S and dP are
 // recomputed in both passes (7 N^2 d products per (r, h) instead of 5). Tiles
@@ -194,6 +216,38 @@ __device__ __forceinline__ void scores(
   }
 }
 
+// 4 consecutive values of a row of T (8-byte aligned) as fp32
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float (&f)[4]) {
+  Io<T>::load2(p, f);
+  Io<T>::load2(p + 2, f + 2);
+}
+
+// kCosine, the chain rule of one d = 32 row through x^ = x r: the row's
+// 8 lanes (neighbours in the warp) each hold 4 of its columns of the
+// normalised operand's gradient in g and of the raw row in x (zeros past N).
+// g becomes mul * r * (g - [norm > eps] x^ (x^ . g)); returns x^ . g, the same
+// bits in all 8 lanes. Every lane of the warp calls it.
+__device__ __forceinline__ float chain_rule(float (&g)[4], float (&x)[4],
+                                            float norm, float mul) {
+  const float r = __fdiv_rn(1.f, fmaxf(norm, kCosEps));
+  float dot = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    x[c] = __fmul_rn(x[c], r);
+    dot = __fmaf_rn(x[c], g[c], dot);
+  }
+  dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, 1));
+  dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, 2));
+  dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, 4));
+  const bool radial = norm > kCosEps;
+  const float m = __fmul_rn(mul, r);
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    g[c] = __fmul_rn(m, radial ? __fsub_rn(g[c], __fmul_rn(x[c], dot)) : g[c]);
+  return dot;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 delta_kernel(const float* __restrict__ out, const T* __restrict__ dout,
@@ -212,10 +266,11 @@ delta_kernel(const float* __restrict__ out, const T* __restrict__ dout,
 }
 
 // Pass 2. block index = ((window * heads + head) * k_tiles + tile) * batch + b
-template <typename T>
+template <typename T, bool kCosine>
 __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
+            const float* __restrict__ scale,
             const float* __restrict__ bias, const float* __restrict__ mask,
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dk, T* __restrict__ dv, int n, int e, int heads,
@@ -230,6 +285,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ds_s = p_s + kQ * kPStride;
   float* lse_s = ds_s + kQ * kPStride;
   float* dl_s = lse_s + kQ;
+  float* norm_s = dl_s + kQ;  // kCosine: the key rows' norms
 
   int idx = blockIdx.x;
   const int b = idx % batch;
@@ -247,6 +303,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   stage<T, kKeyTile>(k_s, k + base, e, k0, n);
   stage<T, kKeyTile>(v_s, v + base, e, k0, n);
+  if constexpr (kCosine) {  // the query loop's first barrier orders it
+    __syncthreads();
+    normalize_rows<T, kD>(k_s, kStride, kKeyTile, 1.f, kThreads, norm_s);
+  }
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -264,6 +324,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage<T, kQ>(do_s, dout + base, e, q0, n);
     stage_rows(lse_s, dl_s, lse + rh, delta + rh, q0, n, kQ);
     __syncthreads();
+    if constexpr (kCosine) {
+      normalize_rows<T, kD>(q_s, kStride, kQ, scale[h], kThreads, nullptr);
+      __syncthreads();
+    }
     float p[4][4], ds[4][4];
     scores<4>(q_s, k_s, do_s, v_s, lse_s, dl_s, bias_h, mask_w, n, q0, k0, p, ds);
 #pragma unroll
@@ -294,8 +358,13 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
     const int j = k0 + tr + 32 * a;
+    const size_t at = base + static_cast<size_t>(j) * e + tc;
+    if constexpr (kCosine) {
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (j < n) load4<T>(k + at, x);
+      chain_rule(acc_k[a], x, norm_s[tr + 32 * a], 1.f);
+    }
     if (j < n) {
-      const size_t at = base + static_cast<size_t>(j) * e + tc;
       Io<T>::template store<4>(dk + at, acc_k[a]);
       Io<T>::template store<4>(dv + at, acc_v[a]);
     }
@@ -305,14 +374,17 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Pass 3. block index = (head * q_tiles + tile) * groups + group; the block
 // takes rows [group * rows_per_group, (group + 1) * rows_per_group) and writes
 // its (32, N) dbias tile to db_out + group * H*N*N (db_out is dbias itself
-// when there is one group).
-template <typename T>
+// when there is one group); with kCosine also the sum of its rows' q^ . dq^n
+// to dscale_part[block index].
+template <typename T, bool kCosine>
 __global__ void __launch_bounds__(kThreads)
 dq_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ scale,
                 const float* __restrict__ bias, const float* __restrict__ mask,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, float* __restrict__ db_out, int n, int e,
+                T* __restrict__ dq, float* __restrict__ db_out,
+                float* __restrict__ dscale_part, int n, int e,
                 int heads, int batch, int w0, int rows, int q_tiles, int groups,
                 int rows_per_group, int db_stride) {
   constexpr int kQ = kDqQueryTile;
@@ -325,6 +397,7 @@ dq_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* lse_s = ds_s + kQ * kPStride;
   float* dl_s = lse_s + kQ;
   float* db_s = dl_s + kQ;  // (kQ, db_stride): this block's tile of dbias
+  float* norm_s = db_s + kQ * db_stride;  // kCosine: the query rows' norms
 
   int idx = blockIdx.x;
   const int group = idx % groups;
@@ -340,6 +413,7 @@ dq_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tc = (threadIdx.x % 8) * 4;   // columns tc .. tc + 3
 
   for (int i = threadIdx.x; i < kQ * db_stride; i += kThreads) db_s[i] = 0.f;
+  float dscale = 0.f;  // kCosine: this thread's query row's q^ . dq^n, summed
 
   const int r_end = min(rows, (group + 1) * rows_per_group);
   for (int r = group * rows_per_group; r < r_end; ++r) {
@@ -359,6 +433,12 @@ dq_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
       stage<T, kKeyTile>(k_s, k + base, e, k0, n);
       stage<T, kKeyTile>(v_s, v + base, e, k0, n);
       __syncthreads();
+      if constexpr (kCosine) {
+        normalize_rows<T, kD>(k_s, kStride, kKeyTile, 1.f, kThreads, nullptr);
+        if (k0 == 0)
+          normalize_rows<T, kD>(q_s, kStride, kQ, scale[h], kThreads, norm_s);
+        __syncthreads();
+      }
       float p[2][4], ds[2][4];
       scores<2>(q_s, k_s, do_s, v_s, lse_s, dl_s, bias_h, mask_w, n, q0, k0, p, ds);
 #pragma unroll
@@ -379,11 +459,25 @@ dq_dbias_kernel(const T* __restrict__ q, const T* __restrict__ k,
         acc[2] += dsv * x.z; acc[3] += dsv * x.w;
       }
     }
-    if (q0 + tr < n)
-      Io<T>::template store<4>(dq + base + static_cast<size_t>(q0 + tr) * e + tc, acc);
+    const size_t at = base + static_cast<size_t>(q0 + tr) * e + tc;
+    if constexpr (kCosine) {
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (q0 + tr < n) load4<T>(q + at, x);
+      dscale += chain_rule(acc, x, norm_s[tr], scale[h]);
+    }
+    if (q0 + tr < n) Io<T>::template store<4>(dq + at, acc);
   }
 
   __syncthreads();
+  if constexpr (kCosine) {  // lse_s is free: the 32 query rows' sums, in order
+    if (threadIdx.x % 8 == 0) lse_s[tr] = dscale;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float sum = 0.f;
+      for (int i = 0; i < kQ; ++i) sum += lse_s[i];
+      dscale_part[blockIdx.x] = sum;
+    }
+  }
   float* dst = db_out + (static_cast<size_t>(group) * heads + h) * nn;
   const int count = min(kQ, n - q0);
   for (int i = threadIdx.x; i < count * n; i += kThreads) {
@@ -404,28 +498,49 @@ group_sum_kernel(const float* __restrict__ partial, float* __restrict__ dbias,
   dbias[c] = sum;
 }
 
-constexpr size_t kDkdvSmem =
-    (2 * kKeyTile * kStride + 2 * kDkdvQueryTile * kStride +
-     2 * kDkdvQueryTile * kPStride + 2 * kDkdvQueryTile) * sizeof(float);
+// Pass 5, kCosine. dscale[h] = the sum of head h's per-block partials of
+// pass 3, (query tiles x groups) of them, in order; one thread a head
+__global__ void __launch_bounds__(kThreads)
+scale_sum_kernel(const float* __restrict__ partial, float* __restrict__ dscale,
+                 int heads, int per_head) {
+  const int h = blockIdx.x * kThreads + threadIdx.x;
+  if (h >= heads) return;
+  float sum = 0.f;
+  for (int i = 0; i < per_head; ++i) sum += partial[h * per_head + i];
+  dscale[h] = sum;
+}
+
+// pass 2's shared memory; kCosine keeps the key rows' norms too
+template <bool kCosine>
+constexpr size_t dkdv_smem() {
+  return (2 * kKeyTile * kStride + 2 * kDkdvQueryTile * kStride +
+          2 * kDkdvQueryTile * kPStride + 2 * kDkdvQueryTile +
+          (kCosine ? kKeyTile : 0)) * sizeof(float);
+}
 
 int key_tiles(int n) { return (n + kKeyTile - 1) / kKeyTile; }
 
 int db_stride(int n) { return key_tiles(n) * kKeyTile + kDbPad; }
 
+// pass 3's shared memory; kCosine keeps the query rows' norms too
+template <bool kCosine>
 size_t dq_smem(int n) {
   return (2 * kDqQueryTile * kStride + 2 * kKeyTile * kStride +
           kDqQueryTile * kPStride + 2 * kDqQueryTile +
-          static_cast<size_t>(kDqQueryTile) * db_stride(n)) * sizeof(float);
+          static_cast<size_t>(kDqQueryTile) * db_stride(n) +
+          (kCosine ? kDqQueryTile : 0)) * sizeof(float);
 }
+
+int query_tiles(int n) { return (n + kDqQueryTile - 1) / kDqQueryTile; }
 
 // How many groups pass 3 cuts the rows into: the count (at most kMaxGroups)
 // that runs its H * q_tiles * groups blocks over the card's block slots in
 // the least waves x rows a group, each group past the first charged a tenth
 // of a row for its workspace tile. Returns 0 on a CUDA error.
-template <typename T>
+template <typename T, bool kCosine>
 int row_groups(int rows, int n, int heads) {
-  const size_t smem = dq_smem(n);
-  if (cudaFuncSetAttribute(dq_dbias_kernel<T>,
+  const size_t smem = dq_smem<kCosine>(n);
+  if (cudaFuncSetAttribute(dq_dbias_kernel<T, kCosine>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)) != cudaSuccess)
     return 0;
@@ -434,12 +549,11 @@ int row_groups(int rows, int n, int heads) {
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, dq_dbias_kernel<T>, kThreads, smem) != cudaSuccess ||
+          &per_sm, dq_dbias_kernel<T, kCosine>, kThreads, smem) != cudaSuccess ||
       per_sm < 1)
     return 0;
   const long long slots = static_cast<long long>(sms) * per_sm;
-  const long long tiles =
-      static_cast<long long>(heads) * ((n + kDqQueryTile - 1) / kDqQueryTile);
+  const long long tiles = static_cast<long long>(heads) * query_tiles(n);
   int best = 1;
   double best_cost = 0.;
   for (int g = 1; g <= std::min(rows, kMaxGroups); ++g) {
@@ -456,12 +570,16 @@ int row_groups(int rows, int n, int heads) {
   return best;
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const float* bias,
-           const float* mask, const float* out, const void* dout, const float* lse,
-           float* delta, float* partial, void* dq, void* dk, void* dv,
-           float* dbias, int rows, int n, int e, int heads, int w0,
-           int workspace_groups, cudaStream_t stream) {
+// kCosine reads scale (H,) and writes dscale (H,) through the workspace
+// dscale_part of at least H * query_tiles(n) * groups floats
+// (scale_partials); K6 passes nulls and 0 for those.
+template <typename T, bool kCosine>
+int launch(const void* q, const void* k, const void* v, const float* scale,
+           const float* bias, const float* mask, const float* out,
+           const void* dout, const float* lse, float* delta, float* partial,
+           float* dscale_part, void* dq, void* dk, void* dv, float* dbias,
+           float* dscale, int rows, int n, int e, int heads, int w0,
+           int workspace_groups, int scale_partials, cudaStream_t stream) {
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(k);
   const T* vv = static_cast<const T*>(v);
@@ -469,8 +587,13 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   const int batch = rows / w0;
   cudaError_t err;
 
-  const int groups = row_groups<T>(rows, n, heads);  // also opts pass 3's smem in
+  // also opts pass 3's shared memory in
+  const int groups = row_groups<T, kCosine>(rows, n, heads);
   if (groups < 1 || (groups > 1 && workspace_groups < groups))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int q_tiles = query_tiles(n);
+  if (kCosine && (scale == nullptr || dscale == nullptr ||
+                  scale_partials < heads * q_tiles * groups))
     return static_cast<int>(cudaErrorInvalidValue);
 
   const long long total = static_cast<long long>(rows) * n * heads;
@@ -484,49 +607,101 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
       out, gg, delta, n, e, heads, total);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-  err = cudaFuncSetAttribute(dkdv_kernel<T>,
+  constexpr size_t kDkdvSmem = dkdv_smem<kCosine>();
+  err = cudaFuncSetAttribute(dkdv_kernel<T, kCosine>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kDkdvSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<T><<<static_cast<unsigned>(dkdv_blocks), kThreads, kDkdvSmem, stream>>>(
-      qq, kk, vv, gg, bias, mask, lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), n, e, heads, batch, w0, k_tiles);
+  dkdv_kernel<T, kCosine>
+      <<<static_cast<unsigned>(dkdv_blocks), kThreads, kDkdvSmem, stream>>>(
+          qq, kk, vv, gg, scale, bias, mask, lse, delta, static_cast<T*>(dk),
+          static_cast<T*>(dv), n, e, heads, batch, w0, k_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-  const int q_tiles = (n + kDqQueryTile - 1) / kDqQueryTile;
   const int rows_per_group = (rows + groups - 1) / groups;
-  dq_dbias_kernel<T><<<static_cast<unsigned>(heads * q_tiles * groups), kThreads,
-                       dq_smem(n), stream>>>(
-      qq, kk, vv, gg, bias, mask, lse, delta, static_cast<T*>(dq),
-      groups > 1 ? partial : dbias, n, e, heads, batch, w0, rows, q_tiles, groups,
-      rows_per_group, db_stride(n));
+  dq_dbias_kernel<T, kCosine>
+      <<<static_cast<unsigned>(heads * q_tiles * groups), kThreads,
+         dq_smem<kCosine>(n), stream>>>(
+          qq, kk, vv, gg, scale, bias, mask, lse, delta, static_cast<T*>(dq),
+          groups > 1 ? partial : dbias, dscale_part, n, e, heads, batch, w0,
+          rows, q_tiles, groups, rows_per_group, db_stride(n));
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
   if (groups > 1) {
     const size_t cells = static_cast<size_t>(heads) * n * n;
     group_sum_kernel<<<static_cast<unsigned>((cells + kThreads - 1) / kThreads),
                        kThreads, 0, stream>>>(partial, dbias, groups, cells);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  if constexpr (kCosine) {
+    scale_sum_kernel<<<(heads + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+        dscale_part, dscale, heads, q_tiles * groups);
     return static_cast<int>(cudaGetLastError());
   }
   return 0;
 }
 
+template <bool kCosine>
 bool shapes_ok(int rows, int n, int e, int heads, int w0) {
   return rows > 0 && n > 0 && heads > 0 && w0 > 0 && e % heads == 0 &&
-         e / heads == kD && rows % w0 == 0 && dq_smem(n) <= kMaxSmem &&
-         static_cast<long long>(heads) * ((n + kDqQueryTile - 1) / kDqQueryTile) *
-                 kMaxGroups <= 0x7fffffffLL;
+         e / heads == kD && rows % w0 == 0 && dq_smem<kCosine>(n) <= kMaxSmem &&
+         static_cast<long long>(heads) * query_tiles(n) * kMaxGroups <=
+             0x7fffffffLL;
+}
+
+template <bool kCosine>
+int max_n() {
+  int n = kKeyTile;
+  while (dq_smem<kCosine>(n + kKeyTile) <= kMaxSmem) n += kKeyTile;
+  return n;
+}
+
+template <bool kCosine>
+int groups_for(int rows, int n, int e, int heads, int w0, int dtype) {
+  if (!shapes_ok<kCosine>(rows, n, e, heads, w0)) return 0;
+  if (dtype == 0) return row_groups<float, kCosine>(rows, n, heads);
+  if (dtype == 1) return row_groups<__nv_bfloat16, kCosine>(rows, n, heads);
+  return 0;
+}
+
+template <bool kCosine>
+int dispatch(const void* q, const void* k, const void* v, const void* scale,
+             const void* bias, const void* mask, const void* out,
+             const void* dout, const void* lse, void* delta, void* partial,
+             void* dscale_part, void* dq, void* dk, void* dv, void* dbias,
+             void* dscale, int rows, int n, int e, int heads, int w0, int dtype,
+             int workspace_groups, int scale_partials, void* stream) {
+  if (!shapes_ok<kCosine>(rows, n, e, heads, w0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ss = static_cast<const float*>(scale);
+  const float* bb = static_cast<const float*>(bias);
+  const float* mm = static_cast<const float*>(mask);
+  const float* ll = static_cast<const float*>(lse);
+  const float* oo = static_cast<const float*>(out);
+  float* dl = static_cast<float*>(delta);
+  float* pp = static_cast<float*>(partial);
+  float* sp = static_cast<float*>(dscale_part);
+  float* db = static_cast<float*>(dbias);
+  float* ds = static_cast<float*>(dscale);
+  if (dtype == 0)
+    return launch<float, kCosine>(q, k, v, ss, bb, mm, oo, dout, ll, dl, pp, sp,
+                                  dq, dk, dv, db, ds, rows, n, e, heads, w0,
+                                  workspace_groups, scale_partials, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, kCosine>(q, k, v, ss, bb, mm, oo, dout, ll, dl,
+                                          pp, sp, dq, dk, dv, db, ds, rows, n, e,
+                                          heads, w0, workspace_groups,
+                                          scale_partials, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // the largest N the kernel takes: pass 3 keeps a (32, N) fp32 tile of dbias in
 // shared memory
-extern "C" int window_attention_bwd_max_n() {
-  int n = kKeyTile;
-  while (dq_smem(n + kKeyTile) <= kMaxSmem) n += kKeyTile;
-  return n;
-}
+extern "C" int window_attention_bwd_max_n() { return max_n<false>(); }
+extern "C" int cosine_window_attention_bwd_max_n() { return max_n<true>(); }
 
 // Groups of rows pass 3 will use for these shapes on the current device
 // (dtype: 0 = float32, 1 = bfloat16): with more than one, the caller allocates
@@ -534,18 +709,25 @@ extern "C" int window_attention_bwd_max_n() {
 // shapes the kernel does not take.
 extern "C" int window_attention_bwd_row_groups(int rows, int n, int e, int heads,
                                                int w0, int dtype) {
-  if (!shapes_ok(rows, n, e, heads, w0)) return 0;
-  if (dtype == 0) return row_groups<float>(rows, n, heads);
-  if (dtype == 1) return row_groups<__nv_bfloat16>(rows, n, heads);
-  return 0;
+  return groups_for<false>(rows, n, e, heads, w0, dtype);
+}
+
+// The same for K12's backward, whose pass 3 is another compiled kernel; the
+// caller also allocates dscale_part of H * ceil(N / 32) * groups floats.
+extern "C" int cosine_window_attention_bwd_row_groups(int rows, int n, int e,
+                                                      int heads, int w0,
+                                                      int dtype) {
+  return groups_for<true>(rows, n, e, heads, w0, dtype);
 }
 
 // rows = W0 * B. dtype of q, k, v, dout, dq, dk, dv: 0 = float32,
-// 1 = bfloat16; out, bias, mask, lse, delta, partial and dbias are float32. Returns
-// a cudaError_t (0 on success). The caller checks shapes, contiguity and
-// 16-byte alignment and allocates the fp32 workspaces: delta (rows, H, N) and,
-// when window_attention_bwd_row_groups(...) is more than 1, partial of that
-// many (H, N, N) tiles; workspace_groups short of it is refused.
+// 1 = bfloat16; out, bias, mask, lse, delta, partial and dbias are float32.
+// Returns a cudaError_t (0 on success). The caller checks shapes, contiguity
+// and 16-byte alignment and allocates the fp32 workspaces: delta (rows, H, N)
+// and, when window_attention_bwd_row_groups(...) is more than 1, partial of
+// that many (H, N, N) tiles; workspace_groups short of it is refused.
+
+// K6.
 extern "C" int window_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* bias, const void* mask,
                                     const void* out, const void* dout,
@@ -554,21 +736,25 @@ extern "C" int window_attention_bwd(const void* q, const void* k, const void* v,
                                     int rows, int n, int e, int heads, int w0,
                                     int dtype, int workspace_groups,
                                     void* stream) {
-  if (!shapes_ok(rows, n, e, heads, w0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* bb = static_cast<const float*>(bias);
-  const float* mm = static_cast<const float*>(mask);
-  const float* ll = static_cast<const float*>(lse);
-  const float* oo = static_cast<const float*>(out);
-  float* dl = static_cast<float*>(delta);
-  float* pp = static_cast<float*>(partial);
-  float* db = static_cast<float*>(dbias);
-  if (dtype == 0)
-    return launch<float>(q, k, v, bb, mm, oo, dout, ll, dl, pp, dq, dk, dv, db,
-                         rows, n, e, heads, w0, workspace_groups, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, bb, mm, oo, dout, ll, dl, pp, dq, dk,
-                                 dv, db, rows, n, e, heads, w0, workspace_groups, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(q, k, v, nullptr, bias, mask, out, dout, lse, delta,
+                         partial, nullptr, dq, dk, dv, dbias, nullptr, rows, n,
+                         e, heads, w0, dtype, workspace_groups, 0, stream);
+}
+
+// K12's backward: as K6's from raw q and k, the per-head scale (H,) fp32 and
+// cosine_window_attention_fwd_lse's out32 and lse, with its groups
+// (cosine_window_attention_bwd_row_groups); also writes dscale (H,) fp32
+// through the workspace dscale_part of scale_partials floats, at least
+// H * ceil(N / 32) * groups.
+extern "C" int cosine_window_attention_bwd(
+    const void* q, const void* k, const void* v, const void* scale,
+    const void* bias, const void* mask, const void* out, const void* dout,
+    const void* lse, void* delta, void* partial, void* dscale_part, void* dq,
+    void* dk, void* dv, void* dbias, void* dscale, int rows, int n, int e,
+    int heads, int w0, int dtype, int workspace_groups, int scale_partials,
+    void* stream) {
+  return dispatch<true>(q, k, v, scale, bias, mask, out, dout, lse, delta,
+                        partial, dscale_part, dq, dk, dv, dbias, dscale, rows,
+                        n, e, heads, w0, dtype, workspace_groups,
+                        scale_partials, stream);
 }

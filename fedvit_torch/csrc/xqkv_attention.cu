@@ -49,8 +49,8 @@ int forward(const void* x, const void* w, const void* b, void* qkv, void* out,
       static_cast<T*>(qkv), 3 * e, static_cast<const T*>(b), batch * n, 3 * e,
       dim, static_cast<cudaStream_t>(stream));
   if (err) return err;
-  return attn_fwd::launch<false, kLse>(qkv, nullptr, out, lse, batch, n, e,
-                                       heads, dtype, scale, stream);
+  return attn_fwd::launch_packed<false, kLse>(qkv, nullptr, out, lse, batch, n,
+                                              e, heads, dtype, scale, stream);
 }
 
 template <bool kLse>

@@ -63,9 +63,9 @@ int backward(const void* x, const void* w, const void* b, const void* out,
                                          e3, static_cast<const T*>(b), rows, e3,
                                          dim, s);
   if (err) return err;
-  err = attn_bwd::launch<false, true>(qkv, nullptr, out, dout, lse, delta,
-                                      partial, dqkv, db, batch, n, e, heads,
-                                      dtype, scale, stream);
+  err = attn_bwd::launch_packed<false, true>(qkv, nullptr, out, dout, lse,
+                                             delta, partial, dqkv, db, batch, n,
+                                             e, heads, dtype, scale, stream);
   if (err) return err;
   err = gemm::launch<T, true, true>(dq, e3, wt, e3, static_cast<T*>(dx), dim,
                                     nullptr, rows, dim, e3, s);

@@ -28,7 +28,18 @@ row's log-sum-exp and whose backward is a kernel too.
   ``_xqkv_bwd_kernel``), whose products run in its own tensor-core GEMM; under
   grad ``XqkvAttention``, whose backward returns dx, dW and db.
 
-All of them take heads of d = 64 (ViT-Ti/S/B/L) or 80 (ViT-H).
+All of them take heads of d = 64 (ViT-Ti/S/B/L) or 80 (ViT-H), as does the
+op-level attention on flat q, k and v:
+
+- ``flash_attention_flat`` (``ops/attention.py::dot_product_attention_flat``
+  with ``impl`` ``auto`` on the card, ``pallas`` or ``mega``), and
+  ``flash_attention`` on (B, N, H, D) operands, a free reshape around it. K9
+  (``flat_attention_fwd``, ``flat_attention_fwd_lse`` and
+  ``flat_attention_bwd`` in ``csrc/qkvb_attention.cu`` and
+  ``qkvb_attention_bwd.cu``; replaces ``_flat_fwd_kernel`` and
+  ``_flat_bwd_kernel``): K10's kernels reading three (B, N, E) tensors in
+  place, with the same bits; under grad ``FlatAttention``, whose backward
+  returns dq, dk and dv.
 
 ``flash_attention_bias_flat`` is the port of ``fedvit_tpu/ops/
 flash_attention.py::flash_attention_bias_flat``. On a CPU tensor it runs the
@@ -46,6 +57,16 @@ CUDA tensor, with no fallback:
   dq, dk, dv and the bias gradient. The mask is a constant: one that needs a
   gradient is refused, it never silently gets zeros.
 
+``flash_attention_cosine_flat`` is the port of the JAX function of that name,
+SwinV2's scaled-cosine attention on raw q and k (``ops/attention.py::
+windowed_cosine_attention_flat`` with a kernel ``impl``). On a CPU tensor it
+runs that plain version under torch autograd; on a CUDA tensor K12
+(``cosine_window_attention_fwd``, ``_fwd_lse`` and ``_bwd`` in the two
+window sources, K5 and K6 compiled with the norm inside; replaces
+``_wcos_fwd_kernel`` and ``_wcos_bwd_kernel``), under grad through
+``CosineWindowAttention``, whose backward returns dq, dk, dv, the scale's
+gradient and the bias's. All windowed kernels take d = 32.
+
 Each kernel's wrapper counts its launches in its ``launches`` attribute:
 ``flash_attention_qkvb.launches`` (K1), ``qkvb_attention_lse_cuda.launches``
 (K2), ``qkvb_attention_bwd_cuda.launches`` (K3),
@@ -56,7 +77,12 @@ backward), ``flash_attention_xqkv.launches`` (K11),
 ``xqkv_attention_bwd_cuda.launches`` (K11's backward),
 ``flash_attention_bias_flat.launches`` (K5),
 ``window_attention_lse_cuda.launches`` (K5 with the log-sum-exp),
-``window_attention_bwd_cuda.launches`` (K6).
+``window_attention_bwd_cuda.launches`` (K6), ``flash_attention_flat.launches``
+(K9), ``flat_attention_lse_cuda.launches`` (K9 with the log-sum-exp),
+``flat_attention_bwd_cuda.launches`` (K9's backward),
+``flash_attention_cosine_flat.launches`` (K12),
+``cosine_window_attention_lse_cuda.launches`` (K12 with the log-sum-exp),
+``cosine_window_attention_bwd_cuda.launches`` (K12's backward).
 """
 
 from __future__ import annotations
@@ -71,7 +97,9 @@ import torch
 from fedvit_torch.core import kernels
 from fedvit_torch.ops.attention import (attention_from_qkv,
                                         attention_from_qkvb, attention_from_x,
-                                        windowed_attention_flat)
+                                        dot_product_attention_flat,
+                                        windowed_attention_flat,
+                                        windowed_cosine_attention_flat)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 80)       # K1-K3, K10, K11: ViT-Ti/S/B/L d = 64, ViT-H 80
@@ -89,8 +117,11 @@ def _library() -> ctypes.CDLL:
     lib.qkv_attention_fwd.argtypes = [_P, _P, _I, _I, _I, _I, _I, _F, _P]
     lib.qkv_attention_fwd_lse.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _F,
                                           _P]
+    lib.flat_attention_fwd.argtypes = [_P] * 4 + [_I] * 5 + [_F, _P]
+    lib.flat_attention_fwd_lse.argtypes = [_P] * 5 + [_I] * 5 + [_F, _P]
     for name in ("qkvb_attention_fwd", "qkvb_attention_fwd_lse",
-                 "qkv_attention_fwd", "qkv_attention_fwd_lse"):
+                 "qkv_attention_fwd", "qkv_attention_fwd_lse",
+                 "flat_attention_fwd", "flat_attention_fwd_lse"):
         getattr(lib, name).restype = _I
     return lib
 
@@ -101,8 +132,9 @@ def _bwd_library() -> ctypes.CDLL:
     lib.qkvb_attention_bwd.argtypes = [_P] * 9 + [_I] * 5 + [_F, _I, _P]
     lib.qkvb_attention_bwd_workspace_rows.argtypes = [_I, _I]
     lib.qkv_attention_bwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _P]
+    lib.flat_attention_bwd.argtypes = [_P] * 10 + [_I] * 5 + [_F, _P]
     for name in ("qkvb_attention_bwd", "qkvb_attention_bwd_workspace_rows",
-                 "qkv_attention_bwd"):
+                 "qkv_attention_bwd", "flat_attention_bwd"):
         getattr(lib, name).restype = _I
     return lib
 
@@ -154,6 +186,32 @@ def _check_saved(ref: torch.Tensor, named) -> None:
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(f"{name} must be a contiguous, aligned {shape} "
                              f"{dtype} tensor on {ref.device}")
+
+
+def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    num_heads: int, head_dims) -> Tuple[int, int, int]:
+    """Raise unless q, k and v are contiguous, 16-byte aligned tensors of one
+    (rows, N, E) shape and one dtype the kernels take, on one CUDA device,
+    with heads of a width in ``head_dims``; returns (rows, N, E)."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k and v must be on one CUDA device, got "
+                         f"{q.device}, {k.device} and {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must share a dtype of float32 or "
+                        f"bfloat16, got {q.dtype}, {k.dtype} and {v.dtype}")
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must share a (rows, N, E) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    rows, n, e = q.shape
+    if e % num_heads or e // num_heads not in head_dims:
+        raise ValueError(f"E={e} with {num_heads} heads: head dim must be one "
+                         f"of {head_dims}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return rows, n, e
 
 
 def _scale(e: int, num_heads: int) -> float:
@@ -352,6 +410,108 @@ qkv_attention_lse_cuda.launches = 0
 qkv_attention_bwd_cuda.launches = 0
 
 
+# --- K9: attention on flat q, k and v ----------------------------------------
+
+def flat_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        num_heads: int) -> torch.Tensor:
+    """K9 on flat (B, N, E) ``q``, ``k`` and ``v``; returns a new (B, N, E)
+    tensor. Raises on anything it does not take."""
+    b, n, e = _check_operands(q, k, v, num_heads, _HEAD_DIMS)
+    out = torch.empty_like(q)
+    _raise_on(_library().flat_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, e,
+        num_heads, _DTYPES[q.dtype], _scale(e, num_heads), _stream(q)),
+        "flat_attention_fwd")
+    flash_attention_flat.launches += 1
+    return out
+
+
+def flat_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            num_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9's output, bit for bit, and each row's log-sum-exp of the scaled
+    scores, (B, H, N) fp32."""
+    b, n, e = _check_operands(q, k, v, num_heads, _HEAD_DIMS)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, num_heads, n), dtype=torch.float32, device=q.device)
+    _raise_on(_library().flat_attention_fwd_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, n, e, num_heads, _DTYPES[q.dtype],
+        _scale(e, num_heads), _stream(q)), "flat_attention_fwd_lse")
+    flat_attention_lse_cuda.launches += 1
+    return out, lse
+
+
+def flat_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, dout: torch.Tensor,
+                            lse: torch.Tensor, num_heads: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9's backward: (dq, dk, dv), each (B, N, E) in q's type, from the
+    forward's inputs, its output and lse, and the output's gradient."""
+    b, n, e = _check_operands(q, k, v, num_heads, _HEAD_DIMS)
+    _check_saved(q, (("out", out, (b, n, e), q.dtype),
+                     ("dout", dout, (b, n, e), q.dtype),
+                     ("lse", lse, (b, num_heads, n), torch.float32)))
+    delta = torch.empty((b, num_heads, n), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    _raise_on(_bwd_library().flat_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, n, e, num_heads, _DTYPES[q.dtype],
+        _scale(e, num_heads), _stream(q)), "flat_attention_bwd")
+    flat_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+class FlatAttention(torch.autograd.Function):
+    """K9's log-sum-exp entry forward, K9's backward. Saves q, k, v, the
+    output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        out, lse = flat_attention_lse_cuda(q, k, v, num_heads)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flat_attention_bwd_cuda(
+            q, k, v, out, dout.to(q.dtype).contiguous(), lse, ctx.num_heads)
+        return dq, dk, dv, None
+
+
+def flash_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         num_heads: int) -> torch.Tensor:
+    """softmax(q_h·k_hᵀ/√d)·v_h per head on flat (B, N, E) operands, heads
+    head-major along E (d = E / num_heads); returns (B, N, E).
+
+    CPU tensors take the plain version; CUDA tensors the kernels: K9's
+    log-sum-exp entry and backward when a gradient is needed, else K9.
+    ``flash_attention_flat.launches`` counts K9's serving launches."""
+    if q.device.type == "cpu":
+        return dot_product_attention_flat(q, k, v, num_heads, impl="xla")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlatAttention.apply(q, k, v, num_heads)
+    return flat_attention_cuda(q, k, v, num_heads)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """``flash_attention_flat`` on (B, N, H, D) operands → (B, N, H, D): the
+    (H, D) dims merge into heads head-major along E, a free reshape of a
+    contiguous tensor. Scale 1/√D."""
+    b, n, h, d = q.shape
+    out = flash_attention_flat(q.reshape(b, n, h * d), k.reshape(b, n, h * d),
+                               v.reshape(b, n, h * d), h)
+    return out.reshape(b, n, h, d)
+
+
+flash_attention_flat.launches = 0
+flat_attention_lse_cuda.launches = 0
+flat_attention_bwd_cuda.launches = 0
+
+
 # --- K11: the QKV projection and the attention --------------------------------
 
 @functools.cache
@@ -519,8 +679,12 @@ def _window_library() -> ctypes.CDLL:
     lib = kernels.load("window_attention")
     lib.window_attention_fwd.argtypes = [_P] * 6 + [_I] * 6 + [_P]
     lib.window_attention_fwd_lse.argtypes = [_P] * 8 + [_I] * 6 + [_P]
-    lib.window_attention_fwd.restype = _I
-    lib.window_attention_fwd_lse.restype = _I
+    lib.cosine_window_attention_fwd.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    lib.cosine_window_attention_fwd_lse.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+    for name in ("window_attention_fwd", "window_attention_fwd_lse",
+                 "cosine_window_attention_fwd",
+                 "cosine_window_attention_fwd_lse"):
+        getattr(lib, name).restype = _I
     return lib
 
 
@@ -530,21 +694,10 @@ def _check_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                            torch.Tensor]:
     """Raise on what K5 and K6 do not take; returns (W0·B, N, E, W0) and the
     bias and mask as contiguous fp32 (the mask zeros (1, N, N) for None)."""
-    if q.device.type != "cuda" or any(
-            t.device != q.device for t in (k, v, bias)) or (
-            mask is not None and mask.device != q.device):
-        raise ValueError(f"q, k, v, bias and mask must be on one CUDA device, "
-                         f"got q on {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k and v must share a dtype of float32 or "
-                        f"bfloat16, got {q.dtype}, {k.dtype} and {v.dtype}")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k and v must share a (W0·B, N, E) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    rows, n, e = q.shape
-    if e % num_heads or e // num_heads not in _WINDOW_HEAD_DIMS:
-        raise ValueError(f"E={e} with {num_heads} heads: head dim must be one "
-                         f"of {_WINDOW_HEAD_DIMS}")
+    if bias.device != q.device or (mask is not None and mask.device != q.device):
+        raise ValueError(f"q, bias and mask must be on one CUDA device, got "
+                         f"q on {q.device}, bias on {bias.device}")
+    rows, n, e = _check_operands(q, k, v, num_heads, _WINDOW_HEAD_DIMS)
     if bias.shape != (num_heads, n, n):
         raise ValueError(f"bias must be ({num_heads}, {n}, {n}), got "
                          f"{tuple(bias.shape)}")
@@ -553,11 +706,6 @@ def _check_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask.dim() != 3 or mask.shape[1:] != (n, n) or rows % mask.shape[0]:
         raise ValueError(f"mask must be (W0, {n}, {n}) with W0 dividing the "
                          f"{rows} rows, got {tuple(mask.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     return (rows, n, e, mask.shape[0], bias.float().contiguous(),
             mask.float().contiguous())
 
@@ -606,8 +754,13 @@ def _window_bwd_library() -> ctypes.CDLL:
     lib.window_attention_bwd.argtypes = [_P] * 14 + [_I] * 7 + [_P]
     lib.window_attention_bwd_row_groups.argtypes = [_I] * 6
     lib.window_attention_bwd_max_n.argtypes = []
+    lib.cosine_window_attention_bwd.argtypes = [_P] * 17 + [_I] * 8 + [_P]
+    lib.cosine_window_attention_bwd_row_groups.argtypes = [_I] * 6
+    lib.cosine_window_attention_bwd_max_n.argtypes = []
     for name in ("window_attention_bwd", "window_attention_bwd_row_groups",
-                 "window_attention_bwd_max_n"):
+                 "window_attention_bwd_max_n", "cosine_window_attention_bwd",
+                 "cosine_window_attention_bwd_row_groups",
+                 "cosine_window_attention_bwd_max_n"):
         getattr(lib, name).restype = _I
     return lib
 
@@ -704,3 +857,164 @@ def flash_attention_bias_flat(q: torch.Tensor, k: torch.Tensor,
 flash_attention_bias_flat.launches = 0
 window_attention_lse_cuda.launches = 0
 window_attention_bwd_cuda.launches = 0
+
+
+# --- K12: the scaled-cosine windowed attention (SwinV2) ----------------------
+
+def _check_cosine(q, k, v, scale, bias, mask, num_heads):
+    """Raise on what K12 does not take; returns K5's checks and the scale as a
+    contiguous fp32 (H,)."""
+    checked = _check_window(q, k, v, bias, mask, num_heads)
+    if scale.device != q.device or scale.shape != (num_heads,):
+        raise ValueError(f"scale must be ({num_heads},) on {q.device}, got "
+                         f"{tuple(scale.shape)} on {scale.device}")
+    return (*checked, scale.float().contiguous())
+
+
+def _cosine_forward(q, k, v, scale, bias, mask, num_heads, lse: bool):
+    rows, n, e, w0, bias, mask, scale = _check_cosine(q, k, v, scale, bias,
+                                                      mask, num_heads)
+    out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), mask.data_ptr(), out.data_ptr())
+    args = (rows, n, e, num_heads, w0, _DTYPES[q.dtype], _stream(q))
+    if not lse:
+        _raise_on(_window_library().cosine_window_attention_fwd(*ptrs, *args),
+                  "cosine_window_attention_fwd")
+        return out, None, None
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse_t = torch.empty((rows, num_heads, n), **f32)
+    out32 = torch.empty((rows, n, e), **f32)
+    _raise_on(_window_library().cosine_window_attention_fwd_lse(
+        *ptrs, lse_t.data_ptr(), out32.data_ptr(), *args),
+        "cosine_window_attention_fwd_lse")
+    return out, lse_t, out32
+
+
+def cosine_window_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, scale: torch.Tensor,
+                                 bias: torch.Tensor,
+                                 mask: Optional[torch.Tensor],
+                                 num_heads: int) -> torch.Tensor:
+    """K12 on (W0·B, N, E) window-major RAW ``q``, ``k``, ``v``, the per-head
+    ``scale`` (H,), (H, N, N) ``bias`` and (W0, N, N) ``mask`` (or None);
+    returns a new (W0·B, N, E) tensor. Raises on anything it does not take."""
+    out, _, _ = _cosine_forward(q, k, v, scale, bias, mask, num_heads, False)
+    flash_attention_cosine_flat.launches += 1
+    return out
+
+
+def cosine_window_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, scale: torch.Tensor,
+                                     bias: torch.Tensor,
+                                     mask: Optional[torch.Tensor],
+                                     num_heads: int
+                                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """K12's output, bit for bit, and what its backward reads: each row's
+    log-sum-exp of the scaled, biased, masked scores, (W0·B, H, N) fp32, and
+    the output before its rounding, (W0·B, N, E) fp32."""
+    out = _cosine_forward(q, k, v, scale, bias, mask, num_heads, True)
+    cosine_window_attention_lse_cuda.launches += 1
+    return out
+
+
+def cosine_window_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, scale: torch.Tensor,
+                                     bias: torch.Tensor,
+                                     mask: Optional[torch.Tensor],
+                                     out32: torch.Tensor, dout: torch.Tensor,
+                                     lse: torch.Tensor, num_heads: int
+                                     ) -> Tuple[torch.Tensor, ...]:
+    """K12's backward: (dq, dk, dv (W0·B, N, E) in q's type, dscale (H,) fp32,
+    dbias (H, N, N) fp32) from the forward's inputs, its unrounded fp32
+    output and lse (``cosine_window_attention_lse_cuda``), and the output's
+    gradient. The mask gets no gradient."""
+    rows, n, e, w0, bias, mask, scale = _check_cosine(q, k, v, scale, bias,
+                                                      mask, num_heads)
+    _check_saved(q, (("out32", out32, (rows, n, e), torch.float32),
+                     ("dout", dout, (rows, n, e), q.dtype),
+                     ("lse", lse, (rows, num_heads, n), torch.float32)))
+    lib = _window_bwd_library()
+    if n > lib.cosine_window_attention_bwd_max_n():
+        raise ValueError(f"N={n}: the cosine attention's backward takes at "
+                         f"most {lib.cosine_window_attention_bwd_max_n()} tokens")
+    groups = lib.cosine_window_attention_bwd_row_groups(
+        rows, n, e, num_heads, w0, _DTYPES[q.dtype])
+    if groups < 1:
+        raise RuntimeError("cosine_window_attention_bwd_row_groups failed")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((rows, num_heads, n), **f32)
+    # one group of rows writes dbias itself; more write a tile each
+    partial = torch.empty((groups if groups > 1 else 0, num_heads, n, n), **f32)
+    scale_partial = torch.empty((num_heads * -(-n // 32) * groups,), **f32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dbias = torch.empty((num_heads, n, n), **f32)
+    dscale = torch.empty((num_heads,), **f32)
+    _raise_on(lib.cosine_window_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), mask.data_ptr(), out32.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), partial.data_ptr(),
+        scale_partial.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dbias.data_ptr(), dscale.data_ptr(), rows, n, e, num_heads, w0,
+        _DTYPES[q.dtype], partial.shape[0], scale_partial.numel(), _stream(q)),
+        "cosine_window_attention_bwd")
+    cosine_window_attention_bwd_cuda.launches += 1
+    return dq, dk, dv, dscale, dbias
+
+
+class CosineWindowAttention(torch.autograd.Function):
+    """K12's log-sum-exp entry forward, K12's backward. Saves q, k, v, the
+    scale, the bias, the mask, the unrounded fp32 output and the log-sum-exp;
+    the scale's and the bias's gradients come back in their dtypes and the
+    mask gets none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, bias, mask, num_heads):
+        out, lse, out32 = cosine_window_attention_lse_cuda(
+            q, k, v, scale, bias, mask, num_heads)
+        ctx.save_for_backward(q, k, v, scale, bias, mask, out32, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, scale, bias, mask, out32, lse = ctx.saved_tensors
+        dq, dk, dv, dscale, dbias = cosine_window_attention_bwd_cuda(
+            q, k, v, scale, bias, mask, out32, dout.to(q.dtype).contiguous(),
+            lse, ctx.num_heads)
+        return (dq, dk, dv, dscale.to(scale.dtype), dbias.to(bias.dtype), None,
+                None)
+
+
+def flash_attention_cosine_flat(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, scale: torch.Tensor,
+                                bias: torch.Tensor,
+                                mask: Optional[torch.Tensor],
+                                num_heads: int) -> torch.Tensor:
+    """SwinV2's scaled-cosine windowed attention on RAW operands,
+    softmax(scale_h·q̂_h·k̂_hᵀ + bias[h] + mask[w])·v_h with
+    x̂ = x / max(‖x‖, 1e-6) per head.
+
+    q, k, v: (W0·B, N, E) window-major flat; scale (H,) and bias (H, N, N)
+    get gradients; mask (W0, N, N) additive, or None, is a constant: one that
+    needs a gradient raises. CPU tensors take the plain version; CUDA tensors
+    the kernels: K12's log-sum-exp entry and backward when a gradient is
+    needed, else K12. ``flash_attention_cosine_flat.launches`` counts K12's
+    launches."""
+    if mask is not None and mask.requires_grad:
+        raise ValueError("the mask of flash_attention_cosine_flat is a "
+                         "constant and gets no gradient; detach it")
+    if q.device.type == "cpu":
+        return windowed_cosine_attention_flat(q, k, v, scale, bias, mask,
+                                              num_heads, impl="xla")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, scale, bias)):
+        return CosineWindowAttention.apply(q, k, v, scale, bias, mask,
+                                           num_heads)
+    return cosine_window_attention_cuda(q, k, v, scale, bias, mask, num_heads)
+
+
+flash_attention_cosine_flat.launches = 0
+cosine_window_attention_lse_cuda.launches = 0
+cosine_window_attention_bwd_cuda.launches = 0

@@ -52,6 +52,27 @@ Tolerances:
   each leaf's gradient atol 1e-4 plus rtol 1e-3, as for ``auto``.
 - A tiny SwinV2 train step on the card against the CPU, fp32: loss rtol 1e-4,
   each leaf's gradient atol 1e-4 plus rtol 1e-3, as for the ViT.
+- K9 (attention on flat q, k, v) against ``dot_product_attention_flat(...,
+  impl="xla")``: its output, log-sum-exp and (dq, dk, dv) as K10's, for
+  K10's reasons; and K9 on three (B, N, E) tensors against K10 on their
+  concatenation: the same bits (one kernel, other addresses).
+- K12 (the scaled-cosine windowed attention) against
+  ``windowed_cosine_attention_flat(..., impl="xla")``. fp32: the output atol
+  1e-4 (K5's 2e-5, and the two normalise in other orders: q·(r·s) against
+  q/‖q‖·s, an ulp or two apart, on scores up to s + 16 = 116, where an ulp
+  is 8e-6); the gradients 1e-4 of the largest |value|, as K6. bf16: as the
+  RMS of the difference over the RMS of the plain value, 2^-6 for each
+  output and gradient, as K6's (both round q̂ and k̂, P and dS to bf16; an
+  element of q̂ that the two fp32 norms put on the two sides of a bf16
+  rounding boundary moves its row's scores by a bf16 ulp, rarely, which a
+  max would charge in full). bf16 dscale is a sum that cancels (the rows of
+  dS sum to 0): the kernel rounds dS to bf16 before dq̂n, as the TPU kernel
+  does, where autograd of the plain version keeps dS fp32 and rounds dq̂n;
+  the dS rounding moves dscale more (on a small case JAX's own kernel is
+  0.0185 of the RMS from the fp32 value, the plain version 0.0156), so
+  dscale is held, at the same 2^-6, to ``windowed_cosine_dscale``, the plain
+  version in the TPU kernel's order. The backward twice gives the same bits;
+  a zero row of q or k gives finite gradients.
 - K7 (row/column shift) and K8 (equalize) against their plain versions:
   exact. A shift moves values; equalize's fp32 values are integers below
   2^24 and both divide correctly rounded. The train augment through them
@@ -66,6 +87,7 @@ import torch
 
 from fedvit_torch.ops import flash_attention as fa
 from fedvit_torch.ops import layer_norm as ln
+from fedvit_torch.ops import attention as tattn
 from fedvit_torch.ops.attention import (attention_from_qkv,
                                         attention_from_qkvb, attention_from_x,
                                         windowed_attention_flat)
@@ -958,3 +980,239 @@ def test_every_vit_width_runs_on_the_card(cuda, size, monkeypatch):
         assert torch.isfinite(logits).all(), impl
         assert all(torch.isfinite(p.grad).all() for p in model.parameters()
                    if p.grad is not None), impl
+
+
+# --- K9: attention on flat q, k and v ----------------------------------------
+
+def _flat_plain(q, k, v, heads):
+    return tattn.dot_product_attention_flat(q, k, v, heads, impl="xla")
+
+
+@pytest.mark.parametrize("b,n,heads,d,dtype,tol", [
+    (2, 37, 2, 64, torch.float32, (2e-5, 1e-4)),
+    (3, 197, 12, 64, torch.float32, (2e-5, 1e-4)),
+    (2, 37, 2, 80, torch.float32, (2e-5, 1e-4)),
+    (2, 1, 2, 64, torch.float32, (2e-5, 1e-4)),
+    (4, 197, 12, 64, torch.bfloat16, (2.0 ** -5, 2.0 ** -5)),
+    (2, 577, 16, 64, torch.bfloat16, (2.0 ** -5, 2.0 ** -5)),
+    (2, 197, 2, 80, torch.bfloat16, (2.0 ** -5, 2.0 ** -5))])
+def test_k9_matches_plain(cuda, b, n, heads, d, dtype, tol):
+    e = heads * d
+    g = torch.Generator(device="cuda").manual_seed(n + d)
+    q, k, v, dout = (torch.randn(b, n, e, device="cuda", generator=g).to(dtype)
+                     for _ in range(4))
+    counted = (fa.flash_attention_flat, fa.flat_attention_lse_cuda,
+               fa.flat_attention_bwd_cuda, fa.flash_attention_qkv)
+    counts = [f.launches for f in counted]
+    out = fa.flash_attention_flat(q, k, v, heads)
+    out2, lse = fa.flat_attention_lse_cuda(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and out.dtype == dtype
+    assert float((out.float() - _flat_plain(q, k, v, heads).float())
+                 .abs().max()) <= tol[0]
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float().reshape(b, n, heads, d),
+                     k.float().reshape(b, n, heads, d)) / math.sqrt(d)
+    assert float((lse - torch.logsumexp(s, -1)).abs().max()) <= 1e-4
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention_flat(*leaves, heads), leaves,
+                              dout)
+    torch.cuda.synchronize()
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(_flat_plain(*plain, heads), plain, dout)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
+        assert _rel_err(a, w) <= tol[1], (name, _rel_err(a, w))
+    assert [f.launches - c for f, c in zip(counted, counts)] == [1, 2, 1, 0]
+
+
+@pytest.mark.parametrize("n,d,dtype", [(197, 64, torch.bfloat16),
+                                       (37, 80, torch.float32)])
+def test_k9_gives_k10_bits_on_the_same_values(cuda, n, d, dtype):
+    """K9 reads three (B, N, E) tensors where K10 reads the thirds of one
+    packed (B, N, 3E): the output, lse and gradients are the same bits."""
+    heads, b = 12 if d == 64 else 2, 3
+    e = heads * d
+    g = torch.Generator(device="cuda").manual_seed(n)
+    qkv = torch.randn(b, n, 3 * e, device="cuda", generator=g).to(dtype)
+    dout = torch.randn(b, n, e, device="cuda", generator=g).to(dtype)
+    q, k, v = (t.contiguous() for t in qkv.split(e, dim=-1))
+    assert torch.equal(fa.flat_attention_cuda(q, k, v, heads),
+                       fa.qkv_attention_cuda(qkv, heads))
+    out, lse = fa.flat_attention_lse_cuda(q, k, v, heads)
+    out_p, lse_p = fa.qkv_attention_lse_cuda(qkv, heads)
+    assert torch.equal(out, out_p) and torch.equal(lse, lse_p)
+    grads = fa.flat_attention_bwd_cuda(q, k, v, out, dout, lse, heads)
+    dqkv = fa.qkv_attention_bwd_cuda(qkv, out_p, dout, lse_p, heads)
+    assert torch.equal(torch.cat(grads, dim=-1), dqkv)
+
+
+def test_k9_refuses_what_it_does_not_take(cuda):
+    q = torch.randn(2, 9, 128, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_flat(q, q, q, 4)                  # d = 32
+    with pytest.raises(TypeError):
+        fa.flash_attention_flat(q, q.bfloat16(), q, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_flat(q, q.transpose(1, 2).contiguous().transpose(1, 2),
+                                q, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        odd = torch.randn(2 * 9 * 128 + 1, device="cuda")[1:].view(2, 9, 128)
+        fa.flash_attention_flat(q, q, odd, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flat_attention_cuda(q.cpu(), q.cpu(), q.cpu(), 2)
+    out, lse = fa.flat_attention_lse_cuda(q, q, q, 2)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flat_attention_bwd_cuda(q, q, q, out, out, lse[:, :1], 2)
+
+
+def test_op_level_entries_reach_the_kernels(cuda):
+    """On CUDA tensors with impl="auto": dot_product_attention_flat and
+    dot_product_attention without a bias launch K9 once a call (its
+    log-sum-exp entry and backward under grad); with a bias the plain body
+    runs and launches nothing; windowed_cosine_attention_flat launches K12."""
+    counted = (fa.flash_attention_flat, fa.flat_attention_lse_cuda,
+               fa.flat_attention_bwd_cuda, fa.flash_attention_cosine_flat,
+               fa.cosine_window_attention_lse_cuda,
+               fa.cosine_window_attention_bwd_cuda)
+
+    def launched(fn):
+        before = [f.launches for f in counted]
+        fn()
+        torch.cuda.synchronize()
+        return [f.launches - b for f, b in zip(counted, before)]
+
+    q = torch.randn(2, 37, 128, device="cuda", requires_grad=True)
+    qh = q.detach().view(2, 37, 2, 64)
+    with torch.no_grad():
+        assert launched(lambda: tattn.dot_product_attention_flat(q, q, q, 2)) \
+            == [1, 0, 0, 0, 0, 0]
+        assert launched(lambda: tattn.dot_product_attention(qh, qh, qh)) \
+            == [1, 0, 0, 0, 0, 0]
+        assert launched(lambda: tattn.dot_product_attention(
+            qh, qh, qh, bias=torch.zeros(2, 37, 37, device="cuda"))) == [0] * 6
+    assert launched(lambda: tattn.dot_product_attention_flat(q, q, q, 2).sum()
+                    .backward()) == [0, 1, 1, 0, 0, 0]
+    wq, wk, wv, bias, mask = _window_inputs(2, 2, 49, 2, torch.float32, seed=1)
+    scale = torch.full((2,), 10.0, device="cuda", requires_grad=True)
+    with torch.no_grad():
+        assert launched(lambda: tattn.windowed_cosine_attention_flat(
+            wq, wk, wv, scale, bias, mask, 2)) == [0, 0, 0, 1, 0, 0]
+    assert launched(lambda: tattn.windowed_cosine_attention_flat(
+        wq, wk, wv, scale, bias, mask, 2).sum().backward()) == [0, 0, 0, 0, 1, 1]
+    assert scale.grad is not None and torch.isfinite(scale.grad).all()
+
+
+# --- K12: the scaled-cosine windowed attention --------------------------------
+
+def _cosine_plain(*args):
+    return tattn.windowed_cosine_attention_flat(*args, impl="xla")
+
+
+def _cosine_scale(heads, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lo, hi = math.log(10), math.log(100)
+    return torch.exp(lo + (hi - lo) * torch.rand(heads, device="cuda", generator=g))
+
+
+def _held(got, want, dtype):
+    """K12's measure: fp32, max |difference| over max(1, max |plain|);
+    bf16, the RMS of the difference over the RMS of the plain value."""
+    return _rel_err(got, want) if dtype == torch.float32 else _rel_rms(got, want)
+
+
+@pytest.mark.parametrize("w0,b,n,heads,dtype,masked", [
+    (4, 3, 49, 2, torch.float32, True),
+    (1, 5, 64, 6, torch.float32, False),
+    (2, 3, 144, 4, torch.float32, True),
+    (1, 40, 33, 2, torch.float32, False),     # more rows than row groups
+    (4, 3, 49, 2, torch.bfloat16, True),
+    (4, 2, 576, 6, torch.bfloat16, True),
+    (1, 3, 144, 48, torch.bfloat16, False)])
+def test_k12_matches_plain(cuda, w0, b, n, heads, dtype, masked):
+    q, k, v, bias, mask = _window_inputs(w0, b, n, heads, dtype, seed=n + w0 + 2,
+                                         masked=masked)
+    scale = _cosine_scale(heads, n)
+    g = torch.Generator(device="cuda").manual_seed(n + 3)
+    dout = torch.randn(q.shape, device="cuda", generator=g).to(dtype)
+    counted = (fa.flash_attention_cosine_flat, fa.cosine_window_attention_lse_cuda,
+               fa.cosine_window_attention_bwd_cuda, fa.flash_attention_bias_flat)
+    counts = [f.launches for f in counted]
+    out = fa.flash_attention_cosine_flat(q, k, v, scale, bias, mask, heads)
+    out2, lse, out32 = fa.cosine_window_attention_lse_cuda(q, k, v, scale, bias,
+                                                           mask, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(out32.to(dtype), out)
+    want = _cosine_plain(q, k, v, scale, bias, mask, heads)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert _held(out, want, dtype) <= tol
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, scale, bias)]
+    got = torch.autograd.grad(fa.flash_attention_cosine_flat(
+        *leaves, mask, heads), leaves, dout)
+    torch.cuda.synchronize()
+    plain = [t.clone().requires_grad_() for t in (q, k, v, scale, bias)]
+    want = torch.autograd.grad(_cosine_plain(*plain, mask, heads), plain, dout)
+    if dtype == torch.bfloat16:   # dscale: in the TPU kernel's order
+        want = list(want)
+        want[3] = tattn.windowed_cosine_dscale(q, k, v, scale, bias, mask, dout,
+                                               heads)
+    assert [t.dtype for t in got] == [dtype] * 3 + [torch.float32] * 2
+    for name, a, w in zip(("dq", "dk", "dv", "dscale", "dbias"), got, want):
+        assert a.shape == w.shape and torch.isfinite(a).all(), name
+        assert _held(a, w, dtype) <= tol, (name, _held(a, w, dtype), tol)
+    assert [f.launches - c for f, c in zip(counted, counts)] == [1, 2, 1, 0]
+
+
+def test_k12_backward_gives_the_same_bits_twice_and_zero_rows_are_finite(cuda):
+    q, k, v, bias, mask = _window_inputs(4, 3, 49, 2, torch.bfloat16, seed=5)
+    q[:, :3] = 0
+    k[:, 5:7] = 0
+    k[:, 9] = 1e-8
+    scale = _cosine_scale(2, 5)
+    out, lse, out32 = fa.cosine_window_attention_lse_cuda(q, k, v, scale, bias,
+                                                          mask, 2)
+    dout = torch.randn_like(out)
+    first = fa.cosine_window_attention_bwd_cuda(q, k, v, scale, bias, mask,
+                                                out32, dout, lse, 2)
+    second = fa.cosine_window_attention_bwd_cuda(q, k, v, scale, bias, mask,
+                                                 out32, dout, lse, 2)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    assert torch.isfinite(out).all()
+    assert all(torch.isfinite(t).all() for t in first)
+    assert float(first[0][:, :3].abs().max()) > 0    # the clamp branch: r·dq̂
+
+
+def test_k12_refuses_what_it_does_not_take(cuda):
+    q, k, v, bias, mask = _window_inputs(2, 2, 16, 2, torch.float32)
+    scale = torch.full((2,), 10.0, device="cuda")
+    with pytest.raises(ValueError, match="scale"):
+        fa.flash_attention_cosine_flat(q, k, v, scale[:1], bias, mask, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cosine_flat(q, k, v, scale[:1], bias[:1], mask, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.cosine_window_attention_cuda(q.cpu(), k.cpu(), v.cpu(), scale.cpu(),
+                                        bias.cpu(), mask.cpu(), 2)
+    with pytest.raises(ValueError, match="constant"):
+        fa.flash_attention_cosine_flat(q, k, v, scale, bias,
+                                       mask.clone().requires_grad_(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cosine_flat(
+            q.transpose(1, 2).contiguous().transpose(1, 2), k, v, scale, bias,
+            mask, 2)
+    out, lse, out32 = fa.cosine_window_attention_lse_cuda(q, k, v, scale, bias,
+                                                          mask, 2)
+    with pytest.raises(ValueError, match="out32"):
+        fa.cosine_window_attention_bwd_cuda(q, k, v, scale, bias, mask,
+                                            out32[:, 1:], out, lse, 2)
+    with pytest.raises(ValueError, match="lse"):
+        fa.cosine_window_attention_bwd_cuda(q, k, v, scale, bias, mask, out32,
+                                            out, lse.double(), 2)
+    lib = fa._window_bwd_library()
+    groups = lib.cosine_window_attention_bwd_row_groups(4, 16, 64, 2, 2, 0)
+    assert groups >= 1
+    ptrs = [t.data_ptr() for t in (q, k, v, scale, bias, mask, out32, out, lse)]
+    ptrs += [q.data_ptr()] * 8
+    stream = torch.cuda.current_stream().cuda_stream
+    # a dscale workspace one float short is refused
+    assert lib.cosine_window_attention_bwd(*ptrs, 4, 16, 64, 2, 2, 0, groups,
+                                           2 * groups - 1, stream) != 0
