@@ -113,7 +113,11 @@ Phases, one line of output each (or a few):
       256, forward) and the micro-batch of 64 (log-sum-exp entry, backward),
       K11's dx, dW and db each, its backward twice for the same bits; the
       time, the plain version's, the library yardstick's (SDPA on the q/k/v
-      views; ``F.linear`` then SDPA for K11) and the bound;
+      views; ``F.linear`` then SDPA for K11) and the bound; then K11's three
+      products alone (``gemm_product``: x·W at the serving shape, dqkv·Wᵀ
+      and xᵀ·dqkv at 64) against the fp32 product of the same bf16
+      operands, twice for the same bits, with ms, TFLOP/s, the share of the
+      bf16 peak and ``torch.matmul``'s bf16 time;
    b. serving and 8-view TTA as phases 3 and 4 with each value: 12 K10 (or
       K11) launches a forward and no other attention kernel, the logits
       against the same model with the plain attention, a control that must
@@ -208,9 +212,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # and __expf over 197 keys.
 K1_ATOL_FP32 = 2e-5
 # bf16: outputs are averages of bf16 values of |v| < 8, where one bf16 ulp is
-# 2^-5; the plain version rounds the softmax weights to bf16 before P·V (the
-# XLA branch's cast) and the kernel keeps them fp32, so the two may round
-# the output one ulp apart.
+# 2^-5; both round the softmax weights to bf16 before P·V, the plain version
+# after normalising them (the XLA branch's cast, as the TPU kernel does) and
+# the kernel before (its online softmax divides the fp32 sum at the end), so
+# each weight differs by a bf16 rounding and the two may round the output one
+# ulp apart.
 K1_ATOL_BF16 = 2.0 ** -5
 # Logits of the whole bf16 model, kernel against plain attention, as the RMS
 # of the difference over the RMS of the plain logits. The one-ulp differences
@@ -232,8 +238,8 @@ K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
 # reasons. K11's output: fp32 atol 1e-4, the qkv its GEMM sums over D = 768
 # products in another order than the plain fp32 matmul (~1e-6 of |qkv|) feeds
 # the attention, then K1's 2e-5; bf16 2^-5 as K1 (qkv rounds to the same bf16
-# value unless the two fp32 sums straddle a rounding boundary, and the plain
-# version rounds the softmax weights where the kernel does not). K11's dx, dW
+# value unless the two fp32 sums straddle a rounding boundary, and the two
+# round the softmax weights at K1's two places). K11's dx, dW
 # and db, as shares of the largest |value|: fp32 1e-4 (sums over N keys, B·N
 # rows and 3E columns in another order); bf16 2^-5, four bf16 ulps of the
 # largest value, as K3 (its dqkv carries K3's difference; each of dx, dW and
@@ -249,10 +255,11 @@ K4_SUM_TOL = 1e-4
 # The gradient of each parameter over one macro batch, kernel path against
 # the plain attention and LayerNorm backward, as the RMS of the difference
 # over the RMS of the plain gradient. As for the logits: bf16 roundings that
-# differ by an ulp (K2 keeps P fp32 where the plain forward rounds it, K3
-# keeps P, dP and dS fp32) pass through 12 blocks forward and back; a wrong
-# bias gradient, scale or softmax moves a leaf's gradient by its own size,
-# and the run checks that zeroing K3's bias gradient exceeds the limit.
+# differ by an ulp (K2 rounds P to bf16 before normalising where the plain
+# forward rounds it after, K3 keeps P, dP and dS fp32) pass through 12
+# blocks forward and back; a wrong bias gradient, scale or softmax moves a
+# leaf's gradient by its own size, and the run checks that zeroing K3's bias
+# gradient exceeds the limit.
 GRAD_RTOL_BF16 = 0.1
 # A leaf whose gradient is 0 in exact arithmetic carries only rounding noise,
 # which no relative error can hold: the check leaves out every leaf whose
@@ -537,9 +544,10 @@ def expect_launches(name, fa, forwards):
 
 
 # The names of the ViT attention kernels in a device profile: the demangled
-# instances of attention_fwd.cuh's fwd_kernel<T, D, kBias, kLse> and
-# attention_bwd.cuh's kernels <T, D, kBias, kSum>, which K1-K3, K10 and K11
-# share, told apart by their flags. K11 adds gemm.cuh's products.
+# instances of attention_fwd.cuh's fwd_kernel<D, kBias, kLse> (bf16, the
+# tensor-core forward) and attention_bwd.cuh's kernels <T, D, kBias, kSum>,
+# which K1-K3, K10 and K11 share, told apart by their flags. K11 adds
+# gemm.cuh's bf16 products (wgmma_kernel).
 K1_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, true, false>",)
 K2_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, true, true>",)
 K3_NAMES = (r"attn_bwd::delta_kernel<",
@@ -549,7 +557,7 @@ K10_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, false, false>",)
 K10_LSE_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, false, true>",)
 K10_BWD_NAMES = (r"attn_bwd::delta_kernel<",
                  r"attn_bwd::(dkdv|dq)_kernel<[^>]*, false, false>")
-K11_GEMM_NAMES = (r"gemm::gemm_kernel<",)
+K11_GEMM_NAMES = (r"gemm::wgmma_kernel<",)
 K11_BWD_NAMES = (r"attn_bwd::delta_kernel<",
                  r"attn_bwd::(dkdv|dq)_kernel<[^>]*, false, true>",
                  r"column_sum_kernel<")
@@ -1314,7 +1322,7 @@ def swin_phase(fa, ln, smi, trace):
 
     if trace:
         trace_serving(model, step, augment, source, cfg, smi, SWIN_BATCH,
-                      kernel=("K5", "window_attention"), tag="-swin")
+                      kernel=("K5", ("window_attention",)), tag="-swin")
     return {"launches": launches, **stages[2], "stages": stages}
 
 
@@ -2341,6 +2349,66 @@ def impl_train(fa, ln, impl, smi, trace):
     return counts
 
 
+# K11's three products alone (gemm.cuh through ``gemm_product``), against the
+# fp32 torch.matmul of the same bf16 operands rounded once (``product_plain``):
+# both sum in fp32 and round once, so a value differs by at most one bf16 ulp
+# (2^-7 of it) where the two sums straddle a rounding boundary, plus
+# GEMM_ATOL_BF16 near zero, where sums of up to 12,608 unit products in another order differ
+# by ~1e-5.
+GEMM_RTOL_BF16 = 2.0 ** -7
+GEMM_ATOL_BF16 = 1e-3
+
+
+def check_gemm_products(fa):
+    """Phase 10a: x·W at the serving shape, dqkv·Wᵀ and xᵀ·dqkv at the
+    micro-batch of 64, each against its plain version, twice for the same
+    bits, timed beside torch.matmul's bf16 product. Returns a record per
+    product."""
+    from fedvit_torch.ops.attention import product_plain
+
+    n, dim, e3 = (224 // 16) ** 2 + 1, 768, 2304
+    cases = (("x_W", SERVE_BATCH * n, e3, dim, False, False, True),
+             ("dqkv_Wt", MICRO * n, dim, e3, False, True, False),
+             ("xt_dqkv", dim, e3, MICRO * n, True, False, False))
+    recs = {}
+    for name, m, nn_, k, ta, tb, with_bias in cases:
+        a = seeded((k, m) if ta else (m, k), torch.bfloat16, SEED + 70 + m)
+        b = seeded((nn_, k) if tb else (k, nn_), torch.bfloat16, SEED + 71 + k,
+                   1.0 / math.sqrt(k))
+        bias = seeded((nn_,), torch.bfloat16, SEED + 72, 0.5) if with_bias else None
+        op_a, op_b = (a.t() if ta else a), (b.t() if tb else b)
+
+        def run():
+            return fa.gemm_product(a, b, bias, transpose_a=ta, transpose_b=tb)
+
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        want = product_plain(op_a, op_b, bias).float()
+        diff = (got.float() - want).abs()
+        err = float((diff - GEMM_RTOL_BF16 * want.abs()).max())
+        same = torch.equal(got, again)
+        rec = {"max_abs_err": float(diff.max()), "same_bits": same}
+        rec["ms"] = cuda_ms(run)
+        rec["matmul_ms"] = cuda_ms(lambda: torch.matmul(op_a, op_b))
+        flops = 2.0 * m * nn_ * k
+        rec["tflop_s"] = flops / rec["ms"] / 1e9
+        rec["peak_share"] = flops / rec["ms"] / 1e-3 / PEAK_FLOPS[torch.bfloat16]
+        nbytes = (a.numel() + b.numel() + got.numel()
+                  + (bias.numel() if bias is not None else 0)) * 2
+        rec.update(bound(nbytes, flops, torch.bfloat16))
+        log(f"[gemm] {name} ({m} x {nn_} x {k}{', bias' if with_bias else ''})"
+            f": max_abs_err {rec['max_abs_err']!r}, beyond one bf16 ulp {err!r} "
+            f"(tolerance {GEMM_ATOL_BF16!r}), the same bits twice: {same}; "
+            f"{rec['ms']!r} ms = {rec['tflop_s']!r} TFLOP/s, "
+            f"{rec['peak_share']!r} of the bf16 peak; torch.matmul bf16 "
+            f"{rec['matmul_ms']!r} ms; bound {rec['bound_ms']!r} ms by "
+            f"{rec['bound_by']}")
+        if not (err <= GEMM_ATOL_BF16 and same and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"gemm.cuh's {name} disagrees with its plain version")
+        recs[name] = rec
+    return recs
+
+
 def packed_mega_phase(fa, ln, attention_from_qkvb, smi, auto, trace):
     """Phase 10; returns the six records of K10's and K11's entries for the
     kernels line."""
@@ -2359,6 +2427,7 @@ def packed_mega_phase(fa, ln, attention_from_qkvb, smi, auto, trace):
                              ("lse", "bwd"), True)
     recs["K11"] |= check_k11(fa, MICRO, n, 768, 12, 64, torch.bfloat16,
                              ("lse", "bwd"), True)
+    recs["K11"]["fwd"]["gemm"] = check_gemm_products(fa)
     torch.cuda.empty_cache()
     # 10b, 10c
     for impl in IMPL_KERNELS:

@@ -23,21 +23,55 @@
 // fp32. The kLse variant is the same code with one more store, so its output
 // is bit-identical to the plain forward's; and the operand layout changes
 // only addresses, so the packed and the flat layouts give the same bits on
-// the same values.
+// the same values. No atomics: every run gives the same bits.
 //
-// Design. Plain SIMT code on the fp32 cores, written to be right and
-// readable. One block takes one (batch, head, 32-query tile). Its 32 query
+// bf16 (fwd_kernel): a FlashAttention-2 forward on the tensor cores. The
+// kernel is bound by bytes at every shape the models give it (qkv is read
+// once, out written once; qkvb_attention.cu has the numbers), so mma.sync
+// gives it tensor-core rate enough and the design aims at reading q, k and v
+// once at the memory rate:
+// - one block a (128-query tile, head, batch row), 4 warps of 32 query rows
+//   (two m16 row tiles, so each K and V fragment read from shared memory
+//   serves two products, and each head's K and V are read from L2 once for
+//   every 128 queries);
+// - q, k and v are staged in bf16 by cp.async, 16 bytes a thread, rows
+//   padded to D + 8 elements (144 or 176 bytes, so ldmatrix's 8 row
+//   addresses fall in 8 different 16-byte bank groups); keys and values pass
+//   through a ring of 64-row tiles, copies two tiles ahead in flight while
+//   the current one is computed; rows past N are zero-filled
+//   (source size 0); one barrier a tile;
+// - with kBias the bias slices wait in shared memory and are added to the
+//   Q, K and V fragments as they are read, by bf16x2 adds rounded once (the
+//   bits of rounding the fp32 sum, as the SIMT version does): no pass over
+//   the staged tiles and no barrier of their own;
+// - S = Q K^T by mma.sync.m16n8k16 (bf16 in, fp32 accumulate), Q's fragments
+//   held in registers for the whole row of key tiles, K's and V's read by
+//   ldmatrix (V's by ldmatrix.trans); keys past N get a score of -inf;
+// - the online softmax in registers: the row max of q.k and the row sum are
+//   shared by the 4 lanes of a row with two shfl_xor steps, and
+//   p = 2^(s c - m c) with c = log2(e) / sqrt(d), one fma and one ex2 (only
+//   the last tile masks keys past N). P is rounded to bf16 in the
+//   accumulator-to-A-fragment layout and goes straight into P V, never
+//   through shared memory. (The TPU kernel and the plain version round the
+//   normalised weights to bf16 before P V; this kernel rounds them before
+//   normalising, and divides the fp32 sum at the end.) lse goes out in
+//   natural log, m / sqrt(d) + log(l);
+// - the output tile is staged through the warp's own rows of Q's shared
+//   memory and written with 16-byte stores; query rows past N are not
+//   stored.
+//
+// fp32 (simt_fwd_kernel): plain SIMT code on the fp32 cores, written to be
+// right and readable; no model path runs fp32 attention at a size that
+// matters. One block takes one (batch, head, 32-query tile). Its 32 query
 // rows are staged once in shared memory as fp32; the keys and values pass
 // through shared memory in tiles of 64 rows (32 at d = 80, which keeps the
-// static shared memory under 48 KB), so any N works and nothing is re-read
-// from device memory within a block. Each of the 4 warps owns 8 query rows.
+// static shared memory under 48 KB). Each of the 4 warps owns 8 query rows.
 // For a chunk of 32 keys a lane holds one key row in registers and scores it
-// against the warp's 8 queries (the query rows are read as shared-memory
-// broadcasts), then the warp runs the online-softmax update and accumulates
-// P.V with lane l owning the output columns l, l + 32, l + 64 below d (d/32
-// need not be whole). Rows past N (the ragged last tile at N=197) are staged
-// as zeros and masked with a score of -inf. Nothing is written but the output
-// (and lse), and no transposed copy of q, k or v is made.
+// against the warp's 8 queries, then the warp runs the online-softmax update
+// and accumulates P.V with lane l owning the output columns l, l + 32, l + 64
+// below d. Rows past N are staged as zeros and masked with a score of -inf.
+//
+// The dtype picks the kernel at compile time.
 
 #pragma once
 
@@ -47,6 +81,8 @@
 
 namespace attn_fwd {
 
+// --- fp32: SIMT on the fp32 cores ------------------------------------------
+
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 8;
@@ -54,7 +90,7 @@ constexpr int kQueryTile = kWarps * kRowsPerWarp;  // query rows per block
 
 template <typename T, int D, bool kBias, bool kLse>
 __global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+simt_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, int ld, const T* __restrict__ bias,
            T* __restrict__ out, float* __restrict__ lse, int n, int e,
            float scale) {
@@ -209,22 +245,344 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool kBias, bool kLse>
-int launch_d(const void* q, const void* k, const void* v, int ld,
-             const void* bias, void* out, float* lse, int batch, int n, int e,
-             int heads, float scale, cudaStream_t stream) {
+
+// --- bf16: FlashAttention-2 on the tensor cores -----------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kRowTiles = 2;                       // m16 row tiles a warp
+constexpr int kBlockQ = kMmaWarps * 16 * kRowTiles;  // query rows per block
+constexpr int kBlockK = 64;              // key rows per staged tile
+constexpr int kRing = 3;                 // key and value tiles in the ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory of fwd_kernel<D>: the query tile, the ring's key and value
+// tiles, rows of D + 8 bf16, and the bias slices of q, k and v
+template <int D>
+constexpr int mma_smem_bytes() {
+  return (kBlockQ + 2 * kRing * kBlockK) * (D + 8) * 2 + 3 * D * 2;
+}
+
+template <int D, bool kBias, bool kLse>
+__global__ void __launch_bounds__(kMmaThreads)
+fwd_kernel(const __nv_bfloat16* __restrict__ q,
+           const __nv_bfloat16* __restrict__ k,
+           const __nv_bfloat16* __restrict__ v, int ld,
+           const __nv_bfloat16* __restrict__ bias,
+           __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int n,
+           int e, float scale) {
+  static_assert(D % 16 == 0, "head width");
+  constexpr int kLd = D + 8;         // padded row, elements
+  constexpr int kChunks = D / 8;     // 16-byte chunks a row
+  constexpr int kKd = D / 16;        // k16 steps of Q K^T; pairs of n8 blocks of P V
+  constexpr int kNd = D / 8;         // n8 blocks of the output
+  constexpr int kR = kRowTiles;
+  constexpr int kTile = kBlockK * kLd;
+  using bf16 = __nv_bfloat16;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* k_s = q_s + kBlockQ * kLd;     // kRing tiles
+  bf16* v_s = k_s + kRing * kTile;     // kRing tiles
+  bf16* bias_s = v_s + kRing * kTile;  // kBias: [b_q | b_k | b_v] of head h
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;           // the row of an mma fragment
+  const int t = lane & 3;            // its column pair
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int w0 = warp * 16 * kR;     // this warp's first row in the block
+  const size_t at = static_cast<size_t>(b) * n * ld + h * D;  // (b, row 0, head h)
+
+  // `rows` rows from row0 of head h of src into a tile, rows past n as zeros
+  auto load = [&](bf16* dst, const bf16* src, int row0, int rows) {
+#pragma unroll
+    for (int i = tid; i < rows * kChunks; i += kMmaThreads) {
+      const int r = i / kChunks;
+      const int c = (i % kChunks) * 8;
+      const bool in = row0 + r < n;
+      cp_async16(smem_u32(dst + r * kLd + c),
+                 src + at + static_cast<size_t>(in ? row0 + r : 0) * ld + c, in);
+    }
+  };
+
+  const int tiles = (n + kBlockK - 1) / kBlockK;
+  load(q_s, q, q0, kBlockQ);
+  load(k_s, k, 0, kBlockK);
+  load(v_s, v, 0, kBlockK);
+  if constexpr (kBias) {
+    if (tid < 3 * kChunks) {
+      const int part = tid / kChunks, c = (tid % kChunks) * 8;
+      cp_async16(smem_u32(bias_s + part * D + c), bias + part * e + h * D + c,
+                 true);
+    }
+  }
+  cp_async_commit();
+  if (tiles > 1) {
+    load(k_s + kTile, k, kBlockK, kBlockK);
+    load(v_s + kTile, v, kBlockK, kBlockK);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();    // Q, tile 0 and the bias have landed
+  // kBias: b[c] and b[c + 1] of a bias slice as one bf16 pair, and b[c] twice
+  auto bias2 = [&](int part, int c) {
+    return *reinterpret_cast<const uint32_t*>(bias_s + part * D + c);
+  };
+  auto bias_twice = [&](int part, int c) {
+    const uint32_t x = *reinterpret_cast<const uint16_t*>(bias_s + part * D + c);
+    return x | (x << 16);
+  };
+  // a warp whose query rows all lie past n only stages and waits
+  const bool active = q0 + w0 < n;
+  uint32_t qf[kR][kKd][4];   // this warp's query rows, A fragments
+  if (active) {
+#pragma unroll
+    for (int rt = 0; rt < kR; ++rt) {
+      // matrices (rows 0-7 | 8-15) x (columns 0-7 | 8-15)
+      const int row = w0 + rt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kKd; ++kk) {
+        uint32_t (&a)[4] = qf[rt][kk];
+        ldmatrix_x4(a, smem_u32(q_s + row * kLd + kk * 16 + (lane >> 4) * 8));
+        if constexpr (kBias) {   // columns 16 kk + 2t (a0, a1), + 8 (a2, a3)
+          const uint32_t b0 = bias2(0, kk * 16 + 2 * t);
+          const uint32_t b1 = bias2(0, kk * 16 + 8 + 2 * t);
+          a[0] = add_bf16x2(a[0], b0); a[1] = add_bf16x2(a[1], b0);
+          a[2] = add_bf16x2(a[2], b1); a[3] = add_bf16x2(a[3], b1);
+        }
+      }
+    }
+  }
+
+  const float scale2 = scale * kLog2e;  // p = 2^(s scale2 - m scale2)
+  float o[kR][kNd][4];
+  float m[kR][2], l[kR][2];  // rows g and g + 8 of each row tile: max of q.k,
+                             // and this lane's share of the row sum
+#pragma unroll
+  for (int rt = 0; rt < kR; ++rt) {
+    m[rt][0] = m[rt][1] = -INFINITY;
+    l[rt][0] = l[rt][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j)
+      o[rt][j][0] = o[rt][j][1] = o[rt][j][2] = o[rt][j][3] = 0.f;
+  }
+
+  // Tile `it` is visible to every warp when step `it` starts. The step starts
+  // tile it + 2's copies into the slot tile it - 1 left, computes tile it,
+  // and ends waiting for tile it + 1 at the one barrier of the step.
+  for (int it = 0; it < tiles; ++it) {
+    const bf16* kt = k_s + (it % kRing) * kTile;
+    const bf16* vt = v_s + (it % kRing) * kTile;
+    if (it + 2 < tiles) {
+      load(k_s + ((it + 2) % kRing) * kTile, k, (it + 2) * kBlockK, kBlockK);
+      load(v_s + ((it + 2) % kRing) * kTile, v, (it + 2) * kBlockK, kBlockK);
+    }
+    cp_async_commit();
+    if (active) {
+      // 16-key chunks of this tile that hold a key below n
+      const int chunks = min(kBlockK, n - it * kBlockK + 15) / 16;
+
+      // S = Q K^T over this tile's 64 keys: 8 n8 blocks a row tile; each K
+      // fragment serves both row tiles
+      float s[kR][8][4];
+#pragma unroll
+      for (int rt = 0; rt < kR; ++rt)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          s[rt][j][0] = s[rt][j][1] = s[rt][j][2] = s[rt][j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKd; ++kk) {
+        uint32_t bk[2];   // kBias: k's bias at columns 16 kk + 2t, + 8
+        if constexpr (kBias) {
+          bk[0] = bias2(1, kk * 16 + 2 * t);
+          bk[1] = bias2(1, kk * 16 + 8 + 2 * t);
+        }
+#pragma unroll
+        for (int j2 = 0; j2 < 4; ++j2) {
+          if (j2 >= chunks) break;   // keys past n: their scores become -inf
+          // keys 16 j2 + (0-7 | 8-15) x head columns 16 kk + (0-7 | 8-15)
+          uint32_t kf[4];
+          const int key = j2 * 16 + (lane >> 4) * 8 + (lane & 7);
+          ldmatrix_x4(kf, smem_u32(kt + key * kLd + kk * 16 + ((lane >> 3) & 1) * 8));
+          if constexpr (kBias) {
+            kf[0] = add_bf16x2(kf[0], bk[0]); kf[1] = add_bf16x2(kf[1], bk[1]);
+            kf[2] = add_bf16x2(kf[2], bk[0]); kf[3] = add_bf16x2(kf[3], bk[1]);
+          }
+          const uint32_t b0[2] = {kf[0], kf[1]};
+          const uint32_t b1[2] = {kf[2], kf[3]};
+#pragma unroll
+          for (int rt = 0; rt < kR; ++rt) {
+            mma_bf16(s[rt][2 * j2], qf[rt][kk], b0);
+            mma_bf16(s[rt][2 * j2 + 1], qf[rt][kk], b1);
+          }
+        }
+      }
+
+      // the online softmax: rows g (elements 0, 1) and g + 8 (elements 2, 3)
+      if ((it + 1) * kBlockK > n) {   // the last tile: keys past n score -inf
+        const int key0 = it * kBlockK + 2 * t;
+#pragma unroll
+        for (int rt = 0; rt < kR; ++rt)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (key0 + j * 8 + (c & 1) >= n) s[rt][j][c] = -INFINITY;
+      }
+#pragma unroll
+      for (int rt = 0; rt < kR; ++rt) {
+        float mx[2] = {m[rt][0], m[rt][1]};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], s[rt][j][c]);
+        float corr[2], ms[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          // key it * 64 < n, so the max over the row's 4 lanes is finite
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          ms[r] = mx[r] * scale2;
+          corr[r] = exp2_ftz(fmaf(m[rt][r], scale2, -ms[r]));
+          m[rt][r] = mx[r];
+          l[rt][r] *= corr[r];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[rt][j][c] = exp2_ftz(fmaf(s[rt][j][c], scale2, -ms[c >> 1]));
+            l[rt][c >> 1] += s[rt][j][c];
+          }
+#pragma unroll
+        for (int j = 0; j < kNd; ++j) {
+          o[rt][j][0] *= corr[0]; o[rt][j][1] *= corr[0];
+          o[rt][j][2] *= corr[1]; o[rt][j][3] *= corr[1];
+        }
+      }
+
+      // O += P V: P's A fragments from the score accumulators, rounded to
+      // bf16; each V fragment serves both row tiles
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        if (kk >= chunks) break;     // P is 0 there
+        uint32_t pa[kR][4];
+#pragma unroll
+        for (int rt = 0; rt < kR; ++rt) {
+          pa[rt][0] = Io<bf16>::pack(s[rt][2 * kk][0], s[rt][2 * kk][1]);
+          pa[rt][1] = Io<bf16>::pack(s[rt][2 * kk][2], s[rt][2 * kk][3]);
+          pa[rt][2] = Io<bf16>::pack(s[rt][2 * kk + 1][0], s[rt][2 * kk + 1][1]);
+          pa[rt][3] = Io<bf16>::pack(s[rt][2 * kk + 1][2], s[rt][2 * kk + 1][3]);
+        }
+        const int key = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+        for (int dp = 0; dp < kKd; ++dp) {
+          // keys (0-7 | 8-15) x head columns 16 dp + (0-7 | 8-15), transposed
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, smem_u32(vt + key * kLd + dp * 16 + (lane >> 4) * 8));
+          if constexpr (kBias) {   // two keys of one column: 16 dp + g, + 8
+            const uint32_t b0 = bias_twice(2, dp * 16 + g);
+            const uint32_t b1 = bias_twice(2, dp * 16 + 8 + g);
+            vf[0] = add_bf16x2(vf[0], b0); vf[1] = add_bf16x2(vf[1], b0);
+            vf[2] = add_bf16x2(vf[2], b1); vf[3] = add_bf16x2(vf[3], b1);
+          }
+          const uint32_t b0[2] = {vf[0], vf[1]};
+          const uint32_t b1[2] = {vf[2], vf[3]};
+#pragma unroll
+          for (int rt = 0; rt < kR; ++rt) {
+            mma_bf16(o[rt][2 * dp], pa[rt], b0);
+            mma_bf16(o[rt][2 * dp + 1], pa[rt], b1);
+          }
+        }
+      }
+    }
+    cp_async_wait<1>();   // this thread's copies of tile it + 1 have landed
+    __syncthreads();      // ... every thread's; tile it is consumed
+  }
+
+  // the output through this warp's rows of q_s (its Q is in registers), then
+  // 16-byte stores
+  bf16* o_s = q_s + w0 * kLd;
+#pragma unroll
+  for (int rt = 0; rt < kR; ++rt) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[rt][r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      inv[r] = 1.f / sum;
+      const int row = q0 + w0 + rt * 16 + g + 8 * r;
+      if (kLse && t == 0 && row < n)
+        lse[(static_cast<size_t>(b) * gridDim.y + h) * n + row] =
+            m[rt][r] * scale + logf(sum);
+    }
+    bf16* os = o_s + rt * 16 * kLd;
+#pragma unroll
+    for (int j = 0; j < kNd; ++j) {
+      *reinterpret_cast<uint32_t*>(os + g * kLd + j * 8 + 2 * t) =
+          Io<bf16>::pack(o[rt][j][0] * inv[0], o[rt][j][1] * inv[0]);
+      *reinterpret_cast<uint32_t*>(os + (g + 8) * kLd + j * 8 + 2 * t) =
+          Io<bf16>::pack(o[rt][j][2] * inv[1], o[rt][j][3] * inv[1]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * kR * kChunks; i += 32) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    const int row = q0 + w0 + r;
+    if (row < n)
+      *reinterpret_cast<uint4*>(out + (static_cast<size_t>(b) * n + row) * e +
+                                h * D + c) =
+          *reinterpret_cast<const uint4*>(o_s + r * kLd + c);
+  }
+}
+
+// static: each library that includes this header keeps its own `attr`. A
+// local static of a function with external linkage is one object across
+// every loaded library (a GNU unique symbol), so a second library would skip
+// setting the attribute on its own copy of the kernel, and its launches above
+// 48 KB of shared memory would be refused.
+template <int D, bool kBias, bool kLse>
+static int launch_mma(const void* q, const void* k, const void* v, int ld,
+                      const void* bias, void* out, float* lse, int batch,
+                      int n, int e, int heads, float scale,
+                      cudaStream_t stream) {
+  constexpr int kSmem = mma_smem_bytes<D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fwd_kernel<D, kBias, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);  // once per instantiation and library
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
+  fwd_kernel<D, kBias, kLse><<<grid, kMmaThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), ld,
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
+      lse, n, e, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kBias, bool kLse>
+int launch_simt(const void* q, const void* k, const void* v, int ld,
+                const void* bias, void* out, float* lse, int batch, int n,
+                int e, int heads, float scale, cudaStream_t stream) {
   const dim3 grid((n + kQueryTile - 1) / kQueryTile, heads, batch);
-  fwd_kernel<T, D, kBias, kLse><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), ld, static_cast<const T*>(bias),
-      static_cast<T*>(out), lse, n, e, scale);
+  simt_fwd_kernel<float, D, kBias, kLse><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), ld, static_cast<const float*>(bias),
+      static_cast<float*>(out), lse, n, e, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The forward on one stream, q, k and v at row stride ld (elements); d =
-// e / heads must be 64 or 80, dtype 0 = float32, 1 = bfloat16. Returns a
-// cudaError_t (0 on success). The caller checks shapes, contiguity and
-// 16-byte alignment (of the pointers and of ld's rows).
+// e / heads must be 64 or 80, dtype 0 = float32 (SIMT), 1 = bfloat16 (tensor
+// cores). Returns a cudaError_t (0 on success). The caller checks shapes,
+// contiguity and 16-byte alignment (of the pointers and of ld's rows).
 template <bool kBias, bool kLse>
 int launch(const void* q, const void* k, const void* v, int ld,
            const void* bias, void* out, float* lse, int batch, int n, int e,
@@ -235,17 +593,17 @@ int launch(const void* q, const void* k, const void* v, int ld,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int d = e / heads;
   if (d == 64 && dtype == 0)
-    return launch_d<float, 64, kBias, kLse>(q, k, v, ld, bias, out, lse, batch,
-                                            n, e, heads, scale, s);
+    return launch_simt<64, kBias, kLse>(q, k, v, ld, bias, out, lse, batch, n,
+                                        e, heads, scale, s);
   if (d == 64)
-    return launch_d<__nv_bfloat16, 64, kBias, kLse>(q, k, v, ld, bias, out, lse,
-                                                    batch, n, e, heads, scale, s);
+    return launch_mma<64, kBias, kLse>(q, k, v, ld, bias, out, lse, batch, n,
+                                       e, heads, scale, s);
   if (d == 80 && dtype == 0)
-    return launch_d<float, 80, kBias, kLse>(q, k, v, ld, bias, out, lse, batch,
-                                            n, e, heads, scale, s);
+    return launch_simt<80, kBias, kLse>(q, k, v, ld, bias, out, lse, batch, n,
+                                        e, heads, scale, s);
   if (d == 80)
-    return launch_d<__nv_bfloat16, 80, kBias, kLse>(q, k, v, ld, bias, out, lse,
-                                                    batch, n, e, heads, scale, s);
+    return launch_mma<80, kBias, kLse>(q, k, v, ld, bias, out, lse, batch, n,
+                                       e, heads, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,13 +1,15 @@
 // Helpers shared by the kernels in this directory: 16-byte loads of fp32 or
-// bf16 into fp32 registers, rounding to the storage type, warp reductions,
-// the in-order column sum of an fp32 workspace, and the row normalisation of
-// the scaled-cosine attention (K12).
+// bf16 into fp32 registers, rounding to the storage type, Hopper's cp.async,
+// ldmatrix and mma.sync for bf16, ex2 and bf16x2 adds, warp reductions, the
+// in-order column sum of an fp32 workspace, and the row normalisation of the
+// scaled-cosine attention (K12).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 template <typename T>
 struct Io;
@@ -73,6 +75,78 @@ struct Io<__nv_bfloat16> {
     }
   }
 };
+
+// Hopper's data movement and tensor-core instructions for bf16, as used by
+// attention_fwd.cuh and gemm.cuh.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; with !in nothing is
+// read and the 16 bytes become zeros (the source size is 0)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most kPending of this thread's committed groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8 and receives element (l / 4, 2 (l % 4) .. +1) of each (.trans: the
+// elements (2 (l % 4) .. +1, l / 4))
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a b, a 16 x 16 (row) and b 16 x 8 (col) bf16, c fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 2^x on the special-function unit, subnormal results flushed to 0
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a + b on two packed bf16 pairs, each sum rounded once to bf16: the bits of
+// rounding the fp32 sum, since the fp32 sum of two bf16 values is exact
+// unless their exponents differ by more than 16, when both round to the
+// larger operand
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 x, y;
+  memcpy(&x, &a, 4);
+  memcpy(&y, &b, 4);
+  const __nv_bfloat162 r = __hadd2(x, y);
+  uint32_t out;
+  memcpy(&out, &r, 4);
+  return out;
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

@@ -33,10 +33,11 @@
 // _lse entries at the training micro-batch of 64 add 0.6 MB of lse to 77.5
 // MB: ~23 us. K9 moves the same bytes as K10, in three tensors.
 //
-// Design (attention_fwd.cuh): plain SIMT code on the fp32 cores, written to
-// be right and readable, so it sits well above the bound (see PERF.md). The
-// head width d = 80 gives each lane 2 or 3 output columns and stages keys in
-// tiles of 32 rows; d = 64 keeps tiles of 64.
+// Design (attention_fwd.cuh): for bf16 a FlashAttention-2 forward on the
+// tensor cores (mma.sync bf16 with fp32 accumulation, ldmatrix fragments, a
+// cp.async double-buffered ring of 64-key tiles, the online softmax in
+// registers), 128 query rows a block, aimed at reading qkv once at the memory
+// rate; for fp32 plain SIMT code on the fp32 cores. Both take d = 64 and 80.
 
 #include "attention_fwd.cuh"
 

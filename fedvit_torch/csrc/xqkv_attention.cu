@@ -26,14 +26,19 @@
 //
 // Design. The TPU kernel keeps W, a batch block and its qkv resident in
 // VMEM, so qkv never reaches HBM. A Hopper block has 227 KB of shared memory;
-// this first version instead runs two launches on the caller's stream: the
-// projection (gemm.cuh: 64 x 64 output tiles, mma.sync bf16 tensor-core
-// products with fp32 accumulation, the bias added in fp32 and the result
-// rounded once to T) writes qkv to the workspace, and the bias-free attention
-// forward (attention_fwd.cuh, K10's kernel) reads it. Any N and dtype work
-// with no second path. Materialising qkv (232 MB written and read at the
-// serving shape) is this version's known cost, as dqkv's is in the backward;
-// fusing it away, with K and V resident in shared memory, is a later PR.
+// this version instead runs two launches on the caller's stream: the
+// projection (gemm.cuh: 128 x 128 output tiles, wgmma bf16 tensor-core
+// products with fp32 accumulation fed by a cp.async ring, W read in its own
+// n-contiguous layout, the bias added in fp32 and the result rounded once to
+// T) writes qkv to the workspace, and the bias-free attention forward
+// (attention_fwd.cuh, K10's kernel: mma.sync flash attention) reads it. Any
+// N and dtype work with no second path. Materialising qkv (232 MB written and
+// read at the serving shape) is this version's known cost, as dqkv's is in
+// the backward; fusing it away, with K and V resident in shared memory, is a
+// later PR.
+//
+// gemm_product, the last entry, runs one gemm.cuh product alone, so that the
+// products K11 makes can be timed and tested by themselves.
 
 #include "attention_fwd.cuh"
 #include "gemm.cuh"
@@ -70,6 +75,26 @@ int dispatch(const void* x, const void* w, const void* b, void* qkv, void* out,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T>
+int product(const void* a, int lda, int a_k, const void* b, int ldb, int b_k,
+            const void* bias, void* out, int ldo, int m, int n, int k,
+            void* stream) {
+  const T* at = static_cast<const T*>(a);
+  const T* bt = static_cast<const T*>(b);
+  const T* bias_t = static_cast<const T*>(bias);
+  T* o = static_cast<T*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a_k && b_k)
+    return gemm::launch<T, true, true>(at, lda, bt, ldb, o, ldo, bias_t, m, n, k, s);
+  if (a_k)
+    return gemm::launch<T, true, false>(at, lda, bt, ldb, o, ldo, bias_t, m, n,
+                                        k, s);
+  if (b_k)
+    return gemm::launch<T, false, true>(at, lda, bt, ldb, o, ldo, bias_t, m, n,
+                                        k, s);
+  return gemm::launch<T, false, false>(at, lda, bt, ldb, o, ldo, bias_t, m, n, k, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success).
@@ -93,4 +118,23 @@ extern "C" int xqkv_attention_fwd_lse(const void* x, const void* w,
                                       void* stream) {
   return dispatch<true>(x, w, b, qkv, out, static_cast<float*>(lse), batch, n,
                         dim, e, heads, dtype, scale, stream);
+}
+
+// One gemm.cuh product, out (M, N) = A B (+ bias (N,)), all in one dtype (0 =
+// float32, 1 = bfloat16): A(m, k) = a[m * lda + k] if a_k else a[k * lda + m];
+// B(k, n) = b[n * ldb + k] if b_k else b[k * ldb + n]. bias may be null.
+// M, N, K and the leading dimensions must be multiples of 8, each leading
+// dimension at least its row's extent. Returns a cudaError_t (0 on success).
+extern "C" int gemm_product(const void* a, int lda, int a_k, const void* b,
+                            int ldb, int b_k, const void* bias, void* out,
+                            int ldo, int m, int n, int k, int dtype,
+                            void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || m % 8 || n % 8 || k % 8 || lda % 8 ||
+      ldb % 8 || ldo % 8 || lda < (a_k ? k : m) || ldb < (b_k ? k : n) ||
+      ldo < n || dtype < 0 || dtype > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 0 ? product<float>(a, lda, a_k, b, ldb, b_k, bias, out, ldo,
+                                     m, n, k, stream)
+                    : product<__nv_bfloat16>(a, lda, a_k, b, ldb, b_k, bias,
+                                             out, ldo, m, n, k, stream);
 }

@@ -1,6 +1,6 @@
 // K11's backward: the gradients of attention(x W + b) with respect to x, W
 // and b, in hand-written code: the products run in this library's own
-// tensor-core GEMM (gemm.cuh), not in cuBLAS.
+// tensor-core GEMM (gemm.cuh: wgmma), not in cuBLAS.
 //
 // Replaces the TPU kernel fedvit_tpu/ops/flash_attention.py::_xqkv_bwd_kernel
 // (launched by _xqkv_bwd_rule through pl.pallas_call).
@@ -36,11 +36,16 @@
 //      of each row's dqkv W_h^T, which spans this design's (b, h) blocks, so
 //      dqkv goes through device memory (58 MB at the micro-batch of 64): the
 //      known cost of this first version;
-//   3. dx = dqkv W^T by 64 x 64 tiles of (B*N, D);
-//   4. dW = x^T dqkv by 64 x 64 tiles of (D, 3E), each summed over all B*N
-//      rows in one order by one block (the TPU kernel carried dW across its
-//      sequential grid in a resident fp32 block; Hopper's blocks are
-//      unordered).
+//   3. dx = dqkv W^T by 128 x 128 tiles of (B*N, D), W read in its own
+//      layout (gemm.cuh: wgmma, both operands from shared memory in their
+//      natural major-ness);
+//   4. dW = x^T dqkv by 128 x 128 tiles of (D, 3E), x and dqkv both read
+//      m- and n-contiguous as they lie. Each tile is summed over all B*N rows
+//      in one fixed order and rounded once (the TPU kernel carried dW across
+//      its sequential grid in a resident fp32 block; Hopper's blocks are
+//      unordered). At ViT-B's (768, 2304) the 108 tiles fill 108 of 132
+//      SMs; a k split into fp32 partials, summed in order, measured slower
+//      (PERF.md).
 
 #include "attention_bwd.cuh"
 #include "gemm.cuh"

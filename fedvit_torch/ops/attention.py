@@ -127,9 +127,18 @@ def attention_from_x(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     head-major within each third; b (3E,). The products of x and W (cast to
     x's dtype) are summed in fp32, the fp32 bias added, and qkv rounded once
     to x's dtype. Returns (B, N, E)."""
-    qkv = (torch.matmul(x.float(), w.to(x.dtype).float())
-           + b.float()).to(x.dtype)
-    return attention_from_qkv(qkv, num_heads)
+    return attention_from_qkv(product_plain(x, w.to(x.dtype), b), num_heads)
+
+
+def product_plain(a: torch.Tensor, b: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """a·b (+ bias) as K11's products compute it: the products summed in
+    fp32, the fp32 bias added, the result rounded once to a's dtype. The
+    plain version of ``ops/flash_attention.py::gemm_product``."""
+    out = torch.matmul(a.float(), b.float())
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(a.dtype)
 
 
 def windowed_attention_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

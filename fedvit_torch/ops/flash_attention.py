@@ -75,6 +75,7 @@ Each kernel's wrapper counts its launches in its ``launches`` attribute:
 backward), ``flash_attention_xqkv.launches`` (K11),
 ``xqkv_attention_lse_cuda.launches`` (K11 with the log-sum-exp),
 ``xqkv_attention_bwd_cuda.launches`` (K11's backward),
+``gemm_product.launches`` (one K11 product alone),
 ``flash_attention_bias_flat.launches`` (K5),
 ``window_attention_lse_cuda.launches`` (K5 with the log-sum-exp),
 ``window_attention_bwd_cuda.launches`` (K6), ``flash_attention_flat.launches``
@@ -98,6 +99,7 @@ from fedvit_torch.core import kernels
 from fedvit_torch.ops.attention import (attention_from_qkv,
                                         attention_from_qkvb, attention_from_x,
                                         dot_product_attention_flat,
+                                        product_plain,
                                         windowed_attention_flat,
                                         windowed_cosine_attention_flat)
 
@@ -519,7 +521,10 @@ def _xqkv_library() -> ctypes.CDLL:
     lib = kernels.load("xqkv_attention")
     lib.xqkv_attention_fwd.argtypes = [_P] * 5 + [_I] * 6 + [_F, _P]
     lib.xqkv_attention_fwd_lse.argtypes = [_P] * 6 + [_I] * 6 + [_F, _P]
-    lib.xqkv_attention_fwd.restype = lib.xqkv_attention_fwd_lse.restype = _I
+    lib.gemm_product.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P] + [_I] * 5 + [_P]
+    for name in ("xqkv_attention_fwd", "xqkv_attention_fwd_lse",
+                 "gemm_product"):
+        getattr(lib, name).restype = _I
     return lib
 
 
@@ -670,6 +675,55 @@ def flash_attention_xqkv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 flash_attention_xqkv.launches = 0
 xqkv_attention_lse_cuda.launches = 0
 xqkv_attention_bwd_cuda.launches = 0
+
+
+def gemm_product(a: torch.Tensor, b: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, *,
+                 transpose_a: bool = False,
+                 transpose_b: bool = False) -> torch.Tensor:
+    """One product of K11's GEMM (``csrc/gemm.cuh``) by itself: op(a)·op(b)
+    (+ bias), op(t) = tᵀ when ``transpose_*``, summed in fp32, the fp32 bias
+    added and rounded once to a's dtype; returns a new (M, N) tensor. a and b
+    are contiguous 2-D tensors read in place, so op(a) is k-contiguous unless
+    ``transpose_a`` and op(b) n-contiguous unless ``transpose_b``: K11 makes
+    x·W, dqkv·Wᵀ (``transpose_b``) and xᵀ·dqkv (``transpose_a``). For timing
+    and tests; the model reaches the kernel through K11.
+
+    CPU tensors take the plain version (``ops/attention.py::product_plain``),
+    CUDA tensors the kernel. ``gemm_product.launches`` counts its launches."""
+    op_a = a.t() if transpose_a else a
+    op_b = b.t() if transpose_b else b
+    if a.device.type == "cpu":
+        return product_plain(op_a, op_b, bias)
+    if b.device != a.device or (bias is not None and bias.device != a.device):
+        raise ValueError("a, b and bias must be on one CUDA device")
+    if a.dtype not in _DTYPES or b.dtype != a.dtype or (
+            bias is not None and bias.dtype != a.dtype):
+        raise TypeError(f"a, b and bias must share a dtype of float32 or "
+                        f"bfloat16, got {a.dtype} and {b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or op_a.shape[1] != op_b.shape[0]:
+        raise ValueError(f"op(a) (M, K) and op(b) (K, N) do not multiply: "
+                         f"{tuple(op_a.shape)} and {tuple(op_b.shape)}")
+    m, k = op_a.shape
+    n = op_b.shape[1]
+    if m % 8 or n % 8 or k % 8:
+        raise ValueError(f"M={m}, N={n} and K={k} must be multiples of 8")
+    if bias is not None and bias.shape != (n,):
+        raise ValueError(f"bias must be ({n},), got {tuple(bias.shape)}")
+    for name, t in (("a", a), ("b", b), ("bias", bias)):
+        if t is not None and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    _raise_on(_xqkv_library().gemm_product(
+        a.data_ptr(), a.shape[1], int(not transpose_a), b.data_ptr(),
+        b.shape[1], int(transpose_b), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), n, m, n, k, _DTYPES[a.dtype], _stream(a)),
+        "gemm_product")
+    gemm_product.launches += 1
+    return out
+
+
+gemm_product.launches = 0
 
 
 # --- windowed attention with a bias and a mask (SwinV2) ----------------------

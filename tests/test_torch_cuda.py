@@ -9,8 +9,9 @@ Tolerances:
 
 - K1 and K2's output: fp32 atol 2e-5 (fp32 scores and sums in both, other
   summation order and ``__expf``); bf16 atol 2^-5, one bf16 ulp of outputs
-  below 8 (the plain version rounds the softmax weights to bf16 before P·V,
-  the kernel keeps them in fp32). K2's output is K1's, bit for bit.
+  below 8 (both round the softmax weights to bf16 before P·V, the plain
+  version after normalising them and the tensor-core kernel before, so each
+  weight differs by a bf16 rounding). K2's output is K1's, bit for bit.
 - K2's log-sum-exp: atol 1e-4 against ``torch.logsumexp`` of the same fp32
   scores (values of 5-10; summation order and ``__expf``/``logf``).
 - K3 (dqkv, dbias) against autograd of the plain version, as a share of the
@@ -43,7 +44,7 @@ Tolerances:
   output fp32 atol 1e-4 (qkv's sums over D products in another order feed
   the attention; K1's 2e-5 after it), bf16 atol 2^-5 as K1 (qkv rounds to
   the same bf16 value unless the two fp32 sums straddle a rounding boundary;
-  the plain version rounds the softmax weights, the kernel does not); dx, dW
+  the two round the softmax weights at K1's two places); dx, dW
   and db as shares of the largest |value|, fp32 1e-4 (sums over N keys, B·N
   rows and 3E columns in another order), bf16 2^-5 as K3 (dqkv carries K3's
   difference; each of dx, dW, db sums it in fp32 and rounds once). The
@@ -73,6 +74,11 @@ Tolerances:
   dscale is held, at the same 2^-6, to ``windowed_cosine_dscale``, the plain
   version in the TPU kernel's order. The backward twice gives the same bits;
   a zero row of q or k gives finite gradients.
+- The bf16 attention forward (K1, K2, K10, K9) at query and key tails around
+  its 64-key and 128-query tiles: K1's and K2's limits, for their reasons.
+- ``gemm_product`` (K11's products alone) against ``product_plain``: both
+  sum in fp32 and round once, so bf16 values differ by at most one bf16 ulp
+  (2^-7 of the value) plus 1e-3 near zero; fp32 1e-5 of the value plus 1e-4.
 - K7 (row/column shift) and K8 (equalize) against their plain versions:
   exact. A shift moves values; equalize's fp32 values are integers below
   2^24 and both divide correctly rounded. The train augment through them
@@ -1216,3 +1222,140 @@ def test_k12_refuses_what_it_does_not_take(cuda):
     # a dscale workspace one float short is refused
     assert lib.cosine_window_attention_bwd(*ptrs, 4, 16, 64, 2, 2, 0, groups,
                                            2 * groups - 1, stream) != 0
+
+
+# --- the tensor-core attention forward (attention_fwd.cuh, bf16) -------------
+
+ATTN_FWD_N = (1, 15, 16, 17, 63, 64, 65, 127, 129, 197, 577)
+
+
+@pytest.mark.parametrize("n", ATTN_FWD_N)
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("entry", ["qkvb", "qkv", "flat"])
+def test_attention_forward_matches_plain_at_every_tail(cuda, n, d, entry):
+    """The bf16 forward at query and key tails on both sides of its 64-key
+    and 128-query tiles: with the bias (K1, K2; ld = 3E), without (K10; ld = 3E) and on
+    flat q, k, v (K9; ld = E); the serving entry and the log-sum-exp entry,
+    the same bits. The output at K1's 2^-5, the log-sum-exp at K2's 1e-4
+    against ``torch.logsumexp`` of the fp32 scores of the biased bf16 q, k."""
+    b, heads = 2, 2
+    e = heads * d
+    qkv, bias = _inputs(b, n, e, torch.bfloat16, seed=n + d)
+    if entry == "qkvb":
+        out = fa.flash_attention_qkvb(qkv, bias, heads)
+        out2, lse = fa.qkvb_attention_lse_cuda(qkv, bias, heads)
+        want = attention_from_qkvb(qkv, bias, heads)
+        x = qkv + bias.to(qkv.dtype)
+    elif entry == "qkv":
+        out = fa.flash_attention_qkv(qkv, heads)
+        out2, lse = fa.qkv_attention_lse_cuda(qkv, heads)
+        want = attention_from_qkv(qkv, heads)
+        x = qkv
+    else:
+        q, k, v = (t.contiguous() for t in qkv.split(e, dim=-1))
+        out = fa.flash_attention_flat(q, k, v, heads)
+        out2, lse = fa.flat_attention_lse_cuda(q, k, v, heads)
+        want = _flat_plain(q, k, v, heads)
+        x = qkv
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and out.shape == (b, n, e)
+    assert torch.isfinite(out).all()
+    assert float((out.float() - want.float()).abs().max()) <= 2.0 ** -5
+    q = x[..., :e].reshape(b, n, heads, d).float()
+    k = x[..., e:2 * e].reshape(b, n, heads, d).float()
+    s = torch.einsum("bnhd,bmhd->bhnm", q, k) / math.sqrt(d)
+    assert float((lse - torch.logsumexp(s, -1)).abs().max()) <= 1e-4
+
+
+def test_attention_forward_gives_the_same_bits_every_run(cuda):
+    qkv, bias = _inputs(4, 197, 768, torch.bfloat16, seed=11)
+    first = fa.qkvb_attention_cuda(qkv, bias, 12)
+    assert all(torch.equal(first, fa.qkvb_attention_cuda(qkv, bias, 12))
+               for _ in range(3))
+
+
+# --- gemm.cuh's products alone (gemm_product) --------------------------------
+#
+# Against ``product_plain`` on the same operands: both sum in fp32 and round
+# once, so bf16 values differ by at most one bf16 ulp (2^-7 of the value)
+# where the two fp32 sums straddle a rounding boundary, plus 1e-3 near zero,
+# where sums of K ~ 800 unit products in another order differ by ~1e-4; fp32
+# 1e-5 of the value plus 1e-4 (the summation order alone).
+
+GEMM_TOL = {torch.bfloat16: (2.0 ** -7, 1e-3), torch.float32: (1e-5, 1e-4)}
+
+
+def _gemm_operands(m, n, k, transpose_a, transpose_b, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(*((k, m) if transpose_a else (m, k)), device="cuda",
+                    generator=g)
+    b = torch.randn(*((n, k) if transpose_b else (k, n)), device="cuda",
+                    generator=g) / math.sqrt(k)
+    bias = 0.5 * torch.randn(n, device="cuda", generator=g)
+    return a.to(dtype), b.to(dtype), bias.to(dtype)
+
+
+def _gemm_close(got, want, dtype):
+    rtol, atol = GEMM_TOL[dtype]
+    err = (got.float() - want.float()).abs() - rtol * want.float().abs()
+    return float(err.max()) <= atol
+
+
+@pytest.mark.parametrize("transpose_a,transpose_b", [
+    (False, False),   # x·W: the projection, W n-contiguous
+    (False, True),    # dqkv·Wᵀ: dx
+    (True, False),    # xᵀ·dqkv: dW, both operands m-/n-contiguous
+    (True, True)])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gemm_product_matches_plain_in_each_layout(cuda, transpose_a,
+                                                   transpose_b, with_bias,
+                                                   dtype):
+    """M = 8·197, N = 264 and K = 776: multiples of 8, not of the tiles."""
+    m, n, k = 8 * 197, 264, 776
+    a, b, bias = _gemm_operands(m, n, k, transpose_a, transpose_b, dtype,
+                                seed=m + n + k + 2 * transpose_a + transpose_b)
+    bias = bias if with_bias else None
+    before = fa.gemm_product.launches
+    got = fa.gemm_product(a, b, bias, transpose_a=transpose_a,
+                          transpose_b=transpose_b)
+    torch.cuda.synchronize()
+    assert fa.gemm_product.launches == before + 1
+    want = tattn.product_plain(a.t() if transpose_a else a,
+                               b.t() if transpose_b else b, bias)
+    assert got.shape == (m, n) and got.dtype == dtype
+    assert torch.isfinite(got).all()
+    assert _gemm_close(got, want, dtype)
+
+
+def test_gemm_product_dw_gives_the_same_bits_twice(cuda):
+    """xᵀ·dqkv at ViT-B's widths (768 x 2304 over 8·197 rows), both operands
+    read as they lie: the same bits twice, within the limit of the plain
+    version."""
+    rows, dim, e3 = 8 * 197, 768, 2304
+    x, dqkv, _ = _gemm_operands(dim, e3, rows, True, False, torch.bfloat16, 5)
+    first = fa.gemm_product(x, dqkv, transpose_a=True)
+    second = fa.gemm_product(x, dqkv, transpose_a=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _gemm_close(first, tattn.product_plain(x.t(), dqkv), torch.bfloat16)
+
+
+def test_gemm_product_refuses_what_it_does_not_take(cuda):
+    a, b, bias = _gemm_operands(64, 64, 64, False, False, torch.bfloat16, 0)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.gemm_product(a[:60].contiguous(), b)
+    with pytest.raises(ValueError, match="multiply"):
+        fa.gemm_product(a, b[:56].contiguous())
+    with pytest.raises(TypeError):
+        fa.gemm_product(a, b.float())
+    with pytest.raises(ValueError, match="bias"):
+        fa.gemm_product(a, b, bias[:8].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.gemm_product(a.t(), b)
+    lib = fa._xqkv_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = a.data_ptr()
+    # a leading dimension shorter than its row
+    assert lib.gemm_product(ptr, 56, 1, ptr, 64, 0, None, ptr, 64, 64, 64, 64,
+                            1, stream) != 0

@@ -140,6 +140,39 @@ def test_mega_rounds_qkv_once_in_bf16(monkeypatch):
                                atol=2 * 2.0 ** -7 * 2)
 
 
+@pytest.mark.parametrize("transpose_a,transpose_b", [
+    (False, False), (False, True), (True, False)],
+    ids=["x_W", "dqkv_Wt", "xt_dqkv"])
+def test_gemm_product_on_the_cpu_matches_jax_products(transpose_a, transpose_b):
+    """``gemm_product`` on CPU tensors (its plain version) computes K11's
+    three products as JAX's kernel does: the bf16 operands' products summed
+    in fp32, the fp32 bias added (x·W), rounded once; JAX's to within one
+    bf16 ulp where the two fp32 sums straddle a rounding boundary."""
+    from fedvit_torch.ops.flash_attention import gemm_product
+
+    rng = np.random.default_rng(7)
+    m, n, k = 40, 48, 96
+    a = rng.standard_normal((k, m) if transpose_a else (m, k)).astype(np.float32)
+    b = (rng.standard_normal((n, k) if transpose_b else (k, n))
+         / np.sqrt(k)).astype(np.float32)
+    bias = (0.5 * rng.standard_normal(n)).astype(np.float32)
+    with_bias = not (transpose_a or transpose_b)       # only x·W has a bias
+    ta, tb, tbias = (torch.from_numpy(t).bfloat16() for t in (a, b, bias))
+    got = gemm_product(ta, tb, tbias if with_bias else None,
+                       transpose_a=transpose_a, transpose_b=transpose_b)
+    ja, jb, jbias = (jnp.asarray(t, jnp.bfloat16) for t in (a, b, bias))
+    ja = ja.T if transpose_a else ja
+    jb = jb.T if transpose_b else jb
+    want = jnp.dot(ja, jb, preferred_element_type=jnp.float32)
+    if with_bias:
+        want = want + jbias.astype(jnp.float32)
+    want = np.asarray(want.astype(jnp.bfloat16).astype(jnp.float32))
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    apart = np.abs(got.float().numpy() - want)
+    ulp = 2.0 ** -7 * np.maximum(np.abs(want), 2.0 ** -126)
+    assert np.all(apart <= ulp) and np.mean(apart > 0) <= 0.01
+
+
 @pytest.fixture(scope="module", params=["packed", "mega"])
 def tiny(request):
     """(impl, JAX config, port config, JAX model, variables) of a 2-block
