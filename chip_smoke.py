@@ -230,8 +230,10 @@ LOGITS_RTOL_BF16 = 0.1
 K2_LSE_ATOL = 1e-4
 # K3 (dqkv, dbias) against autograd of the plain version, as a share of the
 # largest |value|: fp32, sums over N keys and B·N rows in another order;
-# bf16, four bf16 ulps of the largest value — the plain backward rounds P, dP
-# and dS to bf16 at each cast of its forward, the kernel keeps them fp32.
+# bf16, four bf16 ulps of the largest value — autograd of the plain forward
+# rounds P, dP and dS to bf16 at each cast of its forward, the tensor-core
+# kernel (as the TPU kernel) rounds P and dS before their products and keeps
+# dP fp32.
 K3_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
 
 # K10 is K1-K3 without the bias: K1's, K2's and K3's tolerances, for their
@@ -256,7 +258,8 @@ K4_SUM_TOL = 1e-4
 # the plain attention and LayerNorm backward, as the RMS of the difference
 # over the RMS of the plain gradient. As for the logits: bf16 roundings that
 # differ by an ulp (K2 rounds P to bf16 before normalising where the plain
-# forward rounds it after, K3 keeps P, dP and dS fp32) pass through 12
+# forward rounds it after, K3 rounds P and dS where autograd rounds P, dP
+# and dS) pass through 12
 # blocks forward and back; a wrong bias gradient, scale or softmax moves a
 # leaf's gradient by its own size, and the run checks that zeroing K3's bias
 # gradient exceeds the limit.
@@ -350,6 +353,24 @@ K12_TOL_FP32 = 1e-4
 K12_RTOL_BF16 = 2.0 ** -6
 K12_LSE_ATOL_FP32 = 1e-4
 K12_LSE_MEAN_BF16 = 2.0 ** -8
+# Every attention backward (K3, K6, and K9's, K10's, K11's and K12's) is
+# also held to its plain version in the kernels' own order, which
+# is the TPU kernels' (``ops/flash_attention.py``'s ``*_bwd_plain``), on the
+# kernel entry's own inputs (the kernel forward's out and lse): P and dS
+# rounded to the operands' type before their products, fp32 sums. Each
+# gradient as the RMS of the difference over the RMS of the plain value.
+# The two differ by fp32 summation order and ex2.approx against exp: fp32
+# 1e-4, as the fp32 gates (K12's dscale, a sum that cancels, reads 1.3e-5
+# with zero rows, the rest below 4e-6); in bf16 that moves an occasional P,
+# dS or stored gradient across a rounding boundary, one bf16 ulp (2^-8 of
+# the value) apart, so 2^-9 of the RMS, eight times under the autograd
+# gates' 2^-6. K11's plain version recomputes qkv with another GEMM, whose
+# fp32 sums in another order put some qkv elements on the other side of a
+# bf16 rounding, each moving its row's scores: 2^-8 for its dx, dW and db.
+# A wrong mask, tail, bias or rounding place moves whole rows by their own
+# size.
+ORDER_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -9}
+ORDER_RTOL_K11_BF16 = 2.0 ** -8
 VIT_L_ATTENTION = (16, 577, 16, 64)   # ViT-L/16@384: (B, N, heads, d)
 # Phase 9: the train augment at each configuration's macro batch (name,
 # backbone, macro batch, canvas, image size), and the fold's images (train,
@@ -545,23 +566,29 @@ def expect_launches(name, fa, forwards):
 
 # The names of the ViT attention kernels in a device profile: the demangled
 # instances of attention_fwd.cuh's fwd_kernel<D, kBias, kLse> (bf16, the
-# tensor-core forward) and attention_bwd.cuh's kernels <T, D, kBias, kSum>,
-# which K1-K3, K10 and K11 share, told apart by their flags. K11 adds
-# gemm.cuh's bf16 products (wgmma_kernel).
+# tensor-core forward) and attention_bwd.cuh's kernels (bf16
+# dkdv_mma_kernel<D, kBias, kSum> and dq_mma_kernel, the tensor-core
+# backward; fp32 dkdv_kernel<T, D, kBias, kSum> and dq_kernel), which K1-K3,
+# K10 and K11 share, told apart by their flags. K11 adds gemm.cuh's bf16
+# products (wgmma_kernel).
 K1_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, true, false>",)
 K2_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, true, true>",)
 K3_NAMES = (r"attn_bwd::delta_kernel<",
-            r"attn_bwd::(dkdv|dq)_kernel<[^>]*, true, true>",
+            r"attn_bwd::(dkdv|dq)(_mma)?_kernel<[^>]*, true, true>",
             r"column_sum_kernel<")
 K10_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, false, false>",)
 K10_LSE_NAMES = (r"attn_fwd::fwd_kernel<[^>]*, false, true>",)
 K10_BWD_NAMES = (r"attn_bwd::delta_kernel<",
-                 r"attn_bwd::(dkdv|dq)_kernel<[^>]*, false, false>")
+                 r"attn_bwd::(dkdv|dq)(_mma)?_kernel<[^>]*, false, false>")
 K11_GEMM_NAMES = (r"gemm::wgmma_kernel<",)
 K11_BWD_NAMES = (r"attn_bwd::delta_kernel<",
-                 r"attn_bwd::(dkdv|dq)_kernel<[^>]*, false, true>",
+                 r"attn_bwd::(dkdv|dq)(_mma)?_kernel<[^>]*, false, true>",
                  r"column_sum_kernel<")
 K4_NAMES = ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")
+# K6's bf16 passes in window_attention_bwd.cu (the fp32 ones are delta_kernel,
+# dkdv_kernel, dq_dbias_kernel and group_sum_kernel)
+K6_NAMES = ("delta_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
+            "dbias_mma_kernel")
 
 
 def in_group(key, patterns) -> bool:
@@ -653,6 +680,20 @@ def rel_max(got, want) -> float:
     return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
 
 
+def check_order(tag, names, got, want, dtype, tol=None) -> float:
+    """Each of ``got`` against the same gradient of the kernel-order plain
+    version (ORDER_RTOL unless ``tol``); returns the largest error."""
+    errs = {nm: rel_rms(g.float().cpu().numpy(), w.float().cpu().numpy())
+            for nm, g, w in zip(names, got, want)}
+    tol = ORDER_RTOL[dtype] if tol is None else tol
+    log(f"{tag}: against the plain version in the kernels' order {errs} RMS "
+        f"error / RMS value (tolerance {tol!r})")
+    if not all(e <= tol for e in errs.values()):
+        raise RuntimeError(f"{tag}: disagrees with the plain version in the "
+                           f"kernels' order")
+    return max(errs.values())
+
+
 def attention_lse_plain(attention_from_qkvb, qkv, bias, heads):
     """K2's plain version: the plain attention and torch.logsumexp of its
     fp32 scaled scores, (B, H, N)."""
@@ -737,9 +778,12 @@ def check_k3(fa, attention_from_qkvb, b, n, heads, dtype, timed, d=64):
     if not (max(errs) <= tol and bool(torch.isfinite(dqkv).all())
             and dqkv.dtype == dtype and dbias.dtype == torch.float32):
         raise RuntimeError("K3 disagrees with its plain version")
-    rec = {"max_abs_err": err}
+    o, lse = fa.qkvb_attention_lse_cuda(qkv, bias, heads)
+    rec = {"max_abs_err": err, "order_err": check_order(
+        f"[k3] qkv {tuple(qkv.shape)} {short(dtype)}", ("dqkv", "dbias"),
+        (dqkv, dbias), fa.qkvb_attention_bwd_plain(qkv, bias, o, dout, lse, heads),
+        dtype)}
     if timed:
-        o, lse = fa.qkvb_attention_lse_cuda(qkv, bias, heads)
         rec["ms"] = cuda_ms(
             lambda: fa.qkvb_attention_bwd_cuda(qkv, bias, o, dout, lse, heads))
         rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
@@ -750,8 +794,10 @@ def check_k3(fa, attention_from_qkvb, b, n, heads, dtype, timed, d=64):
         rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
             out_s, (qkv_s, bias_s), dout.view(b, n, heads, d).transpose(1, 2),
             retain_graph=True))
-        nbytes = ((2 * qkv.numel() + 2 * o.numel() + bias.numel())
-                  * qkv.element_size() + (lse.numel() + dbias.numel()) * 4)
+        # qkv, dout and the bias read, dqkv and dbias written (the TPU
+        # kernel recomputes the softmax: out and lse are no bytes it needs)
+        nbytes = ((2 * qkv.numel() + dout.numel() + bias.numel())
+                  * qkv.element_size() + dbias.numel() * 4)
         rec.update(bound(nbytes, 10.0 * b * heads * n * n * d, dtype))
         log(f"[k3] kernel {rec['ms']!r} ms, plain backward {rec['plain_ms']!r} "
             f"ms, sdpa backward {rec['library_ms']!r} ms (on the biased views), "
@@ -1370,12 +1416,14 @@ def check_k6(fa, plain, w0, b, n, heads, dtype, side, timed):
     if not ok or any(g.dtype != dtype for g in got[:3]) or \
             got[3].dtype != torch.float32:
         raise RuntimeError(f"K6 {shape} disagrees with its plain version")
+    _, lse, o32 = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
     rec = {"shape": {"W0": w0, "B": b, "N": n, "H": heads, "d": 32},
-           "max_abs_err": err}
+           "max_abs_err": err, "order_err": check_order(
+               f"[k6] {shape}", names, got, fa.window_attention_bwd_plain(
+                   q, k, v, bias, mask, o32, dout, lse, heads), dtype)}
     if not timed:
         return rec, None
     rows = w0 * b
-    _, lse, o32 = fa.window_attention_lse_cuda(q, k, v, bias, mask, heads)
     rec["ms"] = cuda_ms(lambda: fa.window_attention_bwd_cuda(
         q, k, v, bias, mask, o32, dout, lse, heads), iters=6, warmup=1)
     rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
@@ -1394,8 +1442,9 @@ def check_k6(fa, plain, w0, b, n, heads, dtype, side, timed):
     rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
         out_s, views, dout_s, retain_graph=True), iters=6, warmup=1)
     extra = (bias.numel() + (0 if mask is None else mask.numel())) * 4
-    nbytes = (7 * q.numel() * q.element_size() + extra
-              + (o32.numel() + lse.numel() + bias.numel()) * 4)
+    # q, k, v, dout, bias and mask read, dq, dk, dv and dbias written (the
+    # TPU kernel recomputes the softmax: out32 and lse are no bytes it needs)
+    nbytes = 7 * q.numel() * q.element_size() + extra + bias.numel() * 4
     flops = 10.0 * rows * heads * n * n * 32       # five products
     rec.update(bound(nbytes, flops, dtype))
     log(f"[k6] kernel {rec['ms']!r} ms, plain autograd backward "
@@ -1414,8 +1463,11 @@ def check_k6(fa, plain, w0, b, n, heads, dtype, side, timed):
         fwd["library_ms"] = cuda_ms(
             lambda: sdpa(*views, attn_mask=attn_mask, scale=1.0), iters=6,
             warmup=1)
+    # q, k, v, bias and mask read, out and lse written (the TPU's
+    # _wflat_fwd_stats_kernel writes its row statistics too; out32 is the
+    # port's own leftover for K6)
     fwd.update(bound(4 * q.numel() * q.element_size() + extra
-                     + (lse.numel() + o32.numel()) * 4,
+                     + lse.numel() * 4,
                      4.0 * rows * heads * n * n * 32, dtype))
     log(f"[k5-lse] same shape: kernel {fwd['ms']!r} ms, plain {fwd['plain_ms']!r}"
         f" ms, sdpa {fwd['library_ms']!r} ms, bound {fwd['bound_ms']!r} ms by "
@@ -1514,8 +1566,7 @@ def swin_train_phase(fa, ln, smi, trace):
     if trace:
         trace_training("profile-swin-train", step, state, batches[2], smi, {
             "K5 log-sum-exp entry": ("window_attention_fwd_kernel",),
-            "K6": ("delta_kernel", "dkdv_kernel", "dq_dbias_kernel",
-                   "group_sum_kernel"),
+            "K6": K6_NAMES,
             "K4": K4_NAMES})
     return k6, k5_lse, k4, counts
 
@@ -1991,9 +2042,12 @@ def check_k10(fa, b, n, heads, d, dtype, entries, timed):
         if not (rel <= K3_TOL[dtype] and bool(torch.isfinite(dqkv).all())
                 and dqkv.dtype == dtype):
             raise RuntimeError("K10's backward disagrees with its plain version")
-        rec = recs["bwd"] = {"max_abs_err": err}
+        o, lse = fa.qkv_attention_lse_cuda(qkv, heads)
+        rec = recs["bwd"] = {"max_abs_err": err, "order_err": check_order(
+            f"{tag}: backward", ("dqkv",), (dqkv,),
+            fa.qkvb_attention_bwd_plain(qkv, None, o, dout, lse, heads)[:1],
+            dtype)}
         if timed:
-            o, lse = fa.qkv_attention_lse_cuda(qkv, heads)
             rec["ms"] = cuda_ms(
                 lambda: fa.qkv_attention_bwd_cuda(qkv, o, dout, lse, heads))
             rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
@@ -2003,8 +2057,9 @@ def check_k10(fa, b, n, heads, d, dtype, entries, timed):
             dout_s = dout.view(b, n, heads, d).transpose(1, 2)
             rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
                 out_s, qkv_s, dout_s, retain_graph=True))
-            nbytes = ((2 * qkv.numel() + 2 * o.numel()) * qkv.element_size()
-                      + lse.numel() * 4)
+            # qkv and dout read, dqkv written (out and lse are the port's
+            # own leftovers, no bytes the function needs)
+            nbytes = (2 * qkv.numel() + dout.numel()) * qkv.element_size()
             rec.update(bound(nbytes, 2.5 * flops, dtype))
     for name, rec in recs.items():
         if "ms" in rec:
@@ -2098,8 +2153,12 @@ def check_k11(fa, b, n, dim, heads, d, dtype, entries, timed):
                 and all(bool(torch.isfinite(g).all()) and g.dtype == dtype
                         for g in got)):
             raise RuntimeError("K11's backward disagrees with its plain version")
-        rec = recs["bwd"] = {"max_abs_err": err, "dw_rel_err": rels[1],
-                             "db_rel_err": rels[2]}
+        rec = recs["bwd"] = {
+            "max_abs_err": err, "dw_rel_err": rels[1], "db_rel_err": rels[2],
+            "order_err": check_order(
+                f"{tag}: backward", ("dx", "dW", "db"), again[0],
+                fa.xqkv_attention_bwd_plain(x, w, bias, o, dout, lse, heads),
+                dtype, None if dtype == torch.float32 else ORDER_RTOL_K11_BF16)}
         if timed:
             rec["ms"] = cuda_ms(
                 lambda: fa.xqkv_attention_bwd_cuda(x, w, bias, o, dout, lse, heads))
@@ -2109,8 +2168,9 @@ def check_k11(fa, b, n, dim, heads, d, dtype, entries, timed):
             out_l = linear_sdpa(*lib_leaves, heads)
             rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
                 out_l, lib_leaves, dout, retain_graph=True))
-            # x, w, b, out and dout read; dx, dw and db written
-            nbytes = 2 * io + lse.numel() * 4
+            # x, w, b and dout read, dx, dw and db written (out and lse are
+            # the port's own leftovers, no bytes the function needs)
+            nbytes = 2 * io - b * n * e * x.element_size()
             rec.update(bound(nbytes, 3 * proj + 2.5 * attn, dtype))
     for name, rec in recs.items():
         if "ms" in rec:
@@ -2521,9 +2581,11 @@ def check_k9(fa, b, n, heads, d, dtype, entries, timed):
         if not (max(rels) <= K3_TOL[dtype] and all(
                 bool(torch.isfinite(g).all()) and g.dtype == dtype for g in got)):
             raise RuntimeError("K9's backward disagrees with its plain version")
-        rec = recs["bwd"] = {"max_abs_err": err}
+        o, lse = fa.flat_attention_lse_cuda(q, k, v, heads)
+        rec = recs["bwd"] = {"max_abs_err": err, "order_err": check_order(
+            f"{tag}: backward", ("dq", "dk", "dv"), got,
+            fa.flat_attention_bwd_plain(q, k, v, o, dout, lse, heads), dtype)}
         if timed:
-            o, lse = fa.flat_attention_lse_cuda(q, k, v, heads)
             rec["ms"] = cuda_ms(
                 lambda: fa.flat_attention_bwd_cuda(q, k, v, o, dout, lse, heads))
             rec["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
@@ -2804,7 +2866,11 @@ def check_k12(fa, w0, b, n, heads, dtype, side, entries, timed,
         if not zeroed > limits["dscale"]:
             raise RuntimeError("the K12 check cannot tell a zeroed dscale")
         rec = recs["bwd"] = {"max_abs_err": err, **{
-            f"{nm}_err": x for nm, x in errs.items()}}
+            f"{nm}_err": x for nm, x in errs.items()},
+            "order_err": check_order(
+                f"{tag}: backward", names, again[0],
+                fa.cosine_window_attention_bwd_plain(
+                    q, k, v, scale, bias, mask, o32, dout, lse, heads), dtype)}
         if timed:
             rec["ms"] = cuda_ms(lambda: fa.cosine_window_attention_bwd_cuda(
                 q, k, v, scale, bias, mask, o32, dout, lse, heads),

@@ -1,6 +1,7 @@
 // Helpers shared by the kernels in this directory: 16-byte loads of fp32 or
 // bf16 into fp32 registers, rounding to the storage type, Hopper's cp.async,
-// ldmatrix and mma.sync for bf16, ex2 and bf16x2 adds, warp reductions, the
+// ldmatrix and mma.sync for bf16, the mma fragments of row-major shared-memory
+// tiles and of accumulators, ex2 and bf16x2 adds, warp reductions, the
 // in-order column sum of an fp32 workspace, and the row normalisation of the
 // scaled-cosine attention (K12).
 
@@ -77,7 +78,7 @@ struct Io<__nv_bfloat16> {
 };
 
 // Hopper's data movement and tensor-core instructions for bf16, as used by
-// attention_fwd.cuh and gemm.cuh.
+// attention_fwd.cuh, attention_bwd.cuh, window_attention_bwd.cu and gemm.cuh.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -88,6 +89,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool in) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, the same way (one fp32 row statistic)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
                : "memory");
 }
 
@@ -125,6 +133,59 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Fragments of mma_bf16 from row-major bf16 tiles in shared memory (rows
+// `ld` elements apart), as the attention backwards take them. Lane l's
+// fragment row is g = l / 4 and its column pair 2t, t = l % 4.
+//
+// A (16 x 16): rows row0 .. +15, columns col0 .. +15 (the k index)
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile,
+                                       int ld, int row0, int col0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, smem_u32(tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                          col0 + (lane >> 4) * 8));
+}
+
+// B of two n8 blocks whose n index is the tile's row: rows n0 .. +7 in
+// b[0..1], n0 + 8 .. +15 in b[2..3]; columns col0 .. +15 are the k index
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const __nv_bfloat16* tile,
+                                       int ld, int n0, int col0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(b, smem_u32(tile + (n0 + (lane >> 4) * 8 + (lane & 7)) * ld + col0 +
+                          ((lane >> 3) & 1) * 8));
+}
+
+// B of two n8 blocks whose k index is the tile's row (rows k0 .. +15) and n
+// index its column: columns n0 .. +7 in b[0..1], n0 + 8 .. +15 in b[2..3]
+__device__ __forceinline__ void load_b_trans(uint32_t (&b)[4],
+                                             const __nv_bfloat16* tile, int ld,
+                                             int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4_trans(b, smem_u32(tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld +
+                                n0 + (lane >> 4) * 8));
+}
+
+// the A fragment (16 x 16) of two n8 accumulator blocks side by side,
+// rounded to bf16: the accumulator layout of one product is the A layout of
+// the next
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  a[0] = Io<__nv_bfloat16>::pack(c0[0], c0[1]);
+  a[1] = Io<__nv_bfloat16>::pack(c0[2], c0[3]);
+  a[2] = Io<__nv_bfloat16>::pack(c1[0], c1[1]);
+  a[3] = Io<__nv_bfloat16>::pack(c1[2], c1[3]);
+}
+
+// c (two n8 blocks side by side, 16 x 16) += a b for the B fragments f of
+// load_b or load_b_trans
+__device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&f)[4]) {
+  const uint32_t b0[2] = {f[0], f[1]};
+  const uint32_t b1[2] = {f[2], f[3]};
+  mma_bf16(c0, a, b0);
+  mma_bf16(c1, a, b1);
 }
 
 // 2^x on the special-function unit, subnormal results flushed to 0

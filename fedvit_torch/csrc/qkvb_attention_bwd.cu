@@ -22,15 +22,17 @@
 //            rounded to its type
 //
 // Bound on an H100 SXM at the ViT-B/16@224 training micro-batch, B=64, N=197,
-// E=768, H=12, d=64, bf16: bytes qkv 58.1 MB + out 19.4 + dout 19.4 + lse 0.6
-// + dqkv 58.1 = 155.6 MB / 3.35 TB/s = 46 us; operations 10*B*H*N^2*d =
-// 19.1 GFLOP / 989 TFLOP/s = 19 us; so bytes bound it, K10's and K9's as
-// K3's.
+// E=768, H=12, d=64, bf16, from the function's own bytes: qkv 58.1 MB + dout
+// 19.4 + dqkv 58.1 = 135.6 MB / 3.35 TB/s = 40 us (out and lse are the port's
+// own leftovers of the forward, which the TPU kernel recomputes instead);
+// operations 10*B*H*N^2*d = 19.1 GFLOP / 989 TFLOP/s = 19 us; so bytes bound
+// it, K10's and K9's as K3's.
 //
-// Design (attention_bwd.cuh): delta, dk/dv and dq passes, plain SIMT code on
-// the fp32 cores, no atomics, so every run gives the same bits; K3 adds a
-// column-sum pass for dbias. d = 64 or 80: each of 256 threads owns a 4 x
-// (d/16) piece of every 64 x d product.
+// Design (attention_bwd.cuh): delta, dk/dv and dq passes, no atomics, so
+// every run gives the same bits; K3 adds a column-sum pass for dbias. bf16:
+// FlashAttention-2's backward on mma.sync, one 128-thread block a 64-row
+// tile, P and dS rounded to bf16 in registers between the products, as the
+// TPU kernel rounds them; fp32: plain SIMT code. d = 64 or 80.
 
 #include "attention_bwd.cuh"
 

@@ -22,14 +22,15 @@
 // Bound on an H100 SXM at the ViT-B/16@224 training micro-batch, B=64, N=197,
 // D=E=768, H=12, bf16: operations recompute 2*B*N*D*3E = 44.6 GFLOP +
 // attention 10*B*H*N^2*d = 19.1 + dx 44.6 + dW 44.6 = 152.9 GFLOP -> 155 us;
-// bytes x 19.4 MB + w 3.5 + out 19.4 + dout 19.4 + lse 0.6 + dx 19.4 + dw 3.5
-// ~ 85 MB -> 25 us: bound by operations.
+// bytes x 19.4 MB + w 3.5 + dout 19.4 + dx 19.4 + dw 3.5 ~ 65 MB -> 20 us
+// (out and lse are the port's own leftovers): bound by operations.
 //
 // Design. Launches in order on the caller's stream, with no atomics, so every
 // run gives the same bits:
 //   1. the projection again (gemm.cuh) into the qkv workspace;
 //   2. the bias-free attention backward (attention_bwd.cuh: K10's delta,
-//      dk/dv and dq passes) into the dqkv workspace, rounded to T; as in K3,
+//      dk/dv and dq passes, on the tensor cores in bf16) into the dqkv
+//      workspace, rounded to T; as in K3,
 //      the dk/dv and dq passes also write the column sums of the dqkv tiles
 //      they store, and a last pass sums them in order into db. The TPU
 //      kernel keeps a batch block's dqkv in VMEM; dx needs the sum over heads

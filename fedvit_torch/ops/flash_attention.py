@@ -67,6 +67,14 @@ window sources, K5 and K6 compiled with the norm inside; replaces
 ``CosineWindowAttention``, whose backward returns dq, dk, dv, the scale's
 gradient and the bias's. All windowed kernels take d = 32.
 
+Beside the backward kernels stand their plain versions in the kernels' own
+order, which is the TPU kernels' (P and dS rounded to the operands' type
+before their products, fp32 sums), taking the kernel entry's inputs:
+``flat_attention_bwd_plain`` (K9), ``qkvb_attention_bwd_plain`` (K3, and
+K10's with no bias), ``xqkv_attention_bwd_plain`` (K11),
+``window_attention_bwd_plain`` (K6) and ``cosine_window_attention_bwd_plain``
+(K12). The card holds each backward to them; no model path calls them.
+
 Each kernel's wrapper counts its launches in its ``launches`` attribute:
 ``flash_attention_qkvb.launches`` (K1), ``qkvb_attention_lse_cuda.launches``
 (K2), ``qkvb_attention_bwd_cuda.launches`` (K3),
@@ -96,7 +104,7 @@ from typing import Optional, Tuple
 import torch
 
 from fedvit_torch.core import kernels
-from fedvit_torch.ops.attention import (attention_from_qkv,
+from fedvit_torch.ops.attention import (COS_EPS, attention_from_qkv,
                                         attention_from_qkvb, attention_from_x,
                                         dot_product_attention_flat,
                                         product_plain,
@@ -227,6 +235,59 @@ def _stream(t: torch.Tensor) -> int:
 def _raise_on(err: int, name: str) -> None:
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(rows, N, E) → (rows, H, N, d) fp32."""
+    rows, n, e = t.shape
+    return t.reshape(rows, n, num_heads, e // num_heads).transpose(1, 2).float()
+
+
+def _merge(t: torch.Tensor, dtype) -> torch.Tensor:
+    """(rows, H, N, d) → (rows, N, E) in ``dtype``."""
+    rows, h, n, d = t.shape
+    return t.transpose(1, 2).reshape(rows, n, h * d).to(dtype)
+
+
+def flat_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor,
+                             num_heads: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of K9's backward in the order of the kernels and of
+    the TPU kernel (``fedvit_tpu/ops/flash_attention.py::_flat_bwd_kernel``),
+    from the kernel entry's inputs: P = exp(s − lse), s = q·kᵀ/√d in fp32;
+    delta = Σ dout∘out; dS = P∘(dout·vᵀ − delta) in fp32; P and dS rounded to
+    q's dtype before dv = Pᵀ·dout, dq = dS·k/√d and dk = dSᵀ·q/√d, each summed
+    in fp32 and rounded once. Returns (dq, dk, dv). The kernels are held to
+    it on the card; no model path calls it."""
+    dtype = q.dtype
+    scale = _scale(q.shape[-1], num_heads)
+    qh, kh, vh, oh, gh = (_heads(t, num_heads) for t in (q, k, v, out, dout))
+    p = torch.exp(qh @ kh.transpose(-1, -2) * scale - lse[..., None])
+    delta = (gh * oh).sum(-1, keepdim=True)
+    ds = (p * (gh @ vh.transpose(-1, -2) - delta)).to(dtype).float()
+    dv = p.to(dtype).float().transpose(-1, -2) @ gh
+    dq = ds @ kh * scale
+    dk = ds.transpose(-1, -2) @ qh * scale
+    return tuple(_merge(t, dtype) for t in (dq, dk, dv))
+
+
+def qkvb_attention_bwd_plain(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                             out: torch.Tensor, dout: torch.Tensor,
+                             lse: torch.Tensor, num_heads: int
+                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version of K3's backward (``bias`` given) and K10's (None)
+    in the kernels' order, from the kernel entry's inputs: the bias cast to
+    qkv's dtype and added (one rounding), then ``flat_attention_bwd_plain``
+    on the thirds. Returns dqkv and, with a bias, dbias: the fp32 column sums
+    of the rounded dqkv."""
+    e = qkv.shape[-1] // 3
+    x = qkv if bias is None else qkv + bias.to(qkv.dtype)
+    dqkv = torch.cat(flat_attention_bwd_plain(
+        x[..., :e], x[..., e:2 * e], x[..., 2 * e:], out, dout, lse,
+        num_heads), dim=-1)
+    return dqkv, None if bias is None else dqkv.float().sum(dim=(0, 1))
 
 
 def qkvb_attention_cuda(qkv: torch.Tensor, bias: torch.Tensor,
@@ -636,6 +697,24 @@ def xqkv_attention_bwd_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return dx, dw, db.to(b.dtype)
 
 
+def xqkv_attention_bwd_plain(x: torch.Tensor, w: torch.Tensor,
+                             b: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor,
+                             num_heads: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of K11's backward in its order: qkv = x·W + b
+    recomputed and rounded once, dqkv from ``qkvb_attention_bwd_plain``,
+    then dx = dqkv·Wᵀ and dW = xᵀ·dqkv summed in fp32 and rounded once, and
+    db the fp32 column sums of dqkv in b's dtype."""
+    bsz, n, dim = x.shape
+    qkv = product_plain(x, w, b)
+    dqkv, _ = qkvb_attention_bwd_plain(qkv, None, out, dout, lse, num_heads)
+    flat = dqkv.reshape(bsz * n, -1)
+    dx = product_plain(flat, w.t()).reshape(x.shape)
+    dw = product_plain(x.reshape(bsz * n, dim).t(), flat)
+    return dx, dw, dqkv.float().sum(dim=(0, 1)).to(b.dtype)
+
+
 class XqkvAttention(torch.autograd.Function):
     """K11's log-sum-exp entry forward, K11's backward. Saves x, w, b, the
     output and the log-sum-exp (qkv is recomputed in the backward)."""
@@ -829,8 +908,10 @@ def window_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """K6: (dq, dk, dv (W0·B, N, E) in q's type, dbias (H, N, N) fp32) from
     the forward's inputs, its unrounded fp32 output and lse
     (``window_attention_lse_cuda``), and the output's gradient. The mask gets
-    no gradient."""
-    rows, n, e, w0, bias, mask = _check_window(q, k, v, bias, mask, num_heads)
+    no gradient; None reaches the kernel as no mask, which reads none."""
+    rows, n, e, w0, bias, zeros_or_mask = _check_window(q, k, v, bias, mask,
+                                                        num_heads)
+    mask_ptr = None if mask is None else zeros_or_mask.data_ptr()
     for name, t, shape, dtype in (
             ("out32", out32, (rows, n, e), torch.float32),
             ("dout", dout, (rows, n, e), q.dtype),
@@ -849,18 +930,57 @@ def window_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError("window_attention_bwd_row_groups failed")
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((rows, num_heads, n), **f32)
-    # one group of rows writes dbias itself; more write a tile each
-    partial = torch.empty((groups if groups > 1 else 0, num_heads, n, n), **f32)
+    # fp32: one group of rows writes dbias itself, more write a tile each;
+    # bf16 sums dbias in a pass of its own and reads no tiles
+    tiles = groups if groups > 1 and q.dtype == torch.float32 else 0
+    partial = torch.empty((tiles, num_heads, n, n), **f32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     dbias = torch.empty((num_heads, n, n), **f32)
     _raise_on(lib.window_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        mask.data_ptr(), out32.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask_ptr,
+        out32.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), partial.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dbias.data_ptr(), rows, n, e, num_heads, w0,
         _DTYPES[q.dtype], partial.shape[0], _stream(q)), "window_attention_bwd")
     window_attention_bwd_cuda.launches += 1
     return dq, dk, dv, dbias
+
+
+def _window_bwd_fp32(q, k, v, bias, mask, out32, dout, lse, num_heads):
+    """K6's backward in its order, the gradients of q, k and v unrounded:
+    fp32 (dq, dk, dv, dbias)."""
+    rows, n, _ = q.shape
+    dtype = q.dtype
+    if mask is None:
+        mask = torch.zeros((1, n, n), dtype=torch.float32, device=q.device)
+    add = bias.float()[None] + mask.float()[:, None]      # (W0, H, N, N)
+    add = add.repeat_interleave(rows // mask.shape[0], dim=0)
+    qh, kh, vh, gh = (_heads(t, num_heads) for t in (q, k, v, dout))
+    p = torch.exp(qh @ kh.transpose(-1, -2) + add - lse[..., None])
+    delta = (gh * _heads(out32, num_heads)).sum(-1, keepdim=True)
+    ds = p * (gh @ vh.transpose(-1, -2) - delta)
+    dsr = ds.to(dtype).float()
+    dv = p.to(dtype).float().transpose(-1, -2) @ gh
+    return dsr @ kh, dsr.transpose(-1, -2) @ qh, dv, ds.sum(dim=0)
+
+
+def window_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bias: torch.Tensor,
+                               mask: Optional[torch.Tensor],
+                               out32: torch.Tensor, dout: torch.Tensor,
+                               lse: torch.Tensor, num_heads: int
+                               ) -> Tuple[torch.Tensor, ...]:
+    """The plain version of K6 in the order of the kernel and of the TPU
+    kernel (``fedvit_tpu/ops/flash_attention.py::_wflat_bwd_kernel``), from
+    the kernel entry's inputs: P = exp(q·kᵀ + (bias + mask) − lse) in fp32;
+    delta = Σ dout∘out32; dS = P∘(dout·vᵀ − delta) in fp32; P and dS rounded
+    to q's dtype before dv = Pᵀ·dout, dq = dS·k and dk = dSᵀ·q, each summed in
+    fp32 and rounded once; dbias = Σ over the rows of the unrounded dS.
+    Returns (dq, dk, dv, dbias). The kernel is held to it on the card; no
+    model path calls it."""
+    dq, dk, dv, dbias = _window_bwd_fp32(q, k, v, bias, mask, out32, dout,
+                                         lse, num_heads)
+    return (*(_merge(t, q.dtype) for t in (dq, dk, dv)), dbias)
 
 
 class WindowAttention(torch.autograd.Function):
@@ -983,9 +1103,11 @@ def cosine_window_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """K12's backward: (dq, dk, dv (W0·B, N, E) in q's type, dscale (H,) fp32,
     dbias (H, N, N) fp32) from the forward's inputs, its unrounded fp32
     output and lse (``cosine_window_attention_lse_cuda``), and the output's
-    gradient. The mask gets no gradient."""
-    rows, n, e, w0, bias, mask, scale = _check_cosine(q, k, v, scale, bias,
-                                                      mask, num_heads)
+    gradient. The mask gets no gradient; None reaches the kernel as no mask,
+    which reads none."""
+    rows, n, e, w0, bias, zeros_or_mask, scale = _check_cosine(
+        q, k, v, scale, bias, mask, num_heads)
+    mask_ptr = None if mask is None else zeros_or_mask.data_ptr()
     _check_saved(q, (("out32", out32, (rows, n, e), torch.float32),
                      ("dout", dout, (rows, n, e), q.dtype),
                      ("lse", lse, (rows, num_heads, n), torch.float32)))
@@ -999,15 +1121,17 @@ def cosine_window_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         raise RuntimeError("cosine_window_attention_bwd_row_groups failed")
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((rows, num_heads, n), **f32)
-    # one group of rows writes dbias itself; more write a tile each
-    partial = torch.empty((groups if groups > 1 else 0, num_heads, n, n), **f32)
+    # fp32: one group of rows writes dbias itself, more write a tile each;
+    # bf16 sums dbias in a pass of its own and reads no tiles
+    tiles = groups if groups > 1 and q.dtype == torch.float32 else 0
+    partial = torch.empty((tiles, num_heads, n, n), **f32)
     scale_partial = torch.empty((num_heads * -(-n // 32) * groups,), **f32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     dbias = torch.empty((num_heads, n, n), **f32)
     dscale = torch.empty((num_heads,), **f32)
     _raise_on(lib.cosine_window_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
-        bias.data_ptr(), mask.data_ptr(), out32.data_ptr(), dout.data_ptr(),
+        bias.data_ptr(), mask_ptr, out32.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), partial.data_ptr(),
         scale_partial.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dbias.data_ptr(), dscale.data_ptr(), rows, n, e, num_heads, w0,
@@ -1015,6 +1139,45 @@ def cosine_window_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         "cosine_window_attention_bwd")
     cosine_window_attention_bwd_cuda.launches += 1
     return dq, dk, dv, dscale, dbias
+
+
+def cosine_window_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, scale: torch.Tensor,
+                                      bias: torch.Tensor,
+                                      mask: Optional[torch.Tensor],
+                                      out32: torch.Tensor, dout: torch.Tensor,
+                                      lse: torch.Tensor, num_heads: int
+                                      ) -> Tuple[torch.Tensor, ...]:
+    """The plain version of K12's backward in the kernel's order, from the
+    kernel entry's inputs: q̂ = q·(r_q·scale) and k̂ = k·r_k rounded to q's
+    dtype (r = 1/max(‖x‖, 1e-6)); K6's backward in its order on them, its
+    dq̂ and dk̂ unrounded; then the chain rule through x̂ = x·r,
+    dx = mul·r·(dx̂ − [‖x‖ > 1e-6]·x̂·(x̂·dx̂)) with mul = scale for q and 1
+    for k, and dscale[h] = Σ q̂·dq̂ over every row. Returns (dq, dk, dv,
+    dscale, dbias)."""
+    dtype = q.dtype
+    sh = scale.float().reshape(1, num_heads, 1, 1)
+
+    def unit(x, mul):
+        xh = _heads(x, num_heads)
+        norm = torch.linalg.vector_norm(xh, dim=-1, keepdim=True)
+        return xh, norm, 1.0 / torch.clamp(norm, min=COS_EPS), mul
+
+    (qh, qnorm, qr, qmul), (kh, knorm, kr, kmul) = unit(q, sh), unit(k, 1.0)
+    qn, kn = _merge(qh * (qr * qmul), dtype), _merge(kh * kr, dtype)
+    dqn, dkn, dv, dbias = _window_bwd_fp32(qn, kn, v, bias, mask, out32, dout,
+                                           lse, num_heads)
+
+    def chain(xh, norm, r, mul, g):
+        unit_x = xh * r
+        dot = (unit_x * g).sum(-1, keepdim=True)
+        radial = torch.where(norm > COS_EPS, g - unit_x * dot, g)
+        return mul * r * radial, dot
+
+    dq, qdot = chain(qh, qnorm, qr, qmul, dqn)
+    dk, _ = chain(kh, knorm, kr, kmul, dkn)
+    return (_merge(dq, dtype), _merge(dk, dtype), _merge(dv, dtype),
+            qdot.sum(dim=(0, 2, 3)), dbias)
 
 
 class CosineWindowAttention(torch.autograd.Function):

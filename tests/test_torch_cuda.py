@@ -18,7 +18,8 @@ Tolerances:
   largest |value|: fp32 1e-4 (sums over N keys and B·N rows in another
   order); bf16 2^-5, four bf16 ulps of the largest value (the plain
   backward rounds P, dP and dS to bf16 at each cast of the forward; the
-  kernel keeps them fp32, and dbias sums the rounded dqkv in fp32).
+  tensor-core kernel rounds P and dS before their products, as the TPU
+  kernel does, and dbias sums the rounded dqkv in fp32).
 - K4 (dx, dgamma, dbeta) against ``ln_bwd_plain``, as a share of the
   largest |value|: fp32 1e-5; bf16 dx 2^-6 (both round dx to bf16: one ulp,
   from fp32 sums in another order), dgamma and dbeta 1e-4 in both (fp32 sums
@@ -76,6 +77,14 @@ Tolerances:
   a zero row of q or k gives finite gradients.
 - The bf16 attention forward (K1, K2, K10, K9) at query and key tails around
   its 64-key and 128-query tiles: K1's and K2's limits, for their reasons.
+- The bf16 attention backwards (K3, K10's, K9's, K6 and K12's) against
+  their plain versions in the kernels' own order (``*_bwd_plain`` in
+  ``ops/flash_attention.py``, the TPU kernels' order: P and dS rounded to
+  bf16 before their products, fp32 sums) on the kernel entry's own inputs:
+  each gradient as the RMS of the difference over the RMS of the plain value,
+  2^-9 (fp32 summation order and ex2.approx against exp move an occasional
+  element across a bf16 rounding boundary, one ulp of it). The backwards of
+  K3, K10 and K6 give the same bits every run.
 - ``gemm_product`` (K11's products alone) against ``product_plain``: both
   sum in fp32 and round once, so bf16 values differ by at most one bf16 ulp
   (2^-7 of the value) plus 1e-3 near zero; fp32 1e-5 of the value plus 1e-4.
@@ -1359,3 +1368,115 @@ def test_gemm_product_refuses_what_it_does_not_take(cuda):
     # a leading dimension shorter than its row
     assert lib.gemm_product(ptr, 56, 1, ptr, 64, 0, None, ptr, 64, 64, 64, 64,
                             1, stream) != 0
+
+
+# --- the tensor-core attention backwards (attention_bwd.cuh and
+# window_attention_bwd.cu, bf16) --------------------------------------------
+
+ORDER_RTOL = 2.0 ** -9
+ATTN_BWD_N = (1, 15, 16, 17, 63, 64, 65, 197, 577)
+
+
+@pytest.mark.parametrize("n", ATTN_BWD_N)
+@pytest.mark.parametrize("d", [64, 80])
+@pytest.mark.parametrize("entry", ["qkvb", "qkv", "flat"])
+def test_attention_backward_matches_kernel_order_plain_at_every_tail(
+        cuda, n, d, entry):
+    """The bf16 backward at query and key tails on both sides of its 64-row
+    tiles: with the bias and its gradient (K3; ld = 3E), without (K10's;
+    ld = 3E) and on flat q, k, v (K9's; ld = E), each against its plain
+    version in the kernels' order on the kernel forward's out and lse."""
+    b, heads = 2, 2
+    e = heads * d
+    qkv, bias = _inputs(b, n, e, torch.bfloat16, seed=n + d + 1)
+    g = torch.Generator(device="cuda").manual_seed(n + d)
+    dout = torch.randn(b, n, e, device="cuda", generator=g).bfloat16()
+    if entry == "qkvb":
+        out, lse = fa.qkvb_attention_lse_cuda(qkv, bias, heads)
+        got = fa.qkvb_attention_bwd_cuda(qkv, bias, out, dout, lse, heads)
+        want = fa.qkvb_attention_bwd_plain(qkv, bias, out, dout, lse, heads)
+    elif entry == "qkv":
+        out, lse = fa.qkv_attention_lse_cuda(qkv, heads)
+        got = (fa.qkv_attention_bwd_cuda(qkv, out, dout, lse, heads),)
+        want = fa.qkvb_attention_bwd_plain(qkv, None, out, dout, lse, heads)[:1]
+    else:
+        # dq, dk and dv held together, as dqkv is: at N = 1, P = 1 and dq, dk
+        # are rounding noise around 0 on their own
+        q, k, v = (t.contiguous() for t in qkv.split(e, dim=-1))
+        out, lse = fa.flat_attention_lse_cuda(q, k, v, heads)
+        got = (torch.cat(fa.flat_attention_bwd_cuda(q, k, v, out, dout, lse,
+                                                    heads), dim=-1),)
+        want = (torch.cat(fa.flat_attention_bwd_plain(q, k, v, out, dout, lse,
+                                                      heads), dim=-1),)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        assert torch.isfinite(a).all()
+        assert _rel_rms(a, w) <= ORDER_RTOL, _rel_rms(a, w)
+
+
+@pytest.mark.parametrize("n", [16, 49, 144, 576])
+@pytest.mark.parametrize("w0,b", [(1, 3), (4, 2)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("kernel", ["K6", "K12"])
+def test_window_backward_matches_kernel_order_plain(cuda, n, w0, b, masked,
+                                                    kernel):
+    """K6 and K12's bf16 backward against their plain versions in the
+    kernels' order, with one window (W0 = 1) and several, with and without
+    the shift mask, at SwinV2-L's window sizes (144, 576), a small one and a
+    ragged one (49: no 16-byte rows of the bias)."""
+    heads = 2
+    q, k, v, bias, mask = _window_inputs(w0, b, n, heads, torch.bfloat16,
+                                         seed=n + w0 + 7, masked=masked)
+    g = torch.Generator(device="cuda").manual_seed(n + w0)
+    dout = torch.randn(q.shape, device="cuda", generator=g).bfloat16()
+    if kernel == "K6":
+        out, lse, out32 = fa.window_attention_lse_cuda(q, k, v, bias, mask,
+                                                       heads)
+        got = fa.window_attention_bwd_cuda(q, k, v, bias, mask, out32, dout,
+                                           lse, heads)
+        want = fa.window_attention_bwd_plain(q, k, v, bias, mask, out32, dout,
+                                             lse, heads)
+    else:
+        scale = _cosine_scale(heads, n)
+        out, lse, out32 = fa.cosine_window_attention_lse_cuda(
+            q, k, v, scale, bias, mask, heads)
+        got = fa.cosine_window_attention_bwd_cuda(q, k, v, scale, bias, mask,
+                                                  out32, dout, lse, heads)
+        want = fa.cosine_window_attention_bwd_plain(q, k, v, scale, bias, mask,
+                                                    out32, dout, lse, heads)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        assert torch.isfinite(a).all()
+        assert _rel_rms(a, w) <= ORDER_RTOL, _rel_rms(a, w)
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K10", "K6"])
+def test_attention_backward_gives_the_same_bits_every_run(cuda, kernel):
+    """No atomics: every sum is taken in one order."""
+    if kernel == "K6":
+        q, k, v, bias, mask = _window_inputs(4, 2, 144, 4, torch.bfloat16,
+                                             seed=13)
+        out, lse, out32 = fa.window_attention_lse_cuda(q, k, v, bias, mask, 4)
+        dout = torch.randn_like(out)
+
+        def run():
+            return fa.window_attention_bwd_cuda(q, k, v, bias, mask, out32,
+                                                dout, lse, 4)
+    else:
+        qkv, bias = _inputs(8, 197, 768, torch.bfloat16, seed=17)
+        dout = torch.randn(8, 197, 768, device="cuda").bfloat16()
+        if kernel == "K3":
+            out, lse = fa.qkvb_attention_lse_cuda(qkv, bias, 12)
+
+            def run():
+                return fa.qkvb_attention_bwd_cuda(qkv, bias, out, dout, lse, 12)
+        else:
+            out, lse = fa.qkv_attention_lse_cuda(qkv, 12)
+
+            def run():
+                return (fa.qkv_attention_bwd_cuda(qkv, out, dout, lse, 12),)
+    first = run()
+    assert all(all(torch.equal(a, c) for a, c in zip(first, run()))
+               for _ in range(3))
