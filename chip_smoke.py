@@ -46,7 +46,9 @@ Phases, one line of output each (or a few):
       several windows and several rows a window, then bf16 at the four stage
       shapes a batch of 32 gives it, with the real shift mask where the stage
       has one; its time, the plain version's, SDPA's with the summed bias and
-      mask as ``attn_mask``, and the bound; the log-sum-exp variant's output
+      mask as ``attn_mask``, the bound and the exponentials' floor; the
+      output against the plain version in the kernel's order
+      (``window_attention_fwd_plain``); the log-sum-exp variant's output
       bit-equal to K5's and its LSE against ``torch.logsumexp``;
    b. serving: the ``ISICClassifier`` on SwinV2-L (4 channels, metadata, bf16,
       seeded perturbed weights) takes seeded 448² uint8 canvases through
@@ -62,8 +64,11 @@ Phases, one line of output each (or a few):
       plain version: small fp32 cases (several windows and rows a window, the
       real shift mask, a ragged N), then bf16 at the four stage shapes a
       micro-batch of 8 gives it, each of dq, dk, dv and dbias; its time, the
-      plain autograd backward's, SDPA's backward and the bound; K4 at
-      SwinV2-L's widths (D = 192, 384, 1536 in bf16, 1536 in fp32);
+      plain autograd backward's, SDPA's backward and the bound; the
+      log-sum-exp entry's time and its out32 against the kernel-order plain
+      forward; K4 at SwinV2-L's four widths (D = 192, 384, 768, 1536 in
+      bf16, 1536 in fp32), timed, and its time a micro-batch weighted by the
+      launches at each width (5, 5, 37, 6);
    b. the step: SwinV2-L (4 channels, metadata, bf16, drop-path 0.2), the
       recipe of 6b with LLRD 0.8, macro batch 16 as 2 micro-batches of 8;
       1 warm-up step then 5 timed ones, img/s and peak memory, the launch
@@ -150,8 +155,10 @@ Phases, one line of output each (or a few):
       below 1e-6), then bf16 at SwinV2-L@384's four stage shapes with the
       real shift mask where the stage has one, the forward at 32 images and
       the backward at 8, scales exp(U[ln 10, ln 100]) as the model's
-      logit_scale; the backward twice for the same bits; the time, the plain
-      version's, ``F.normalize`` then SDPA's and the bound;
+      logit_scale; the forward and the log-sum-exp entry against the plain
+      version in the kernel's order; the backward twice for the same bits;
+      the time, the plain version's, ``F.normalize`` then SDPA's and the
+      bound;
    c. the entries on CUDA tensors with ``impl="auto"`` at those widths,
       forward and under autograd, with every count set to 0 before: one
       launch a call of the right kernel entry, none for
@@ -197,6 +204,10 @@ SWIN_STAGES = ((16, 32, 576, 6, 96, 2), (4, 32, 576, 12, 48, 2),
                (1, 32, 576, 24, None, 18), (1, 32, 144, 48, None, 2))
 SWIN_MICRO, SWIN_ACCUM = 8, 2                    # SwinV2-L training: macro 16
 SWIN_DROP_PATH, SWIN_LLRD = 0.2, 0.8
+# K4's launches a SwinV2-L micro-batch at each stage's width D = 192 * 2^s:
+# two norms a block, the patch norm at stage 0, the merging norm into each
+# later stage (at its width) and the final norm at stage 3
+SWIN_NORMS = (1 + 2 * 2, 1 + 2 * 2, 1 + 2 * 18, 1 + 2 * 2 + 1)
 # the same stages at a training micro-batch of 8: K6's shapes
 SWIN_TRAIN_STAGES = tuple((w0, SWIN_MICRO, n, h, side, count)
                           for w0, _, n, h, side, count in SWIN_STAGES)
@@ -276,12 +287,30 @@ GRAD_RTOL_BF16 = 0.1
 NOISE_SHARE = 2.0 ** -6
 # K5 against its plain version, for K1's reasons: fp32, both keep fp32 scores
 # (here plus the fp32 bias and mask), max and sums, and differ by summation
-# order and __expf over up to 576 keys; bf16, the plain version rounds the
-# softmax weights to bf16 before P·V and the kernel keeps them fp32, one bf16
-# ulp (2^-5) of outputs below 8. The log-sum-exp (values up to ~40, where an
+# order and __expf over up to 576 keys; bf16, both round the softmax weights
+# to bf16 before P·V, the plain version after normalising them (the XLA
+# branch's cast, as the TPU kernel does) and the tensor-core kernel before
+# (its online softmax divides the fp32 sum at the end), so each weight
+# differs by a bf16 rounding and the two may round the output one ulp (2^-5
+# of outputs below 8) apart. The log-sum-exp (values up to ~40, where an
 # fp32 ulp is 4e-6) against torch.logsumexp of the plain fp32 scores.
 K5_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -5}
 K5_LSE_ATOL = 1e-4
+# K5's and K12's forwards are also held to their plain version in the
+# tensor-core kernel's order (``window_attention_fwd_plain``: the online
+# softmax over 64-key tiles, the unnormalised P rounded before P·V), as the
+# RMS of the difference over the RMS of the plain output. bf16 2^-8: the two
+# differ by fp32 summation order and ex2.approx against exp, which move an
+# occasional weight or output across a bf16 rounding boundary, one ulp (2^-8
+# of it) apart. fp32 (the SIMT kernel, whose chunks of 32 keys and fp32 P
+# are that order without roundings) 1e-5: summation order and __expf. A wrong
+# mask, tail, bias or rounding place moves whole rows by their own size.
+FWD_ORDER_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+# The special-function units' rate of ex2 on an H100 SXM: 16 a clock on each
+# of 132 SMs at the 1.98 GHz boost clock (NVIDIA's CUDA programming guide,
+# throughput of arithmetic instructions, compute capability 9.0). One
+# exponential a score: the windowed forwards' other floor beside their bytes.
+EX2_PER_S = 16 * 132 * 1.98e9
 # Logits of the bf16 SwinV2-L, K5 against the plain attention: as for the
 # ViT, RMS of the difference over the RMS of the plain logits, one-ulp
 # differences through 24 post-norm blocks. The limit is a tenth of the ViT's:
@@ -585,6 +614,10 @@ K11_BWD_NAMES = (r"attn_bwd::delta_kernel<",
                  r"attn_bwd::(dkdv|dq)(_mma)?_kernel<[^>]*, false, true>",
                  r"column_sum_kernel<")
 K4_NAMES = ("ln_bwd_rows_kernel", "ln_bwd_columns_kernel")
+# K5's bf16 forward and its log-sum-exp entry in window_attention.cu:
+# window_mma_fwd_kernel<kLse, kCosine, kSlab>, the tensor-core forward
+K5_NAMES = (r"window_mma_fwd_kernel<false, false, ",)
+K5_LSE_NAMES = (r"window_mma_fwd_kernel<true, false, ",)
 # K6's bf16 passes in window_attention_bwd.cu (the fp32 ones are delta_kernel,
 # dkdv_kernel, dq_dbias_kernel and group_sum_kernel)
 K6_NAMES = ("delta_kernel", "dkdv_mma_kernel", "dq_mma_kernel",
@@ -678,6 +711,24 @@ def rel_max(got, want) -> float:
     """max |got − want| as a share of max |want| (or of 1 when smaller)."""
     got, want = got.float(), want.float()
     return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def check_fwd_order(tag, got, want, dtype) -> float:
+    """A windowed forward's output against its kernel-order plain version
+    (FWD_ORDER_RTOL), on the card; returns the error."""
+    got, want = got.float(), want.float()
+    err = float(((got - want).square().mean() / want.square().mean()).sqrt())
+    log(f"{tag}: against the kernel-order plain forward, RMS error / RMS "
+        f"value {err!r} (tolerance {FWD_ORDER_RTOL[dtype]!r})")
+    if not err <= FWD_ORDER_RTOL[dtype]:
+        raise RuntimeError(f"{tag}: the forward disagrees with its plain "
+                           f"version in the kernel's order")
+    return err
+
+
+def exp_bound_ms(rows, heads, n) -> float:
+    """The windowed forward's exponentials, one a score, at EX2_PER_S."""
+    return rows * heads * n * n / EX2_PER_S * 1e3
 
 
 def check_order(tag, names, got, want, dtype, tol=None) -> float:
@@ -1242,8 +1293,10 @@ def check_k5(fa, plain, w0, b, n, heads, dtype, side, timed):
         raise RuntimeError(f"K5 {shape}: bad output")
     if not (err <= atol and same and lse_err <= K5_LSE_ATOL):
         raise RuntimeError(f"K5 {shape} disagrees with its plain version")
+    order = check_fwd_order(f"[k5] {shape}", out, fa.window_attention_fwd_plain(
+        q, k, v, bias, mask, heads)[0], dtype)
     rec = {"shape": {"W0": w0, "B": b, "N": n, "H": heads, "d": 32},
-           "max_abs_err": err}
+           "max_abs_err": err, "order_err": order}
     if timed:
         rows = w0 * b
         views = [t.view(rows, n, heads, 32).transpose(1, 2) for t in (q, k, v)]
@@ -1264,10 +1317,12 @@ def check_k5(fa, plain, w0, b, n, heads, dtype, side, timed):
                   + (0 if mask is None else mask.numel() * 4))
         flops = 4.0 * rows * heads * n * n * 32          # q·kᵀ and p·v
         rec.update(bound(nbytes, flops, dtype))
+        rec["exp_bound_ms"] = exp_bound_ms(rows, heads, n)
         log(f"[k5] kernel {rec['ms']!r} ms, plain {rec['plain_ms']!r} ms, sdpa "
             f"{rec['library_ms']!r} ms (bias + mask as attn_mask), bound "
             f"{rec['bound_ms']!r} ms by {rec['bound_by']} ({nbytes} B, "
-            f"{flops:.4g} flop)")
+            f"{flops:.4g} flop), exponentials {rec['exp_bound_ms']!r} ms; "
+            f"{rec['ms'] / rec['library_ms']!r}x sdpa")
     return rec
 
 
@@ -1368,7 +1423,7 @@ def swin_phase(fa, ln, smi, trace):
 
     if trace:
         trace_serving(model, step, augment, source, cfg, smi, SWIN_BATCH,
-                      kernel=("K5", ("window_attention",)), tag="-swin")
+                      kernel=("K5", K5_NAMES), tag="-swin")
     return {"launches": launches, **stages[2], "stages": stages}
 
 
@@ -1469,9 +1524,15 @@ def check_k6(fa, plain, w0, b, n, heads, dtype, side, timed):
     fwd.update(bound(4 * q.numel() * q.element_size() + extra
                      + lse.numel() * 4,
                      4.0 * rows * heads * n * n * 32, dtype))
+    fwd["exp_bound_ms"] = exp_bound_ms(rows, heads, n)
+    fwd["order_err"] = check_fwd_order(
+        f"[k5-lse] {shape}", o32, fa.window_attention_fwd_plain(
+            q, k, v, bias, mask, heads)[2], dtype)
     log(f"[k5-lse] same shape: kernel {fwd['ms']!r} ms, plain {fwd['plain_ms']!r}"
         f" ms, sdpa {fwd['library_ms']!r} ms, bound {fwd['bound_ms']!r} ms by "
-        f"{fwd['bound_by']}; out max_abs_err {fwd['max_abs_err']!r}")
+        f"{fwd['bound_by']}, exponentials {fwd['exp_bound_ms']!r} ms; "
+        f"{fwd['ms'] / fwd['library_ms']!r}x sdpa; out max_abs_err "
+        f"{fwd['max_abs_err']!r}")
     return rec, fwd
 
 
@@ -1512,8 +1573,12 @@ def swin_train_phase(fa, ln, smi, trace):
     k5_lse = {**stages[2][1], "stages": [r[1] for r in stages]}
     tokens = (SWIN_SIZE // 4) ** 2
     k4 = [check_k4(ln, (SWIN_MICRO, tokens // 4 ** s, 192 * 2 ** s),
-                   torch.bfloat16, True) for s in (0, 1, 3)]
+                   torch.bfloat16, True) for s in range(len(SWIN_DEPTHS))]
     check_k4(ln, (SWIN_MICRO, tokens // 4 ** 3, 1536), torch.float32, False)
+    per_micro = sum(r["ms"] * c for r, c in zip(k4, SWIN_NORMS))
+    log(f"[k4] a SwinV2-L@384 micro-batch of {SWIN_MICRO} launches K4 "
+        f"{list(SWIN_NORMS)} times at D {[192 * 2 ** s for s in range(4)]}: "
+        f"{per_micro!r} ms ({sum(SWIN_NORMS)} launches)")
 
     # 8b. the step at macro batch 16
     cfg, model, state, step, batches = training_setup(
@@ -1565,7 +1630,7 @@ def swin_train_phase(fa, ln, smi, trace):
                                 ln, state, step, batches[1:], want, smi)
     if trace:
         trace_training("profile-swin-train", step, state, batches[2], smi, {
-            "K5 log-sum-exp entry": ("window_attention_fwd_kernel",),
+            "K5 log-sum-exp entry": K5_LSE_NAMES,
             "K6": K6_NAMES,
             "K4": K4_NAMES})
     return k6, k5_lse, k4, counts
@@ -2774,7 +2839,9 @@ def check_k12(fa, w0, b, n, heads, dtype, side, entries, timed,
         if not (err <= atol and bool(torch.isfinite(out).all())
                 and out.dtype == dtype):
             raise RuntimeError(f"K12 {shape} disagrees with its plain version")
-        rec = recs["fwd"] = {"max_abs_err": max_err}
+        rec = recs["fwd"] = {"max_abs_err": max_err, "order_err": check_fwd_order(
+            f"{tag}: forward", out, fa.window_attention_fwd_plain(
+                q, k, v, bias, mask, heads, scale)[0], dtype)}
         if timed:
             rec["ms"] = cuda_ms(lambda: fa.flash_attention_cosine_flat(
                 q, k, v, scale, bias, mask, heads), iters=8, warmup=2)
@@ -2783,6 +2850,7 @@ def check_k12(fa, w0, b, n, heads, dtype, side, entries, timed,
             rec["library_ms"] = cuda_ms(lambda: cosine_library(
                 q, k, v, scale, attn_mask, heads), iters=8, warmup=2)
             rec.update(bound(io, flops, dtype))
+            rec["exp_bound_ms"] = exp_bound_ms(rows, heads, n)
     if "lse" in entries:
         out, lse, out32 = fa.cosine_window_attention_lse_cuda(
             q, k, v, scale, bias, mask, heads)
@@ -2801,7 +2869,11 @@ def check_k12(fa, w0, b, n, heads, dtype, side, entries, timed,
             raise RuntimeError(f"K12's log-sum-exp entry disagrees at {shape}")
         want = plain(q, k, v, scale, bias)
         rec = recs["lse"] = {"max_abs_err": float(
-            (out.float() - want.float()).abs().max()), "lse_max_abs_err": lse_err}
+            (out.float() - want.float()).abs().max()), "lse_max_abs_err": lse_err,
+            "order_err": check_fwd_order(
+                f"{tag}: log-sum-exp entry's out32", out32,
+                fa.window_attention_fwd_plain(q, k, v, bias, mask, heads,
+                                              scale)[2], dtype)}
         if timed:
             rec["ms"] = cuda_ms(lambda: fa.cosine_window_attention_lse_cuda(
                 q, k, v, scale, bias, mask, heads), iters=6, warmup=1)
@@ -2813,6 +2885,7 @@ def check_k12(fa, w0, b, n, heads, dtype, side, entries, timed,
             # the forward's bytes and lse; out32, the port's own leftover
             # for its backward, is no byte the function needs
             rec.update(bound(io + lse.numel() * 4, flops, dtype))
+            rec["exp_bound_ms"] = exp_bound_ms(rows, heads, n)
     if "bwd" in entries:
         leaves = [t.clone().requires_grad_() for t in (q, k, v, scale, bias)]
         before = launch_counts(fa, None)

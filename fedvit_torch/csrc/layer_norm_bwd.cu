@@ -16,159 +16,350 @@
 //
 // The TPU kernel accumulates dgamma and dbeta in resident (1, D) outputs
 // across its sequential grid; Hopper's blocks run in no order, so here:
-//   1. one block per 64 rows, one warp per row at a time: the warp holds its
-//      row in registers (16-byte loads, lane l takes vectors l, l + 32, ...),
-//      reduces the four row sums with shuffles, writes dx, and adds dy xhat and
-//      dy into per-lane column sums; the block's 8 warps then add theirs in
-//      shared memory in a fixed order and write one fp32 row of partial dgamma
-//      and one of partial dbeta;
-//   2. one thread per column sums the partial rows in order.
+//   1. a warp takes kR consecutive rows (1 to 8) and holds them in registers
+//      as loaded, all in flight at once (16-byte loads, lane l takes vectors
+//      l, l + 32, ...; bf16 stays packed, two values a register); it reduces
+//      each row's four sums with shuffles, writes dx, and writes the sums
+//      over its rows of dy xhat and of dy to its own row of shared memory.
+//      gamma waits in shared memory and is read 16 bytes a lane in the
+//      layout x is loaded in (one float a lane at 32-byte strides would be
+//      an 8-way bank conflict). A block of 8 warps sums its warps' rows in warp
+//      order; the 8 blocks of a thread-block cluster then sum their 8
+//      column sums through distributed shared memory, block rank by rank,
+//      each block one eighth of the columns, and write one fp32 row of
+//      partial dgamma and one of partial dbeta for the cluster's 64 kR rows;
+//   2. the partial rows are summed in a fixed order: each block of 32 x
+//      `slices` threads takes 32 columns, thread row s the partial rows s,
+//      s + slices, ... in order, and the slices are added in order (slices:
+//      one for each 8 partial rows, at most 32).
 // Both passes take their sums in one order, so every run gives the same bits.
 //
-// Bound on an H100 SXM at the ViT-B/16@224 training micro-batch (rows
-// 64 * 197 = 12,608, D = 768, bf16): x, dy read and dx written, 19.4 MB each,
-// 58.1 MB / 3.35 TB/s = 17 us; the ~10 operations per element are nothing
-// beside that, so bytes bound it. The partial rows add 2 * 197 * 768 * 4 B =
-// 1.2 MB written and read back.
+// A fixed 64 rows a block would give 18 blocks at 1,152 rows (SwinV2-L's
+// last stage, 8 images) for 132 SMs, and column sums kept in registers
+// across a warp's rows would spill at D = 1536. Here a lane keeps only its
+// rows' x and dy, and kR is the most (up to kR x vectors a lane <= 8, so x
+// and dy take at most 64 registers) that still gives every SM 16 blocks
+// (rows_per_warp), so the blocks follow the row count: 144 at 1,152 rows of
+// D 1536 (kR 1), 576 at 4,608 of D 768 (1), 1,576 at ViT-B's 12,608 (1),
+// 2,304 at SwinV2-L's 73,728 of D 192 (4). The cluster keeps the partial
+// rows to one per 64 rows at most (layer_norm_bwd_workspace_rows) without
+// an atomic. Both passes are programmatic dependent launches, each scheduled
+// while the kernel before it drains.
+//
+// Bound on an H100 SXM (3.35 TB/s), bf16, from x and dy read and dx
+// written (gamma read, dgamma and dbeta written: 12 D bytes more): the
+// ~16 fp32 operations an element are nothing beside them, so bytes bound it.
+//   ViT-B/16@224 micro-batch (12,608 x 768): 58.1 MB -> 17.3 us
+//   SwinV2-L@384, 8 images: D 192 (73,728 rows) 84.9 MB -> 25.4 us;
+//   D 384 (18,432) 42.5 MB -> 12.7 us; D 768 (4,608) 21.2 MB -> 6.3 us;
+//   D 1536 (1,152) 10.6 MB -> 3.2 us.
+// The partial rows add 2 * D * 4 bytes a 64 kR rows, written and read back
+// (4% of the bytes at D = 768 bf16 with kR = 1).
 
+#include <cooperative_groups.h>
 #include <math.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;                       // warps of a block, kR rows each
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerBlock = 64;
-constexpr int kMaxPerLane = 64;  // elements of a row a lane holds
+constexpr int kCluster = 8;                     // blocks of a cluster
+constexpr int kRowsPerPart = kWarps * kCluster; // warps of a cluster: its
+                                                // partial row sums 64 kR rows
+constexpr int kMaxPerLane = 64;                 // elements of a row a lane holds
+constexpr int kMaxPerWarpVecs = 8;              // 16-byte vectors of x a lane
+                                                // holds over a warp's rows
+constexpr int kSlices = 32;                     // row slices of pass 2
+// blocks an SM below which a warp takes no more rows: two waves of the 8
+// blocks of 256 threads an SM holds (at 4 the fewer, longer blocks of 2 or
+// 4 rows a warp read slower, on the card, than one row a warp)
+constexpr int kBlocksPerSm = 16;
 
-template <typename T, int kPer>
-__global__ void __launch_bounds__(kThreads)
+template <typename T>
+struct Raw;   // a 16-byte vector as loaded
+
+template <>
+struct Raw<float> {
+  float4 v;
+  __device__ void load(const float* p) { v = *reinterpret_cast<const float4*>(p); }
+  __device__ void get(float* f) const { f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w; }
+};
+
+template <>
+struct Raw<__nv_bfloat16> {
+  uint4 v;
+  __device__ void load(const __nv_bfloat16* p) { v = *reinterpret_cast<const uint4*>(p); }
+  __device__ void get(float* f) const {
+    Io<__nv_bfloat16>::unpack(v.x, f);
+    Io<__nv_bfloat16>::unpack(v.y, f + 2);
+    Io<__nv_bfloat16>::unpack(v.z, f + 4);
+    Io<__nv_bfloat16>::unpack(v.w, f + 6);
+  }
+};
+
+// Pass 1: rows (blockIdx.x * 8 + warp) * kR .. +kR-1, one warp; each cluster
+// of 8 blocks writes partial row blockIdx.x / 8 of part_g and part_b.
+template <typename T, int kPer, int kR>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 ln_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                    const float* __restrict__ gamma, T* __restrict__ dx,
                    float* __restrict__ part_g, float* __restrict__ part_b,
                    int rows, int d, float eps) {
   constexpr int kVec = Io<T>::kVec;
-  extern __shared__ __align__(16) float red[];  // 2 * d: dgamma, dbeta
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;                 // gamma, d
+  float* red = smem + d;             // per warp: dy xhat (d), then dy (d)
+  cg::cluster_group cluster = cg::this_cluster();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nvec = d / kVec;
   const float inv_d = 1.f / static_cast<float>(d);
+  // launched as a programmatic dependent of the stream's last kernel: wait
+  // for its writes (x, dy) before reading them
+  asm volatile("griddepcontrol.wait;" ::: "memory");
 
-  float w[kPer][kVec], ag[kPer][kVec], ab[kPer][kVec];
+  // gamma of vector v as float4s, read in the layout x is loaded in (16
+  // bytes a lane, lanes on consecutive addresses)
+  auto gamma_of = [&](int v, float* f) {
 #pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int v = lane + 32 * k;
+    for (int j = 0; j < kVec; j += 4) {
+      const float4 g4 = *reinterpret_cast<const float4*>(w_s + v * kVec + j);
+      f[j] = g4.x; f[j + 1] = g4.y; f[j + 2] = g4.z; f[j + 3] = g4.w;
+    }
+  };
+
+  // this warp's kR rows, all in flight at once; a row past the rows reads
+  // row 0 and adds zeros
+  const int r0 = (blockIdx.x * kWarps + warp) * kR;
+  Raw<T> xr[kR][kPer], gr[kR][kPer];
+  size_t base[kR];
+  bool real[kR];
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      w[k][j] = v < nvec ? gamma[v * kVec + j] : 0.f;
-      ag[k][j] = ab[k][j] = 0.f;
+  for (int i = 0; i < kR; ++i) {
+    real[i] = r0 + i < rows;
+    base[i] = static_cast<size_t>(real[i] ? r0 + i : 0) * d;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int v = lane + 32 * k;
+      if (v < nvec) {
+        xr[i][k].load(x + base[i] + v * kVec);
+        gr[i][k].load(dy + base[i] + v * kVec);
+      }
     }
   }
-
-  const int r_end = min(rows, (blockIdx.x + 1) * kRowsPerBlock);
-  for (int r = blockIdx.x * kRowsPerBlock + warp; r < r_end; r += kWarps) {
-    const size_t base = static_cast<size_t>(r) * d;
-    float xv[kPer][kVec], gv[kPer][kVec];
+  // gamma to shared memory while the rows are on their way
+  for (int c = threadIdx.x; c < d; c += kThreads) w_s[c] = gamma[c];
+  float mu[kR], rs[kR], m1[kR], m2[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
-      const int v = lane + 32 * k;
-      if (v < nvec) {
-        Io<T>::load(x + base + v * kVec, xv[k]);
-        Io<T>::load(dy + base + v * kVec, gv[k]);
-      } else {
+      if (lane + 32 * k < nvec) {
+        float xv[kVec];
+        xr[i][k].get(xv);
 #pragma unroll
-        for (int j = 0; j < kVec; ++j) xv[k][j] = gv[k][j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        s1 += xv[k][j];
-        s2 += xv[k][j] * xv[k][j];
+        for (int j = 0; j < kVec; ++j) {
+          s1 += xv[j];
+          s2 += xv[j] * xv[j];
+        }
       }
     }
-    const float mu = warp_sum(s1) * inv_d;
-    const float var = fmaxf(warp_sum(s2) * inv_d - mu * mu, 0.f);
-    const float rs = rsqrtf(var + eps);
-    float m1 = 0.f, m2 = 0.f;
+    mu[i] = warp_sum(s1) * inv_d;
+    const float var = fmaxf(warp_sum(s2) * inv_d - mu[i] * mu[i], 0.f);
+    rs[i] = rsqrtf(var + eps);
+  }
+  __syncthreads();                   // gamma is staged
 #pragma unroll
-    for (int k = 0; k < kPer; ++k)
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        const float xhat = (xv[k][j] - mu) * rs;
-        const float g = gv[k][j] * w[k][j];
-        m1 += g;
-        m2 += g * xhat;
-        ag[k][j] += gv[k][j] * xhat;
-        ab[k][j] += gv[k][j];
-        xv[k][j] = xhat;  // x is not needed again
-      }
-    m1 = warp_sum(m1) * inv_d;
-    m2 = warp_sum(m2) * inv_d;
+  for (int i = 0; i < kR; ++i) {
+    float a = 0.f, b = 0.f;
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int v = lane + 32 * k;
       if (v < nvec) {
-        float o[kVec];
+        float xv[kVec], gv[kVec], wv[kVec];
+        xr[i][k].get(xv);
+        gr[i][k].get(gv);
+        gamma_of(v, wv);
 #pragma unroll
-        for (int j = 0; j < kVec; ++j)
-          o[j] = rs * (gv[k][j] * w[k][j] - m1 - xv[k][j] * m2);
-        Io<T>::template store<kVec>(dx + base + v * kVec, o);
-      }
-    }
-  }
-
-  // the block's column sums, warp by warp in a fixed order
-  for (int wi = 0; wi < kWarps; ++wi) {
-    if (warp == wi) {
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const int v = lane + 32 * k;
-        if (v < nvec) {
-#pragma unroll
-          for (int j = 0; j < kVec; ++j) {
-            const int c = v * kVec + j;
-            red[c] = wi == 0 ? ag[k][j] : red[c] + ag[k][j];
-            red[d + c] = wi == 0 ? ab[k][j] : red[d + c] + ab[k][j];
-          }
+        for (int j = 0; j < kVec; ++j) {
+          const float xhat = (xv[j] - mu[i]) * rs[i];
+          const float g = gv[j] * wv[j];
+          a += g;
+          b += g * xhat;
         }
       }
     }
-    __syncthreads();
+    m1[i] = warp_sum(a) * inv_d;
+    m2[i] = warp_sum(b) * inv_d;
   }
-  for (int c = threadIdx.x; c < d; c += kThreads) {
-    part_g[static_cast<size_t>(blockIdx.x) * d + c] = red[c];
-    part_b[static_cast<size_t>(blockIdx.x) * d + c] = red[d + c];
+  float* mine = red + warp * 2 * d;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int v = lane + 32 * k;
+    if (v < nvec) {
+      float wv[kVec], ag[kVec], ab[kVec];
+      gamma_of(v, wv);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) ag[j] = ab[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {   // the warp's rows, in order
+        float xv[kVec], gv[kVec], o[kVec];
+        xr[i][k].get(xv);
+        gr[i][k].get(gv);
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const float xhat = (xv[j] - mu[i]) * rs[i];
+          o[j] = rs[i] * (gv[j] * wv[j] - m1[i] - xhat * m2[i]);
+          if (real[i]) {
+            ag[j] += gv[j] * xhat;
+            ab[j] += gv[j];
+          }
+        }
+        if (real[i]) Io<T>::template store<kVec>(dx + base[i] + v * kVec, o);
+      }
+#pragma unroll
+      for (int j = 0; j < kVec; j += 4) {
+        *reinterpret_cast<float4*>(mine + v * kVec + j) =
+            make_float4(ag[j], ag[j + 1], ag[j + 2], ag[j + 3]);
+        *reinterpret_cast<float4*>(mine + d + v * kVec + j) =
+            make_float4(ab[j], ab[j + 1], ab[j + 2], ab[j + 3]);
+      }
+    }
   }
+  __syncthreads();
+  // the block's column sums, warps in order, into warp 0's row
+  for (int c = threadIdx.x; c < 2 * d; c += kThreads) {
+    float sum = red[c];
+#pragma unroll
+    for (int wi = 1; wi < kWarps; ++wi) sum += red[wi * 2 * d + c];
+    red[c] = sum;
+  }
+  cluster.sync();                    // every block's column sums are ready
+  // this block's eighth of the columns, summed over the cluster's blocks in
+  // rank order
+  const int part = blockIdx.x / kCluster;
+  const int per = 2 * d / kCluster;  // d is a multiple of 4
+  const int c0 = static_cast<int>(cluster.block_rank()) * per;
+  for (int c = c0 + threadIdx.x; c < c0 + per; c += kThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int b = 0; b < kCluster; ++b) sum += cluster.map_shared_rank(red, b)[c];
+    if (c < d)
+      part_g[static_cast<size_t>(part) * d + c] = sum;
+    else
+      part_b[static_cast<size_t>(part) * d + c - d] = sum;
+  }
+  // pass 2 may be scheduled now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  cluster.sync();                    // no block leaves while its red is read
 }
 
-// out[c] = sum_r part[r, c] for c < 2d, the dgamma and dbeta rows side by side
-__global__ void __launch_bounds__(kThreads)
+// Pass 2: out[c] = sum_p part[p, c] for c < 2d, the dgamma and dbeta rows
+// side by side; 32 columns a block of 32 x `slices` threads, thread (tx, s)
+// the partial rows s, s + slices, ... of column tx in order, the slices
+// then summed in order
+__global__ void __launch_bounds__(32 * kSlices)
 ln_bwd_columns_kernel(const float* __restrict__ part_g,
                       const float* __restrict__ part_b, float* __restrict__ dgamma,
-                      float* __restrict__ dbeta, int blocks, int d) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= 2 * d) return;
-  const float* src = c < d ? part_g : part_b;
-  const int col = c < d ? c : c - d;
+                      float* __restrict__ dbeta, int parts, int d) {
+  __shared__ float sums[kSlices][33];
+  asm volatile("griddepcontrol.wait;" ::: "memory");   // pass 1's partial rows
+  const int slices = blockDim.x / 32;
+  const int tx = threadIdx.x & 31;
+  const int s = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + tx;
   float sum = 0.f;
-  for (int r = 0; r < blocks; ++r) sum += src[static_cast<size_t>(r) * d + col];
-  (c < d ? dgamma : dbeta)[col] = sum;
+  if (c < 2 * d) {
+    const float* src = c < d ? part_g + c : part_b + (c - d);
+    for (int p = s; p < parts; p += slices) sum += src[static_cast<size_t>(p) * d];
+  }
+  sums[s][tx] = sum;
+  __syncthreads();
+  if (s == 0 && c < 2 * d) {
+    float total = sums[0][tx];
+    for (int i = 1; i < slices; ++i) total += sums[i][tx];
+    (c < d ? dgamma : dbeta)[c < d ? c : c - d] = total;
+  }
 }
 
-template <typename T, int kPer>
+// A programmatic dependent launch on stream s: the kernel's blocks may be
+// scheduled while the stream's previous kernel drains, and wait in
+// griddepcontrol.wait for its writes, so a launch's own latency hides
+// behind the kernel before it (pass 1 behind the caller's last kernel, pass
+// 2 behind pass 1)
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
+                             size_t smem, cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// partial rows: one a cluster of 64 kR rows
+int parts_of(int rows, int r) {
+  return (rows + kRowsPerPart * r - 1) / (kRowsPerPart * r);
+}
+
+// Rows a warp (kR): the most, doubling from 1 while kR x vectors a lane <= 8
+// (64 registers for x and dy), that still gives every SM kBlocksPerSm
+// blocks; 0 on a CUDA error.
+int rows_per_warp(int rows, int per) {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return 0;
+  int r = 1;
+  while (2 * r * per <= kMaxPerWarpVecs &&
+         rows >= static_cast<long long>(kBlocksPerSm * sms) * kWarps * 2 * r)
+    r *= 2;
+  return r;
+}
+
+template <typename T, int kPer, int kR>
 int launch_rows(const T* x, const T* dy, const float* gamma, T* dx, float* pg,
-                float* pb, int rows, int d, float eps, int blocks, cudaStream_t s) {
-  const size_t smem = 2 * static_cast<size_t>(d) * sizeof(float);
+                float* pb, int rows, int d, float eps, cudaStream_t s) {
+  const size_t smem = (1 + 2 * kWarps) * static_cast<size_t>(d) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ln_bwd_rows_kernel<T, kPer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        ln_bwd_rows_kernel<T, kPer, kR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  ln_bwd_rows_kernel<T, kPer><<<blocks, kThreads, smem, s>>>(x, dy, gamma, dx, pg,
-                                                             pb, rows, d, eps);
-  return static_cast<int>(cudaGetLastError());
+  const long long blocks =
+      static_cast<long long>(parts_of(rows, kR)) * kCluster;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_dependent(
+      ln_bwd_rows_kernel<T, kPer, kR>, dim3(static_cast<unsigned>(blocks)),
+      dim3(kThreads), smem, s, x, dy, gamma, dx, pg, pb, rows, d, eps));
+}
+
+// kPer vectors a lane, kR rows a warp
+template <typename T, int kPer>
+int launch_per(const T* x, const T* dy, const float* gamma, T* dx, float* pg,
+               float* pb, int rows, int d, float eps, int r, cudaStream_t s) {
+  if constexpr (8 * kPer <= kMaxPerWarpVecs)
+    if (r == 8) return launch_rows<T, kPer, 8>(x, dy, gamma, dx, pg, pb, rows, d, eps, s);
+  if constexpr (4 * kPer <= kMaxPerWarpVecs)
+    if (r == 4) return launch_rows<T, kPer, 4>(x, dy, gamma, dx, pg, pb, rows, d, eps, s);
+  if constexpr (2 * kPer <= kMaxPerWarpVecs)
+    if (r == 2) return launch_rows<T, kPer, 2>(x, dy, gamma, dx, pg, pb, rows, d, eps, s);
+  return launch_rows<T, kPer, 1>(x, dy, gamma, dx, pg, pb, rows, d, eps, s);
 }
 
 template <typename T>
@@ -178,7 +369,8 @@ int launch(const void* x, const void* dy, const void* gamma, void* dx,
   constexpr int kVec = Io<T>::kVec;
   if (d % kVec != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int per = (d / kVec + 31) / 32;
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int r = rows_per_warp(rows, per);
+  if (r < 1) return static_cast<int>(cudaErrorUnknown);
   const T* xx = static_cast<const T*>(x);
   const T* gg = static_cast<const T*>(dy);
   const float* w = static_cast<const float*>(gamma);
@@ -192,7 +384,7 @@ int launch(const void* x, const void* dy, const void* gamma, void* dx,
 #define FEDVIT_LN_CASE(P)                                                       \
   case P:                                                                       \
     if constexpr (P * kVec <= kMaxPerLane)                                      \
-      err = launch_rows<T, P>(xx, gg, w, o, pg, pb, rows, d, eps, blocks, s);   \
+      err = launch_per<T, P>(xx, gg, w, o, pg, pb, rows, d, eps, r, s);         \
     break;
     FEDVIT_LN_CASE(1) FEDVIT_LN_CASE(2) FEDVIT_LN_CASE(3) FEDVIT_LN_CASE(4)
     FEDVIT_LN_CASE(5) FEDVIT_LN_CASE(6) FEDVIT_LN_CASE(7) FEDVIT_LN_CASE(8)
@@ -202,17 +394,19 @@ int launch(const void* x, const void* dy, const void* gamma, void* dx,
     default: break;
   }
   if (err != 0) return err;
-  ln_bwd_columns_kernel<<<(2 * d + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      pg, pb, static_cast<float*>(dgamma), static_cast<float*>(dbeta), blocks, d);
-  return static_cast<int>(cudaGetLastError());
+  const int parts = parts_of(rows, r);
+  const int slices = std::min(kSlices, (parts + 7) / 8);
+  return static_cast<int>(launch_dependent(
+      ln_bwd_columns_kernel, dim3((2 * d + 31) / 32), dim3(32 * slices), 0, s,
+      static_cast<const float*>(pg), static_cast<const float*>(pb),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), parts, d));
 }
 
 }  // namespace
 
-// rows of D in each of the fp32 workspaces part_g and part_b
-extern "C" int layer_norm_bwd_workspace_rows(int rows) {
-  return (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-}
+// rows of D in each of the fp32 workspaces part_g and part_b: one for each
+// 64 rows, the most pass 1 writes
+extern "C" int layer_norm_bwd_workspace_rows(int rows) { return parts_of(rows, 1); }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, dy and dx; gamma and the sums are
 // fp32). Returns a cudaError_t (0 on success). The caller checks shapes,

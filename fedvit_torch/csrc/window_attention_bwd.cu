@@ -88,8 +88,10 @@
 // cosine attention of window_attention.cu's cosine entries with respect to
 // the RAW q and k, v, the bias and the per-head scale (H,). It is K6
 // compiled with kCosine: every q and k tile is normalised as it is staged,
-// exactly as the forward does (common.cuh::normalize_rows: q^n = round(q * (r_q
-// * scale[h])), k^n = round(k * r_k), r = 1 / max(||x||, 1e-6)), so the
+// exactly as the forward does (q^n = round(q * (r_q * scale[h])),
+// k^n = round(k * r_k), r = 1 / max(||x||, 1e-6); bf16 through
+// window_tiles.cuh::normalize_row, the forward's own routine, fp32 through
+// common.cuh::normalize_rows, the forward's fp32 one), so the
 // passes above give dq^n, dk^n, dv and dbias of the normalised operands.
 // Then, as the TPU kernel, the chain rule through x^ = x * r:
 //
@@ -110,15 +112,16 @@
 // (mma.sync.m16n8k16 in 128-thread blocks, warp w owning rows 16w .. +15 of
 // the block's 64-row tile, S^T and dP^T in pass 2 so P^T and dS^T feed
 // dV += P^T dO and dK += dS^T Q from registers, the tile routines of
-// common.cuh), two k16 steps a product. The fp32 bias and mask are added to
+// common.cuh and window_tiles.cuh), two k16 steps a product. The fp32 bias and mask are added to
 // S in fp32 before the exponent; in passes 2 and 3 their 64 x 64 tiles
 // arrive with the streamed operand tiles in a three-slot cp.async ring (16
 // bytes a copy when N is a multiple of 4; a null mask moves no bytes), and
 // each block takes two rows of one window, its halves sharing those tiles;
 // in pass 4 they stay in registers while the window stays. P and dS are rounded to bf16 in registers before
 // their products, as the TPU kernel rounds them; dbias sums the unrounded dS.
-// kCosine normalises each staged bf16 tile in place (normalize_tile, the
-// forward's bits) behind one more barrier. The grids of passes 2 and 3 have
+// kCosine normalises each staged bf16 tile in place (normalize_tile, a row
+// at a time through normalize_row, which the forward calls too) behind one
+// more barrier. The grids of passes 2 and 3 have
 // the pair of rows fastest, so the blocks that read one (window, head)'s
 // bias and mask tiles run together out of L2.
 //
@@ -138,11 +141,10 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "window_tiles.cuh"
 
 namespace {
 
-constexpr int kD = 32;                  // head width (every SwinV2 built)
 constexpr int kKeyTile = 64;            // keys of a score tile
 constexpr int kDkdvQueryTile = 64;      // queries a score tile of pass 2
 constexpr int kDqQueryTile = 32;        // queries a block of pass 3
@@ -545,123 +547,7 @@ scale_sum_kernel(const float* __restrict__ partial, float* __restrict__ dscale,
 }
 
 // --- bf16: the backward on the tensor cores ----------------------------------
-
-using bf16 = __nv_bfloat16;
-constexpr int kMmaWarps = 4;            // 16 rows of a 64-row tile each
-constexpr int kMmaThreads = kMmaWarps * 32;  // the threads of one row's tiles
-constexpr int kPair = 2;                // rows of one window a pass-2/3 block takes
-constexpr int kPairThreads = kPair * kMmaThreads;
-constexpr int kTile = 64;               // rows of every bf16 tile
-constexpr int kLd = kD + 8;             // padded bf16 row, elements (80 bytes)
-constexpr int kT = kTile * kLd;         // elements of a tile
-constexpr int kChunks = kD / 8;         // 16-byte chunks a row
-constexpr int kRing = 3;                // streamed tiles in a ring
-constexpr float kLog2e = 1.4426950408889634f;
-
-__host__ __device__ constexpr int mma_tiles(int n) { return (n + kTile - 1) / kTile; }
-
-// rows [row0, row0 + kTile) of a head slice (rows e elements apart) into a
-// bf16 tile, asynchronously, by the kMmaThreads threads tid of one row;
-// rows past n are zero-filled
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int e,
-                                          int row0, int n, int tid) {
-#pragma unroll
-  for (int i = tid; i < kTile * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const bool in = row0 + r < n;
-    cp_async16(smem_u32(dst + r * kLd + c),
-               src + static_cast<size_t>(in ? row0 + r : 0) * e + c, in);
-  }
-}
-
-// lse and delta of rows [row0, row0 + kTile) of one (r, h) into rows[0, 64)
-// and rows[64, 128), asynchronously, thread tid < 128 one value; rows past n
-// read 0
-__device__ __forceinline__ void load_rows(float* rows, const float* lse,
-                                          const float* delta, int row0, int n,
-                                          int tid) {
-  const int i = tid % kTile;
-  const bool in = row0 + i < n;
-  cp_async4(smem_u32(rows + tid), (tid < kTile ? lse : delta) + (in ? row0 + i : 0),
-            in);
-}
-
-// One slot of the rings of passes 2 and 3: for each of the block's two rows
-// two streamed bf16 tiles (q and dout, or k and v) and pass 2's lse and
-// delta rows; and the fp32 bias and mask tiles of the 64 x 64 scores, rows
-// kAddLd floats apart, which the two rows share.
-constexpr int kAddLd = kTile + 4;
-struct Slot {
-  bf16 a[kPair][kT];
-  bf16 b[kPair][kT];
-  float rows[kPair][2 * kTile];
-  float bias[kTile * kAddLd];
-  float mask[kTile * kAddLd];
-};
-static_assert(sizeof(Slot) % 16 == 0, "slot alignment");
-
-// bias[i][j] and mask[i][j] for queries row0 .. +63 and keys col0 .. +63
-// into the slot, asynchronously, by the block's kPairThreads threads, 16
-// bytes a copy when N allows it; cells past n, and the whole mask when
-// mask_w is null (no mask), read 0 and move no bytes
-__device__ void load_add(Slot& sl, const float* bias_h, const float* mask_w,
-                         int row0, int col0, int n) {
-  const bool masked = mask_w != nullptr;
-  if (n % 4 == 0) {
-    for (int i = threadIdx.x; i < kTile * kTile / 4; i += kPairThreads) {
-      const int r = i / (kTile / 4);
-      const int c = (i % (kTile / 4)) * 4;
-      const bool in = row0 + r < n && col0 + c < n;
-      const size_t at = in ? static_cast<size_t>(row0 + r) * n + col0 + c : 0;
-      cp_async16(smem_u32(sl.bias + r * kAddLd + c), bias_h + at, in);
-      cp_async16(smem_u32(sl.mask + r * kAddLd + c), masked ? mask_w + at : bias_h,
-                 in && masked);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kTile * kTile; i += kPairThreads) {
-      const int r = i / kTile;
-      const int c = i % kTile;
-      const bool in = row0 + r < n && col0 + c < n;
-      const size_t at = in ? static_cast<size_t>(row0 + r) * n + col0 + c : 0;
-      cp_async4(smem_u32(sl.bias + r * kAddLd + c), bias_h + at, in);
-      cp_async4(smem_u32(sl.mask + r * kAddLd + c), masked ? mask_w + at : bias_h,
-                in && masked);
-    }
-  }
-}
-
-// kCosine: the staged tile's rows become round(x * (r * mul)), as
-// common.cuh::normalize_rows makes them from fp32 (the same bits, so the
-// forward's lse holds); row r's norm to norms[r] when given. One thread a
-// row, of the kMmaThreads threads tid of one row.
-__device__ void normalize_tile(bf16* tile, float mul, float* norms, int tid) {
-  for (int r = tid; r < kTile; r += kMmaThreads) {
-    uint4* row = reinterpret_cast<uint4*>(tile + r * kLd);
-    float x[kD];
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const uint4 u = row[c];
-      Io<bf16>::unpack(u.x, x + 8 * c);
-      Io<bf16>::unpack(u.y, x + 8 * c + 2);
-      Io<bf16>::unpack(u.z, x + 8 * c + 4);
-      Io<bf16>::unpack(u.w, x + 8 * c + 6);
-    }
-    float ss = 0.f;
-#pragma unroll
-    for (int c = 0; c < kD; ++c) ss = __fmaf_rn(x[c], x[c], ss);
-    const float norm = __fsqrt_rn(ss);
-    const float m = __fmul_rn(__fdiv_rn(1.f, fmaxf(norm, kCosEps)), mul);
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c)
-      row[c] = make_uint4(
-          Io<bf16>::pack(__fmul_rn(x[8 * c], m), __fmul_rn(x[8 * c + 1], m)),
-          Io<bf16>::pack(__fmul_rn(x[8 * c + 2], m), __fmul_rn(x[8 * c + 3], m)),
-          Io<bf16>::pack(__fmul_rn(x[8 * c + 4], m), __fmul_rn(x[8 * c + 5], m)),
-          Io<bf16>::pack(__fmul_rn(x[8 * c + 6], m), __fmul_rn(x[8 * c + 7], m)));
-    if (norms != nullptr) norms[r] = norm;
-  }
-}
+// (the tiles, their ring slot and their loads: window_tiles.cuh)
 
 // P of one score: 2^((s + bias + mask) log2 e - lse log2 e), the same
 // expression in every pass
@@ -807,7 +693,7 @@ dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_tile(sl.b[half], dout + base, e, it * kTile, n, ht);
       load_rows(sl.rows[half], lse + rh, delta + rh, it * kTile, n, ht);
     }
-    load_add(sl, bias_h, mask_w, it * kTile, k0, n);
+    load_add(sl.bias, sl.mask, kAddLd, bias_h, mask_w, it * kTile, k0, n);
   };
   const int tiles = mma_tiles(n);
   if (real) {
@@ -936,7 +822,7 @@ dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       load_tile(sl.a[half], k + base, e, it * kTile, n, ht);
       load_tile(sl.b[half], v + base, e, it * kTile, n, ht);
     }
-    load_add(sl, bias_h, mask_w, q0, it * kTile, n);
+    load_add(sl.bias, sl.mask, kAddLd, bias_h, mask_w, q0, it * kTile, n);
   };
   const int tiles = mma_tiles(n);
   if (real) {

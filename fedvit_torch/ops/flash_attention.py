@@ -73,7 +73,10 @@ before their products, fp32 sums), taking the kernel entry's inputs:
 ``flat_attention_bwd_plain`` (K9), ``qkvb_attention_bwd_plain`` (K3, and
 K10's with no bias), ``xqkv_attention_bwd_plain`` (K11),
 ``window_attention_bwd_plain`` (K6) and ``cosine_window_attention_bwd_plain``
-(K12). The card holds each backward to them; no model path calls them.
+(K12). The card holds each backward to them; no model path calls them. The
+windowed forward has one too, ``window_attention_fwd_plain`` (K5, and K12's
+with its ``scale``): the online softmax over 64-key tiles with the
+unnormalised P rounded before P·V, the tensor-core kernel's order.
 
 Each kernel's wrapper counts its launches in its ``launches`` attribute:
 ``flash_attention_qkvb.launches`` (K1), ``qkvb_attention_lse_cuda.launches``
@@ -843,17 +846,24 @@ def _check_window(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask.float().contiguous())
 
 
+def _mask_ptr(mask: Optional[torch.Tensor], checked: torch.Tensor):
+    """The mask's pointer for a kernel entry: None (no mask, which the
+    kernels read from nowhere) when the caller gave none."""
+    return None if mask is None else checked.data_ptr()
+
+
 def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor, mask: Optional[torch.Tensor],
                           num_heads: int) -> torch.Tensor:
     """K5 on (W0·B, N, E) window-major ``q``, ``k``, ``v``, (H, N, N) ``bias``
     and (W0, N, N) ``mask`` (or None); returns a new (W0·B, N, E) tensor.
     Raises on anything it does not take."""
-    rows, n, e, w0, bias, mask = _check_window(q, k, v, bias, mask, num_heads)
+    rows, n, e, w0, bias, mask_t = _check_window(q, k, v, bias, mask,
+                                                 num_heads)
     out = torch.empty_like(q)
     _raise_on(_window_library().window_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), rows, n, e, num_heads, w0,
+        _mask_ptr(mask, mask_t), out.data_ptr(), rows, n, e, num_heads, w0,
         _DTYPES[q.dtype], _stream(q)), "window_attention_fwd")
     flash_attention_bias_flat.launches += 1
     return out
@@ -867,15 +877,17 @@ def window_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
     """K5's output, bit for bit, and what K6 reads: each row's log-sum-exp of
     the biased, masked scores, (W0·B, H, N) fp32, and the output before its
     rounding to q's type, (W0·B, N, E) fp32."""
-    rows, n, e, w0, bias, mask = _check_window(q, k, v, bias, mask, num_heads)
+    rows, n, e, w0, bias, mask_t = _check_window(q, k, v, bias, mask,
+                                                 num_heads)
     out = torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=q.device)
     lse = torch.empty((rows, num_heads, n), **f32)
     out32 = torch.empty((rows, n, e), **f32)
     _raise_on(_window_library().window_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), lse.data_ptr(), out32.data_ptr(), rows,
-        n, e, num_heads, w0, _DTYPES[q.dtype], _stream(q)),
+        _mask_ptr(mask, mask_t), out.data_ptr(), lse.data_ptr(),
+        out32.data_ptr(), rows, n, e, num_heads, w0, _DTYPES[q.dtype],
+        _stream(q)),
         "window_attention_fwd_lse")
     window_attention_lse_cuda.launches += 1
     return out, lse, out32
@@ -911,7 +923,7 @@ def window_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     no gradient; None reaches the kernel as no mask, which reads none."""
     rows, n, e, w0, bias, zeros_or_mask = _check_window(q, k, v, bias, mask,
                                                         num_heads)
-    mask_ptr = None if mask is None else zeros_or_mask.data_ptr()
+    mask_ptr = _mask_ptr(mask, zeros_or_mask)
     for name, t, shape, dtype in (
             ("out32", out32, (rows, n, e), torch.float32),
             ("dout", dout, (rows, n, e), q.dtype),
@@ -983,6 +995,59 @@ def window_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return (*(_merge(t, q.dtype) for t in (dq, dk, dv)), dbias)
 
 
+def window_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, bias: torch.Tensor,
+                               mask: Optional[torch.Tensor], num_heads: int,
+                               scale: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """The plain version of K5's forward (and, given the per-head ``scale``
+    (H,), of K12's) in the order of the tensor-core kernel
+    (``csrc/window_attention.cu::window_mma_fwd_kernel``), from the kernel
+    entry's inputs: K12 first rounds q̂ = q·(r_q·scale) and k̂ = k·r_k to q's dtype
+    (r = 1/max(‖x‖, 1e-6)); scores s = q·kᵀ + (bias + mask) in fp32, the two
+    terms summed first; then, over tiles of 64 keys, the online softmax with
+    fp32 running max m and sum l, the unnormalised P = exp(s − m) rounded to
+    q's dtype before P·V is summed in fp32; out32 = o / l at the end. Returns
+    (out32 rounded to q's dtype, lse = m + log l (W0·B, H, N) fp32, out32
+    (W0·B, N, E) fp32). The kernel is held to it on the card; no model path
+    calls it. In fp32 it is ``windowed_attention_flat`` to fp32 rounding."""
+    rows, n, e = q.shape
+    dtype = q.dtype
+    w0 = 1 if mask is None else mask.shape[0]
+    b, d = rows // w0, e // num_heads
+
+    def split(t):    # (W0·B, N, E) → (W0, B, H, N, d) fp32
+        return t.reshape(w0, b, n, num_heads, d).transpose(2, 3).float()
+
+    qh, kh, vh = split(q), split(k), split(v)
+    if scale is not None:
+        def unit(x, mul):
+            norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+            return (x * (1.0 / torch.clamp(norm, min=COS_EPS) * mul)).to(
+                dtype).float()
+
+        qh = unit(qh, scale.float().reshape(1, 1, num_heads, 1, 1))
+        kh = unit(kh, 1.0)
+    add = bias.float()[None, None]
+    if mask is not None:
+        add = add + mask.float()[:, None, None]
+    m = torch.full(qh.shape[:-1], -math.inf, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qh)
+    for k0 in range(0, n, 64):
+        s = qh @ kh[..., k0:k0 + 64, :].transpose(-1, -2) + add[..., k0:k0 + 64]
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + p.to(dtype).float() @ vh[..., k0:k0 + 64, :]
+        m = m_new
+    out32 = (o / l[..., None]).transpose(2, 3).reshape(rows, n, e)
+    lse = (m + torch.log(l)).reshape(rows, num_heads, n)
+    return out32.to(dtype), lse, out32
+
+
 class WindowAttention(torch.autograd.Function):
     """K5's log-sum-exp entry forward, K6 backward. Saves q, k, v, the bias,
     the mask, the unrounded fp32 output and the log-sum-exp; the bias gradient
@@ -1046,11 +1111,11 @@ def _check_cosine(q, k, v, scale, bias, mask, num_heads):
 
 
 def _cosine_forward(q, k, v, scale, bias, mask, num_heads, lse: bool):
-    rows, n, e, w0, bias, mask, scale = _check_cosine(q, k, v, scale, bias,
-                                                      mask, num_heads)
+    rows, n, e, w0, bias, mask_t, scale = _check_cosine(q, k, v, scale, bias,
+                                                        mask, num_heads)
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), mask.data_ptr(), out.data_ptr())
+            bias.data_ptr(), _mask_ptr(mask, mask_t), out.data_ptr())
     args = (rows, n, e, num_heads, w0, _DTYPES[q.dtype], _stream(q))
     if not lse:
         _raise_on(_window_library().cosine_window_attention_fwd(*ptrs, *args),
@@ -1107,7 +1172,7 @@ def cosine_window_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     which reads none."""
     rows, n, e, w0, bias, zeros_or_mask, scale = _check_cosine(
         q, k, v, scale, bias, mask, num_heads)
-    mask_ptr = None if mask is None else zeros_or_mask.data_ptr()
+    mask_ptr = _mask_ptr(mask, zeros_or_mask)
     _check_saved(q, (("out32", out32, (rows, n, e), torch.float32),
                      ("dout", dout, (rows, n, e), q.dtype),
                      ("lse", lse, (rows, num_heads, n), torch.float32)))

@@ -26,8 +26,9 @@ Tolerances:
   over the rows in another order; the kernel's variance is E[x²] − μ², the
   plain version's the centred one, as the TPU kernel and ``_ln_bwd_xla``).
 - K5's output against ``windowed_attention_flat``: fp32 atol 2e-5, bf16 atol
-  2^-5, for K1's reasons (fp32 scores, max and sums in both; the plain version
-  rounds the softmax weights to bf16 before P·V). The log-sum-exp variant's
+  2^-5, for K1's reasons (fp32 scores, max and sums in both; both round the
+  softmax weights to bf16 before P·V, the plain version after normalising
+  them, the tensor-core kernel before). The log-sum-exp variant's
   output is K5's, bit for bit; its LSE atol 1e-4 against ``torch.logsumexp`` of
   the plain fp32 scores.
 - K6 (dq, dk, dv, dbias) against autograd of ``windowed_attention_flat``:
@@ -85,6 +86,19 @@ Tolerances:
   2^-9 (fp32 summation order and ex2.approx against exp move an occasional
   element across a bf16 rounding boundary, one ulp of it). The backwards of
   K3, K10 and K6 give the same bits every run.
+- The bf16 windowed forwards (K5, K12, and their log-sum-exp entries)
+  against ``window_attention_fwd_plain``, their plain version in the
+  tensor-core kernel's order (the unnormalised P of each 64-key tile rounded
+  before P·V), on the same inputs: out and out32 as the RMS of the difference
+  over the RMS of the plain value, 2^-8 (fp32 summation order and ex2.approx
+  against exp move an occasional weight or output across a bf16 rounding
+  boundary); the log-sum-exp atol 1e-4 (K5's), K12's mean |difference| at
+  most 2^-8 (the kernel and the plain version sum ‖q‖² in other orders, so
+  now and then an element of q̂ (up to 100 in size) rounds one bf16 ulp
+  apart and moves its row's scores, as for K12 against its plain version
+  above). The same bits every run.
+- K4 at SwinV2-L's widths and at row counts around its 8-row blocks and
+  64-row clusters: its limits above; dgamma and dbeta the same bits twice.
 - ``gemm_product`` (K11's products alone) against ``product_plain``: both
   sum in fp32 and round once, so bf16 values differ by at most one bf16 ulp
   (2^-7 of the value) plus 1e-3 near zero; fp32 1e-5 of the value plus 1e-4.
@@ -251,7 +265,13 @@ def test_k3_dbias_sums_the_rounded_dqkv(cuda):
     ((5, 37, 192), torch.bfloat16, 2.0 ** -6), ((1, 1, 768), torch.bfloat16, 2.0 ** -6),
     # SwinV2-L's widths: 24 and 48 vectors a row (lanes idle), 1536 in both types
     ((9, 48, 384), torch.bfloat16, 2.0 ** -6), ((70, 1536), torch.bfloat16, 2.0 ** -6),
-    ((70, 1536), torch.float32, 1e-5), ((3, 2048), torch.float32, 1e-5)])
+    ((70, 1536), torch.float32, 1e-5), ((3, 2048), torch.float32, 1e-5),
+    # SwinV2-L's stages 2 and 3 at 8 images; row counts under and over one
+    # 8-row block and one 64-row cluster; fp32 at the widest D
+    ((4608, 768), torch.bfloat16, 2.0 ** -6), ((1152, 1536), torch.bfloat16, 2.0 ** -6),
+    ((7, 384), torch.bfloat16, 2.0 ** -6), ((9, 384), torch.bfloat16, 2.0 ** -6),
+    ((63, 768), torch.bfloat16, 2.0 ** -6), ((65, 768), torch.float32, 1e-5),
+    ((129, 2048), torch.float32, 1e-5)])
 def test_k4_matches_plain(cuda, shape, dtype, dx_tol):
     g = torch.Generator(device="cuda").manual_seed(shape[-1])
     x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
@@ -1480,3 +1500,98 @@ def test_attention_backward_gives_the_same_bits_every_run(cuda, kernel):
     first = run()
     assert all(all(torch.equal(a, c) for a, c in zip(first, run()))
                for _ in range(3))
+
+
+# --- the tensor-core windowed forward (window_attention.cu, bf16) -----------
+
+FWD_ORDER_RTOL = 2.0 ** -8
+# SwinV2-L@384's four stage shapes cut to 2 images (W0, B, N, H, masked), a
+# ragged window (49: no 16-byte rows of the bias), 144 = 2·64 + 16 with an
+# odd B, a lone token, and N = 640, past the 576 whose bias slab fits in
+# shared memory (each score then reads its bias and mask from L2)
+WINDOW_FWD_CASES = [(16, 2, 576, 6, True), (4, 2, 576, 12, True),
+                    (1, 2, 576, 24, False), (1, 2, 144, 48, False),
+                    (4, 3, 49, 2, True), (2, 3, 144, 4, True),
+                    (3, 2, 1, 1, True), (1, 2, 640, 2, True)]
+
+
+@pytest.mark.parametrize("w0,b,n,heads,masked", WINDOW_FWD_CASES)
+@pytest.mark.parametrize("kernel", ["K5", "K12"])
+def test_window_forward_matches_kernel_order_plain(cuda, w0, b, n, heads,
+                                                   masked, kernel):
+    """K5's and K12's bf16 forwards and log-sum-exp entries against their
+    plain version in the kernel's order; the entries give the same output,
+    out32 rounds to it, and a second run gives the same bits."""
+    q, k, v, bias, mask = _window_inputs(w0, b, n, heads, torch.bfloat16,
+                                         seed=n + heads + w0, masked=masked)
+    if kernel == "K5":
+        args = (q, k, v, bias, mask, heads)
+        fwd, entry = fa.window_attention_cuda, fa.window_attention_lse_cuda
+        want = fa.window_attention_fwd_plain(*args)
+    else:
+        scale = _cosine_scale(heads, n + 1)
+        args = (q, k, v, scale, bias, mask, heads)
+        fwd = fa.cosine_window_attention_cuda
+        entry = fa.cosine_window_attention_lse_cuda
+        want = fa.window_attention_fwd_plain(q, k, v, bias, mask, heads, scale)
+    out = fwd(*args)
+    out2, lse, out32 = entry(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    assert torch.equal(out, out2) and torch.equal(out32.to(out.dtype), out)
+    assert _rel_rms(out, want[0]) <= FWD_ORDER_RTOL, _rel_rms(out, want[0])
+    assert _rel_rms(out32, want[2]) <= FWD_ORDER_RTOL, _rel_rms(out32, want[2])
+    diff = (lse - want[1]).abs()
+    if kernel == "K5":
+        assert float(diff.max()) <= 1e-4
+    else:       # a rare straddled element of q̂ moves its row's scores
+        assert float(diff.mean()) <= 2.0 ** -8
+    assert torch.equal(fwd(*args), out)
+    again = entry(*args)
+    assert torch.equal(again[1], lse) and torch.equal(again[2], out32)
+
+
+def test_cosine_window_forward_takes_zero_rows(cuda):
+    """K12's bf16 forward with rows of q and k of norm 0 and below 1e-6 (the
+    norm's clamp): finite, and its kernel-order plain version's."""
+    q, k, v, bias, mask = _window_inputs(4, 3, 49, 2, torch.bfloat16, seed=9)
+    q[:, :3] = 0
+    q[:, 3] *= 1e-8
+    k[:, 5:7] = 0
+    k[:, 9] = 1e-8
+    scale = _cosine_scale(2, 9)
+    out, lse, out32 = fa.cosine_window_attention_lse_cuda(q, k, v, scale, bias,
+                                                          mask, 2)
+    want = fa.window_attention_fwd_plain(q, k, v, bias, mask, 2, scale)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert _rel_rms(out32, want[2]) <= FWD_ORDER_RTOL
+
+
+def test_window_forward_mask_none_is_zeros(cuda):
+    """The bf16 forward with mask=None (no bytes read for it) gives the bits
+    of a zeros mask, through both entries and K12."""
+    q, k, v, bias, _ = _window_inputs(1, 3, 144, 4, torch.bfloat16, seed=11)
+    zeros = torch.zeros(1, 144, 144, device="cuda")
+    assert torch.equal(fa.window_attention_cuda(q, k, v, bias, None, 4),
+                       fa.window_attention_cuda(q, k, v, bias, zeros, 4))
+    for a, z in zip(fa.window_attention_lse_cuda(q, k, v, bias, None, 4),
+                    fa.window_attention_lse_cuda(q, k, v, bias, zeros, 4)):
+        assert torch.equal(a, z)
+    scale = _cosine_scale(4, 11)
+    assert torch.equal(
+        fa.cosine_window_attention_cuda(q, k, v, scale, bias, None, 4),
+        fa.cosine_window_attention_cuda(q, k, v, scale, bias, zeros, 4))
+
+
+# --- K4's column sums ---------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k4_gives_the_same_bits_twice(cuda, dtype):
+    """No atomics: dgamma and dbeta are summed in one order."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(4608, 768, device="cuda", generator=g).to(dtype)
+    dy = torch.randn(4608, 768, device="cuda", generator=g).to(dtype)
+    w = torch.randn(768, device="cuda", generator=g)
+    first = ln.layer_norm_bwd(x, w, dy, 1e-6)
+    second = ln.layer_norm_bwd(x, w, dy, 1e-6)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
