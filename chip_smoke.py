@@ -86,13 +86,20 @@ Phases, one line of output each (or a few):
    with ``--trace``, a ``torch.profiler`` trace of one SwinV2-L training step;
 9. the train augment and the fold trainer:
    a. K7 (row and column shifts) against its plain version, bit for bit:
-      small fp32 cases (C of 1, 3, 4, a ragged W, H ≠ W, ties, shifts past
-      the extent), then the rotation's and RandAugment's shapes at a ViT-B@224
+      small fp32 cases (C of 1, 2, 3, 4, 5, a ragged W, an odd W at C = 4,
+      C = 3 rows that start off 16 bytes, rows shorter than 4 floats, H ≠ W,
+      ties, shifts past the extent, an image at a storage offset off 16
+      bytes), then the rotation's and RandAugment's shapes at a ViT-B@224
       macro batch of 128 and a SwinV2-L@384 macro batch of 16, rows and
       columns, with the time, the plain version's, ``torch.gather``'s and the
-      bound;
+      bound, K7's ratio to ``torch.gather`` and its share of the bound;
    b. K8 (equalize) the same way at (128, 224, 224, 3) and (16, 384, 384, 3),
-      with a constant channel and a nearly constant one;
+      with a constant channel and a nearly constant one, and its share of the
+      bound; untimed first at C of 1, 2, 4 and 5, B = 1, samples that its
+      blocks' spans do not divide, samples too large for its blocks' shared
+      memory and an image off 16 bytes, each also with a run of one bin
+      through the first block's span and a channel whose only non-zero bin
+      lies in the last block's;
    c. ``make_device_augment(cfg, train=True)`` on seeded 272² and 448²
       4-channel canvases at those macro batches: ms a call, 12 K7 and 3 K8
       launches a call, the output bit-equal to the same call through the
@@ -1651,24 +1658,36 @@ def shift_inputs(shape, axis, seed):
     theta = (torch.rand(b, 1, device="cuda", generator=g) - 0.5) * math.radians(60)
     coord = torch.arange(n, device="cuda") - (n - 1) / 2.0
     shift = (-torch.tan(theta / 2) if axis == 2 else torch.sin(theta)) * coord
-    shift[0, :6] = torch.tensor([0.5, -0.5, 1.5, -2.5, extent + 0.5,
-                                 -extent - 0.5], device="cuda")
+    ties = torch.tensor([0.5, -0.5, 1.5, -2.5, extent + 0.5, -extent - 0.5],
+                        device="cuda")[:n]
+    shift[0, :len(ties)] = ties
     return img, shift, extent
 
 
-def check_k7(rs, shape, axis, seed, timed):
+def off_16_bytes(img):
+    """A contiguous copy of ``img`` at a storage offset of one float, 4 bytes
+    past a 16-byte boundary."""
+    view = torch.empty(img.numel() + 1, device=img.device)[1:].view(img.shape)
+    view.copy_(img)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def check_k7(rs, shape, axis, seed, timed, offset=False):
     """K7 through the wrapper the augment calls against its plain version:
-    bit for bit; returns its record."""
+    bit for bit (with ``offset``, on a copy off 16 bytes); returns its
+    record."""
     img, shift, extent = shift_inputs(shape, axis, seed)
     kernel = rs.row_shift if axis == 2 else rs.col_shift
     plain = rs.row_shift_plain if axis == 2 else rs.col_shift_plain
-    got = kernel(img, shift)
+    got = kernel(off_16_bytes(img) if offset else img, shift)
     torch.cuda.synchronize()
     want = plain(img, shift)
     err = float((got - want).abs().max())
     kind = "rows" if axis == 2 else "columns"
-    log(f"[k7] {kind} {tuple(shape)}: bit-equal to the plain version "
-        f"{torch.equal(got, want)}, max_abs_err {err!r}")
+    log(f"[k7] {kind} {tuple(shape)}{' off 16 bytes' if offset else ''}: "
+        f"bit-equal to the plain version {torch.equal(got, want)}, "
+        f"max_abs_err {err!r}")
     if not torch.equal(got, want):
         raise RuntimeError(f"K7 {kind} {tuple(shape)} disagrees with its plain version")
     rec = {"shape": list(shape), "axis": kind, "max_abs_err": err}
@@ -1692,27 +1711,45 @@ def check_k7(rs, shape, axis, seed, timed):
             f"torch.gather (clamped int64 index per pixel, no zero fill) "
             f"{rec['library_ms']!r} ms ({lib_bytes} B, "
             f"{lib_bytes / rec['library_ms'] / 1e9!r} TB/s), bound "
-            f"{rec['bound_ms']!r} ms by {rec['bound_by']}")
+            f"{rec['bound_ms']!r} ms by {rec['bound_by']}; kernel / gather "
+            f"{rec['ms'] / rec['library_ms']!r}, bound / kernel "
+            f"{rec['bound_ms'] / rec['ms']!r}")
     return rec
 
 
-def check_k8(ra, shape, seed, timed):
+def check_k8(ra, shape, seed, timed, spans=False, offset=False):
     """K8 through ``equalize`` against ``equalize_plain``: bit for bit, with
     one constant channel (step 0, passed through) and one of a single value
-    but for six pixels."""
+    but for six pixels; with ``spans`` instead, a run of one bin through the
+    first ⌈P/16⌉ pixels of sample 0, channel 0, and the last sample's last
+    channel zero but for its last P − 15⌈P/16⌉ pixels (a cluster has at most
+    16 blocks: these lie in its first and its last block's span); with
+    ``offset``, on a copy off 16 bytes."""
+    b, h, w, c = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     img = torch.rand(shape, device="cuda", generator=g)
-    img[0, ..., 0] = 0.5
-    img[-1, ..., 1] = 0.25
-    img[-1, :2, :3, 1] = 0.9
-    got = ra.equalize(img)
+    if spans:
+        p = h * w
+        edge = -(-p // 16)
+        flat = img.view(b, p, c)
+        flat[0, :edge, 0] = 0.5
+        flat[-1, :, -1] = 0.0
+        flat[-1, 15 * edge:, -1] = 0.7
+    else:
+        img[0, ..., 0] = 0.5
+        if b > 1 or c > 1:
+            near = (b - 1, min(1, c - 1)) if b > 1 else (0, 1)
+            img[near[0], ..., near[1]] = 0.25
+            img[near[0], :2, :3, near[1]] = 0.9
+    got = ra.equalize(off_16_bytes(img) if offset else img)
     torch.cuda.synchronize()
     want = ra.equalize_plain(img)
     err = float((got - want).abs().max())
-    passed = torch.equal(got[0, ..., 0], img[0, ..., 0])
-    log(f"[k8] {tuple(shape)}: bit-equal to the plain version "
-        f"{torch.equal(got, want)}, max_abs_err {err!r}; constant channel "
-        f"passed through: {passed}")
+    passed = spans or torch.equal(got[0, ..., 0], img[0, ..., 0])
+    log(f"[k8] {tuple(shape)}{' spans' if spans else ''}"
+        f"{' off 16 bytes' if offset else ''}: bit-equal to the plain version "
+        f"{torch.equal(got, want)}, max_abs_err {err!r}"
+        + ("" if spans else f"; constant channel passed through: {passed}"))
     if not (torch.equal(got, want) and passed):
         raise RuntimeError(f"K8 {tuple(shape)} disagrees with its plain version")
     rec = {"shape": list(shape), "max_abs_err": err}
@@ -1723,9 +1760,10 @@ def check_k8(ra, shape, seed, timed):
         rec["library_ms"] = None        # no one PyTorch call computes it
         nbytes = 2 * img.numel() * 4
         rec.update(bound(nbytes, 0.0, torch.float32))
-        log(f"[k8] kernel {rec['ms']!r} ms ({shape[0] * shape[3]} blocks), "
-            f"plain {rec['plain_ms']!r} ms, bound {rec['bound_ms']!r} ms by "
-            f"{rec['bound_by']} ({nbytes} B)")
+        log(f"[k8] kernel {rec['ms']!r} ms ({nbytes / rec['ms'] / 1e9!r} "
+            f"TB/s), plain {rec['plain_ms']!r} ms, bound {rec['bound_ms']!r} "
+            f"ms by {rec['bound_by']} ({nbytes} B); bound / kernel "
+            f"{rec['bound_ms'] / rec['ms']!r}")
     return rec
 
 
@@ -2011,10 +2049,17 @@ def train_augment_phase(fa, ln, smi, trace):
     from fedvit_torch.ops import row_shift as rs
 
     # 9a. K7: small cases (ragged W, C of 1, 3, 4, ties, shifts past the
-    # extent, H ≠ W), then the four shapes of the two configurations
-    for c in (1, 3, 4):
-        for axis in (2, 1):
+    # extent, H ≠ W; an odd W at C = 4, C = 3 rows off 16 bytes, rows shorter
+    # than 4 floats, C of 2 and 5, images off 16 bytes), then the four
+    # shapes of the two configurations
+    for axis in (2, 1):
+        for c in (1, 3, 4):
             check_k7(rs, (3, 14, 19, c), axis, SEED + c, timed=False)
+        for shape in ((2, 9, 31, 4), (3, 11, 25, 3), (2, 6, 3, 1),
+                      (2, 5, 3, 2), (2, 7, 9, 5)):
+            check_k7(rs, shape, axis, SEED + shape[1], timed=False)
+        for shape in ((2, 37, 29, 4), (3, 11, 25, 3), (4, 250, 250, 3)):
+            check_k7(rs, shape, axis, SEED, timed=False, offset=True)
     k7 = []
     for _, _, macro, _, size in AUG_CASES:
         rot, chain = shift_shapes(macro, size)
@@ -2026,8 +2071,17 @@ def train_augment_phase(fa, ln, smi, trace):
     log(f"[k7] a train augment call (the rotation's 2 row and 1 column shifts, "
         f"RandAugment's 6 and 3): ViT-B {per_call[0]!r} ms, SwinV2-L "
         f"{per_call[1]!r} ms of K7")
-    # 9b. K8
+    # 9b. K8: small cases, C of 1, 2, 4, 5, B = 1, spans that do not divide
+    # the sample, spans counted tile by tile and read twice, images off 16
+    # bytes; then the two configurations' shapes
     check_k8(ra, (2, 24, 20, 3), SEED, timed=False)
+    for shape in ((2, 40, 33, 1), (3, 50, 47, 4), (2, 33, 35, 2),
+                  (2, 30, 31, 5), (1, 97, 89, 3), (2, 97, 89, 3),
+                  (1, 1000, 1000, 3), (1, 2000, 2000, 1)):
+        for spans in (False, True):
+            check_k8(ra, shape, SEED + shape[1], timed=False, spans=spans)
+    for shape in ((2, 37, 41, 3), (1, 97, 89, 4)):
+        check_k8(ra, shape, SEED, timed=False, offset=True)
     k8 = [check_k8(ra, (macro, size, size, 3), SEED + size, timed=True)
           for _, _, macro, _, size in AUG_CASES]
     torch.cuda.empty_cache()

@@ -96,17 +96,31 @@ def _shifts(b, n, extent, seed):
     return s
 
 
+def _shape_param(shape):
+    return pytest.param(shape, id="x".join(map(str, shape)))
+
+
+# the edge shapes of the card tests (tests/test_torch_cuda.py), kept small:
+# C = 4 at odd W, B = 1, C = 1, C = 3 rows whose starts are not 16-byte
+# aligned, rows shorter than 4 floats, and a C the kernels take at run time
+EDGE_SHAPES = [(2, 37, 29, 4), (1, 11, 25, 3), (2, 13, 33, 1), (2, 6, 3, 1),
+               (2, 7, 9, 5)]
+
+
 @pytest.mark.parametrize("axis", ["rows", "cols"])
-@pytest.mark.parametrize("c", [1, 3, 4])
-def test_k7_plain_matches_jax_exactly(axis, c):
-    img = _images((3, 14, 19, c), seed=c)            # H ≠ W, ragged W
+@pytest.mark.parametrize("shape", [pytest.param((3, 14, 19, c), id=str(c))
+                                   for c in (1, 3, 4)]   # H ≠ W, ragged W
+                         + [_shape_param(s) for s in EDGE_SHAPES])
+def test_k7_plain_matches_jax_exactly(axis, shape):
+    b, h, w, c = shape
+    img = _images(shape, seed=c)
     if axis == "rows":
-        sh = _shifts(3, 14, 19, seed=c + 10)
+        sh = _shifts(b, h, w, seed=c + 10)
         got = TS.row_shift(_t(img), _t(sh))
         xla = _jit(JS._row_shift_xla)(img, sh)
         pallas = _jit(lambda a, b: JS.row_shift(a, b, impl="pallas"))(img, sh)
     else:
-        sh = _shifts(3, 19, 14, seed=c + 20)
+        sh = _shifts(b, w, h, seed=c + 20)
         got = TS.col_shift(_t(img), _t(sh))
         xla = _jit(JS._col_shift_xla)(img, sh)
         pallas = _jit(lambda a, b: JS.col_shift(a, b, impl="pallas"))(img, sh)
@@ -115,18 +129,23 @@ def test_k7_plain_matches_jax_exactly(axis, c):
     assert (got.numpy() == 0).any() and (got.numpy() != 0).any()
 
 
-def test_k8_plain_matches_jax_exactly():
-    img = _images((2, 24, 20, 3))
-    img[1, ..., 2] = 0.5                                   # step == 0: passthrough
-    img[0, ..., 1] = 0.25
-    img[0, :2, :3, 1] = np.float32(0.9)                    # one value, a few others
+@pytest.mark.parametrize("shape", [_shape_param((2, 24, 20, 3))]
+                         + [_shape_param(s) for s in
+                            [(2, 37, 29, 4), (1, 37, 41, 3), (2, 40, 33, 1),
+                             (2, 9, 11, 2)]])
+def test_k8_plain_matches_jax_exactly(shape):
+    c = shape[3]
+    img = _images(shape)
+    img[0, ..., c // 2] = 0.25
+    img[0, :2, :3, c // 2] = np.float32(0.9)              # one value, a few others
+    img[-1, ..., -1] = 0.5                                 # step == 0: passthrough
     got = TR.equalize(_t(img)).numpy()
     # eagerly, as the JAX package's own test runs them: under jit, XLA turns
     # the division by 255 into a product with its reciprocal, one ulp off
     np.testing.assert_array_equal(got, np.asarray(JR._equalize_xla(jnp.asarray(img))))
     np.testing.assert_array_equal(
         got, np.asarray(JR.equalize(jnp.asarray(img), impl="pallas")))
-    np.testing.assert_array_equal(got[1, ..., 2], img[1, ..., 2])
+    np.testing.assert_array_equal(got[-1, ..., -1], img[-1, ..., -1])
 
 
 def test_kernel_wrappers_launch_nothing_on_the_cpu():

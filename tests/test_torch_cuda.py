@@ -696,7 +696,14 @@ def _shift_inputs(b, h, w, c, axis, seed):
 
 @pytest.mark.parametrize("b,h,w,c", [(3, 14, 19, 1), (3, 14, 19, 3),
                                      (2, 37, 29, 4), (4, 250, 250, 3),
-                                     (2, 372, 372, 4)])
+                                     (2, 372, 372, 4),
+                                     # C = 4 at odd W; C = 3 rows whose
+                                     # starts are not 16-byte aligned; C = 1;
+                                     # rows shorter than a 4-float group; a
+                                     # C the kernel reads at run time
+                                     (2, 9, 31, 4), (3, 11, 25, 3),
+                                     (2, 13, 33, 1), (2, 6, 3, 1),
+                                     (2, 5, 3, 2), (2, 7, 9, 5)])
 @pytest.mark.parametrize("axis", [2, 1])
 def test_k7_matches_plain(cuda, b, h, w, c, axis):
     from fedvit_torch.ops import row_shift as rs
@@ -709,6 +716,27 @@ def test_k7_matches_plain(cuda, b, h, w, c, axis):
     assert torch.equal(got, want)
     assert torch.equal(rs.shift_cuda(img, s, axis), got)
     assert bool((got == 0).any()) and bool((got != 0).any())
+
+
+def _off_16_bytes(img):
+    """A contiguous copy of ``img`` at a storage offset of one float: its
+    data pointer is 4 bytes past a 16-byte boundary."""
+    view = torch.empty(img.numel() + 1, device=img.device)[1:].view(img.shape)
+    view.copy_(img)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 37, 29, 4), (3, 11, 25, 3),
+                                     (2, 13, 33, 1), (4, 250, 250, 3)])
+@pytest.mark.parametrize("axis", [2, 1])
+def test_k7_at_a_storage_offset_off_16_bytes(cuda, b, h, w, c, axis):
+    from fedvit_torch.ops import row_shift as rs
+    img, shift, s = _shift_inputs(b, h, w, c, axis, seed=h + c + axis)
+    got = rs.shift_cuda(_off_16_bytes(img), s, axis)
+    torch.cuda.synchronize()
+    want = (rs.row_shift_plain if axis == 2 else rs.col_shift_plain)(img, shift)
+    assert torch.equal(got, want)
 
 
 def test_k7_refuses_what_it_does_not_take(cuda):
@@ -739,6 +767,45 @@ def test_k8_matches_plain(cuda, b, h, w, c):
     assert ra.equalize_cuda.launches == before + 1
     assert torch.equal(got, ra.equalize_plain(img))
     assert torch.equal(got[0, ..., 0], img[0, ..., 0])
+
+
+@pytest.mark.parametrize("b,h,w,c", [
+    (2, 40, 33, 1), (3, 50, 47, 4), (2, 33, 35, 2), (2, 30, 31, 5),  # C
+    (1, 97, 89, 3),           # B = 1; H·W·C not a multiple of a block's span
+    (2, 97, 89, 3),           # ... and the second sample off 16 bytes
+    (1, 1000, 1000, 3), (1, 2000, 2000, 1)])   # spans counted, then read twice
+def test_k8_edge_cases(cuda, b, h, w, c):
+    """K8 against ``equalize_plain`` at other C, B = 1, spans that do not
+    divide the sample and spans too large for shared memory, with a channel
+    of one bin within the first block's span only (a run of one bin) and one
+    whose only non-zero bin lies within the last block's span: a cluster has
+    at most 16 blocks, so the first ⌈P/16⌉ pixels lie in the first block's
+    span and the last P − 15⌈P/16⌉ in the last block's."""
+    from fedvit_torch.ops import randaugment as ra
+    g = torch.Generator(device="cuda").manual_seed(h * c)
+    img = torch.rand(b, h, w, c, device="cuda", generator=g)
+    p = h * w
+    edge = -(-p // 16)
+    flat = img.view(b, p, c)
+    flat[0, :edge, 0] = 0.5
+    flat[-1, :, -1] = 0.0
+    flat[-1, 15 * edge:, -1] = 0.7
+    before = ra.equalize_cuda.launches
+    got = ra.equalize(img)
+    torch.cuda.synchronize()
+    assert ra.equalize_cuda.launches == before + 1
+    assert torch.equal(got, ra.equalize_plain(img))
+
+
+@pytest.mark.parametrize("b,h,w,c", [(2, 37, 41, 3), (1, 97, 89, 4),
+                                     (2, 224, 224, 3)])
+def test_k8_at_a_storage_offset_off_16_bytes(cuda, b, h, w, c):
+    from fedvit_torch.ops import randaugment as ra
+    g = torch.Generator(device="cuda").manual_seed(w)
+    img = torch.rand(b, h, w, c, device="cuda", generator=g)
+    got = ra.equalize_cuda(_off_16_bytes(img))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ra.equalize_plain(img))
 
 
 def test_k8_refuses_what_it_does_not_take(cuda):
