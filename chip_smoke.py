@@ -7,9 +7,11 @@
 
 Phases, one line of output each (or a few):
 
-1. the card (``nvidia-smi`` name and power limit, ``torch.cuda``), then the
-   build of every hand-written kernel from ``fedvit_torch/csrc`` with ``nvcc``
-   (one compiler per source, all at once);
+1. the card (``nvidia-smi`` name and power limit, ``torch.cuda``), which of
+   PIL, pandas, PyYAML and OpenCV import (in a process of their own; nothing
+   here uses them), then the build of every hand-written kernel from
+   ``fedvit_torch/csrc`` with ``nvcc`` (one compiler per source, all at
+   once);
 2. each kernel against its plain PyTorch version on the card, at the shape
    the serving path gives it (and a small fp32 case, and ViT-H's head width
    d = 80 at a small batch), with its time, the plain version's, one PyTorch
@@ -172,6 +174,38 @@ Phases, one line of output each (or a few):
       ``dot_product_attention`` with a bias (its plain body, as JAX's);
    with controls that must fail the checks: K9 with the score scale 1, K12
    with each head's scale 1, K12 with dscale zeroed.
+12. federated training (``fed/server.py::train_federated``) of ViT-B/16@224
+   (the recipe of 6b, local batch 32) on 2,048 synthetic 224² images
+   (``data/synthetic.py``, the mask as a 4th channel: 1,792 training images
+   resident on the card, 256 evaluated each round at batch 64), 4 clients
+   by Dirichlet α 0.5, all taking part, the train augment in every local
+   step, 8 local steps, 3 rounds:
+   a. each round's synchronised time and img/s, the aggregation's device ms,
+      the evaluation's img/s, the checkpoint's seconds and bytes, the run's
+      peak memory; launches a round 4 × 8 × (12 K2, 12 K3, 25 K4, 12 K7,
+      3 K8) and 12 K1 a forward of the evaluation, no call of their plain
+      versions; the history finite, the caller's model unchanged; then, at
+      the shapes this path gives them, each kernel against its plain
+      version with its time (K1 at the evaluation batch of 64, K2-K4 at the
+      local batch of 32, K7 and K8 at the shapes the train augment takes
+      from the run's first gathered local batch, which it prints), that
+      batch's augment bit-equal to the plain shifts and equalize, one local
+      step's gradients against the plain path (6c's gate and control) and
+      the evaluation's logits against the plain attention (phase 3's gate);
+   b. the same run cut to 2 rounds: round 2's global parameters and
+      BatchNorm statistics against θ + η(Σ wᵢθᵢ − θ) computed in fp64 from
+      the clients' own leaves, and a control with equal weights that must
+      fail the check;
+   c. client 0's first local step of round 2 bit-equal to one step of a
+      freshly made local optimizer;
+   d. that run resumed to round 3: round 3 alone, every tensor and the numpy
+      state restored bit for bit, round 3's indices the uninterrupted run's;
+   e. ``python -m fedvit_torch.cli.train_federated --synthetic 256 --rounds
+      1`` on the JAX defaults: one finite history entry, one checkpoint
+      generation;
+   f. with ``--trace``, round 2 of a 2-round run in stages (each ended by a
+      synchronise) and a profile of round 2 of another: busy share, top
+      kernels, K1-K4, K7 and K8's shares.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -183,6 +217,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import math
 import re
@@ -3144,12 +3179,692 @@ def flat_cosine_phase(fa, ln):
     return {"K9": k9, "K12": k12}
 
 
+# ---------------------------------------------------------------------------
+# 12. Federated training (fed/server.py::train_federated) on ViT-B/16@224
+# ---------------------------------------------------------------------------
+
+# Phase 12: the synthetic fixture (data/synthetic.py) at 224² with its mask
+# as a 4th channel: 1,792 training images (resident on the card: 1.44 GB of
+# float32) and 256 evaluated each round at batch 64; 4 clients by Dirichlet
+# α 0.5, all 4 each round, 8 local steps of 32 images, 3 rounds (the first
+# warms up).
+FED_IMAGES, FED_EVAL, FED_EVAL_BATCH = 2048, 256, 64
+FED_CLIENTS, FED_STEPS, FED_BATCH, FED_ROUNDS = 4, 8, 32, 3
+FED_WORKDIR = Path(__file__).resolve().parent / "build" / "chip_smoke_fed"
+# 12b: each global leaf after a round against θ + η(Σ wᵢθᵢ − θ) computed in
+# fp64 from the clients' own fp32 leaves, elementwise, as a share of
+# |θ| + Σ wᵢ|θᵢ|: the fp32 round rounds each of the 4 products and 4 sums,
+# the difference, the product by η and the step once, each within 2^-24 of
+# the terms it combines, so the 11 roundings stay below 2^-20.
+AGG_RTOL = 2.0 ** -20
+
+
+def fed_config(rounds):
+    """The phase-6 recipe with federated rounds: local batch 32, no
+    accumulation, the train augment in every local step."""
+    import dataclasses
+
+    from fedvit_torch.core.config import FederatedConfig
+    cfg = fold_config(epochs=1)
+    return cfg.replace(
+        training=dataclasses.replace(cfg.training, batch_size=FED_BATCH,
+                                     gradient_accumulation_steps=1),
+        federated=FederatedConfig(
+            enabled=True, num_clients=FED_CLIENTS, rounds=rounds,
+            local_steps=FED_STEPS, partition="dirichlet",
+            dirichlet_alpha=0.5, augment=True))
+
+
+def fed_data():
+    """(train, eval) numpy dicts of the synthetic fixture with its mask as
+    the 4th channel: float32 images in [0, 1] at 224²."""
+    from fedvit_torch.data.synthetic import make_synthetic_dataset
+    data = make_synthetic_dataset(n=FED_IMAGES, image_size=224, seed=SEED)
+    data["image"] = np.concatenate([data.pop("image"), data["mask"]], -1)
+    return ({k: v[FED_EVAL:] for k, v in data.items()},
+            {k: v[:FED_EVAL] for k, v in data.items()})
+
+
+def fed_model(cfg):
+    from fedvit_torch.models import build_model
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(SEED))
+    perturb(model, SEED)
+    return model
+
+
+@contextlib.contextmanager
+def fed_instruments(fa, ln, on_round_end=None):
+    """Instruments of a ``train_federated`` run, all by rebinding, in a dict:
+    at each round's end (its checkpoint) the launches of the phase's kernels
+    so far ("counts"), the checkpoint's synchronised seconds and bytes
+    ("saves") and the numpy state it saved ("np_states"); the aggregation's
+    device time by round (CUDA events, no synchronise: "agg"); the
+    evaluation's synchronised img/s ("evals"); the drawn (steps, batch)
+    indices, 4 a round in round order ("drawn"); the number of local
+    trainings ("local_trainings"), the first one's first gathered batch
+    ("batch"); and the calls of the plain versions of the
+    phase's kernels ("plain"). ``on_round_end(rnd)`` runs after each
+    checkpoint. Every count starts at 0."""
+    from fedvit_torch.fed import fedavg, server
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    from fedvit_torch.train import checkpoint
+    from fedvit_torch.train.ema import shadow_weights
+
+    fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
+    rec = {"counts": [], "saves": [], "np_states": [], "agg": {}, "evals": [],
+           "drawn": [], "local_trainings": 0, "round": 1,
+           "plain": {name: 0 for _, name in plain_versions(fa, ln)}}
+    save = checkpoint.save_federated_checkpoint
+    draw = server.sample_client_indices
+    make_local_train = fedavg.make_local_train
+
+    def timed_events(fn):
+        def wrapped(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args, **kwargs)
+            end.record()
+            rec["agg"].setdefault(rec["round"], []).append((start, end))
+        return wrapped
+
+    @contextlib.contextmanager
+    def timed_eval(model, shadow):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with shadow_weights(model, shadow) as m:
+            yield m
+        torch.cuda.synchronize()
+        rec["evals"].append(FED_EVAL / (time.perf_counter() - t0))
+
+    def timed_save(path, model, ema, rnd, history, np_state, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(path, model, ema, rnd, history, np_state, *args, **kwargs)
+        seconds = time.perf_counter() - t0
+        rec["saves"].append((seconds, sum(
+            f.stat().st_size for f in (Path(path) / "fed_ckpt").iterdir())))
+        rec["np_states"].append(np_state)
+        rec["counts"].append({k: fn.launches for k, fn in fns.items()})
+        if on_round_end is not None:
+            on_round_end(rnd)
+        rec["round"] = rnd + 1
+
+    def recording(*args, **kwargs):
+        out = draw(*args, **kwargs)
+        rec["drawn"].append(out.copy())
+        return out
+
+    def counting_local_train(cfg, loss_fn):
+        inner = make_local_train(cfg, loss_fn)
+
+        def local_train(model, batches, *args, **kwargs):
+            rec["local_trainings"] += 1
+            if "batch" not in rec:           # the run's first local batch
+                rec["batch"] = {k: v[0].clone() for k, v in batches.items()}
+            return inner(model, batches, *args, **kwargs)
+        return local_train
+
+    with contextlib.ExitStack() as stack:
+        for module, name in plain_versions(fa, ln):
+            def counting(*args, _fn=getattr(module, name), _name=name,
+                         **kwargs):
+                rec["plain"][_name] += 1
+                return _fn(*args, **kwargs)
+            stack.enter_context(rebound(module, name, counting))
+        for module, name, fn in (
+                (fedavg, "accumulate", timed_events(fedavg.accumulate)),
+                (fedavg, "server_step", timed_events(fedavg.server_step)),
+                (fedavg, "make_local_train", counting_local_train),
+                (server, "shadow_weights", timed_eval),
+                (server, "sample_client_indices", recording),
+                (checkpoint, "save_federated_checkpoint", timed_save)):
+            stack.enter_context(rebound(module, name, fn))
+        torch.cuda.synchronize()
+        for fn in fns.values():
+            fn.launches = 0
+        yield rec
+
+
+def plain_versions(fa, ln):
+    """(module, name) of the plain versions of the phase's kernels: K1-K3's
+    attention and K3's kernel-order backward, K4, K7's two shifts, K8."""
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    return ((fa, "attention_from_qkvb"), (fa, "qkvb_attention_bwd_plain"),
+            (ln, "ln_bwd_plain"), (rs, "row_shift_plain"),
+            (rs, "col_shift_plain"), (ra, "equalize_plain"))
+
+
+def per_round(counts):
+    """Launches in each round from the running counts at each round's end."""
+    out, prev = [], {k: 0 for k in counts[0]}
+    for c in counts:
+        out.append({k: c[k] - prev[k] for k in c if c[k] - prev[k]})
+        prev = c
+    return out
+
+
+def fed_want():
+    """Launches a round: 4 × 8 local steps of (12 K2, 12 K3, 25 K4, 12 K7,
+    3 K8) and 12 K1 a forward of the evaluation (4 batches of 64)."""
+    steps = FED_CLIENTS * FED_STEPS
+    return {"K1": BLOCKS * FED_EVAL // FED_EVAL_BATCH, "K2": steps * BLOCKS,
+            "K3": steps * BLOCKS, "K4": steps * NORMS, "K7": steps * 12,
+            "K8": steps * 3}
+
+
+def host64(model):
+    """The federated leaves of ``model`` as fp64 CPU tensors."""
+    from fedvit_torch.fed.fedavg import federated_leaves
+    return {n: t.detach().double().cpu()
+            for n, t in federated_leaves(model).items()}
+
+
+def check_aggregation(cfg, train, model, captured):
+    """12b: the round's global leaves against θ + η(Σ wᵢθᵢ − θ) in fp64 from
+    the clients' own leaves, and the control with equal weights."""
+    from fedvit_torch.fed.partition import client_weights, partition
+
+    weights = client_weights(partition("dirichlet", train["label"],
+                                       FED_CLIENTS, alpha=0.5, seed=cfg.seed))
+    w = (weights / weights.sum()).astype(np.float64)     # all 4 take part
+    eta = cfg.federated.server_lr
+    got = host64(model)
+    worst = control = 0.0
+    for n, theta in captured["global"].items():
+        clients = [c[n] for c in captured["clients"]]
+        scale = theta.abs() + sum(wi * c.abs() for wi, c in zip(w, clients))
+        want = theta + eta * (sum(wi * c for wi, c in zip(w, clients)) - theta)
+        equal = theta + eta * (sum(clients) / len(clients) - theta)
+        worst = max(worst, float(((got[n] - want).abs() / (scale + 1e-30)).max()))
+        control = max(control, float(((got[n] - equal).abs()
+                                      / (scale + 1e-30)).max()))
+    log(f"[fed] 12b aggregation over {len(got)} leaves (parameters and "
+        f"BatchNorm statistics), weights {w.round(4).tolist()}: largest "
+        f"|got − θ − η(Σwᵢθᵢ − θ)| / (|θ| + Σwᵢ|θᵢ|) {worst!r} (limit "
+        f"{AGG_RTOL!r}); control, equal weights: {control!r} (must exceed)")
+    if not worst <= AGG_RTOL:
+        raise RuntimeError("the federated round does not aggregate as "
+                           "θ + η(Σ wᵢθᵢ − θ)")
+    if not control > AGG_RTOL:
+        raise RuntimeError("the aggregation check cannot tell equal weights "
+                           "from the split's")
+    return worst
+
+
+def check_fresh_optimizer(cfg, model, step):
+    """12c: client 0's first local step of round 2 against one step of a
+    freshly made local optimizer from the same parameters and gradients."""
+    from fedvit_torch.fed import fedavg
+
+    state = step["state"]
+    fresh_state = state["count"] == 0 and all(
+        not t.any() for part in ("mu", "nu") for t in state[part].values())
+    scratch = copy.deepcopy(model)
+    with torch.no_grad():
+        for n, p in scratch.named_parameters():
+            p.copy_(step["params"][n])
+    tx = fedavg.build_local_optimizer(cfg, scratch)
+    tx.step(scratch, step["grads"], tx.init(scratch))
+    differ = [n for n, p in scratch.named_parameters()
+              if not torch.equal(p, step["after"][n])]
+    log(f"[fed] 12c client 0's first local step of round 2: optimizer state "
+        f"at count 0 with zero moments: {fresh_state}; parameters bit-equal "
+        f"to one step of a fresh local optimizer: {not differ} {differ[:3]}")
+    if not fresh_state or differ:
+        raise RuntimeError("a client's local optimizer was not fresh")
+
+
+def check_fed_shapes(fa, ln, attention_from_qkvb, cfg, train, ev, batch):
+    """12a, at the shapes this path gives the kernels: K1 at the evaluation
+    batch, K2-K4 at the local batch, K7 and K8 at those that the train
+    augment takes from ``batch`` (the run's first gathered local batch:
+    float 224² images, not uint8 canvases), each against its plain version;
+    then that batch's train augment bit-equal to the same call through the
+    plain shifts and equalize, one local step's gradients against the plain
+    path (6c's gate) and the evaluation's logits against the plain attention
+    (phase 3's gate). Returns each kernel's record (K7 and K8: one a shape)."""
+    import dataclasses
+
+    from fedvit_torch.data.pipeline import make_device_augment
+    from fedvit_torch.data.sampling import compute_class_weights
+    from fedvit_torch.eval.serve import make_eval_step
+    from fedvit_torch.fed import fedavg
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    from fedvit_torch.train.losses import build_loss
+    from fedvit_torch.train.state import TrainState
+    from fedvit_torch.train.step import make_train_step
+
+    heads, e = 12, 768
+    n = (cfg.model.image_size // 16) ** 2 + 1
+    bf16 = torch.bfloat16
+    recs = {"K1": check_k1(fa, attention_from_qkvb, FED_EVAL_BATCH, n, heads,
+                           e // heads, bf16, K1_ATOL_BF16, timed=True),
+            "K2": check_k2(fa, attention_from_qkvb, FED_BATCH, n, heads, bf16,
+                           True),
+            "K3": check_k3(fa, attention_from_qkvb, FED_BATCH, n, heads, bf16,
+                           True),
+            "K4": check_k4(ln, (FED_BATCH, n, e), bf16, True)}
+    for key, shape in (("K1", [FED_EVAL_BATCH, n, 3 * e]),
+                       ("K2", [FED_BATCH, n, 3 * e]),
+                       ("K3", [FED_BATCH, n, 3 * e]), ("K4", [FED_BATCH, n, e])):
+        recs[key]["shape"] = shape
+
+    # the train augment on the gathered batch: the shapes K7 and K8 see
+    augment = make_device_augment(cfg, train=True)
+    seen = []
+
+    def recording(module, name, kind):
+        fn = getattr(module, name)
+
+        def wrapped(img, *args):
+            seen.append((kind, tuple(img.shape)))
+            return fn(img, *args)
+        return rebound(module, name, wrapped)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    start = g.get_state()
+    with recording(rs, "row_shift", "rows"), \
+            recording(rs, "col_shift", "columns"), \
+            recording(ra, "equalize", "equalize"):
+        out = augment(batch, g)["image"]
+    g.set_state(start)
+    with augment_kernels_replaced_by_plain(rs, ra):
+        plain = augment(batch, g)["image"]
+    shifts = [s for s in seen if s[0] != "equalize"]
+    equalized = [s for s in seen if s[0] == "equalize"]
+    log(f"[fed] 12a train augment of a gathered local batch "
+        f"{tuple(batch['image'].shape)} {batch['image'].dtype} → "
+        f"{tuple(out.shape)}: K7 at {shifts}, K8 at {equalized}; bit-equal to "
+        f"the plain shifts and equalize from the same generator state: "
+        f"{torch.equal(out, plain)}")
+    if len(shifts) != 12 or len(equalized) != 3 or not torch.equal(out, plain):
+        raise RuntimeError("the federated train augment did not call K7 and K8 "
+                           "as it should or disagrees with the plain path")
+    recs["K7"] = [check_k7(rs, shape, 2 if kind == "rows" else 1,
+                           SEED + 120 + i, timed=True)
+                  for i, (kind, shape) in enumerate(sorted(set(shifts)))]
+    recs["K8"] = [check_k8(ra, shape, SEED + 130 + i, timed=True)
+                  for i, (_, shape) in enumerate(sorted(set(equalized)))]
+    for _, shape in sorted(set(equalized)):
+        check_k8(ra, shape, SEED + 140, False, spans=True)
+    del out, plain
+
+    # one local step as a client takes it, kernels against the plain path
+    model = fed_model(cfg)
+    class_w = None
+    if cfg.loss.class_weights:
+        class_w = torch.from_numpy(compute_class_weights(
+            train["label"], cfg.num_classes)).cuda()
+    local = dataclasses.replace(cfg.training, gradient_accumulation_steps=1)
+    step = make_train_step(cfg.replace(training=local),
+                           build_loss(cfg, class_w), augment=augment)
+    tx = fedavg.build_local_optimizer(cfg, model)
+    generator, np_rng = fedavg.client_generators(cfg.seed, 1, 0, "cuda")
+    state = TrainState(step=0, model=model, tx=tx, opt_state=tx.init(model),
+                       ema=None, generator=generator, np_rng=np_rng)
+    got = grads_by_path(model, state, step, batch, {
+        "kernel": (),
+        "plain": (attention_replaced_by(attention_from_qkvb),
+                  layer_norm_backward_replaced_by(ln.ln_bwd_plain),
+                  augment_kernels_replaced_by_plain(rs, ra)),
+        "control": (attention_replaced_by(k3_without_dbias(fa)),)})
+    compare_grads("fed-step", got, GRAD_RTOL_BF16,
+                  [k for k in got["plain"][0] if k.endswith("attn.qkv.bias")],
+                  "K3's dbias zeroed")
+    del got
+
+    # the round evaluation's forwards at batch 64, kernel against plain
+    eval_step = make_eval_step(model, cfg, augment=make_device_augment(cfg, False))
+    ev_dev = {k: torch.from_numpy(v).cuda() for k, v in ev.items() if k != "mask"}
+
+    def logits():
+        return torch.cat([eval_step({k: v[s:s + FED_EVAL_BATCH]
+                                     for k, v in ev_dev.items()})
+                          for s in range(0, FED_EVAL, FED_EVAL_BATCH)]
+                         ).float().cpu().numpy()
+
+    kernel = logits()
+    with attention_replaced_by(attention_from_qkvb):
+        want = logits()
+    compare_logits("fed-eval", kernel, want)
+    del model, state, ev_dev
+    torch.cuda.empty_cache()
+    return recs
+
+
+def fed_cli(smi):
+    """12e: the CLI on the JAX defaults (ViT-B/16@224, batch 4, 4 clients)
+    over 256 synthetic images, one round, in a process of its own."""
+    log_dir = FED_WORKDIR / "cli"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fedvit_torch.cli.train_federated",
+         "--synthetic", "256", "--rounds", "1", "--log", str(log_dir)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the federated CLI failed:\n{proc.stdout[-3000:]}"
+                           f"\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("[fed]"):
+            log(f"[fed] 12e cli: {line}")
+    history = json.loads((log_dir / "federated_history.json").read_text())
+    generations = sorted(p.name for p in (log_dir / "ckpt").iterdir())
+    values = [history[0][k] for k in ("loss", "accuracy", "balanced_accuracy",
+                                      "macro_f1")] if history else []
+    log(f"[fed] 12e `python -m fedvit_torch.cli.train_federated --synthetic 256 "
+        f"--rounds 1`: {seconds!r} s in all (process start, data, model, "
+        f"round, checkpoint); history {history}; ckpt/ holds {generations} "
+        f"({smi})")
+    if len(history) != 1 or not all(math.isfinite(v) for v in values) or \
+            generations != ["fed_ckpt"]:
+        raise RuntimeError("the federated CLI's history or checkpoint is wrong")
+
+
+def trace_fed(fa, ln, cfg, train, ev, smi):
+    """12f: one round broken into stages (each ended by a synchronise), then a
+    profile of one round of ``train_federated``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedvit_torch.fed import fedavg, server
+
+    stages = {k: 0.0 for k in ("local steps", "aggregation", "EMA")}
+    timing = {"on": False, "assemble_ms": []}
+
+    def synced(name, fn):
+        def wrapped(*args, **kwargs):
+            if not timing["on"]:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapped
+
+    def timed_local(cfg_, loss_fn):
+        return synced("local steps", make_local_train(cfg_, loss_fn))
+
+    def host_timed_draw(self):
+        t0 = time.perf_counter()
+        out = draw(self)
+        timing["assemble_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def switch(rnd):
+        timing["on"] = rnd == 1            # time round 2, after the warm-up
+
+    make_local_train, draw = fedavg.make_local_train, server.RoundBatches.draw
+    with contextlib.ExitStack() as stack:
+        rec = stack.enter_context(fed_instruments(fa, ln, on_round_end=switch))
+        for module, name, fn in (
+                (fedavg, "make_local_train", timed_local),
+                (fedavg, "accumulate", synced("aggregation", fedavg.accumulate)),
+                (fedavg, "server_step", synced("aggregation",
+                                               fedavg.server_step)),
+                (server, "ema_update", synced("EMA", server.ema_update)),
+                (server.RoundBatches, "draw", host_timed_draw)):
+            stack.enter_context(rebound(module, name, fn))
+        result = server.train_federated(
+            fed_config(2), fed_model(cfg), train, ev, log_fn=lambda s: None,
+            workdir=str(FED_WORKDIR / "trace"))
+    wall = result.history[1]["round_time_s"] * 1e3
+    stages["evaluation"] = FED_EVAL / rec["evals"][1] * 1e3
+    stages["checkpoint"] = rec["saves"][1][0] * 1e3
+    log(f"[stages-fed] round 2 of 2, each stage ended by a synchronise ({smi}): "
+        f"round wall {wall!r} ms (local steps, aggregation, EMA); assemble "
+        f"{timing['assemble_ms'][1]!r} ms of host time on the background "
+        f"thread, overlapped with round 1")
+    for k, ms in stages.items():
+        log(f"[stages-fed]   {k:12s} {ms!r} ms ({100 * ms / (wall + stages['evaluation'] + stages['checkpoint']):.1f}%)")
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def profiled(rnd):
+        if rnd == 1:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif rnd == 2:
+            torch.cuda.synchronize()
+            window["wall_ms"] = (time.perf_counter() - window["t0"]) * 1e3
+            prof.stop()
+
+    with fed_instruments(fa, ln, on_round_end=profiled):
+        server.train_federated(fed_config(2), fed_model(cfg), train, ev,
+                               log_fn=lambda s: None,
+                               workdir=str(FED_WORKDIR / "trace"))
+    events, device_ms = device_events(prof)
+    wall_ms = window["wall_ms"]
+    log(f"[profile-fed] round 2 of 2 (draws, 32 local steps, aggregation, EMA, "
+        f"evaluation, checkpoint): wall {wall_ms!r} ms, device {device_ms!r} ms "
+        f"in {sum(e.count for e in events)} kernels and copies, busy "
+        f"{100 * device_ms / wall_ms:.1f}% ({smi})")
+    for e in events[:20]:
+        ms = e.self_device_time_total / 1e3
+        log(f"[profile-fed]   {ms!r} ms ({100 * ms / device_ms:.1f}%) "
+            f"x{e.count} {e.key[:90]}")
+    for k, names in {"K1": K1_NAMES, "K2": K2_NAMES, "K3": K3_NAMES,
+                     "K4": K4_NAMES, "K7": ("shift_kernel",),
+                     "K8": ("equalize_kernel",)}.items():
+        ms = sum(e.self_device_time_total for e in events
+                 if in_group(e.key, names)) / 1e3
+        log(f"[profile-fed] {k} {ms!r} ms = {100 * ms / device_ms:.1f}% of "
+            f"device time")
+        if not ms > 0:
+            raise RuntimeError(f"[profile-fed]: no device time under {k}'s "
+                               f"names {names}")
+
+
+def fed_phase(fa, ln, smi, trace):
+    """Phase 12; returns the launches a round of K1-K4, K7 and K8."""
+    import shutil
+
+    from fedvit_torch.fed import fedavg, server
+    from fedvit_torch.ops.attention import attention_from_qkvb
+    from fedvit_torch.train import checkpoint
+
+    phase_t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    train, ev = fed_data()
+    log(f"[fed] data: {len(train['label'])} training and {len(ev['label'])} "
+        f"evaluation images {train['image'].shape[1:]} float32 in "
+        f"{time.perf_counter() - t0!r} s (host)")
+    cfg = fed_config(FED_ROUNDS)
+    want = fed_want()
+    images = FED_CLIENTS * FED_STEPS * FED_BATCH
+    shutil.rmtree(FED_WORKDIR, ignore_errors=True)
+    try:
+        # 12a. the server at full width, 3 rounds
+        model = fed_model(cfg)
+        caller = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lines = []
+        with fed_instruments(fa, ln) as rec:
+            t0 = time.perf_counter()
+            full = server.train_federated(cfg, model, train, ev,
+                                          log_fn=lines.append,
+                                          workdir=str(FED_WORKDIR / "a"))
+            run_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            agg_ms = [sum(s.elapsed_time(e) for s, e in rec["agg"][r])
+                      for r in sorted(rec["agg"])]
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        for line in lines:
+            log(line)
+        launches = per_round(rec["counts"])
+        for h, a, e, (s, b), n in zip(full.history, agg_ms, rec["evals"],
+                                      rec["saves"], launches):
+            log(f"[fed] round {h['round']}: {h['round_time_s']!r} s = "
+                f"{images / h['round_time_s']!r} img/s synchronised "
+                f"({FED_CLIENTS} clients x {FED_STEPS} steps x {FED_BATCH}, "
+                f"the draws' wait, aggregation and EMA); aggregation {a!r} ms "
+                f"of device time; evaluation {e!r} img/s; checkpoint {s!r} s, "
+                f"{b} bytes; launches {n}")
+        steady = full.history[1:]
+        log(f"[fed] rounds 2-3 (round 1 warms up): "
+            f"{images * len(steady) / sum(h['round_time_s'] for h in steady)!r}"
+            f" img/s; peak {peak_gib!r} GiB; the run {run_s!r} s ({smi})")
+        log(f"[fed] launches a round, want {want}; plain versions called "
+            f"{rec['plain']}")
+        if any(n != want for n in launches) or any(rec["plain"].values()):
+            raise RuntimeError("a federated round did not launch the kernels "
+                               "as it should")
+        if len(full.history) != FED_ROUNDS or not all(
+                math.isfinite(h[k]) for h in full.history
+                for k in ("loss", "accuracy", "balanced_accuracy", "macro_f1",
+                          "auroc")):
+            raise RuntimeError("the federated history is not finite")
+        moved = [k for k, v in full.model.state_dict().items()
+                 if not torch.equal(v, caller[k])]
+        untouched = all(torch.equal(v, caller[k])
+                        for k, v in model.state_dict().items())
+        log(f"[fed] the caller's model unchanged: {untouched}; the result's "
+            f"tensors that moved: {len(moved)} of {len(caller)}")
+        if not untouched or not moved:
+            raise RuntimeError("train_federated changed the caller's model or "
+                               "moved nothing")
+        del model
+        full.model = full.ema_params = None
+        torch.cuda.empty_cache()
+        shapes = check_fed_shapes(fa, ln, attention_from_qkvb, cfg, train, ev,
+                                  rec.pop("batch"))
+
+        # 12b, 12c. the same run cut to 2 rounds, with round 2's clients
+        # captured: their leaves before and after local training, and client
+        # 0's first local optimizer step
+        captured = {"global": None, "clients": [], "step": None}
+        make_local_train = fedavg.make_local_train
+        build_local_optimizer = fedavg.build_local_optimizer
+
+        def capturing(cfg_, loss_fn):
+            inner = make_local_train(cfg_, loss_fn)
+
+            def local_train(m, *args, **kwargs):
+                last = two_rec["round"] == 2
+                if last and captured["global"] is None:
+                    captured["global"] = host64(m)
+                loss = inner(m, *args, **kwargs)
+                if last:
+                    captured["clients"].append(host64(m))
+                return loss
+            return local_train
+
+        def recording_optimizer(cfg_, m):
+            tx = build_local_optimizer(cfg_, m)
+            if two_rec["round"] != 2 or captured["step"] is not None:
+                return tx
+            first = tx.step
+
+            def step(m_, grads, state):
+                if captured["step"] is not None:
+                    return first(m_, grads, state)
+                captured["step"] = {
+                    "state": {"count": state["count"],
+                              **{part: {n: t.clone() for n, t in
+                                        state[part].items()}
+                                 for part in ("mu", "nu")}},
+                    "params": {n: p.detach().clone()
+                               for n, p in m_.named_parameters()},
+                    "grads": {n: g.detach().clone() for n, g in grads.items()}}
+                norm = first(m_, grads, state)
+                captured["step"]["after"] = {
+                    n: p.detach().clone() for n, p in m_.named_parameters()}
+                return norm
+            tx.step = step
+            return tx
+
+        with contextlib.ExitStack() as stack:
+            two_rec = stack.enter_context(fed_instruments(fa, ln))
+            stack.enter_context(rebound(fedavg, "make_local_train", capturing))
+            stack.enter_context(rebound(fedavg, "build_local_optimizer",
+                                        recording_optimizer))
+            two = server.train_federated(
+                fed_config(2), fed_model(cfg), train, ev,
+                log_fn=lambda s: None, workdir=str(FED_WORKDIR / "b"))
+        agg_err = check_aggregation(cfg, train, two.model, captured)
+        check_fresh_optimizer(cfg, two.model, captured["step"])
+        del captured
+        torch.cuda.empty_cache()
+
+        # 12d. resume the 2-round run to round 3
+        two_state = two.model.state_dict()
+        load = checkpoint.load_federated_checkpoint
+        restored = {}
+
+        def checked_load(path, m, ema):
+            meta = load(path, m, ema)
+            differ = [k for k, v in m.state_dict().items()
+                      if not torch.equal(v, two_state[k])]
+            differ += [k for k, v in ema.items()
+                       if not torch.equal(v, two.ema_params[k])]
+            restored.update(
+                tensors=len(two_state) + len(ema), differ=differ,
+                np_state=meta["np_rng_state"] == two_rec["np_states"][-1]
+                == rec["np_states"][1], round=meta["round"])
+            return meta
+
+        lines = []
+        with contextlib.ExitStack() as stack:
+            res_rec = stack.enter_context(fed_instruments(fa, ln))
+            stack.enter_context(rebound(checkpoint, "load_federated_checkpoint",
+                                        checked_load))
+            resumed = server.train_federated(
+                cfg, fed_model(cfg), train, ev, log_fn=lines.append,
+                workdir=str(FED_WORKDIR / "b"), resume=True)
+        same_draws = len(res_rec["drawn"]) == FED_CLIENTS and all(
+            np.array_equal(a, b) for a, b in zip(res_rec["drawn"],
+                                                 rec["drawn"][-FED_CLIENTS:]))
+        log(f"[fed] 12d resumed from round {restored['round']}: "
+            f"{restored['tensors']} tensors restored bit for bit: "
+            f"{not restored['differ']} {restored['differ'][:3]}; numpy state "
+            f"as saved, and as the uninterrupted run's after round 2: "
+            f"{restored['np_state']}; local trainings {res_rec['local_trainings']} "
+            f"(round 3 alone: {FED_CLIENTS}); round 3's {FED_CLIENTS} clients' "
+            f"indices equal the uninterrupted run's: {same_draws}; round 3's "
+            f"loss {resumed.history[-1]['loss']!r} (uninterrupted "
+            f"{full.history[-1]['loss']!r})")
+        if restored["differ"] or not restored["np_state"] or \
+                restored["round"] != 2 or not same_draws or \
+                res_rec["local_trainings"] != FED_CLIENTS or \
+                [h["round"] for h in resumed.history] != [1, 2, 3] or \
+                not any("resumed from round 2" in x for x in lines):
+            raise RuntimeError("the resumed federated run did not continue "
+                               "as it should")
+        del two, resumed, two_state
+        torch.cuda.empty_cache()
+
+        # 12e. the CLI
+        fed_cli(smi)
+        # 12f. where a round's time goes
+        if trace:
+            trace_fed(fa, ln, cfg, train, ev, smi)
+    finally:
+        shutil.rmtree(FED_WORKDIR, ignore_errors=True)
+    log(f"[fed] phase 12 in {time.perf_counter() - phase_t0!r} s")
+    return {"launches_round": launches[-1], "round_s": [
+        h["round_time_s"] for h in full.history], "agg_ms": agg_ms,
+        "eval_img_s": rec["evals"], "saves": rec["saves"],
+        "peak_gib": peak_gib, "agg_rel_err": agg_err, "shapes": shapes}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
                         help="also break the time of a serving batch (phases 5 "
-                             "and 7), of a training step (phases 6 and 8) and "
-                             "of a fold step (phase 9) down")
+                             "and 7), of a training step (phases 6 and 8), "
+                             "of a fold step (phase 9) and of a federated "
+                             "round (phase 12) down")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -3175,6 +3890,21 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| {kind} x{torch.cuda.device_count()}")
+    # which of the file readers that cli/train needs import here; nothing
+    # below depends on them
+    probe = subprocess.run(
+        [sys.executable, "-c", "import importlib, json\nfound = {}\n"
+         "for m in ('PIL', 'pandas', 'yaml', 'cv2'):\n"
+         "    try:\n        found[m] = getattr(importlib.import_module(m), "
+         "'__version__', 'yes')\n"
+         "    except Exception as e:\n        found[m] = repr(e)\n"
+         "print(json.dumps(found))"],
+        capture_output=True, text=True, timeout=300)
+    log(f"[packages] import on this machine: {probe.stdout.strip()} "
+        f"{probe.stderr.strip()[-300:]}")
+    free, total = torch.cuda.mem_get_info()
+    log(f"[device] memory free before the run: {free / 2 ** 30!r} of "
+        f"{total / 2 ** 30!r} GiB")
     t0 = time.perf_counter()
     built = kernels.build_all()
     log(f"[build] {', '.join(built)} in {time.perf_counter() - t0!r} s")
@@ -3298,6 +4028,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     k9_k12 = flat_cosine_phase(fa, ln)
     k9, k12 = k9_k12["K9"], k9_k12["K12"]
+
+    # 12. federated training of ViT-B/16@224
+    torch.cuda.empty_cache()
+    fed = fed_phase(fa, ln, smi, args.trace)
+    for rec, key in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4"),
+                     (k7, "K7"), (k8, "K8")):
+        rec["launches_federated_round"] = fed["launches_round"][key]
+        rec["federated"] = fed["shapes"][key]
     extra = [{"name": name, "route": "cuda", "source": f"fedvit_torch/csrc/{src}",
               "replaces": f"fedvit_tpu/ops/flash_attention.py:{line}", **rec}
              for name, src, line, rec in (

@@ -16,12 +16,20 @@ Checkpoints written by ``fedvit_tpu`` (orbax) are not read here.
 A pretrained starting point (``save_pretrained``) is a ``variables.pt``
 state dict and ``pretrained_meta.json`` (its backbone, image size and input
 channels); ``load_pretrained`` refuses one converted for another model.
+
+The federated server's state (``save_federated_checkpoint``) is a directory
+``fed_ckpt`` under the run's workdir holding ``fed_state.pt`` (the global
+model's ``state_dict``, the EMA shadow and the seed the clients' generators
+derive from) and ``fed_meta.json`` (round, history, the numpy ``PCG64``
+state, the config). It is written whole into ``fed_ckpt.tmp`` and swapped
+in by two renames, so every crash leaves one loadable generation.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -173,3 +181,85 @@ def load_pretrained(path: str, model: nn.Module,
 def pretrained_exists(path: str) -> bool:
     p = Path(path)
     return (p / "pretrained_meta.json").exists() and (p / "variables.pt").exists()
+
+
+# --- federated server state ---------------------------------------------------
+
+def _fed_dir(path: str) -> Path:
+    """The live federated checkpoint directory, falling back to the ``.old``
+    generation if a crash landed between the two swap renames."""
+    p = Path(path).absolute()
+    live, old = p / "fed_ckpt", p / "fed_ckpt.old"
+    if (live / "fed_meta.json").exists():
+        return live
+    return old
+
+
+def save_federated_checkpoint(path: str, model: nn.Module,
+                              ema_params: Optional[Dict[str, torch.Tensor]],
+                              rnd: int, history, np_rng_state: Dict,
+                              generator_base: int,
+                              cfg: Optional[Config] = None) -> None:
+    """Persist the federated server's state after round ``rnd`` to ``path``
+    (a directory): the global ``model``'s weights and statistics, the EMA
+    shadow, the history, the numpy generator's state and the base seed of the
+    clients' generators.
+
+    Crash-safe: state and meta are written together into ``fed_ckpt.tmp/``
+    and promoted with two directory renames (atomic on one filesystem); the
+    previous generation survives as ``fed_ckpt.old`` until the new one is
+    live, so state and meta never desynchronise."""
+    base = Path(path).absolute()
+    tmp, live, old = (base / "fed_ckpt.tmp", base / "fed_ckpt",
+                      base / "fed_ckpt.old")
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    torch.save({"model": model.state_dict(), "ema_params": ema_params,
+                "generator_base": int(generator_base)}, tmp / "fed_state.pt")
+    meta = {
+        "round": int(rnd),
+        "history": history,
+        "np_rng_state": np_rng_state,   # PCG64 state dict — plain ints
+        "config": to_dict(cfg) if cfg is not None else None,
+    }
+    (tmp / "fed_meta.json").write_text(json.dumps(meta, indent=2,
+                                                  default=str))
+    if old.exists():
+        shutil.rmtree(old)
+    if live.exists():
+        live.rename(old)
+    tmp.rename(live)
+    if old.exists():
+        shutil.rmtree(old)
+
+
+def load_federated_checkpoint(path: str, model: nn.Module,
+                              ema_params: Optional[Dict[str, torch.Tensor]]
+                              ) -> Dict[str, Any]:
+    """Restore the federated server's state into ``model`` and the EMA shadow
+    ``ema_params`` (built for the same config), in place.
+
+    Returns {"round", "history", "np_rng_state", "config",
+    "generator_base"}."""
+    path = _fed_dir(path)
+    device = next(model.parameters()).device
+    saved = torch.load(path / "fed_state.pt", map_location=device,
+                       weights_only=True)
+    model.load_state_dict(saved["model"])
+    if (ema_params is None) != (saved["ema_params"] is None):
+        raise ValueError(f"federated checkpoint at {path} has EMA "
+                         f"{saved['ema_params'] is not None}, the run "
+                         f"{ema_params is not None}")
+    if ema_params is not None:
+        _copy_into(ema_params, saved["ema_params"])
+    meta = json.loads((path / "fed_meta.json").read_text())
+    return {"round": int(meta["round"]), "history": meta["history"],
+            "np_rng_state": meta["np_rng_state"],
+            "config": meta.get("config"),
+            "generator_base": int(saved["generator_base"])}
+
+
+def federated_checkpoint_exists(path: str) -> bool:
+    p = _fed_dir(path)
+    return (p / "fed_meta.json").exists() and (p / "fed_state.pt").exists()

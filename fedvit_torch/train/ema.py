@@ -5,7 +5,8 @@ shadow is a copy of ``params``)."""
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator, Optional
 
 import torch
 from torch import nn
@@ -27,3 +28,26 @@ def ema_update(shadow: Dict[str, torch.Tensor], model: nn.Module,
     params = dict(model.named_parameters())
     torch._foreach_lerp_([shadow[n] for n in names],
                          [params[n].detach() for n in names], 1.0 - decay)
+
+
+@contextlib.contextmanager
+def shadow_weights(model: nn.Module,
+                   shadow: Optional[Dict[str, torch.Tensor]]
+                   ) -> Iterator[nn.Module]:
+    """``model`` with the ``shadow``'s tensors as its parameters inside the
+    block (the model as it is when ``shadow`` is None), and with its own
+    parameters again after it, whatever the block raised. Nothing is
+    copied: the parameters point at the shadow's tensors for the length of
+    the block."""
+    if shadow is None:
+        yield model
+        return
+    params = dict(model.named_parameters())
+    own = {n: p.data for n, p in params.items()}
+    for n, s in shadow.items():
+        params[n].data = s
+    try:
+        yield model
+    finally:
+        for n, p in params.items():
+            p.data = own[n]

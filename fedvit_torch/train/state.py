@@ -15,15 +15,14 @@ a ``with`` block and the trained weights back after it, without a copy.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional
+from typing import ContextManager, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from fedvit_torch.train.ema import ema_init
+from fedvit_torch.train.ema import ema_init, shadow_weights
 from fedvit_torch.train.optim import AdamWLLRD
 
 
@@ -54,25 +53,13 @@ class TrainState:
             sd.update(self.ema)
         return sd
 
-    @contextlib.contextmanager
-    def ema_weights(self) -> Iterator[nn.Module]:
-        """The model with the EMA shadow as its parameters inside the block
-        (the model itself when EMA is off), and with its trained parameters
-        again after it, whatever the block raised. The parameters point at
-        the shadow's tensors for the length of the block: nothing is copied,
-        and the optimizer and the next step see the trained tensors."""
-        if self.ema is None:
-            yield self.model
-            return
-        params = dict(self.model.named_parameters())
-        trained = {n: p.data for n, p in params.items()}
-        for n, shadow in self.ema.items():
-            params[n].data = shadow
-        try:
-            yield self.model
-        finally:
-            for n, p in params.items():
-                p.data = trained[n]
+    def ema_weights(self) -> ContextManager[nn.Module]:
+        """The model with the EMA shadow as its parameters inside a ``with``
+        block (the model itself when EMA is off), and with its trained
+        parameters again after it (``ema.py::shadow_weights``): nothing is
+        copied, and the optimizer and the next step see the trained
+        tensors."""
+        return shadow_weights(self.model, self.ema)
 
     def fork(self, tx: AdamWLLRD) -> "TrainState":
         """A state on the same model with optimizer ``tx``, no EMA, step 0,
