@@ -8,10 +8,11 @@
 Phases, one line of output each (or a few):
 
 1. the card (``nvidia-smi`` name and power limit, ``torch.cuda``), which of
-   PIL, pandas, PyYAML and OpenCV import (in a process of their own; nothing
-   here uses them), then the build of every hand-written kernel from
-   ``fedvit_torch/csrc`` with ``nvcc`` (one compiler per source, all at
-   once);
+   PIL, pandas, PyYAML and OpenCV import (in a process of their own; phase 13
+   needs PIL, pandas and PyYAML), whether the host compiler finds libjpeg's
+   and libpng's headers (``jpeglib.h``, ``png.h``; nothing here uses them),
+   then the build of every hand-written kernel from ``fedvit_torch/csrc``
+   with ``nvcc`` (one compiler per source, all at once);
 2. each kernel against its plain PyTorch version on the card, at the shape
    the serving path gives it (and a small fp32 case, and ViT-H's head width
    d = 80 at a small batch), with its time, the plain version's, one PyTorch
@@ -207,6 +208,42 @@ Phases, one line of output each (or a few):
       synchronise) and a profile of round 2 of another: busy share, top
       kernels, K1-K4, K7 and K8's shares.
 
+13. the user's ISIC path through its entry points' ``main(argv)``, in this
+   process, on the card, under a temporary directory of the run's own:
+   a. a seeded ISIC-2019 layout written with PIL and pandas: the one-hot
+      ground truth with UNK rows (dropped), metadata with NaN ages,
+      mixed-case sex, ``anatom_site_general`` and lesions of 1-4 images,
+      1,600 smooth lesion-like training JPEGs of 600x450 and 1024x1024 (a
+      few CSV rows without one), a labelled test split of 256, a mask PNG
+      an image; ``load_isic_data``'s seconds and ``HostDataSource``'s decode
+      img/s (cold, then cached);
+   b. ``cli.import_weights`` on a seeded timm-layout ViT-B/16@224 backbone
+      ``.pt``: the 4th patch-embed channel the mean of the RGB kernels, every
+      other backbone tensor the file's;
+   c. ``cli.train --fold 0`` (5 folds, macro batch 128 as 2 x 64, bf16, the
+      default train augment and TTA, 2 epochs, from b's output): fold 0's
+      training and validation lesions disjoint, every step 12 K7, 3 K8 and
+      2 x (12 K2, 12 K3, 25 K4), every evaluation forward 12 K1, no plain
+      version called, the best and resume checkpoints, ``ensemble_logits.npy``
+      (256, 8) and finite, the pretrained init logged; train img/s an epoch,
+      validation and TTA img/s; K1's outputs in the run against its plain
+      version on the run's own inputs, one qkv of each shape (the
+      validation's and the TTA test's 8 views of 16), and K1 at the TTA
+      test's (128, 197, 2304) against its plain version, timed;
+   d. ``cli.predict --isic_dir --tta`` on the fold's best checkpoint: 12 K1 a
+      forward, its logits against ``ensemble_logits.npy`` (bit-equality
+      stated, phase 3's limit: the batch sizes differ), 256 CSV rows in the
+      test frame's order, the classification report; K1 on the run's own
+      inputs and at (512, 197, 2304), timed, as in c;
+   e. ``cli.train_federated`` on the same files (4 clients x 8 local steps of
+      64, 2 rounds, the whole training split decoded to uint8 canvases): the
+      launches a round as phase 12 holds them, the history written; the
+      run's first gathered local batch (64 uint8 canvases) through the train
+      augment bit-equal to the plain shifts and equalize from the same
+      generator state, and K7 and K8 against their plain versions, timed, at
+      the shapes that call gave them, which it prints;
+   with each CLI's seconds from start to end and peak memory.
+
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 2 and prints no
@@ -221,6 +258,7 @@ import copy
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -271,6 +309,15 @@ K1_ATOL_FP32 = 2e-5
 # each weight differs by a bf16 rounding and the two may round the output one
 # ulp apart.
 K1_ATOL_BF16 = 2.0 ** -5
+
+
+def k1_atol_bf16(vmax: float) -> float:
+    """K1_ATOL_BF16's rule, one bf16 ulp of the largest |v|, on inputs whose
+    |v| may pass 8 (a model's own activations): 2^(⌊log2 max|v|⌋ − 7), not
+    below K1_ATOL_BF16."""
+    if not vmax > 0:
+        return K1_ATOL_BF16
+    return max(K1_ATOL_BF16, 2.0 ** (math.floor(math.log2(vmax)) - 7))
 # Logits of the whole bf16 model, kernel against plain attention, as the RMS
 # of the difference over the RMS of the plain logits. The one-ulp differences
 # above pass through 12 blocks of bf16 matmuls and residual adds; with the
@@ -3254,8 +3301,7 @@ def fed_instruments(fa, ln, on_round_end=None):
 
     fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
     rec = {"counts": [], "saves": [], "np_states": [], "agg": {}, "evals": [],
-           "drawn": [], "local_trainings": 0, "round": 1,
-           "plain": {name: 0 for _, name in plain_versions(fa, ln)}}
+           "drawn": [], "local_trainings": 0, "round": 1}
     save = checkpoint.save_federated_checkpoint
     draw = server.sample_client_indices
     make_local_train = fedavg.make_local_train
@@ -3308,12 +3354,7 @@ def fed_instruments(fa, ln, on_round_end=None):
         return local_train
 
     with contextlib.ExitStack() as stack:
-        for module, name in plain_versions(fa, ln):
-            def counting(*args, _fn=getattr(module, name), _name=name,
-                         **kwargs):
-                rec["plain"][_name] += 1
-                return _fn(*args, **kwargs)
-            stack.enter_context(rebound(module, name, counting))
+        rec["plain"] = stack.enter_context(plain_calls(fa, ln))
         for module, name, fn in (
                 (fedavg, "accumulate", timed_events(fedavg.accumulate)),
                 (fedavg, "server_step", timed_events(fedavg.server_step)),
@@ -3336,6 +3377,21 @@ def plain_versions(fa, ln):
     return ((fa, "attention_from_qkvb"), (fa, "qkvb_attention_bwd_plain"),
             (ln, "ln_bwd_plain"), (rs, "row_shift_plain"),
             (rs, "col_shift_plain"), (ra, "equalize_plain"))
+
+
+@contextlib.contextmanager
+def plain_calls(fa, ln):
+    """Counts the calls of the plain versions of K1-K4, K7 and K8 inside the
+    block, by name, in a dict."""
+    calls = {name: 0 for _, name in plain_versions(fa, ln)}
+    with contextlib.ExitStack() as stack:
+        for module, name in plain_versions(fa, ln):
+            def counting(*args, _fn=getattr(module, name), _name=name,
+                         **kwargs):
+                calls[_name] += 1
+                return _fn(*args, **kwargs)
+            stack.enter_context(rebound(module, name, counting))
+        yield calls
 
 
 def per_round(counts):
@@ -3418,6 +3474,55 @@ def check_fresh_optimizer(cfg, model, step):
         raise RuntimeError("a client's local optimizer was not fresh")
 
 
+def check_augment_batch(tag, augment, batch, seed):
+    """The train augment on ``batch`` (a gathered local batch) through K7 and
+    K8, bit-equal to the same call through the plain shifts and equalize from
+    the same generator state; then K7 and K8 against their plain versions,
+    timed, at each shape that call gave them (K8 also with ``spans``).
+    Returns (K7's records, K8's records), one a shape."""
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+
+    seen = []
+
+    def recording(module, name, kind):
+        fn = getattr(module, name)
+
+        def wrapped(img, *args):
+            seen.append((kind, tuple(img.shape)))
+            return fn(img, *args)
+        return rebound(module, name, wrapped)
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    start = g.get_state()
+    with recording(rs, "row_shift", "rows"), \
+            recording(rs, "col_shift", "columns"), \
+            recording(ra, "equalize", "equalize"):
+        out = augment(batch, g)["image"]
+    g.set_state(start)
+    with augment_kernels_replaced_by_plain(rs, ra):
+        plain = augment(batch, g)["image"]
+    shifts = [s for s in seen if s[0] != "equalize"]
+    equalized = [s for s in seen if s[0] == "equalize"]
+    log(f"{tag} train augment of a gathered local batch "
+        f"{tuple(batch['image'].shape)} {batch['image'].dtype} → "
+        f"{tuple(out.shape)}: K7 at {shifts}, K8 at {equalized}; bit-equal to "
+        f"the plain shifts and equalize from the same generator state: "
+        f"{torch.equal(out, plain)}")
+    if len(shifts) != 12 or len(equalized) != 3 or not torch.equal(out, plain):
+        raise RuntimeError(f"{tag}: the train augment did not call K7 and K8 "
+                           f"as it should or disagrees with the plain path")
+    del out, plain
+    k7 = [check_k7(rs, shape, 2 if kind == "rows" else 1, seed * 10 + i,
+                   timed=True)
+          for i, (kind, shape) in enumerate(sorted(set(shifts)))]
+    k8 = [check_k8(ra, shape, seed * 10 + 10 + i, timed=True)
+          for i, (_, shape) in enumerate(sorted(set(equalized)))]
+    for _, shape in sorted(set(equalized)):
+        check_k8(ra, shape, seed * 10 + 20, False, spans=True)
+    return k7, k8
+
+
 def check_fed_shapes(fa, ln, attention_from_qkvb, cfg, train, ev, batch):
     """12a, at the shapes this path gives the kernels: K1 at the evaluation
     batch, K2-K4 at the local batch, K7 and K8 at those that the train
@@ -3456,43 +3561,8 @@ def check_fed_shapes(fa, ln, attention_from_qkvb, cfg, train, ev, batch):
 
     # the train augment on the gathered batch: the shapes K7 and K8 see
     augment = make_device_augment(cfg, train=True)
-    seen = []
-
-    def recording(module, name, kind):
-        fn = getattr(module, name)
-
-        def wrapped(img, *args):
-            seen.append((kind, tuple(img.shape)))
-            return fn(img, *args)
-        return rebound(module, name, wrapped)
-
-    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    start = g.get_state()
-    with recording(rs, "row_shift", "rows"), \
-            recording(rs, "col_shift", "columns"), \
-            recording(ra, "equalize", "equalize"):
-        out = augment(batch, g)["image"]
-    g.set_state(start)
-    with augment_kernels_replaced_by_plain(rs, ra):
-        plain = augment(batch, g)["image"]
-    shifts = [s for s in seen if s[0] != "equalize"]
-    equalized = [s for s in seen if s[0] == "equalize"]
-    log(f"[fed] 12a train augment of a gathered local batch "
-        f"{tuple(batch['image'].shape)} {batch['image'].dtype} → "
-        f"{tuple(out.shape)}: K7 at {shifts}, K8 at {equalized}; bit-equal to "
-        f"the plain shifts and equalize from the same generator state: "
-        f"{torch.equal(out, plain)}")
-    if len(shifts) != 12 or len(equalized) != 3 or not torch.equal(out, plain):
-        raise RuntimeError("the federated train augment did not call K7 and K8 "
-                           "as it should or disagrees with the plain path")
-    recs["K7"] = [check_k7(rs, shape, 2 if kind == "rows" else 1,
-                           SEED + 120 + i, timed=True)
-                  for i, (kind, shape) in enumerate(sorted(set(shifts)))]
-    recs["K8"] = [check_k8(ra, shape, SEED + 130 + i, timed=True)
-                  for i, (_, shape) in enumerate(sorted(set(equalized)))]
-    for _, shape in sorted(set(equalized)):
-        check_k8(ra, shape, SEED + 140, False, spans=True)
-    del out, plain
+    recs["K7"], recs["K8"] = check_augment_batch("[fed] 12a", augment, batch,
+                                                 SEED + 12)
 
     # one local step as a client takes it, kernels against the plain path
     model = fed_model(cfg)
@@ -3858,6 +3928,548 @@ def fed_phase(fa, ln, smi, trace):
         "peak_gib": peak_gib, "agg_rel_err": agg_err, "shapes": shapes}
 
 
+# ---------------------------------------------------------------------------
+# 13. The user's ISIC path: cli/import_weights → cli/train → cli/predict
+#     --isic_dir, and cli/train_federated on the same files
+# ---------------------------------------------------------------------------
+
+# Phase 13 writes a seeded ISIC-2019 layout: 1,600 training JPEGs in
+# ISIC-2019's two common sizes (12 more CSV rows without a JPEG, 10 UNK rows
+# among those with one), a labelled test split of 256 JPEGs (4 more rows
+# without one), one mask PNG an image, labels in ISIC-2019's class shares.
+# Fold 0 of 5 trains on ~1,270 images, 9 steps of 128 an epoch.
+ISIC_TRAIN, ISIC_TEST, ISIC_UNK = 1600, 256, 10
+ISIC_NO_JPEG = (12, 4)                          # training, test
+ISIC_SIZES = ((600, 450), (1024, 1024))
+# ISIC-2019's training images a class (MEL, NV, BCC, AK, BKL, DF, VASC, SCC)
+ISIC_COUNTS = (4522, 12875, 3323, 867, 2624, 239, 253, 628)
+# each class's lesion pigment, RGB in [0, 1]
+ISIC_PIGMENTS = ((0.22, 0.14, 0.12), (0.45, 0.30, 0.21), (0.76, 0.47, 0.46),
+                 (0.70, 0.40, 0.34), (0.55, 0.40, 0.28), (0.60, 0.42, 0.36),
+                 (0.58, 0.16, 0.26), (0.72, 0.36, 0.31))
+ISIC_SITES = ("anterior torso", "upper extremity", "lower extremity",
+              "posterior torso", "lateral torso", "head/neck", "palms/soles",
+              "oral/genital", "Head/Neck", None)
+ISIC_EPOCHS, ISIC_ROUNDS = 2, 2
+
+
+def lesion_image(seed, w, h, label):
+    """A smooth lesion-like RGB image and its mask, PIL images of w × h: a
+    soft-edged ellipse of the class's pigment with a wavy border over skin,
+    textured at a few pixels' scale, drawn at a quarter of the size and
+    resized bicubically (the mask bilinearly, then thresholded)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    hs, ws = h // 4, w // 4
+    yy, xx = np.mgrid[0:hs, 0:ws].astype(np.float32)
+    cy, cx = rng.uniform(0.35, 0.65) * hs, rng.uniform(0.35, 0.65) * ws
+    ry, rx = rng.uniform(0.12, 0.32, 2) * min(hs, ws)
+    a = rng.uniform(0.0, math.pi)
+    u = ((xx - cx) * math.cos(a) + (yy - cy) * math.sin(a)) / rx
+    v = ((yy - cy) * math.cos(a) - (xx - cx) * math.sin(a)) / ry
+    coarse = np.asarray(Image.fromarray(
+        rng.normal(size=(hs // 16 + 2, ws // 16 + 2)).astype(np.float32)
+    ).resize((ws, hs), Image.BICUBIC))
+    lesion = 1.0 / (1.0 + np.exp(np.clip(10.0 * (u * u + v * v + 0.35 * coarse
+                                                 - 1.0), -30.0, 30.0)))
+    skin = rng.uniform((0.75, 0.55, 0.45), (0.95, 0.75, 0.65))
+    pigment = np.asarray(ISIC_PIGMENTS[label]) * rng.uniform(0.8, 1.2, 3)
+    img = (skin * (1.0 - lesion[..., None]) + pigment * lesion[..., None]
+           + 0.04 * coarse[..., None] + rng.normal(0.0, 0.025, (hs, ws, 3)))
+    small = Image.fromarray((np.clip(img, 0.0, 1.0) * 255).astype(np.uint8))
+    mask = Image.fromarray((lesion * 255).astype(np.uint8))
+    return (small.resize((w, h), Image.BICUBIC),
+            mask.resize((w, h), Image.BILINEAR).point(
+                lambda p: 255 if p >= 128 else 0))
+
+
+def write_isic_layout(root: Path, seed: int, packages: str) -> dict:
+    """13a: the ISIC-2019 layout under ``root`` (CSVs with pandas, JPEGs and
+    mask PNGs with PIL on 8 threads); returns what it wrote."""
+    from concurrent.futures import ThreadPoolExecutor
+    try:
+        import pandas as pd
+        from PIL import Image  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(f"phase 13 writes its ISIC layout with PIL and "
+                           f"pandas, which do not both import here ({e!r}); "
+                           f"phase 1's probe: {packages}") from e
+    rng = np.random.default_rng(seed)
+    shares = np.asarray(ISIC_COUNTS, np.float64) / sum(ISIC_COUNTS)
+    masks = root / "masks"
+    masks.mkdir(parents=True)
+    jobs = []
+
+    def split(name, first, n_jpeg, n_missing, n_unk, lesions):
+        n = n_jpeg + n_missing
+        names = [f"ISIC_{i:07d}" for i in range(first, first + n)]
+        labels = rng.choice(8, n, p=shares)
+        missing = set(rng.choice(n, n_missing, replace=False).tolist())
+        with_jpeg = [i for i in range(n) if i not in missing]
+        columns = labels.copy()
+        columns[rng.choice(with_jpeg, n_unk, replace=False)] = 8     # UNK
+        onehot = np.zeros((n, 9))
+        onehot[np.arange(n), columns] = 1.0
+        gt = pd.DataFrame(onehot, columns=["MEL", "NV", "BCC", "AK", "BKL",
+                                           "DF", "VASC", "SCC", "UNK"])
+        gt.insert(0, "image", names)
+        ages = rng.choice(np.arange(0.0, 90.0, 5.0), n)
+        ages[rng.random(n) < 0.05] = np.nan
+        meta = pd.DataFrame({
+            "image": names, "age_approx": ages,
+            "anatom_site_general": rng.choice(
+                np.asarray(ISIC_SITES, object), n,
+                p=[0.2, 0.15, 0.2, 0.15, 0.02, 0.15, 0.02, 0.01, 0.05, 0.05]),
+            "sex": rng.choice(np.asarray(["male", "female", "Male", "FEMALE",
+                                          None], object), n,
+                              p=[0.45, 0.45, 0.03, 0.03, 0.04])})
+        if lesions:           # 1-4 images a lesion, as HAM10000's lesion ids
+            ids = np.repeat(np.arange(n), rng.integers(1, 5, n))[:n]
+            meta["lesion_id"] = [f"HAM_{i:07d}" for i in ids]
+        sizes = rng.integers(0, len(ISIC_SIZES), n)
+        img_dir = root / f"ISIC_2019_{name}_Input"
+        img_dir.mkdir()
+        for i in with_jpeg:
+            jobs.append((img_dir / f"{names[i]}.jpg", masks / f"{names[i]}.png",
+                         seed * 100003 + first + i, *ISIC_SIZES[sizes[i]],
+                         int(labels[i])))
+        return gt, meta
+
+    for name, first, n_jpeg, n_missing, n_unk, lesions in (
+            ("Training", 0, ISIC_TRAIN, ISIC_NO_JPEG[0], ISIC_UNK, True),
+            ("Test", 10 ** 6, ISIC_TEST, ISIC_NO_JPEG[1], 0, False)):
+        gt, meta = split(name, first, n_jpeg, n_missing, n_unk, lesions)
+        gt.to_csv(root / f"ISIC_2019_{name}_GroundTruth.csv", index=False)
+        meta.to_csv(root / f"ISIC_2019_{name}_Metadata.csv", index=False)
+
+    def write(job):
+        jpg, png, img_seed, w, h, label = job
+        img, mask = lesion_image(img_seed, w, h, label)
+        img.save(jpg, quality=90)
+        mask.save(png)
+        return jpg.stat().st_size, png.stat().st_size
+
+    with ThreadPoolExecutor(8) as pool:
+        sizes = list(pool.map(write, jobs))
+    return {"jpegs": len(jobs), "jpeg_bytes": sum(s for s, _ in sizes),
+            "png_bytes": sum(p for _, p in sizes)}
+
+
+def timm_vit_base(seed):
+    """A seeded ViT-B/16@224 backbone state dict in timm's layout (RGB patch
+    embed, ``patch_embed.*``, ``cls_token``, ``pos_embed``, ``blocks.*``,
+    ``norm.*``), as ``timm.create_model(..., num_classes=0).state_dict()``
+    names it."""
+    g = torch.Generator().manual_seed(seed)
+    d, hidden, n = 768, 3072, (224 // 16) ** 2 + 1
+
+    def draw(*shape, mean=0.0):
+        return mean + 0.02 * torch.randn(*shape, generator=g)
+
+    sd = {"cls_token": draw(1, 1, d), "pos_embed": draw(1, n, d),
+          "patch_embed.proj.weight": draw(d, 3, 16, 16),
+          "patch_embed.proj.bias": draw(d)}
+    for i in range(BLOCKS):
+        p = f"blocks.{i}."
+        sd.update({p + "norm1.weight": draw(d, mean=1.0), p + "norm1.bias": draw(d),
+                   p + "attn.qkv.weight": draw(3 * d, d),
+                   p + "attn.qkv.bias": draw(3 * d),
+                   p + "attn.proj.weight": draw(d, d), p + "attn.proj.bias": draw(d),
+                   p + "norm2.weight": draw(d, mean=1.0), p + "norm2.bias": draw(d),
+                   p + "mlp.fc1.weight": draw(hidden, d),
+                   p + "mlp.fc1.bias": draw(hidden),
+                   p + "mlp.fc2.weight": draw(d, hidden), p + "mlp.fc2.bias": draw(d)})
+    sd.update({"norm.weight": draw(d, mean=1.0), "norm.bias": draw(d)})
+    return sd
+
+
+def isic_config(root: Path, pretrained: Path) -> dict:
+    """The user's YAML for phase 13: ViT-B/16@224, bf16, the mask PNGs as the
+    4th channel, the default train augment, TTA and recipe, 5 folds, macro
+    batch 128 as 2 × 64, 2 epochs, from the imported weights; federated
+    rounds of 8 local steps."""
+    return {"data": {"isic_dir": str(root), "use_segmentation_mask": True,
+                     "segmentation_mask_dir": str(root / "masks")},
+            "model": {"backbone": "vit_base_patch16_224", "image_size": 224,
+                      "compute_dtype": "bfloat16", "pretrained": True,
+                      "pretrained_path": str(pretrained)},
+            "training": {"epochs": ISIC_EPOCHS, "batch_size": MICRO,
+                         "gradient_accumulation_steps": ACCUM,
+                         "scheduler": {"warmup_epochs": 0}},
+            "federated": {"local_steps": FED_STEPS}}
+
+
+@contextlib.contextmanager
+def k1_inputs():
+    """Inside the block, the first (qkv, bias, output, heads) of each qkv
+    shape that the ViT's attention hands K1 (its forwards without a
+    gradient), cloned, in a dict by shape. K1's count still rises once a
+    launch."""
+    from fedvit_torch.models import layers
+    fn = layers.flash_attention_qkvb
+    seen = {}
+
+    def recording(qkv, bias, heads):
+        out = fn(qkv, bias, heads)
+        grad = torch.is_grad_enabled() and (qkv.requires_grad
+                                            or bias.requires_grad)
+        if not grad and tuple(qkv.shape) not in seen:
+            seen[tuple(qkv.shape)] = (qkv.clone(), bias.clone(), out.clone(),
+                                      heads)
+        return out
+    with rebound(layers, "flash_attention_qkvb", recording):
+        yield seen
+
+
+def check_k1_inputs(tag, fa, captured, timed_shapes):
+    """K1's outputs in a CLI run against the plain version on the same
+    inputs, at each captured shape, to ``k1_atol_bf16`` of the inputs' |v|;
+    then K1 against its plain version on seeded inputs, timed, at each of
+    ``timed_shapes``. Returns the timed records."""
+    from fedvit_torch.ops.attention import attention_from_qkvb
+
+    for shape, (qkv, bias, out, heads) in sorted(captured.items()):
+        e = shape[-1] // 3
+        with torch.inference_mode():
+            want = attention_from_qkvb(qkv, bias, heads)
+            vmax = float((qkv[..., 2 * e:].float() + bias[2 * e:].float())
+                         .abs().max())
+            err = float((out.float() - want.float()).abs().max())
+            rel = float((out.float() - want.float()).pow(2).mean().sqrt()
+                        / want.float().pow(2).mean().sqrt())
+        atol = k1_atol_bf16(vmax)
+        log(f"{tag} K1 on the run's own qkv {shape} {short(qkv.dtype)}, heads "
+            f"{heads}, max |v| {vmax!r}: against the plain version "
+            f"max_abs_err {err!r} (tolerance {atol!r}, one bf16 ulp of max "
+            f"|v|), RMS error {rel!r} x RMS output")
+        if not err <= atol:
+            raise RuntimeError(f"{tag}: K1 disagrees with its plain version on "
+                               f"the run's qkv {shape}: {err} > {atol}")
+    recs = []
+    for b, n, e3 in timed_shapes:
+        rec = check_k1(fa, attention_from_qkvb, b, n, 12, e3 // 3 // 12,
+                       torch.bfloat16, K1_ATOL_BF16, timed=True)
+        rec["shape"] = [b, n, e3]
+        recs.append(rec)
+    return recs
+
+
+def run_cli(tag, main_fn, argv):
+    """``main_fn(argv)`` in this process with its stdout captured; returns
+    (seconds, stdout, peak GiB). A failure prints the tail of its stdout."""
+    import io
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main_fn(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        log(f"[isic] {tag} failed; its stdout ends:\n{out.getvalue()[-3000:]}")
+        raise
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{tag} returned {rc}")
+    return seconds, out.getvalue(), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def isic_phase(fa, ln, smi, packages):
+    """Phase 13; returns each kernel's launches by entry point
+    ("launches") and the records of K1, K7 and K8 at the shapes this path
+    gives them ("shapes")."""
+    import tempfile
+
+    from fedvit_torch.cli import import_weights as import_cli
+    from fedvit_torch.cli import predict as predict_cli
+    from fedvit_torch.cli import train as train_cli
+    from fedvit_torch.cli import train_federated as fed_cli
+    from fedvit_torch.core.config import load_config
+    from fedvit_torch.data.isic import load_isic_data
+    from fedvit_torch.data.pipeline import HostDataSource, make_device_augment
+    from fedvit_torch.eval import serve
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    from fedvit_torch.train import loop
+
+    phase_t0 = time.perf_counter()
+    fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
+    path_kernels = ("K1", "K2", "K3", "K4", "K7", "K8")
+
+    def now():
+        return {k: fn.launches for k, fn in fns.items()}
+
+    def delta(before):
+        return {k: fn.launches - before[k] for k, fn in fns.items()}
+
+    def only(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_isic_") as tmp:
+        tmp = Path(tmp)
+        root, pretrained, logs = tmp / "ISIC", tmp / "pretrained", tmp / "log"
+        # 13a. the layout, its tables and its decode
+        t0 = time.perf_counter()
+        layout = write_isic_layout(root, SEED + 13, packages)
+        layout_s = time.perf_counter() - t0
+        log(f"[isic] 13a layout: {layout['jpegs']} JPEGs of "
+            f"{' and '.join(f'{w}x{h}' for w, h in ISIC_SIZES)} "
+            f"({layout['jpeg_bytes']} bytes, "
+            f"{layout['jpeg_bytes'] / layout['jpegs']!r} a JPEG) and as many "
+            f"mask PNGs ({layout['png_bytes']} bytes), the CSVs, in "
+            f"{layout_s!r} s (host, 8 threads; {smi})")
+        t0 = time.perf_counter()
+        train_df, test_df = load_isic_data(str(root), log=lambda s: None)
+        load_s = time.perf_counter() - t0
+        log(f"[isic] load_isic_data: {len(train_df)} training and "
+            f"{len(test_df)} test rows in {load_s!r} s (host; {smi})")
+        if len(train_df) != ISIC_TRAIN - ISIC_UNK or len(test_df) != ISIC_TEST:
+            raise RuntimeError("load_isic_data did not drop the UNK rows and "
+                               "the rows without a JPEG as it should")
+        config = tmp / "isic.yaml"
+        config.write_text(json.dumps(isic_config(root, pretrained)))
+        cfg = load_config(str(config))
+        source = HostDataSource(train_df, cfg)
+        rates = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            batch = source.gather(np.arange(len(source)))
+            rates.append(len(source) / (time.perf_counter() - t0))
+        log(f"[isic] HostDataSource decode of the {len(source)} training "
+            f"images to {batch['image'].shape[1:]} uint8 canvases with their "
+            f"masks ({cfg.training.num_workers} threads, PIL): cold "
+            f"{rates[0]!r} img/s, cached {rates[1]!r} img/s (host; {smi})")
+        masked = float((batch["image"][..., 3] > 0).mean())
+        if not 0.02 < masked < 0.6:
+            raise RuntimeError(f"the mask channel covers {masked!r} of the "
+                               f"canvases: the mask PNGs were not read")
+        del batch, source
+
+        # 13b. cli.import_weights on a timm-layout ViT-B/16@224 backbone
+        weights = tmp / "vit_base_patch16_224.pt"
+        sd = timm_vit_base(SEED + 13)
+        torch.save(sd, weights)
+        import_s, _, _ = run_cli("cli.import_weights", import_cli.main, [
+            "--weights", str(weights), "--config", str(config),
+            "--output", str(pretrained)])
+        saved = torch.load(pretrained / "variables.pt", map_location="cpu",
+                           weights_only=True)
+        w = sd["patch_embed.proj.weight"]
+        patch = saved["backbone.patch_embed.proj.weight"]
+        mean_ok = patch.shape[1] == 4 and torch.equal(
+            patch[:, :3], w) and torch.equal(patch[:, 3], w.mean(dim=1))
+        differ = [k for k, v in sd.items() if k != "patch_embed.proj.weight"
+                  and not torch.equal(saved["backbone." + k], v)]
+        left = sorted({k for k in saved if k.startswith("backbone.")}
+                      - {"backbone." + k for k in sd})
+        log(f"[isic] 13b `python -m fedvit_torch.cli.import_weights`: "
+            f"{len(sd)} tensors in {import_s!r} s; the 4th patch-embed "
+            f"channel is the mean of the RGB kernels and the RGB kernels "
+            f"the file's: {mean_ok}; other backbone tensors unequal to the "
+            f"file's: {differ[:3]}; backbone tensors not from the file: "
+            f"{left[:3]} ({smi})")
+        if not mean_ok or differ or left:
+            raise RuntimeError("the imported backbone is not the file's")
+        del sd, saved
+
+        # 13c. cli.train --fold 0
+        epochs, evals, ttas, folds = [], [], [], {}
+        train_epoch, evaluate = loop._train_epoch, loop._evaluate
+        tta, train_fold = loop.evaluate_with_tta, loop.train_fold
+
+        def timed_epoch(step, state, src, macro_bs, *args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = now(), time.perf_counter()
+            out = train_epoch(step, state, src, macro_bs, *args, **kwargs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps = len(src) // macro_bs
+            epochs.append({"s": dt, "img_s": steps * macro_bs / dt,
+                           "steps": steps, "per_step": {
+                               k: v / steps for k, v in delta(before).items()}})
+            return out
+
+        def timed_eval(into, fn, n_forwards):
+            def wrapped(*args, **kwargs):
+                torch.cuda.synchronize()
+                before, t0 = now(), time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                n, forwards = n_forwards(*args, **kwargs)
+                into.append({"img_s": n / (time.perf_counter() - t0),
+                             "forwards": forwards, "launches": delta(before)})
+                return out
+            return wrapped
+
+        def eval_forwards(step, src, batch_size, *args, **kwargs):
+            return len(src), math.ceil(len(src) / batch_size)
+
+        def tta_forwards(cfg_, model, src, batch_size=None):
+            bs = batch_size or max(1, cfg_.training.batch_size // 4)
+            return len(src), math.ceil(len(src) / bs)
+
+        def recorded_fold(cfg_, f, trn, val, *args, **kwargs):
+            folds[f] = {"train": len(trn), "val": len(val),
+                        "shared": set(trn.df["lesion_id"])
+                        & set(val.df["lesion_id"]),
+                        "groups": trn.df["lesion_id"].nunique()
+                        + val.df["lesion_id"].nunique()}
+            return train_fold(cfg_, f, trn, val, *args, **kwargs)
+
+        with contextlib.ExitStack() as stack:
+            plain = stack.enter_context(plain_calls(fa, ln))
+            train_k1 = stack.enter_context(k1_inputs())
+            for module, name, fn in (
+                    (loop, "_train_epoch", timed_epoch),
+                    (loop, "_evaluate", timed_eval(evals, evaluate,
+                                                   eval_forwards)),
+                    (loop, "evaluate_with_tta", timed_eval(ttas, tta,
+                                                           tta_forwards)),
+                    (loop, "train_fold", recorded_fold)):
+                stack.enter_context(rebound(module, name, fn))
+            before = now()
+            train_s, _, train_peak = run_cli("cli.train", train_cli.main, [
+                "--config", str(config), "--fold", "0", "--log", str(logs)])
+            train_counts = delta(before)
+        fold_log = (logs / "fold0" / "train_fold0.log").read_text()
+        for line in fold_log.splitlines():
+            if any(s in line for s in ("Pretrained init", " E0", "Train:",
+                                       "Fold 0 Test", "New best")):
+                log(f"[isic] cli.train: {line.split(' | ', 1)[-1].strip()}")
+        fold = folds.get(0, {})
+        log(f"[isic] 13c fold 0: {fold.get('train')} training and "
+            f"{fold.get('val')} validation images in {fold.get('groups')} "
+            f"lesions, lesions on both sides: {len(fold.get('shared', ()))}")
+        want_step = {k: 0.0 for k in fns} | {
+            "K7": 12.0, "K8": 3.0, "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
+            "K4": ACCUM * NORMS}
+        for i, e in enumerate(epochs):
+            log(f"[isic] cli.train epoch {i + 1}: {e['steps']} steps in "
+                f"{e['s']!r} s = {e['img_s']!r} train img/s synchronised "
+                f"(macro batch {MICRO * ACCUM}, resident canvases, the train "
+                f"augment, the step); launches a step {only(e['per_step'])} "
+                f"({smi})")
+        for name, recs in (("validation", evals), ("TTA test", ttas)):
+            for r in recs:
+                log(f"[isic] cli.train {name}: {r['img_s']!r} img/s "
+                    f"synchronised, {r['forwards']} forwards, launches "
+                    f"{only(r['launches'])} ({smi})")
+        ens = np.load(logs / "ensemble_logits.npy")
+        log(f"[isic] `python -m fedvit_torch.cli.train --fold 0`: {train_s!r} "
+            f"s from start to end (tables, decode, upload, 2 epochs, "
+            f"checkpoints, TTA test); peak {train_peak!r} GiB; launches "
+            f"{only(train_counts)}; plain versions called {plain}; "
+            f"ensemble_logits.npy {ens.shape}, finite "
+            f"{bool(np.isfinite(ens).all())} ({smi})")
+        bad_eval = [r for r in evals + ttas if r["launches"] != {
+            k: (BLOCKS * r["forwards"] if k == "K1" else 0) for k in fns}]
+        if fold.get("shared") or not fold.get("train"):
+            raise RuntimeError("fold 0's training and validation lesions "
+                               "overlap, or the fold did not run")
+        if len(epochs) != ISIC_EPOCHS or any(e["per_step"] != want_step
+                                             for e in epochs) or \
+                len(evals) != ISIC_EPOCHS or len(ttas) != 1 or bad_eval or \
+                any(plain.values()):
+            raise RuntimeError(f"cli.train did not launch the kernels as it "
+                               f"should: want {only(want_step)} a step and "
+                               f"{BLOCKS} K1 a forward, no plain version")
+        if not all((logs / "fold0" / f"{k}_fold0" / "state.pt").exists()
+                   for k in ("best", "resume")) or \
+                ens.shape != (ISIC_TEST, 8) or not np.isfinite(ens).all() or \
+                "Pretrained init" not in fold_log:
+            raise RuntimeError("cli.train's checkpoints, ensemble logits or "
+                               "pretrained init are missing")
+        tta_bs = max(1, cfg.training.batch_size // 4)
+        shapes = {"K1": check_k1_inputs("[isic] 13c", fa, train_k1, [
+            (8 * tta_bs, 197, 2304)])}
+        del train_k1
+
+        # 13d. cli.predict --isic_dir on the fold's best checkpoint, with TTA
+        preds = []
+        with contextlib.ExitStack() as stack:
+            plain = stack.enter_context(plain_calls(fa, ln))
+            stack.enter_context(rebound(serve, "evaluate_with_tta", timed_eval(
+                preds, serve.evaluate_with_tta, tta_forwards)))
+            predict_k1 = stack.enter_context(k1_inputs())
+            before = now()
+            predict_s, printed, predict_peak = run_cli(
+                "cli.predict", predict_cli.main, [
+                    "--config", str(config), "--isic_dir", str(root),
+                    "--checkpoint", str(logs / "fold0" / "best_fold0"),
+                    "--tta", "--output", str(tmp / "predictions.csv"),
+                    "--logits_out", str(tmp / "predict_logits.npy")])
+            predict_counts = delta(before)
+        import pandas as pd
+        got = np.load(tmp / "predict_logits.npy")
+        rows = pd.read_csv(tmp / "predictions.csv")
+        same_order = list(rows["image"]) == list(test_df["image"])
+        err = rel_rms(got, ens)
+        log(f"[isic] 13d `python -m fedvit_torch.cli.predict --isic_dir ... "
+            f"--tta`: {predict_s!r} s from start to end; TTA "
+            f"{preds[0]['img_s']!r} img/s synchronised at batch "
+            f"{cfg.training.batch_size} ({preds[0]['forwards']} forwards; "
+            f"cli.train's TTA test ran at {max(1, cfg.training.batch_size // 4)}"
+            f"); peak {predict_peak!r} GiB; launches {only(predict_counts)}; "
+            f"plain versions called {plain}; {len(rows)} CSV rows in the test "
+            f"frame's order: {same_order}; report printed: "
+            f"{'macro avg' in printed}; logits against ensemble_logits.npy: "
+            f"bit-equal {np.array_equal(got, ens)}, RMS error {err!r} x RMS "
+            f"logit (limit {LOGITS_RTOL_BF16!r}: the batch sizes differ) "
+            f"({smi})")
+        if predict_counts != {k: (BLOCKS * preds[0]["forwards"] if k == "K1"
+                                  else 0) for k in fns} or any(plain.values()):
+            raise RuntimeError("cli.predict did not launch K1 alone, 12 a "
+                               "forward")
+        if not err <= LOGITS_RTOL_BF16 or got.shape != ens.shape or \
+                len(rows) != ISIC_TEST or not same_order or \
+                "macro avg" not in printed:
+            raise RuntimeError("cli.predict's logits, rows or report are wrong")
+        shapes["K1"] += check_k1_inputs("[isic] 13d", fa, predict_k1, [
+            (8 * cfg.training.batch_size, 197, 2304)])
+        del predict_k1
+
+        # 13e. cli.train_federated on the same files
+        fed_log = tmp / "fed"
+        with fed_instruments(fa, ln) as rec:
+            fed_s, printed, fed_peak = run_cli(
+                "cli.train_federated", fed_cli.main, [
+                    "--config", str(config), "--clients", str(FED_CLIENTS),
+                    "--rounds", str(ISIC_ROUNDS), "--log", str(fed_log)])
+        history = json.loads((fed_log / "federated_history.json").read_text())
+        launches = per_round(rec["counts"])
+        for line in printed.splitlines():
+            if line.startswith("[fed]"):
+                log(f"[isic] cli.train_federated: {line}")
+        log(f"[isic] 13e `python -m fedvit_torch.cli.train_federated` on the "
+            f"ISIC files ({FED_CLIENTS} clients x {FED_STEPS} local steps of "
+            f"{cfg.training.batch_size}, {ISIC_ROUNDS} rounds): {fed_s!r} s "
+            f"from start to end (tables, the whole training split decoded, "
+            f"rounds, checkpoints); rounds "
+            f"{[h['round_time_s'] for h in history]} s; peak {fed_peak!r} "
+            f"GiB; launches a round {launches}, want {fed_want()}; plain "
+            f"versions called {rec['plain']} ({smi})")
+        if len(history) != ISIC_ROUNDS or not all(
+                math.isfinite(h[k]) for h in history
+                for k in ("loss", "accuracy", "balanced_accuracy", "macro_f1")):
+            raise RuntimeError("the federated CLI's history is wrong")
+        if any(n != fed_want() for n in launches) or \
+                len(launches) != ISIC_ROUNDS or any(rec["plain"].values()):
+            raise RuntimeError("a federated round on the ISIC files did not "
+                               "launch the kernels as it should")
+        shapes["K7"], shapes["K8"] = check_augment_batch(
+            "[isic] 13e", make_device_augment(cfg, train=True),
+            rec.pop("batch"), SEED + 13)
+    log(f"[isic] phase 13 in {time.perf_counter() - phase_t0!r} s ({smi})")
+    return {"launches": {k: {"train_cli": train_counts[k],
+                             "predict_cli": predict_counts[k],
+                             "federated_cli_round": launches[-1].get(k, 0)}
+                         for k in path_kernels},
+            "shapes": shapes}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
@@ -3902,6 +4514,20 @@ def main() -> int:
         capture_output=True, text=True, timeout=300)
     log(f"[packages] import on this machine: {probe.stdout.strip()} "
         f"{probe.stderr.strip()[-300:]}")
+    # whether libjpeg's and libpng's headers are here, which a port of
+    # native/fedvit_loader.cpp needs; nothing below depends on them
+    compiler = next((c for c in ("c++", "g++", "gcc") if shutil.which(c)), None)
+    headers = {}
+    for header, before in (("jpeglib.h", "#include <cstdio>\n"), ("png.h", "")):
+        if compiler is None:
+            headers[header] = "no host compiler"
+            continue
+        out = subprocess.run([compiler, "-x", "c++", "-fsyntax-only", "-"],
+                             input=f"{before}#include <{header}>\n",
+                             capture_output=True, text=True, timeout=120)
+        headers[header] = ("found" if out.returncode == 0 else
+                           f"not found: {out.stderr.strip()[-200:]}")
+    log(f"[headers] {compiler} -fsyntax-only: {headers}")
     free, total = torch.cuda.mem_get_info()
     log(f"[device] memory free before the run: {free / 2 ** 30!r} of "
         f"{total / 2 ** 30!r} GiB")
@@ -4032,10 +4658,16 @@ def main() -> int:
     # 12. federated training of ViT-B/16@224
     torch.cuda.empty_cache()
     fed = fed_phase(fa, ln, smi, args.trace)
+    # 13. the user's ISIC path through the CLIs
+    torch.cuda.empty_cache()
+    isic = isic_phase(fa, ln, smi, probe.stdout.strip())
     for rec, key in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4"),
                      (k7, "K7"), (k8, "K8")):
         rec["launches_federated_round"] = fed["launches_round"][key]
         rec["federated"] = fed["shapes"][key]
+        rec["launches_isic"] = isic["launches"][key]
+        if key in isic["shapes"]:
+            rec["isic"] = isic["shapes"][key]
     extra = [{"name": name, "route": "cuda", "source": f"fedvit_torch/csrc/{src}",
               "replaces": f"fedvit_tpu/ops/flash_attention.py:{line}", **rec}
              for name, src, line, rec in (

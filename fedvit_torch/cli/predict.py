@@ -23,9 +23,12 @@ fold ensemble, whose logits are averaged as in the reference
 command fails unless ``--device cpu`` is given.
 
 ``--images DIR`` reads a directory of JPEG/PNG images (no labels; the
-metadata branch gets the neutral unknown age/sex/site). ``--isic_dir`` waits
-for the port of ``data/isic.py``. ``--tta`` averages the logits over the 8
-deterministic views before the ensemble.
+metadata branch gets the neutral unknown age/sex/site). ``--isic_dir DIR``
+reads an ISIC-2019 layout (``data/isic.py``) and predicts its test split,
+labelled or unlabelled (reference data.py:378-427), writing the rows in the
+test frame's order; with real labels it also prints the classification
+report. ``--tta`` averages the logits over the 8 deterministic views before
+the ensemble.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ def main(argv=None) -> int:
     src = parser.add_mutually_exclusive_group(required=True)
     src.add_argument("--images", type=str, help="Directory of images")
     src.add_argument("--isic_dir", type=str, help="ISIC-2019 data directory "
-                     "(not yet ported)")
+                     "(predicts the test split)")
     parser.add_argument("--output", type=str, default="predictions.csv")
     parser.add_argument("--logits_out", type=str, default=None,
                         help="Also save the ensembled logits as .npy")
@@ -79,7 +82,9 @@ def main(argv=None) -> int:
     from fedvit_torch.core.config import load_config
     from fedvit_torch.core.device import resolve_device
     from fedvit_torch.data.constants import IDX_TO_LABEL, VALID_CLASSES
+    from fedvit_torch.data.isic import has_real_test_labels, load_isic_data
     from fedvit_torch.data.pipeline import HostDataSource, make_device_augment
+    from fedvit_torch.eval.metrics import classification_report
     from fedvit_torch.eval.serve import (_evaluate, _softmax,
                                          evaluate_with_tta, make_eval_step)
     from fedvit_torch.models import build_model
@@ -94,12 +99,15 @@ def main(argv=None) -> int:
             raise SystemExit(f"--no-ema needs checkpoint directories: {path} "
                              f"is a .pt state dict, which holds one parameter "
                              f"set")
-    if args.isic_dir is not None:
-        raise NotImplementedError(
-            "--isic_dir needs data/isic.py, which is not yet ported")
     device = resolve_device(args.device)
     cfg = load_config(args.config)
-    df = _images_dataframe(args.images)
+    if args.isic_dir is not None:
+        _, df = load_isic_data(args.isic_dir, log=lambda s: print(
+            s, file=sys.stderr))
+        if len(df) == 0:
+            raise SystemExit(f"no test split under {args.isic_dir}")
+    else:
+        df = _images_dataframe(args.images)
     source = HostDataSource(df, cfg)
     bs = args.batch_size or cfg.training.batch_size
     print(f"[predict] {len(source):,} images, {len(args.checkpoint)} "
@@ -139,6 +147,10 @@ def main(argv=None) -> int:
     if args.logits_out:
         np.save(args.logits_out, ensembled)
         print(f"[predict] wrote {args.logits_out}", file=sys.stderr)
+
+    if args.isic_dir is not None and has_real_test_labels(df):
+        print(classification_report(df["label"].to_numpy(), preds,
+                                    VALID_CLASSES))
     return 0
 
 

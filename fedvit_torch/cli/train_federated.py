@@ -7,10 +7,12 @@
 Clients are partitioned (Dirichlet class-skew by default) and trained one
 after another on the device each round, then averaged (``fed/fedavg.py``).
 ``--synthetic N`` trains on the synthetic ISIC-like fixture
-(``data/synthetic.py``; an eighth of it, at least 8, is the evaluation set).
-The history goes to ``<log>/federated_history.json`` and the server state
-to ``<log>/ckpt``. Training on ISIC itself waits for the port of
-``data/isic.py``. Without ``--config`` the defaults are the JAX package's:
+(``data/synthetic.py``; an eighth of it, at least 8, is the evaluation set);
+without it the training split of ``data.isic_dir`` (``data/isic.py``) is
+decoded whole into uint8 canvases by ``HostDataSource`` and its test split,
+when there is one, is the evaluation set. The history goes to
+``<log>/federated_history.json`` and the server state to ``<log>/ckpt``.
+Without ``--config`` the defaults are the JAX package's:
 ViT-B/16@224, bf16, batch 4, 4 clients. ``--device`` picks the device,
 ``cuda`` by default; without a card the command fails unless ``--device cpu``
 is given.
@@ -51,10 +53,6 @@ def main(argv=None) -> int:
     from fedvit_torch.fed.server import train_federated
     from fedvit_torch.models import build_model
 
-    if args.synthetic <= 0:
-        raise NotImplementedError(
-            "federated training on ISIC needs data/isic.py, which is not yet "
-            "ported: pass --synthetic N")
     if args.resume and args.checkpoint_every <= 0:
         raise SystemExit(
             "--resume requires --checkpoint-every > 0: with checkpointing "
@@ -74,18 +72,27 @@ def main(argv=None) -> int:
 
     os.makedirs(args.log, exist_ok=True)
 
-    # ---- data: raw [0, 1] float images; every client's local step and the
-    # per-round evaluation run the device augment, which owns the geometry
-    # and the normalisation
-    from fedvit_torch.data.synthetic import make_synthetic_dataset
-    data = make_synthetic_dataset(n=args.synthetic,
-                                  image_size=cfg.model.image_size,
-                                  seed=cfg.seed)
-    if cfg.data.use_segmentation_mask:
-        data["image"] = np.concatenate([data["image"], data["mask"]], -1)
-    n_eval = max(8, args.synthetic // 8)
-    eval_data = {k: v[:n_eval] for k, v in data.items()}
-    train_data = {k: v[n_eval:] for k, v in data.items()}
+    # ---- data: raw images (uint8 canvases, or [0, 1] floats); every
+    # client's local step and the per-round evaluation run the device
+    # augment, which owns the geometry and the normalisation
+    if args.synthetic > 0:
+        from fedvit_torch.data.synthetic import make_synthetic_dataset
+        data = make_synthetic_dataset(n=args.synthetic,
+                                      image_size=cfg.model.image_size,
+                                      seed=cfg.seed)
+        if cfg.data.use_segmentation_mask:
+            data["image"] = np.concatenate([data["image"], data["mask"]], -1)
+        n_eval = max(8, args.synthetic // 8)
+        eval_data = {k: v[:n_eval] for k, v in data.items()}
+        train_data = {k: v[n_eval:] for k, v in data.items()}
+    else:
+        from fedvit_torch.data.isic import load_isic_data
+        from fedvit_torch.data.pipeline import HostDataSource
+        train_df, test_df = load_isic_data(cfg.data.isic_dir)
+        train_data = HostDataSource(train_df, cfg).gather(
+            np.arange(len(train_df)))
+        eval_data = (HostDataSource(test_df, cfg).gather(
+            np.arange(len(test_df))) if len(test_df) else None)
 
     model = build_model(cfg, device=device,
                         generator=torch.Generator().manual_seed(cfg.seed))

@@ -1,4 +1,5 @@
-"""JAX variables → the port's state_dict.
+"""JAX variables → the port's state_dict; torch/timm weights files → a
+fresh model's state_dict.
 
 ``state_dict_from_jax`` is the inverse of
 ``fedvit_tpu/models/import_weights.py::import_torch_isic``: it takes the JAX
@@ -14,15 +15,29 @@ A SwinV2 backbone (``layers_{s}`` in the tree) is the exact inverse of
 ``cpb_fc1``/``cpb_fc2`` become ``cpb_mlp.0``/``cpb_mlp.2``, and the patch
 merging at the end of stage s becomes ``layers.{s+1}.downsample`` with the four
 pixel chunks of its reduction kernel permuted from row-major to timm's order.
+
+The file-level import (``load_torch_file``, ``import_pretrained_file``) is
+the port of the other half of ``fedvit_tpu/models/import_weights.py``: a
+timm or reference weights file (``.pt``/``.pth``/``.bin``, ``.safetensors``,
+``.npz``) onto a fresh model's ``state_dict``. The port's names already are
+timm's, so the conversion is the ``backbone.`` prefix, the reference's
+4-channel patch-embed surgery and the ViT position-embedding resample.
+``.safetensors`` is read by ``read_safetensors``, which needs no
+``safetensors`` package.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from fedvit_torch.core.config import Config
+from fedvit_torch.ops.image import resize
 
 # flax module name → the port's submodule name, per parent module
 _RENAMES = {
@@ -104,3 +119,193 @@ def state_dict_from_jax(variables: Dict[str, Any],
         if path[-1] == "mean":
             sd[_name(path[:-1] + ("num_batches_tracked",))] = torch.tensor(0)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# File-level import — a torch/timm weights file onto a fresh model's
+# state_dict: the deployable form of the reference's `pretrained: true`
+# (config.yaml:31; timm's download, then `_modify_input_channels`,
+# model.py:112-124,150-166), with the download done on another machine.
+# ---------------------------------------------------------------------------
+
+# the dtypes of timm's and the reference's weights files
+_SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
+                       "BF16": torch.bfloat16, "I64": torch.int64}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file as {name: CPU tensor}: an 8-byte little-endian
+    header length, a JSON header of each tensor's dtype, shape and byte
+    range, then the tensors' raw little-endian bytes. Each tensor is read
+    into a buffer of its own, so the file is held in memory once."""
+    out: Dict[str, torch.Tensor] = {}
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n).decode("utf-8"))
+        base = 8 + n
+        size = os.fstat(f.fileno()).st_size
+        for name, info in header.items():
+            if name == "__metadata__":
+                continue
+            dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+            if dtype is None:
+                raise ValueError(f"{path}: {name} has dtype {info['dtype']}, "
+                                 f"which this reader does not take")
+            begin, end = info["data_offsets"]
+            shape = tuple(info["shape"])
+            count = int(np.prod(shape, dtype=np.int64))
+            if end - begin != count * torch.empty(
+                    (), dtype=dtype).element_size() or base + end > size:
+                raise ValueError(f"{path}: {name}'s byte range {begin}-{end} "
+                                 f"does not hold a {info['dtype']} tensor of "
+                                 f"shape {list(shape)}")
+            f.seek(base + begin)
+            flat = (torch.frombuffer(bytearray(f.read(end - begin)),
+                                     dtype=dtype)
+                    if count else torch.empty(0, dtype=dtype))
+            out[name] = flat.reshape(shape)
+    return out
+
+
+def _unwrap_state_dict(obj) -> Dict[str, Any]:
+    """Unwrap the containers real checkpoints ship in: {"state_dict": ...},
+    {"model": ...} (timm's hub format), DDP "module." prefixes."""
+    for key in ("state_dict", "model", "model_state_dict"):
+        if isinstance(obj, dict) and key in obj and isinstance(obj[key], dict):
+            obj = obj[key]
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in obj.items()}
+
+
+def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """A torch ``.pt``/``.pth``/``.bin`` (``torch.load(weights_only=True)``),
+    ``.safetensors`` or ``.npz`` weights file as a flat {name: CPU tensor}
+    state dict."""
+    p = str(path)
+    if p.endswith(".safetensors"):
+        return read_safetensors(p)
+    if p.endswith(".npz"):
+        with np.load(p) as z:
+            return {k: torch.from_numpy(z[k]) for k in z.files}
+    obj = torch.load(p, map_location="cpu", weights_only=True)
+    return {k: torch.as_tensor(v) for k, v in _unwrap_state_dict(obj).items()}
+
+
+def expand_source_patch_embed(sd: Dict[str, torch.Tensor], new_in: int = 4
+                              ) -> Dict[str, torch.Tensor]:
+    """The reference's `_modify_input_channels` surgery (model.py:150-166)
+    on the source conv kernel (D, C, P, P): the RGB kernels kept, each extra
+    channel the mean of the RGB kernels (in fp32)."""
+    key = "patch_embed.proj.weight"
+    if key not in sd:
+        return sd
+    w = sd[key]
+    if w.ndim != 4 or w.shape[1] >= new_in:
+        return sd
+    w = w.float()
+    mean = w.mean(dim=1, keepdim=True)
+    out = dict(sd)
+    out[key] = torch.cat([w, mean.expand(-1, new_in - w.shape[1], -1, -1)],
+                         dim=1)
+    return out
+
+
+def resample_vit_pos_embed(pos: torch.Tensor, n_tokens_new: int
+                           ) -> torch.Tensor:
+    """Bicubic-resample a ViT absolute position embedding (1, 1+N, D) to a
+    new grid (1, 1+M, D), the cls token kept — timm's
+    `resample_abs_pos_embed` semantics, with ``jax.image.resize``'s bicubic
+    (antialiased when it shrinks the grid: ``ops/image.py::resize``)."""
+    cls_tok, grid = pos[:, :1], pos[:, 1:]
+    g_old = int(round(float(np.sqrt(grid.shape[1]))))
+    g_new = int(round(float(np.sqrt(n_tokens_new))))
+    if g_old * g_old != grid.shape[1]:
+        raise ValueError(f"non-square source pos-embed grid of "
+                         f"{grid.shape[1]} tokens")
+    if g_new * g_new != n_tokens_new:
+        raise ValueError(f"non-square target pos-embed grid of "
+                         f"{n_tokens_new} tokens")
+    if g_old == g_new:
+        return pos
+    d = grid.shape[-1]
+    resized = resize(grid.float().reshape(1, g_old, g_old, d), (g_new, g_new))
+    return torch.cat([cls_tok.float(), resized.reshape(1, g_new * g_new, d)],
+                     dim=1)
+
+
+def _derive_depths(keys) -> Union[int, Tuple[int, ...]]:
+    """The backbone's architecture from its state-dict keys: a ViT's block
+    count (int), a SwinV2's per-stage block counts (tuple)."""
+    keys = list(keys)
+    if any(k.startswith("layers.") for k in keys):
+        stages: Dict[int, int] = {}
+        for k in keys:
+            m = re.match(r"layers\.(\d+)\.blocks\.(\d+)\.", k)
+            if m:
+                s, b = int(m.group(1)), int(m.group(2))
+                stages[s] = max(stages.get(s, 0), b + 1)
+        return tuple(stages[s] for s in sorted(stages))
+    depth = 0
+    for k in keys:
+        m = re.match(r"blocks\.(\d+)\.", k)
+        if m:
+            depth = max(depth, int(m.group(1)) + 1)
+    return depth
+
+
+def import_pretrained_file(sd: Dict[str, torch.Tensor], cfg: Config,
+                           target: Dict[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """A loaded weights file onto ``target``, a fresh ISICClassifier's
+    ``state_dict`` for ``cfg``; returns the new state dict (each tensor in
+    its target's dtype and device). Two kinds of file:
+
+      * a bare timm backbone (`patch_embed.*`, `blocks.*` / `layers.*`):
+        the backbone imported, the head and the metadata branch keep their
+        fresh init (what the reference gets from timm.create_model with a
+        fresh classifier, model.py:112-145);
+      * a full reference ISICClassifier (`backbone.*`, `classifier.*`,
+        `metadata_branch.*`): every tensor imported (the metadata branch
+        when the file has one; BatchNorm's `num_batches_tracked` when it
+        has them).
+
+    The patch embed gets the 4-channel surgery when ``cfg`` feeds masks and
+    the file is RGB; a ViT's position embedding is resampled when the grid
+    differs. Every imported tensor must be in the file with the target's
+    shape, and the file's blocks must be the model's; keys the model does
+    not have (a timm head, SwinV2's index buffers) are left out."""
+    full = any(k.startswith("backbone.") for k in sd)
+    bb = ({k[len("backbone."):]: v for k, v in sd.items()
+           if k.startswith("backbone.")} if full else dict(sd))
+    bb = expand_source_patch_embed(bb, cfg.in_channels)
+    if "pos_embed" in bb and "backbone.pos_embed" in target:
+        bb["pos_embed"] = resample_vit_pos_embed(
+            bb["pos_embed"], target["backbone.pos_embed"].shape[1] - 1)
+    want = _derive_depths(k[len("backbone."):] for k in target
+                          if k.startswith("backbone."))
+    got = _derive_depths(bb)
+    if got != want:
+        raise ValueError(f"the weights file's backbone has blocks {got}, the "
+                         f"model's {cfg.model.backbone} has {want}")
+    source = {"backbone." + k: v for k, v in bb.items()}
+    parts = ["backbone."]
+    if full:
+        source.update({k: v for k, v in sd.items()
+                       if not k.startswith("backbone.")})
+        parts.append("classifier.")
+        if any(k.startswith("metadata_branch.") for k in sd):
+            parts.append("metadata_branch.")
+    out: Dict[str, torch.Tensor] = {}
+    for key, fresh in target.items():
+        if not key.startswith(tuple(parts)) or (
+                key.endswith("num_batches_tracked") and key not in source):
+            out[key] = fresh
+            continue
+        if key not in source:
+            raise KeyError(f"{key} is not in the weights file")
+        value = torch.as_tensor(source[key])
+        if tuple(value.shape) != tuple(fresh.shape):
+            raise ValueError(f"{key}: the file's shape {tuple(value.shape)}, "
+                             f"the model's {tuple(fresh.shape)}")
+        out[key] = value.to(device=fresh.device, dtype=fresh.dtype)
+    return out

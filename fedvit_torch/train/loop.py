@@ -88,14 +88,18 @@ class FoldResult:
 
 
 def _train_epoch(step, state, source, macro_bs: int, rng_np, weighted: bool,
-                 augment, base: int, device) -> Tuple[object, float]:
-    """One epoch of optimizer steps; returns (state, mean train loss)."""
+                 augment, base: int, device, on_step=None
+                 ) -> Tuple[object, float]:
+    """One epoch of optimizer steps; returns (state, mean train loss).
+    ``on_step()`` runs after each optimizer step."""
     losses = []
     for i, batch in enumerate(source.epoch_batches(macro_bs, rng_np, weighted)):
         batch = augment(_to_device(batch, device),
                         batch_generator(base, i, device))
         state, m = step(state, batch)
         losses.append(m["loss"])
+        if on_step is not None:
+            on_step()
     if not losses:
         return state, float("nan")
     return state, float(np.mean(torch.stack(losses).cpu().numpy()))
@@ -104,13 +108,15 @@ def _train_epoch(step, state, source, macro_bs: int, rng_np, weighted: bool,
 def train_fold(cfg: Config, fold: int, train_source, val_source,
                test_source=None, workdir: Optional[str] = None,
                log: Callable[[str], None] = print, resume: bool = False,
-               device: str = "cuda") -> FoldResult:
+               device: str = "cuda",
+               on_step: Optional[Callable[[], None]] = None) -> FoldResult:
     """Train one CV fold end to end on ``device`` (the card unless the caller
     asks for the CPU); returns a FoldResult whose ``logits`` are the raw
     test-set logits (N, C) — the contract of reference train_fold
     (train.py:221-371). With ``workdir``, the best checkpoint goes to
     ``{workdir}/best_fold{fold}`` and the last epoch's to
-    ``{workdir}/resume_fold{fold}``, which ``resume`` continues from."""
+    ``{workdir}/resume_fold{fold}``, which ``resume`` continues from.
+    ``on_step()`` runs after each optimizer step."""
     t = cfg.training
     dev = resolve_device(device)
     if t.data_parallel and dev.type == "cuda" and torch.cuda.device_count() > 1:
@@ -174,7 +180,8 @@ def train_fold(cfg: Config, fold: int, train_source, val_source,
         for ep in range(1, t.two_stage.stage1_epochs + 1):
             head, loss = _train_epoch(train_step, head, train_source, macro_bs,
                                       rng_np, t.use_weighted_sampler,
-                                      augment_train, cfg.seed + ep, dev)
+                                      augment_train, cfg.seed + ep, dev,
+                                      on_step)
             log(f"  [stage1] E{ep:02d} | trn_loss {loss:.4f}")
         # stage 2 carries the trained parameters (the model is shared) and
         # restarts the EMA from them (train_old.py:500-520)
@@ -186,7 +193,8 @@ def train_fold(cfg: Config, fold: int, train_source, val_source,
         t0 = time.time()
         state, train_loss = _train_epoch(
             train_step, state, train_source, macro_bs, rng_np,
-            t.use_weighted_sampler, augment_train, cfg.seed * 1000 + epoch, dev)
+            t.use_weighted_sampler, augment_train, cfg.seed * 1000 + epoch, dev,
+            on_step)
 
         # EMA-swapped validation (reference train.py:289-295)
         with state.ema_weights():

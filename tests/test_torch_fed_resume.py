@@ -230,5 +230,9 @@ def test_cli_writes_history_and_checkpoint(shallow, tmp_path):
                for k in ("loss", "accuracy", "balanced_accuracy", "macro_f1"))
     assert ckpt.federated_checkpoint_exists(str(log / "ckpt"))
     assert sorted(p.name for p in (log / "ckpt").iterdir()) == ["fed_ckpt"]
-    with pytest.raises(NotImplementedError, match="data/isic.py"):
-        cli.main(["--log", str(log), "--device", "cpu"])
+    # without --synthetic it reads data.isic_dir, absent here
+    config.write_text(json.dumps({"data": {"isic_dir": str(tmp_path / "none")}}))
+    with pytest.raises(FileNotFoundError,
+                       match="ISIC_2019_Training_GroundTruth.csv"):
+        cli.main(["--config", str(config), "--log", str(log),
+                  "--device", "cpu"])

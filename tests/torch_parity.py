@@ -109,3 +109,76 @@ def flat(tree, prefix=()):
     for k, v in tree.items():
         out.update(flat(v, prefix + (k,)))
     return out
+
+
+ISIC_COLUMNS = ["MEL", "NV", "BCC", "AK", "BKL", "DF", "VASC", "SCC", "UNK"]
+
+
+def write_isic_tree(root, n_train=40, test="labelled", n_test=12, seed=0,
+                    site_column="anatom_site_general", masks=None):
+    """A seeded ISIC-2019 layout under ``root``: one-hot ground truth with
+    UNK rows, metadata with NaN ages, mixed-case sex, unknown and missing
+    sites and lesions of 1-3 images, small JPEGs of two sizes, a few CSV rows
+    without a JPEG; a test split that is ``"labelled"``, ``"unlabelled"``
+    (metadata and images only) or None; with ``masks`` a directory, one mask
+    PNG per image there. Returns ``root``."""
+    from pathlib import Path
+
+    import pandas as pd
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    masks = None if masks is None else Path(masks)
+    if masks is not None:
+        masks.mkdir(parents=True, exist_ok=True)
+
+    def split(name, names, labels, missing):
+        img_dir = root / f"ISIC_2019_{name}_Input"
+        img_dir.mkdir(parents=True, exist_ok=True)
+        onehot = np.zeros((len(names), 9))
+        onehot[np.arange(len(names)), labels] = 1.0
+        gt = pd.DataFrame(onehot, columns=ISIC_COLUMNS)
+        gt.insert(0, "image", names)
+        sizes = rng.integers(1, 4, len(names))
+        lesions = np.repeat(np.arange(len(names)), sizes)[:len(names)]
+        ages = rng.choice([np.nan, 15.0, 40.0, 55.0, 85.0, 95.0], len(names))
+        meta = pd.DataFrame({
+            "image": names, "age_approx": ages,
+            "sex": rng.choice(["male", "Female", "MALE", "female", None],
+                              len(names)),
+            site_column: rng.choice(["head/neck", "Anterior Torso",
+                                     "lower extremity", "palms/soles",
+                                     "nowhere", None], len(names)),
+            "lesion_id": [f"{name}_L{i}" for i in lesions]})
+        for i, nm in enumerate(names):
+            if i in missing:
+                continue
+            h, w = ((30, 40), (48, 48))[i % 2]
+            y, x = np.mgrid[0:h, 0:w]
+            blob = np.exp(-((y - h / 2) ** 2 + (x - w / 2) ** 2) / (h * w / 8))
+            img = (200 - 120 * blob[..., None] * rng.uniform(0.5, 1.0, 3)
+                   + rng.normal(0, 8, (h, w, 3)))
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                img_dir / f"{nm}.jpg", quality=90)
+            if masks is not None:
+                Image.fromarray((blob > 0.5).astype(np.uint8) * 255).save(
+                    masks / f"{nm}.png")
+        return gt, meta
+
+    names = [f"ISIC_{i:07d}" for i in range(n_train)]
+    labels = np.arange(n_train) % 8
+    labels[[5, 17]] = 8                                   # UNK: dropped
+    gt, meta = split("Training", names, labels, missing={3, 17, 30})
+    gt.to_csv(root / "ISIC_2019_Training_GroundTruth.csv", index=False)
+    meta.to_csv(root / "ISIC_2019_Training_Metadata.csv", index=False)
+    if test is not None:
+        names = [f"ISIC_{i:07d}" for i in range(1000, 1000 + n_test)]
+        labels = rng.permutation(np.arange(n_test) % 8)
+        labels[-1] = 8                                    # UNK: dropped
+        gt, meta = split("Test", names, labels, missing={n_test - 2})
+        meta.drop(columns="lesion_id").to_csv(
+            root / "ISIC_2019_Test_Metadata.csv", index=False)
+        if test == "labelled":
+            gt.to_csv(root / "ISIC_2019_Test_GroundTruth.csv", index=False)
+    return root
