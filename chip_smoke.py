@@ -243,6 +243,35 @@ Phases, one line of output each (or a few):
       generator state, and K7 and K8 against their plain versions, timed, at
       the shapes that call gave them, which it prints;
    with each CLI's seconds from start to end and peak memory.
+14. lesion masks segmented on the card (``ops/cvseg.py``,
+   ``data.on_device_masks``), in this process, under a temporary directory
+   of the run's own:
+   a. ``segment_lesion_batch`` at (64, 272, 272, 3), the ViT-B/16@224 fold's
+      canvases, and (16, 448, 448, 3), SwinV2-L@384's, drawn as phase 13's
+      lesions, under PyTorch's default TF32 flags (cuDNN's on, cuBLAS's
+      off), put back after: each stage's median ms and the whole's; the
+      component loop's sweeps and its host syncs as
+      ``torch.cuda.set_sync_debug_mode`` counts them (8 at most); against
+      the same function on the CPU on the same input, the blur's max |Δ|
+      (1e-3 at most), the gray levels and thresholds that differ, each
+      mask's pixel agreement (0.999 at least); the CPU's gray levels and
+      binary image fed to the card's Otsu, morphology and component labels,
+      bit for bit; the masks unchanged with cuBLAS's TF32 on as well; the
+      blur without its fp32 guard, for information;
+   b. ``cli.precompute_masks --image_size 224`` on a seeded layout as phase
+      13's (1,856 JPEGs): a 0/255 224² PNG for every JPEG, seconds, img/s,
+      peak memory, the mean IoU against the layout's drawn masks (for
+      information);
+   c. ``cli.train --fold 0`` with phase 13's YAML without the mask
+      directory, ``data.on_device_masks: true`` and no TTA: every step 12
+      K7, 3 K8 and 2 x (12 K2, 12 K3, 25 K4), every evaluation forward 12
+      K1, no plain version called, finite losses, one segmenter call a step
+      and one an evaluation forward, and the segmenter's share of a step;
+   d. ``cli.predict --isic_dir`` without TTA on c's checkpoint (12 K1 and a
+      segmenter call a forward, finite logits), ``cli.predict --tta``
+      refused with the TTA step's ``ValueError``, and one
+      ``cli.train_federated`` round on the ISIC files (2 clients x 2 local
+      steps) with its launches and segmenter calls counted.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -255,6 +284,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import itertools
 import json
 import math
 import re
@@ -4470,6 +4500,500 @@ def isic_phase(fa, ln, smi, packages):
             "shapes": shapes}
 
 
+
+# ---------------------------------------------------------------------------
+# 14. Lesion masks segmented on the card: ops/cvseg, data.on_device_masks
+#     through the train and eval augments, and cli/precompute_masks
+# ---------------------------------------------------------------------------
+
+# 14a's batches (images, side): the ViT-B/16@224 fold's micro-batch of
+# canvases (canvas_size(224) = 272) and SwinV2-L@384's (448) at 16.
+SEG_SHAPES = ((64, 272), (16, 448))
+SEG_REPS = 10                 # timed calls a stage; the median is kept
+SEG_MAX_SYNCS = 8             # host syncs of the component loop a batch
+# a mask's pixels equal to the CPU's on the same input, for each image: a
+# gray level truncated the other way (the blurs sum in other orders) can
+# move a threshold or a border pixel (tests/test_torch_cvseg.py)
+SEG_AGREE = 0.999
+SEG_BLUR_ATOL = 1e-3          # the blur against the CPU's, as the CPU tests
+# PyTorch's default TF32 flags: cuDNN's convolutions in TF32, cuBLAS's
+# products not (matmul precision "highest")
+DEFAULT_TF32 = (True, "highest")
+# 14d's federated round on the ISIC files: 2 clients x 2 local steps
+MASK_CLIENTS, MASK_STEPS = 2, 2
+
+
+def segment_inputs(b, size, seed):
+    """(b, size, size, 3) float32 in [0, 1] on the host: phase 13's lesion
+    images drawn at size², as uint8 divided by 255."""
+    imgs = [np.asarray(lesion_image(seed + i, size, size, i % 8)[0])
+            for i in range(b)]
+    return torch.from_numpy(np.stack(imgs).astype(np.float32)
+                            / np.float32(255.0))
+
+
+@contextlib.contextmanager
+def tf32_flags(conv, matmul):
+    """cuDNN's TF32 flag and the fp32 matmul precision inside the block; the
+    run's own after it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cudnn.allow_tf32 = conv
+    torch.set_float32_matmul_precision(matmul)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+
+
+def stage_ms(fn, reps=SEG_REPS):
+    """Median device ms of ``fn()`` over ``reps`` calls, each between two
+    CUDA events and synchronised (the waits on the host's syncs inside it
+    included)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def counted_syncs(fn):
+    """(``fn()``, the synchronising CUDA calls it made as
+    ``torch.cuda.set_sync_debug_mode`` counts them, by the file:line that
+    made them)."""
+    import collections
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def check_segmenter(cv, b, size, seed, smi):
+    """14a at one shape, under PyTorch's default TF32 flags: the stages on
+    the card against the same on the CPU, their times, the sweeps and host
+    syncs of the component loop. Returns its record."""
+    se = cv.ELLIPSE_7x7
+    x_cpu = segment_inputs(b, size, seed)
+    x = x_cpu.cuda()
+    circle = cv._circle_mask(size, size, x.device)
+    with tf32_flags(*DEFAULT_TF32):
+        lab = cv.rgb_to_lab_l(x)
+        blurred = cv.gaussian_blur(lab)
+        gray = blurred.clamp(0, 255).int()
+        thresholds = cv.otsu_threshold(gray)
+        binary = cv.otsu_binary_inv(gray) & circle
+        morph = cv.morph_open(cv.morph_close(binary, se, 3), se, 2)
+        cv.propagate_labels(morph)               # first-use work uncounted
+        (labels, sweeps), sync_sites = counted_syncs(
+            lambda: cv.propagate_labels(morph))
+        syncs = sum(sync_sites.values())
+        # each image alone: its own sweeps, and the batch's labels
+        alone = [cv.propagate_labels(morph[i:i + 1]) for i in range(b)]
+        alone_equal = torch.equal(torch.cat([lab for lab, _ in alone]),
+                                  labels)
+        alone_sweeps = sorted(n for _, n in alone)
+        masks = cv.segment_lesion_batch(x, size)
+        ms = {"lab": stage_ms(lambda: cv.rgb_to_lab_l(x)),
+              "blur": stage_ms(lambda: cv.gaussian_blur(lab)),
+              "otsu": stage_ms(lambda: cv.otsu_binary_inv(
+                  blurred.clamp(0, 255).int()) & circle),
+              "morphology": stage_ms(lambda: cv.morph_open(
+                  cv.morph_close(binary, se, 3), se, 2)),
+              "components": stage_ms(lambda: cv.largest_component(morph)),
+              "whole": stage_ms(lambda: cv.segment_lesion_batch(x, size))}
+        # control: the blur without its fp32 guard, under cuDNN's TF32
+        with rebound(cv, "_ieee_fp32", contextlib.nullcontext):
+            unguarded = cv.gaussian_blur(lab).cpu()
+    # a user who turned TF32 on for cuBLAS too gets the same masks
+    with tf32_flags(True, "high"):
+        masks_tf32 = cv.segment_lesion_batch(x, size)
+    # the same function on the CPU, on the same input
+    lab_c = cv.rgb_to_lab_l(x_cpu)
+    blurred_c = cv.gaussian_blur(lab_c)
+    gray_c = blurred_c.clamp(0, 255).int()
+    binary_c = cv.otsu_binary_inv(gray_c) & cv._circle_mask(size, size, "cpu")
+    morph_c = cv.morph_open(cv.morph_close(binary_c, se, 3), se, 2)
+    masks_c = cv.segment_lesion_batch(x_cpu, size)
+    # the card's stages on the CPU's own inputs
+    with tf32_flags(*DEFAULT_TF32):
+        blur_same = cv.gaussian_blur(lab_c.cuda()).cpu()
+        thresholds_same = cv.otsu_threshold(gray_c.cuda()).cpu()
+        morph_same = cv.morph_open(cv.morph_close(
+            binary_c.cuda(), se, 3), se, 2).cpu()
+        labels_same = cv.connected_components(morph_c.cuda()).cpu()
+    blur_err = float((blurred.cpu() - blurred_c).abs().max())
+    blur_same_err = float((blur_same - blurred_c).abs().max())
+    control_err = float((unguarded - blurred_c).abs().max())
+    agree = (masks.cpu() == masks_c).float().mean(dim=(1, 2, 3))
+    checks = sum(1 for end in itertools.accumulate(cv.SWEEP_BLOCKS)
+                 if end <= sweeps and end < cv.MAX_SWEEPS)
+    rec = {"shape": [b, size, size, 3], "ms": ms, "sweeps": sweeps,
+           "sweeps_alone": alone_sweeps, "syncs": syncs, "checks": checks,
+           "blur_max_abs_err": blur_err,
+           "blur_same_input_max_abs_err": blur_same_err,
+           "blur_unguarded_max_abs_err": control_err,
+           "gray_levels_differing": int((gray.cpu() != gray_c).sum()),
+           "thresholds_differing": int(
+               (thresholds.cpu() != cv.otsu_threshold(gray_c)).sum()),
+           "min_agreement": float(agree.min()),
+           "foreground_share": float(masks.mean())}
+    log(f"[masks] 14a segment_lesion_batch {tuple(x.shape)} on the card, "
+        f"PyTorch's default TF32 flags: median ms {ms} ({smi}); component "
+        f"loop {sweeps} sweeps, {syncs} host syncs counted by "
+        f"torch.cuda.set_sync_debug_mode at {dict(sync_sites)} ({checks} "
+        f"reads of the images still changing; limit {SEG_MAX_SYNCS}); each "
+        f"image alone converges in {alone_sweeps} sweeps (JAX's cap "
+        f"{cv.MAX_SWEEPS}), its labels bit-equal to the batch's: "
+        f"{alone_equal}; against the CPU on the same input: blur "
+        f"max |Δ| {blur_err!r} ({blur_same_err!r} on the CPU's own L; "
+        f"{control_err!r} without the fp32 guard), gray levels differing "
+        f"{rec['gray_levels_differing']} of {gray.numel()}, thresholds "
+        f"differing {rec['thresholds_differing']} of {b}, the masks' pixel "
+        f"agreement per image min {rec['min_agreement']!r} (limit "
+        f"{SEG_AGREE}), foreground {rec['foreground_share']!r}")
+    failed = []
+    if not (blur_err <= SEG_BLUR_ATOL and blur_same_err <= SEG_BLUR_ATOL):
+        failed.append(f"the blur is off the CPU's by {blur_err}")
+    if not torch.equal(thresholds_same, cv.otsu_threshold(gray_c)):
+        failed.append("the thresholds of the same gray levels differ")
+    if not torch.equal(morph_same, morph_c):
+        failed.append("the morphology of the same binary image differs")
+    if not torch.equal(labels_same, cv.connected_components(morph_c)):
+        failed.append("the labels of the same binary image differ")
+    if not float(agree.min()) >= SEG_AGREE:
+        failed.append(f"a mask agrees with the CPU's on {float(agree.min())}")
+    if not torch.equal(masks_tf32, masks):
+        failed.append("cuBLAS's TF32 changed the masks")
+    if not syncs <= SEG_MAX_SYNCS:
+        failed.append(f"the component loop synced {syncs} times")
+    if not alone_equal:
+        failed.append("an image's labels alone differ from the batch's")
+    if failed:
+        raise RuntimeError(f"14a at {tuple(x.shape)}: " + "; ".join(failed))
+    return rec
+
+
+def masks_config(root: Path, pretrained: Path) -> dict:
+    """Phase 13's YAML without the mask directory: the masks segmented on the
+    card (``data.on_device_masks``), no TTA, federated rounds of 2 local
+    steps."""
+    raw = isic_config(root, pretrained)
+    del raw["data"]["segmentation_mask_dir"]
+    raw["data"]["on_device_masks"] = True
+    raw["training"]["tta"] = {"enabled": False}
+    raw["federated"] = {"local_steps": MASK_STEPS}
+    return raw
+
+
+def mask_iou(pair):
+    """IoU of a 224² mask PNG written on the card against the layout's drawn
+    mask resized to it (nearest)."""
+    from PIL import Image
+    written, drawn = pair
+    a = np.asarray(Image.open(written)) > 0
+    with Image.open(drawn) as im:
+        b = np.asarray(im.convert("L").resize(a.shape[::-1],
+                                              Image.NEAREST)) > 127
+    union = (a | b).sum()
+    return float((a & b).sum() / union) if union else 1.0
+
+
+def on_device_masks_phase(fa, ln, smi, packages):
+    """Phase 14; returns the launches of K1-K4, K7 and K8 by entry point
+    ("launches") and 14a's records ("segment")."""
+    import io
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from fedvit_torch.cli import import_weights as import_cli
+    from fedvit_torch.cli import precompute_masks as precompute_cli
+    from fedvit_torch.cli import predict as predict_cli
+    from fedvit_torch.cli import train as train_cli
+    from fedvit_torch.cli import train_federated as fed_cli
+    from fedvit_torch.core.config import load_config
+    from fedvit_torch.data import pipeline
+    from fedvit_torch.ops import cvseg as cv
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    from fedvit_torch.train import loop
+
+    phase_t0 = time.perf_counter()
+    # 14a. the segmenter on the card against the CPU. The process's first
+    # switch into the sync debug mode counts a sync of its own: made here
+    _, first = counted_syncs(lambda: None)
+    log(f"[masks] syncs counted around nothing at the debug mode's first "
+        f"use: {dict(first)}")
+    segment = [check_segmenter(cv, b, size, SEED + 14 + 1000 * i, smi)
+               for i, (b, size) in enumerate(SEG_SHAPES)]
+
+    fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
+    path_kernels = ("K1", "K2", "K3", "K4", "K7", "K8")
+
+    def now():
+        return {k: fn.launches for k, fn in fns.items()}
+
+    def delta(before):
+        return {k: fn.launches - before[k] for k, fn in fns.items()}
+
+    def only(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    seg_calls = []
+
+    def timed_segment(fn):
+        def wrapped(img, size):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(img, size)
+            end.record()
+            seg_calls.append((tuple(img.shape), start, end))
+            return out
+        return wrapped
+
+    def seg_ms(calls):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for _, s, e in calls]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_masks_") as tmp:
+        tmp = Path(tmp)
+        root, pretrained, logs = tmp / "ISIC", tmp / "pretrained", tmp / "log"
+        t0 = time.perf_counter()
+        layout = write_isic_layout(root, SEED + 14, packages)
+        log(f"[masks] layout: {layout['jpegs']} JPEGs of "
+            f"{' and '.join(f'{w}x{h}' for w, h in ISIC_SIZES)} and their "
+            f"drawn mask PNGs in {time.perf_counter() - t0!r} s (host; {smi})")
+
+        # 14b. python -m fedvit_torch.cli.precompute_masks
+        out_dir = tmp / "masks_on_card"
+        with rebound(cv, "segment_lesion_batch",
+                     timed_segment(cv.segment_lesion_batch)):
+            pre_s, printed, pre_peak = run_cli(
+                "cli.precompute_masks", precompute_cli.main, [
+                    "--isic_dir", str(root), "--output_dir", str(out_dir),
+                    "--image_size", "224"])
+        pre_calls = seg_ms(seg_calls)
+        seg_calls.clear()
+        pngs = sorted(out_dir.glob("*.png"))
+
+        def png_values(path):
+            return np.unique(np.asarray(Image.open(path)))
+        with ThreadPoolExecutor(8) as pool:
+            values = set(np.concatenate(list(pool.map(png_values, pngs)))
+                         .tolist())
+            ious = list(pool.map(mask_iou, [(p, root / "masks" / p.name)
+                                            for p in pngs]))
+        shapes = {np.asarray(Image.open(pngs[0])).shape} if pngs else set()
+        log(f"[masks] 14b `python -m fedvit_torch.cli.precompute_masks "
+            f"--image_size 224` on the {layout['jpegs']} JPEGs: {len(pngs)} "
+            f"PNGs of {shapes}, values {sorted(values)}, in {pre_s!r} s = "
+            f"{layout['jpegs'] / pre_s!r} img/s from start to end (PIL "
+            f"decode at 448² on 8 threads, batches of 32 on the card, PNG "
+            f"writes); {len(pre_calls)} segmenter calls, "
+            f"{sum(pre_calls)!r} device ms in all; peak {pre_peak!r} GiB; "
+            f"mean IoU against the layout's drawn masks {np.mean(ious)!r} "
+            f"(min {min(ious)!r}; for information) ({smi})")
+        if len(pngs) != layout["jpegs"] or not values <= {0, 255} or \
+                shapes != {(224, 224)}:
+            raise RuntimeError("cli.precompute_masks did not write a 0/255 "
+                               "224² PNG for every JPEG")
+
+        # 14c. cli.train --fold 0 from masks segmented on the card
+        weights = tmp / "vit_base_patch16_224.pt"
+        torch.save(timm_vit_base(SEED + 14), weights)
+        config = tmp / "masks.yaml"
+        config.write_text(json.dumps(masks_config(root, pretrained)))
+        run_cli("cli.import_weights", import_cli.main, [
+            "--weights", str(weights), "--config", str(config),
+            "--output", str(pretrained)])
+        cfg = load_config(str(config))
+        epochs, evals = [], []
+        train_epoch, evaluate = loop._train_epoch, loop._evaluate
+
+        def timed_epoch(step, state, src, macro_bs, *args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0, first = now(), time.perf_counter(), len(seg_calls)
+            state, loss = train_epoch(step, state, src, macro_bs, *args,
+                                      **kwargs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            steps = len(src) // macro_bs
+            seg = seg_ms(seg_calls[first:])
+            epochs.append({"s": dt, "steps": steps, "loss": loss,
+                           "img_s": steps * macro_bs / dt,
+                           "segment_calls": len(seg),
+                           "segment_ms": float(np.mean(seg)) if seg else 0.0,
+                           "per_step": {k: v / steps for k, v in
+                                        delta(before).items()}})
+            return state, loss
+
+        def timed_eval(step, src, batch_size, *args, **kwargs):
+            before, first = now(), len(seg_calls)
+            out = evaluate(step, src, batch_size, *args, **kwargs)
+            evals.append({"forwards": math.ceil(len(src) / batch_size),
+                          "launches": delta(before),
+                          "segment_calls": len(seg_calls) - first})
+            return out
+
+        with contextlib.ExitStack() as stack:
+            plain = stack.enter_context(plain_calls(fa, ln))
+            for module, name, fn in (
+                    (loop, "_train_epoch", timed_epoch),
+                    (loop, "_evaluate", timed_eval),
+                    (pipeline, "segment_lesion_batch",
+                     timed_segment(pipeline.segment_lesion_batch))):
+                stack.enter_context(rebound(module, name, fn))
+            before = now()
+            train_s, _, train_peak = run_cli("cli.train", train_cli.main, [
+                "--config", str(config), "--fold", "0", "--log", str(logs)])
+            train_counts = delta(before)
+        train_calls = seg_ms(seg_calls)
+        seg_calls.clear()
+        ens = np.load(logs / "ensemble_logits.npy")
+        want_step = {k: 0.0 for k in fns} | {
+            "K7": 12.0, "K8": 3.0, "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
+            "K4": ACCUM * NORMS}
+        for i, e in enumerate(epochs):
+            step_ms = e["s"] / e["steps"] * 1e3
+            log(f"[masks] cli.train epoch {i + 1}: {e['steps']} steps in "
+                f"{e['s']!r} s = {e['img_s']!r} train img/s synchronised, "
+                f"loss {e['loss']!r}; the segmenter {e['segment_calls']} "
+                f"calls of {e['segment_ms']!r} device ms on "
+                f"({MICRO * ACCUM}, 272, 272, 3), "
+                f"{e['segment_ms'] / step_ms!r} of a step's {step_ms!r} ms; "
+                f"launches a step {only(e['per_step'])} ({smi})")
+        log(f"[masks] 14c `python -m fedvit_torch.cli.train --fold 0` with "
+            f"data.on_device_masks: {train_s!r} s from start to end; peak "
+            f"{train_peak!r} GiB; launches {only(train_counts)}; plain "
+            f"versions called {plain}; segmenter calls {len(train_calls)} "
+            f"({sum(e['steps'] for e in epochs)} steps, "
+            f"{sum(r['forwards'] for r in evals)} evaluation forwards); "
+            f"ensemble_logits.npy {ens.shape}, finite "
+            f"{bool(np.isfinite(ens).all())} ({smi})")
+        bad_eval = [r for r in evals if r["segment_calls"] != r["forwards"]
+                    or r["launches"] != {k: (BLOCKS * r["forwards"]
+                                             if k == "K1" else 0)
+                                         for k in fns}]
+        if len(epochs) != ISIC_EPOCHS or any(
+                e["per_step"] != want_step or e["segment_calls"] != e["steps"]
+                or not math.isfinite(e["loss"]) for e in epochs) or \
+                not evals or bad_eval or any(plain.values()) or \
+                len(train_calls) != sum(e["steps"] for e in epochs) + sum(
+                    r["forwards"] for r in evals):
+            raise RuntimeError(f"cli.train with on-device masks did not run "
+                               f"as it should: want {only(want_step)} and a "
+                               f"segmenter call a step, {BLOCKS} K1 and a "
+                               f"segmenter call a forward, no plain version, "
+                               f"finite losses")
+        if ens.shape != (ISIC_TEST, 8) or not np.isfinite(ens).all():
+            raise RuntimeError("cli.train's ensemble logits are wrong")
+
+        # 14d. cli.predict --isic_dir without TTA; --tta refused; a round
+        argv = ["--config", str(config), "--isic_dir", str(root),
+                "--checkpoint", str(logs / "fold0" / "best_fold0"),
+                "--output", str(tmp / "predictions.csv"),
+                "--logits_out", str(tmp / "predict_logits.npy")]
+        with contextlib.ExitStack() as stack:
+            plain = stack.enter_context(plain_calls(fa, ln))
+            stack.enter_context(rebound(
+                pipeline, "segment_lesion_batch",
+                timed_segment(pipeline.segment_lesion_batch)))
+            before = now()
+            predict_s, _, predict_peak = run_cli("cli.predict",
+                                                 predict_cli.main, argv)
+            predict_counts = delta(before)
+        predict_calls = seg_ms(seg_calls)
+        seg_calls.clear()
+        got = np.load(tmp / "predict_logits.npy")
+        forwards = math.ceil(ISIC_TEST / cfg.training.batch_size)
+        log(f"[masks] 14d `python -m fedvit_torch.cli.predict --isic_dir` "
+            f"without TTA: {predict_s!r} s from start to end; peak "
+            f"{predict_peak!r} GiB; launches {only(predict_counts)} in "
+            f"{forwards} forwards; segmenter calls {len(predict_calls)}, "
+            f"{np.mean(predict_calls)!r} device ms each on "
+            f"({cfg.training.batch_size}, 272, 272, 3); plain versions "
+            f"called {plain}; logits {got.shape}, finite "
+            f"{bool(np.isfinite(got).all())}, RMS difference from "
+            f"ensemble_logits.npy {rel_rms(got, ens)!r} x RMS logit ({smi})")
+        if predict_counts != {k: (BLOCKS * forwards if k == "K1" else 0)
+                              for k in fns} or any(plain.values()) or \
+                len(predict_calls) != forwards or \
+                got.shape != (ISIC_TEST, 8) or not np.isfinite(got).all():
+            raise RuntimeError("cli.predict with on-device masks did not run "
+                               "as it should")
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                predict_cli.main(argv + ["--tta"])
+        except ValueError as e:
+            refusal = str(e)
+        else:
+            raise RuntimeError("cli.predict --tta ran on the 3-channel "
+                               "canvases of on-device masks")
+        log(f"[masks] 14d `cli.predict --tta` refused: ValueError({refusal!r})")
+        if "on_device_masks" not in refusal:
+            raise RuntimeError("cli.predict --tta was refused by another "
+                               "error than the TTA refusal")
+
+        fed_log = tmp / "fed"
+        with contextlib.ExitStack() as stack:
+            rec = stack.enter_context(fed_instruments(fa, ln))
+            stack.enter_context(rebound(
+                pipeline, "segment_lesion_batch",
+                timed_segment(pipeline.segment_lesion_batch)))
+            fed_s, printed, fed_peak = run_cli(
+                "cli.train_federated", fed_cli.main, [
+                    "--config", str(config), "--clients", str(MASK_CLIENTS),
+                    "--rounds", "1", "--log", str(fed_log)])
+        fed_calls = seg_ms(seg_calls)
+        seg_calls.clear()
+        history = json.loads((fed_log / "federated_history.json").read_text())
+        launches = per_round(rec["counts"])
+        steps = MASK_CLIENTS * MASK_STEPS
+        eval_forwards = math.ceil(ISIC_TEST / cfg.training.batch_size)
+        fed_want_ = {"K1": BLOCKS * eval_forwards, "K2": steps * BLOCKS,
+                     "K3": steps * BLOCKS, "K4": steps * NORMS,
+                     "K7": steps * 12, "K8": steps * 3}
+        log(f"[masks] 14d `python -m fedvit_torch.cli.train_federated` on the "
+            f"ISIC files with on-device masks ({MASK_CLIENTS} clients x "
+            f"{MASK_STEPS} local steps of {cfg.training.batch_size}, 1 "
+            f"round): {fed_s!r} s from start to end; peak {fed_peak!r} GiB; "
+            f"launches {launches}, want {fed_want_}; segmenter calls "
+            f"{len(fed_calls)} ({steps} local steps, {eval_forwards} "
+            f"evaluation forwards); plain versions called {rec['plain']}; "
+            f"history {history} ({smi})")
+        if len(history) != 1 or not all(
+                math.isfinite(history[0][k])
+                for k in ("loss", "accuracy", "balanced_accuracy")) or \
+                launches != [fed_want_] or any(rec["plain"].values()) or \
+                len(fed_calls) != steps + eval_forwards:
+            raise RuntimeError("the federated round with on-device masks did "
+                               "not run as it should")
+    log(f"[masks] phase 14 in {time.perf_counter() - phase_t0!r} s ({smi})")
+    return {"launches": {k: {"train_cli": train_counts[k],
+                             "predict_cli": predict_counts[k],
+                             "federated_cli_round": launches[-1].get(k, 0)}
+                         for k in path_kernels},
+            "segment": segment}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
@@ -4661,11 +5185,15 @@ def main() -> int:
     # 13. the user's ISIC path through the CLIs
     torch.cuda.empty_cache()
     isic = isic_phase(fa, ln, smi, probe.stdout.strip())
+    # 14. lesion masks segmented on the card
+    torch.cuda.empty_cache()
+    masks = on_device_masks_phase(fa, ln, smi, probe.stdout.strip())
     for rec, key in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4"),
                      (k7, "K7"), (k8, "K8")):
         rec["launches_federated_round"] = fed["launches_round"][key]
         rec["federated"] = fed["shapes"][key]
         rec["launches_isic"] = isic["launches"][key]
+        rec["launches_on_device_masks"] = masks["launches"][key]
         if key in isic["shapes"]:
             rec["isic"] = isic["shapes"][key]
     extra = [{"name": name, "route": "cuda", "source": f"fedvit_torch/csrc/{src}",

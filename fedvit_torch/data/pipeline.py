@@ -5,7 +5,9 @@ on the device (``fedvit_tpu/data/pipeline.py``).
              plus the mask PNG as a 4th channel when masks are fed; a
              background thread keeps ``data.prefetch_batches`` batches ahead,
              and ``data.cache_gb`` bounds the cache of decoded canvases
-    device:  make_device_augment(cfg, train): the train transform
+    device:  make_device_augment(cfg, train): the lesion mask segmented
+             from a 3-channel canvas when ``data.on_device_masks`` is set
+             (ops/cvseg.py), then the train transform
              (ops/image.py::train_transform — crop, flips, rotation, jitter,
              RandAugment, normalize) or the eval transform (resize to
              1.14·size, centre crop, normalize)
@@ -14,8 +16,7 @@ A dataset that fits ``data.device_resident_mb`` is uploaded to the card once
 (``DeviceDataSource``) and its batches gathered there from index plans.
 
 PIL and pandas are imported where files are read, so the rest of the port
-runs without them. The on-device lesion segmenter (``data.on_device_masks``,
-``ops/cvseg``) comes with a later slice.
+runs without them.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from fedvit_torch.core.config import Config
 from fedvit_torch.data.constants import encode_metadata_batch
 from fedvit_torch.data.sampling import epoch_indices
 from fedvit_torch.ops import image as I
+from fedvit_torch.ops.cvseg import segment_lesion_batch
 
 
 def canvas_size(image_size: int) -> int:
@@ -57,12 +59,6 @@ def _load_mask(path: Path, canvas: int) -> Optional[np.ndarray]:
     with Image.open(path) as im:
         im = im.convert("L").resize((canvas, canvas), Image.NEAREST)
         return np.asarray(im, dtype=np.uint8)[..., None]
-
-
-def _refuse_on_device_masks(cfg: Config) -> None:
-    if cfg.data.use_segmentation_mask and cfg.data.on_device_masks:
-        raise NotImplementedError(
-            "data.on_device_masks (ops/cvseg) is not yet ported")
 
 
 def prefetch_iterator(it: Iterator, depth: int = 2) -> Iterator:
@@ -145,14 +141,16 @@ class HostDataSource:
     with a thread pool, caching decoded canvases in RAM: all of them, or
     ``data.cache_gb`` of them, least recently used first out. The dataframe
     has ``image_path`` and ``label`` columns, ``image`` names the mask PNG,
-    and ``age_norm``/``sex_idx``/``site_idx`` default to unknown."""
+    and ``age_norm``/``sex_idx``/``site_idx`` default to unknown. Under
+    ``data.on_device_masks`` no mask is read: the canvases have 3 channels
+    and the device augment segments them."""
 
     def __init__(self, df, cfg: Config):
-        _refuse_on_device_masks(cfg)
         self.df = df.reset_index(drop=True)
         self.canvas = canvas_size(cfg.model.image_size)
         self.mask_dir = (Path(cfg.data.segmentation_mask_dir)
-                         if cfg.data.use_segmentation_mask else None)
+                         if cfg.data.use_segmentation_mask
+                         and not cfg.data.on_device_masks else None)
         self.workers = max(1, cfg.training.num_workers)
         self.labels = self.df["label"].to_numpy(dtype=np.int32)
         n = len(self.df)
@@ -330,13 +328,15 @@ def make_device_augment(cfg: Config, train: bool) -> Callable:
 
     Returns fn(batch, generator=None) → batch with "image" (B, S, S, C)
     normalized float32 on the batch's device, the mask as the 4th channel
-    when configured (a 3-channel canvas then gets a zero mask). With
-    ``train`` it is the train transform, whose draws come from
-    ``generator``, a ``torch.Generator`` on the batch's device; else the
-    deterministic eval transform, which draws nothing."""
-    _refuse_on_device_masks(cfg)
+    when configured: a packed 4th channel, else, under
+    ``data.on_device_masks``, the segmentation of the canvas at its own size
+    (``ops/cvseg.py``), else zeros. With ``train`` it is the train
+    transform, whose draws come from ``generator``, a ``torch.Generator`` on
+    the batch's device; else the deterministic eval transform, which draws
+    nothing."""
     size = cfg.model.image_size
     use_mask = cfg.data.use_segmentation_mask
+    on_device_masks = cfg.data.on_device_masks
     aug = cfg.augmentation.train
     cj = aug.color_jitter
 
@@ -347,8 +347,12 @@ def make_device_augment(cfg: Config, train: bool) -> Callable:
         img = I.to_float(raw[..., :3])
         mask = None
         if use_mask:
-            mask = (I.to_float(raw[..., 3:4]) if raw.shape[-1] == 4
-                    else img.new_zeros(img.shape[:3] + (1,)))
+            if raw.shape[-1] == 4:
+                mask = I.to_float(raw[..., 3:4])
+            elif on_device_masks:
+                mask = segment_lesion_batch(img, img.shape[1])
+            else:
+                mask = img.new_zeros(img.shape[:3] + (1,))
         if train:
             if generator is None:
                 raise ValueError("the train augment draws from a "

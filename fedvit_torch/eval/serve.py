@@ -124,10 +124,20 @@ def _make_tta_step(model: nn.Module, size: int, use_mask: bool,
                    use_meta: bool) -> Callable:
     """tta_step(raw (B, H, W, 3|4) uint8, metadata (B, 13)) → view-averaged
     logits (B, C): the 8 views of ``tta_views`` go through one forward of
-    B·8 images."""
+    B·8 images. The mask comes only from a packed 4th channel, as in JAX,
+    which never segments here: a mask model given 3-channel canvases (those
+    of ``data.on_device_masks``) is refused where JAX's forward fails on
+    them."""
 
     @torch.inference_mode()
     def tta_step(raw: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
+        if use_mask and raw.shape[-1] != 4:
+            raise ValueError(
+                "TTA takes the mask from a 4th canvas channel and does not "
+                "segment: with data.use_segmentation_mask and "
+                "data.on_device_masks the canvases have 3 channels, so TTA "
+                "cannot run (the JAX package fails here too); set "
+                "training.tta.enabled: false, or predict without --tta")
         model.eval()
         img = I.to_float(raw[..., :3])
         mask = (I.to_float(raw[..., 3:4])

@@ -3,12 +3,12 @@ transform and TTA views for serving, and the train transform.
 
 NHWC float32 in [0, 1], every op batched over the leading axis, on whatever
 device the input lies. ``resize`` reproduces ``jax.image.resize``: bicubic
-with the Keys kernel (a = -0.5), the kernel widened by 1/scale when
-downsampling (antialias), weights normalised per output sample and samples
-whose centre falls outside the input dropped. The weights depend only on
-the sizes, so they are built once in numpy and applied as two matmuls, rows
-then columns. (``F.interpolate``'s bicubic uses a = -0.75, other edge rules
-and no antialias, and does not match.) ``crop_and_resize`` does the same per
+with the Keys kernel (a = -0.5), or linear with the triangle kernel, the
+kernel widened by 1/scale when downsampling (antialias), weights normalised
+per output sample and samples whose centre falls outside the input dropped.
+The weights depend only on the sizes, so they are built once in numpy and
+applied as two matmuls, rows then columns. (``F.interpolate``'s bicubic uses
+a = -0.75, other edge rules and no antialias, and does not match.) ``crop_and_resize`` does the same per
 sample, for the RandomResizedCrop of training: its (B, out, in) weights are
 built on the device in ``jax.image.scale_and_translate``'s order of
 operations and applied as two batched matmuls.
@@ -74,24 +74,38 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros((), device=x.device), out)
 
 
-@functools.lru_cache(maxsize=32)
-def cubic_weights(in_size: int, out_size: int) -> np.ndarray:
-    """(out_size, in_size) float32 resampling matrix of ``jax.image.resize``'s
-    cubic method (``jax/_src/image/scale.py::compute_weight_mat`` with zero
-    translation, antialias on). It is computed in float32 in JAX's order of
-    operations: the Keys polynomial cancels near |x| = 2, so a float64
-    matrix differs from JAX's by ~3e-5."""
+def _weight_mat(in_size: int, out_size: int, kernel) -> np.ndarray:
+    """(out_size, in_size) float32 resampling matrix of ``jax.image.resize``
+    (``jax/_src/image/scale.py::compute_weight_mat`` with zero translation,
+    antialias on) for ``kernel`` of |x|, in float32 in JAX's order of
+    operations."""
     inv = 1.0 / (out_size / in_size)
     kernel_scale = _F32(max(inv, 1.0))
     sample = (np.arange(out_size, dtype=_F32) + _F32(0.5)) * _F32(inv) - _F32(0.5)
     x = np.abs(sample[None, :] - np.arange(in_size, dtype=_F32)[:, None])
-    w = _keys_cubic(torch.from_numpy(x / kernel_scale)).numpy()
+    w = kernel(x / kernel_scale)
     total = w.sum(axis=0, keepdims=True, dtype=_F32)
     w = np.where(np.abs(total) > _EPS_GUARD,
                  w / np.where(total != 0, total, _F32(1.0)), _F32(0.0))
     inside = (sample >= -0.5) & (sample <= in_size - 0.5)
     return np.ascontiguousarray(np.where(inside[None, :], w, _F32(0.0)).T
                                 ).astype(_F32)
+
+
+@functools.lru_cache(maxsize=32)
+def cubic_weights(in_size: int, out_size: int) -> np.ndarray:
+    """The cubic method's matrix. It is computed in float32 in JAX's order:
+    the Keys polynomial cancels near |x| = 2, so a float64 matrix differs
+    from JAX's by ~3e-5."""
+    return _weight_mat(in_size, out_size,
+                       lambda x: _keys_cubic(torch.from_numpy(x)).numpy())
+
+
+@functools.lru_cache(maxsize=32)
+def linear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """The linear method's matrix: the triangle kernel max(0, 1 − |x|)."""
+    return _weight_mat(in_size, out_size,
+                       lambda x: np.maximum(_F32(0.0), _F32(1.0) - x))
 
 
 @functools.lru_cache(maxsize=32)
@@ -105,8 +119,9 @@ def nearest_indices(in_size: int, out_size: int) -> np.ndarray:
 
 def resize(img: torch.Tensor, size: Tuple[int, int],
            method: str = "cubic") -> torch.Tensor:
-    """Batched NHWC resize, method "cubic" (bicubic) or "nearest"; a spatial
-    dim whose size does not change is left as it is, as in JAX."""
+    """Batched NHWC resize, method "cubic" (bicubic), "linear" (both
+    antialiased, as ``jax.image.resize``) or "nearest"; a spatial dim whose
+    size does not change is left as it is, as in JAX."""
     _, h, w, _ = img.shape
     oh, ow = size
     if method == "nearest":
@@ -115,14 +130,16 @@ def resize(img: torch.Tensor, size: Tuple[int, int],
         if ow != w:
             img = img[:, :, torch.from_numpy(nearest_indices(w, ow)).to(img.device)]
         return img
-    if method != "cubic":
-        raise ValueError(f"resize method must be 'cubic' or 'nearest', got {method!r}")
+    weights = {"cubic": cubic_weights, "linear": linear_weights}.get(method)
+    if weights is None:
+        raise ValueError(f"resize method must be 'cubic', 'linear' or "
+                         f"'nearest', got {method!r}")
     img = img.float()
     if oh != h:
-        wh = torch.from_numpy(cubic_weights(h, oh)).to(img.device)
+        wh = torch.from_numpy(weights(h, oh)).to(img.device)
         img = torch.einsum("oh,bhwc->bowc", wh, img)
     if ow != w:
-        ww = torch.from_numpy(cubic_weights(w, ow)).to(img.device)
+        ww = torch.from_numpy(weights(w, ow)).to(img.device)
         img = torch.einsum("pw,bhwc->bhpc", ww, img)
     return img
 
