@@ -209,7 +209,8 @@ Phases, one line of output each (or a few):
       kernels, K1-K4, K7 and K8's shares.
 
 13. the user's ISIC path through its entry points' ``main(argv)``, in this
-   process, on the card, under a temporary directory of the run's own:
+   process, on the card, under a temporary directory of the run's own
+   (phase 15 reads its layout after phase 14):
    a. a seeded ISIC-2019 layout written with PIL and pandas: the one-hot
       ground truth with UNK rows (dropped), metadata with NaN ages,
       mixed-case sex, ``anatom_site_general`` and lesions of 1-4 images,
@@ -272,6 +273,38 @@ Phases, one line of output each (or a few):
       refused with the TTA step's ``ValueError``, and one
       ``cli.train_federated`` round on the ISIC files (2 clients x 2 local
       steps) with its launches and segmenter calls counted.
+15. the old generation (``models/unet.py``, ``models/fusion.py``,
+   ``MetadataEmbedding``, the LayerNorm head, JointLoss, named-view TTA): a
+   HybridViT of ViT-B/16@224, bf16, the Attention U-Net at its default
+   channels, ``metadata.style: embedding`` and ``classifier.layer_norm``,
+   seeded perturbed weights:
+   a. serving, for each fusion (``attention``, ``concat``,
+      ``cross_attention``): 256 seeded 3-channel 272² canvases through
+      ``_evaluate`` at batch 64 (the U-Net's BatchNorm statistics first set
+      from one batch, as training leaves them), 12 K1 a forward, the logits
+      against the plain attention path with phase 3's no-qkv-bias control,
+      the seg mask of the two paths bit-equal (or within 1e-3 of its RMS),
+      img/s and peak memory;
+   b. the JointLoss step (``loss.seg_weight`` 0.3, the mask a target) with
+      the attention fusion at macro batch 128 as 2 x 64 of 4-channel uint8
+      canvases through the fused train augment: 1 warm-up and 5 timed steps,
+      each 12 K7, 3 K8 and 2 x (12 K2, 12 K3, 26 K4); every leaf's gradient
+      against the plain attention and LayerNorm backward (phase 8's rounding
+      noise allowance) with the no-K3-dbias control; the seg term equal to
+      ``bce_dice_loss`` recomputed on the step's own mask and target; a step
+      built with ``seg_weight`` 0 gives the U-Net's last conv a gradient of
+      exactly 0; then one cross-attention step at 2 x 32 (27 K4 a
+      micro-batch) and its peak memory; with ``--trace``, a profile of one
+      JointLoss step;
+   c. on phase 13's layout: ``cli.train --fold 0`` with JointLoss and the
+      two-stage schedule (1 epoch with the backbone frozen, then 1) and the
+      8-view TTA test on 4-channel canvases, ``cli.predict --isic_dir
+      --tta`` on its best checkpoint, and ``cli.predict --tta`` with six
+      named views on 3-channel canvases from a ``.pt`` state dict: launches
+      a step and a forward, no plain version called, finite logits (6 views
+      a row);
+   d. K4 at the old generation's widths, (64, 512) and (64, 768), fp32 and
+      bf16, against ``ln_bwd_plain``, timed, with their bounds.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -291,6 +324,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1205,7 +1239,7 @@ def grads_by_path(model, state, step, batch, paths):
 
 
 def compare_grads(tag, got, limit, control_leaves, control_name, report=(),
-                  noisy=lambda name: True):
+                  noisy=lambda name: True, zero_grad=ZERO_GRAD):
     """Each leaf's gradient, ``got["kernel"]`` against ``got["plain"]``, as the
     RMS of the difference over the RMS of the plain gradient; ``got["control"]``
     must fail the same check on every one of ``control_leaves``. Leaves whose
@@ -1218,7 +1252,8 @@ def compare_grads(tag, got, limit, control_leaves, control_name, report=(),
     plus twice the leaf's own rounding noise, which is how far the plain path
     is from that fp32 path, for the leaves that ``noisy`` picks (all by
     default), ``limit`` for the others; leaves whose noise exceeds NOISY_LEAF
-    are left out, the ZERO_GRAD ones required among them."""
+    are left out, the ZERO_GRAD ones required among them. ``zero_grad``
+    names the leaves of the model at hand that take ZERO_GRAD's place."""
     (kernel, loss_k), (plain, loss_p) = got["kernel"], got["plain"]
     control = got["control"][0]
 
@@ -1234,9 +1269,9 @@ def compare_grads(tag, got, limit, control_leaves, control_name, report=(),
             f"with fp32 attention: median {float(np.median(list(noise.values())))!r}"
             f", largest by kind {group_max(noise)}; left out of the check "
             f"(noise > {NOISY_LEAF!r}): {left_out}")
-        if not set(ZERO_GRAD) <= set(left_out):
+        if not set(zero_grad) <= set(left_out):
             raise RuntimeError(f"a bias before a training-mode BatchNorm is not "
-                               f"all noise: {({n: noise[n] for n in ZERO_GRAD})}")
+                               f"all noise: {({n: noise[n] for n in zero_grad})}")
     else:
         rms = {n: float(g.square().mean().sqrt()) for n, g in plain.items()}
         median = float(np.median(list(rms.values())))
@@ -1245,10 +1280,10 @@ def compare_grads(tag, got, limit, control_leaves, control_name, report=(),
             f"{NOISE_SHARE!r} x the median leaf's {median!r}), left out of the "
             f"check: RMS gradient {left_out}; the smallest leaves kept: "
             f"{sorted((r, n) for n, r in rms.items() if n not in left_out)[:3]}")
-        if not set(ZERO_GRAD) <= set(left_out):
+        if not set(zero_grad) <= set(left_out):
             raise RuntimeError(f"a bias before a training-mode BatchNorm has "
                                f"more than a noise-sized gradient: "
-                               f"{({n: rms[n] for n in ZERO_GRAD})}")
+                               f"{({n: rms[n] for n in zero_grad})}")
         allowed = {n: limit for n in plain if n not in left_out}
     must_judge = [*control_leaves, *(n for n in plain if n.endswith("]"))]
     if not set(must_judge) <= set(allowed):
@@ -4207,12 +4242,11 @@ def run_cli(tag, main_fn, argv):
     return seconds, out.getvalue(), torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def isic_phase(fa, ln, smi, packages):
-    """Phase 13; returns each kernel's launches by entry point
+def isic_phase(fa, ln, smi, packages, tmp):
+    """Phase 13, its files under the directory ``tmp`` (phase 15 reads its
+    ISIC layout after it); returns each kernel's launches by entry point
     ("launches") and the records of K1, K7 and K8 at the shapes this path
     gives them ("shapes")."""
-    import tempfile
-
     from fedvit_torch.cli import import_weights as import_cli
     from fedvit_torch.cli import predict as predict_cli
     from fedvit_torch.cli import train as train_cli
@@ -4238,260 +4272,258 @@ def isic_phase(fa, ln, smi, packages):
     def only(counts):
         return {k: v for k, v in counts.items() if v}
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_isic_") as tmp:
-        tmp = Path(tmp)
-        root, pretrained, logs = tmp / "ISIC", tmp / "pretrained", tmp / "log"
-        # 13a. the layout, its tables and its decode
+    root, pretrained, logs = tmp / "ISIC", tmp / "pretrained", tmp / "log"
+    # 13a. the layout, its tables and its decode
+    t0 = time.perf_counter()
+    layout = write_isic_layout(root, SEED + 13, packages)
+    layout_s = time.perf_counter() - t0
+    log(f"[isic] 13a layout: {layout['jpegs']} JPEGs of "
+        f"{' and '.join(f'{w}x{h}' for w, h in ISIC_SIZES)} "
+        f"({layout['jpeg_bytes']} bytes, "
+        f"{layout['jpeg_bytes'] / layout['jpegs']!r} a JPEG) and as many "
+        f"mask PNGs ({layout['png_bytes']} bytes), the CSVs, in "
+        f"{layout_s!r} s (host, 8 threads; {smi})")
+    t0 = time.perf_counter()
+    train_df, test_df = load_isic_data(str(root), log=lambda s: None)
+    load_s = time.perf_counter() - t0
+    log(f"[isic] load_isic_data: {len(train_df)} training and "
+        f"{len(test_df)} test rows in {load_s!r} s (host; {smi})")
+    if len(train_df) != ISIC_TRAIN - ISIC_UNK or len(test_df) != ISIC_TEST:
+        raise RuntimeError("load_isic_data did not drop the UNK rows and "
+                           "the rows without a JPEG as it should")
+    config = tmp / "isic.yaml"
+    config.write_text(json.dumps(isic_config(root, pretrained)))
+    cfg = load_config(str(config))
+    source = HostDataSource(train_df, cfg)
+    rates = []
+    for _ in range(2):
         t0 = time.perf_counter()
-        layout = write_isic_layout(root, SEED + 13, packages)
-        layout_s = time.perf_counter() - t0
-        log(f"[isic] 13a layout: {layout['jpegs']} JPEGs of "
-            f"{' and '.join(f'{w}x{h}' for w, h in ISIC_SIZES)} "
-            f"({layout['jpeg_bytes']} bytes, "
-            f"{layout['jpeg_bytes'] / layout['jpegs']!r} a JPEG) and as many "
-            f"mask PNGs ({layout['png_bytes']} bytes), the CSVs, in "
-            f"{layout_s!r} s (host, 8 threads; {smi})")
-        t0 = time.perf_counter()
-        train_df, test_df = load_isic_data(str(root), log=lambda s: None)
-        load_s = time.perf_counter() - t0
-        log(f"[isic] load_isic_data: {len(train_df)} training and "
-            f"{len(test_df)} test rows in {load_s!r} s (host; {smi})")
-        if len(train_df) != ISIC_TRAIN - ISIC_UNK or len(test_df) != ISIC_TEST:
-            raise RuntimeError("load_isic_data did not drop the UNK rows and "
-                               "the rows without a JPEG as it should")
-        config = tmp / "isic.yaml"
-        config.write_text(json.dumps(isic_config(root, pretrained)))
-        cfg = load_config(str(config))
-        source = HostDataSource(train_df, cfg)
-        rates = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            batch = source.gather(np.arange(len(source)))
-            rates.append(len(source) / (time.perf_counter() - t0))
-        log(f"[isic] HostDataSource decode of the {len(source)} training "
-            f"images to {batch['image'].shape[1:]} uint8 canvases with their "
-            f"masks ({cfg.training.num_workers} threads, PIL): cold "
-            f"{rates[0]!r} img/s, cached {rates[1]!r} img/s (host; {smi})")
-        masked = float((batch["image"][..., 3] > 0).mean())
-        if not 0.02 < masked < 0.6:
-            raise RuntimeError(f"the mask channel covers {masked!r} of the "
-                               f"canvases: the mask PNGs were not read")
-        del batch, source
+        batch = source.gather(np.arange(len(source)))
+        rates.append(len(source) / (time.perf_counter() - t0))
+    log(f"[isic] HostDataSource decode of the {len(source)} training "
+        f"images to {batch['image'].shape[1:]} uint8 canvases with their "
+        f"masks ({cfg.training.num_workers} threads, PIL): cold "
+        f"{rates[0]!r} img/s, cached {rates[1]!r} img/s (host; {smi})")
+    masked = float((batch["image"][..., 3] > 0).mean())
+    if not 0.02 < masked < 0.6:
+        raise RuntimeError(f"the mask channel covers {masked!r} of the "
+                           f"canvases: the mask PNGs were not read")
+    del batch, source
 
-        # 13b. cli.import_weights on a timm-layout ViT-B/16@224 backbone
-        weights = tmp / "vit_base_patch16_224.pt"
-        sd = timm_vit_base(SEED + 13)
-        torch.save(sd, weights)
-        import_s, _, _ = run_cli("cli.import_weights", import_cli.main, [
-            "--weights", str(weights), "--config", str(config),
-            "--output", str(pretrained)])
-        saved = torch.load(pretrained / "variables.pt", map_location="cpu",
-                           weights_only=True)
-        w = sd["patch_embed.proj.weight"]
-        patch = saved["backbone.patch_embed.proj.weight"]
-        mean_ok = patch.shape[1] == 4 and torch.equal(
-            patch[:, :3], w) and torch.equal(patch[:, 3], w.mean(dim=1))
-        differ = [k for k, v in sd.items() if k != "patch_embed.proj.weight"
-                  and not torch.equal(saved["backbone." + k], v)]
-        left = sorted({k for k in saved if k.startswith("backbone.")}
-                      - {"backbone." + k for k in sd})
-        log(f"[isic] 13b `python -m fedvit_torch.cli.import_weights`: "
-            f"{len(sd)} tensors in {import_s!r} s; the 4th patch-embed "
-            f"channel is the mean of the RGB kernels and the RGB kernels "
-            f"the file's: {mean_ok}; other backbone tensors unequal to the "
-            f"file's: {differ[:3]}; backbone tensors not from the file: "
-            f"{left[:3]} ({smi})")
-        if not mean_ok or differ or left:
-            raise RuntimeError("the imported backbone is not the file's")
-        del sd, saved
+    # 13b. cli.import_weights on a timm-layout ViT-B/16@224 backbone
+    weights = tmp / "vit_base_patch16_224.pt"
+    sd = timm_vit_base(SEED + 13)
+    torch.save(sd, weights)
+    import_s, _, _ = run_cli("cli.import_weights", import_cli.main, [
+        "--weights", str(weights), "--config", str(config),
+        "--output", str(pretrained)])
+    saved = torch.load(pretrained / "variables.pt", map_location="cpu",
+                       weights_only=True)
+    w = sd["patch_embed.proj.weight"]
+    patch = saved["backbone.patch_embed.proj.weight"]
+    mean_ok = patch.shape[1] == 4 and torch.equal(
+        patch[:, :3], w) and torch.equal(patch[:, 3], w.mean(dim=1))
+    differ = [k for k, v in sd.items() if k != "patch_embed.proj.weight"
+              and not torch.equal(saved["backbone." + k], v)]
+    left = sorted({k for k in saved if k.startswith("backbone.")}
+                  - {"backbone." + k for k in sd})
+    log(f"[isic] 13b `python -m fedvit_torch.cli.import_weights`: "
+        f"{len(sd)} tensors in {import_s!r} s; the 4th patch-embed "
+        f"channel is the mean of the RGB kernels and the RGB kernels "
+        f"the file's: {mean_ok}; other backbone tensors unequal to the "
+        f"file's: {differ[:3]}; backbone tensors not from the file: "
+        f"{left[:3]} ({smi})")
+    if not mean_ok or differ or left:
+        raise RuntimeError("the imported backbone is not the file's")
+    del sd, saved
 
-        # 13c. cli.train --fold 0
-        epochs, evals, ttas, folds = [], [], [], {}
-        train_epoch, evaluate = loop._train_epoch, loop._evaluate
-        tta, train_fold = loop.evaluate_with_tta, loop.train_fold
+    # 13c. cli.train --fold 0
+    epochs, evals, ttas, folds = [], [], [], {}
+    train_epoch, evaluate = loop._train_epoch, loop._evaluate
+    tta, train_fold = loop.evaluate_with_tta, loop.train_fold
 
-        def timed_epoch(step, state, src, macro_bs, *args, **kwargs):
+    def timed_epoch(step, state, src, macro_bs, *args, **kwargs):
+        torch.cuda.synchronize()
+        before, t0 = now(), time.perf_counter()
+        out = train_epoch(step, state, src, macro_bs, *args, **kwargs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = len(src) // macro_bs
+        epochs.append({"s": dt, "img_s": steps * macro_bs / dt,
+                       "steps": steps, "per_step": {
+                           k: v / steps for k, v in delta(before).items()}})
+        return out
+
+    def timed_eval(into, fn, n_forwards):
+        def wrapped(*args, **kwargs):
             torch.cuda.synchronize()
             before, t0 = now(), time.perf_counter()
-            out = train_epoch(step, state, src, macro_bs, *args, **kwargs)
+            out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            steps = len(src) // macro_bs
-            epochs.append({"s": dt, "img_s": steps * macro_bs / dt,
-                           "steps": steps, "per_step": {
-                               k: v / steps for k, v in delta(before).items()}})
+            n, forwards = n_forwards(*args, **kwargs)
+            into.append({"img_s": n / (time.perf_counter() - t0),
+                         "forwards": forwards, "launches": delta(before)})
             return out
+        return wrapped
 
-        def timed_eval(into, fn, n_forwards):
-            def wrapped(*args, **kwargs):
-                torch.cuda.synchronize()
-                before, t0 = now(), time.perf_counter()
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
-                n, forwards = n_forwards(*args, **kwargs)
-                into.append({"img_s": n / (time.perf_counter() - t0),
-                             "forwards": forwards, "launches": delta(before)})
-                return out
-            return wrapped
+    def eval_forwards(step, src, batch_size, *args, **kwargs):
+        return len(src), math.ceil(len(src) / batch_size)
 
-        def eval_forwards(step, src, batch_size, *args, **kwargs):
-            return len(src), math.ceil(len(src) / batch_size)
+    def tta_forwards(cfg_, model, src, batch_size=None):
+        bs = batch_size or max(1, cfg_.training.batch_size // 4)
+        return len(src), math.ceil(len(src) / bs)
 
-        def tta_forwards(cfg_, model, src, batch_size=None):
-            bs = batch_size or max(1, cfg_.training.batch_size // 4)
-            return len(src), math.ceil(len(src) / bs)
+    def recorded_fold(cfg_, f, trn, val, *args, **kwargs):
+        folds[f] = {"train": len(trn), "val": len(val),
+                    "shared": set(trn.df["lesion_id"])
+                    & set(val.df["lesion_id"]),
+                    "groups": trn.df["lesion_id"].nunique()
+                    + val.df["lesion_id"].nunique()}
+        return train_fold(cfg_, f, trn, val, *args, **kwargs)
 
-        def recorded_fold(cfg_, f, trn, val, *args, **kwargs):
-            folds[f] = {"train": len(trn), "val": len(val),
-                        "shared": set(trn.df["lesion_id"])
-                        & set(val.df["lesion_id"]),
-                        "groups": trn.df["lesion_id"].nunique()
-                        + val.df["lesion_id"].nunique()}
-            return train_fold(cfg_, f, trn, val, *args, **kwargs)
-
-        with contextlib.ExitStack() as stack:
-            plain = stack.enter_context(plain_calls(fa, ln))
-            train_k1 = stack.enter_context(k1_inputs())
-            for module, name, fn in (
-                    (loop, "_train_epoch", timed_epoch),
-                    (loop, "_evaluate", timed_eval(evals, evaluate,
-                                                   eval_forwards)),
-                    (loop, "evaluate_with_tta", timed_eval(ttas, tta,
-                                                           tta_forwards)),
-                    (loop, "train_fold", recorded_fold)):
-                stack.enter_context(rebound(module, name, fn))
-            before = now()
-            train_s, _, train_peak = run_cli("cli.train", train_cli.main, [
-                "--config", str(config), "--fold", "0", "--log", str(logs)])
-            train_counts = delta(before)
-        fold_log = (logs / "fold0" / "train_fold0.log").read_text()
-        for line in fold_log.splitlines():
-            if any(s in line for s in ("Pretrained init", " E0", "Train:",
-                                       "Fold 0 Test", "New best")):
-                log(f"[isic] cli.train: {line.split(' | ', 1)[-1].strip()}")
-        fold = folds.get(0, {})
-        log(f"[isic] 13c fold 0: {fold.get('train')} training and "
-            f"{fold.get('val')} validation images in {fold.get('groups')} "
-            f"lesions, lesions on both sides: {len(fold.get('shared', ()))}")
-        want_step = {k: 0.0 for k in fns} | {
-            "K7": 12.0, "K8": 3.0, "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
-            "K4": ACCUM * NORMS}
-        for i, e in enumerate(epochs):
-            log(f"[isic] cli.train epoch {i + 1}: {e['steps']} steps in "
-                f"{e['s']!r} s = {e['img_s']!r} train img/s synchronised "
-                f"(macro batch {MICRO * ACCUM}, resident canvases, the train "
-                f"augment, the step); launches a step {only(e['per_step'])} "
-                f"({smi})")
-        for name, recs in (("validation", evals), ("TTA test", ttas)):
-            for r in recs:
-                log(f"[isic] cli.train {name}: {r['img_s']!r} img/s "
-                    f"synchronised, {r['forwards']} forwards, launches "
-                    f"{only(r['launches'])} ({smi})")
-        ens = np.load(logs / "ensemble_logits.npy")
-        log(f"[isic] `python -m fedvit_torch.cli.train --fold 0`: {train_s!r} "
-            f"s from start to end (tables, decode, upload, 2 epochs, "
-            f"checkpoints, TTA test); peak {train_peak!r} GiB; launches "
-            f"{only(train_counts)}; plain versions called {plain}; "
-            f"ensemble_logits.npy {ens.shape}, finite "
-            f"{bool(np.isfinite(ens).all())} ({smi})")
-        bad_eval = [r for r in evals + ttas if r["launches"] != {
-            k: (BLOCKS * r["forwards"] if k == "K1" else 0) for k in fns}]
-        if fold.get("shared") or not fold.get("train"):
-            raise RuntimeError("fold 0's training and validation lesions "
-                               "overlap, or the fold did not run")
-        if len(epochs) != ISIC_EPOCHS or any(e["per_step"] != want_step
-                                             for e in epochs) or \
-                len(evals) != ISIC_EPOCHS or len(ttas) != 1 or bad_eval or \
-                any(plain.values()):
-            raise RuntimeError(f"cli.train did not launch the kernels as it "
-                               f"should: want {only(want_step)} a step and "
-                               f"{BLOCKS} K1 a forward, no plain version")
-        if not all((logs / "fold0" / f"{k}_fold0" / "state.pt").exists()
-                   for k in ("best", "resume")) or \
-                ens.shape != (ISIC_TEST, 8) or not np.isfinite(ens).all() or \
-                "Pretrained init" not in fold_log:
-            raise RuntimeError("cli.train's checkpoints, ensemble logits or "
-                               "pretrained init are missing")
-        tta_bs = max(1, cfg.training.batch_size // 4)
-        shapes = {"K1": check_k1_inputs("[isic] 13c", fa, train_k1, [
-            (8 * tta_bs, 197, 2304)])}
-        del train_k1
-
-        # 13d. cli.predict --isic_dir on the fold's best checkpoint, with TTA
-        preds = []
-        with contextlib.ExitStack() as stack:
-            plain = stack.enter_context(plain_calls(fa, ln))
-            stack.enter_context(rebound(serve, "evaluate_with_tta", timed_eval(
-                preds, serve.evaluate_with_tta, tta_forwards)))
-            predict_k1 = stack.enter_context(k1_inputs())
-            before = now()
-            predict_s, printed, predict_peak = run_cli(
-                "cli.predict", predict_cli.main, [
-                    "--config", str(config), "--isic_dir", str(root),
-                    "--checkpoint", str(logs / "fold0" / "best_fold0"),
-                    "--tta", "--output", str(tmp / "predictions.csv"),
-                    "--logits_out", str(tmp / "predict_logits.npy")])
-            predict_counts = delta(before)
-        import pandas as pd
-        got = np.load(tmp / "predict_logits.npy")
-        rows = pd.read_csv(tmp / "predictions.csv")
-        same_order = list(rows["image"]) == list(test_df["image"])
-        err = rel_rms(got, ens)
-        log(f"[isic] 13d `python -m fedvit_torch.cli.predict --isic_dir ... "
-            f"--tta`: {predict_s!r} s from start to end; TTA "
-            f"{preds[0]['img_s']!r} img/s synchronised at batch "
-            f"{cfg.training.batch_size} ({preds[0]['forwards']} forwards; "
-            f"cli.train's TTA test ran at {max(1, cfg.training.batch_size // 4)}"
-            f"); peak {predict_peak!r} GiB; launches {only(predict_counts)}; "
-            f"plain versions called {plain}; {len(rows)} CSV rows in the test "
-            f"frame's order: {same_order}; report printed: "
-            f"{'macro avg' in printed}; logits against ensemble_logits.npy: "
-            f"bit-equal {np.array_equal(got, ens)}, RMS error {err!r} x RMS "
-            f"logit (limit {LOGITS_RTOL_BF16!r}: the batch sizes differ) "
+    with contextlib.ExitStack() as stack:
+        plain = stack.enter_context(plain_calls(fa, ln))
+        train_k1 = stack.enter_context(k1_inputs())
+        for module, name, fn in (
+                (loop, "_train_epoch", timed_epoch),
+                (loop, "_evaluate", timed_eval(evals, evaluate,
+                                               eval_forwards)),
+                (loop, "evaluate_with_tta", timed_eval(ttas, tta,
+                                                       tta_forwards)),
+                (loop, "train_fold", recorded_fold)):
+            stack.enter_context(rebound(module, name, fn))
+        before = now()
+        train_s, _, train_peak = run_cli("cli.train", train_cli.main, [
+            "--config", str(config), "--fold", "0", "--log", str(logs)])
+        train_counts = delta(before)
+    fold_log = (logs / "fold0" / "train_fold0.log").read_text()
+    for line in fold_log.splitlines():
+        if any(s in line for s in ("Pretrained init", " E0", "Train:",
+                                   "Fold 0 Test", "New best")):
+            log(f"[isic] cli.train: {line.split(' | ', 1)[-1].strip()}")
+    fold = folds.get(0, {})
+    log(f"[isic] 13c fold 0: {fold.get('train')} training and "
+        f"{fold.get('val')} validation images in {fold.get('groups')} "
+        f"lesions, lesions on both sides: {len(fold.get('shared', ()))}")
+    want_step = {k: 0.0 for k in fns} | {
+        "K7": 12.0, "K8": 3.0, "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
+        "K4": ACCUM * NORMS}
+    for i, e in enumerate(epochs):
+        log(f"[isic] cli.train epoch {i + 1}: {e['steps']} steps in "
+            f"{e['s']!r} s = {e['img_s']!r} train img/s synchronised "
+            f"(macro batch {MICRO * ACCUM}, resident canvases, the train "
+            f"augment, the step); launches a step {only(e['per_step'])} "
             f"({smi})")
-        if predict_counts != {k: (BLOCKS * preds[0]["forwards"] if k == "K1"
-                                  else 0) for k in fns} or any(plain.values()):
-            raise RuntimeError("cli.predict did not launch K1 alone, 12 a "
-                               "forward")
-        if not err <= LOGITS_RTOL_BF16 or got.shape != ens.shape or \
-                len(rows) != ISIC_TEST or not same_order or \
-                "macro avg" not in printed:
-            raise RuntimeError("cli.predict's logits, rows or report are wrong")
-        shapes["K1"] += check_k1_inputs("[isic] 13d", fa, predict_k1, [
-            (8 * cfg.training.batch_size, 197, 2304)])
-        del predict_k1
+    for name, recs in (("validation", evals), ("TTA test", ttas)):
+        for r in recs:
+            log(f"[isic] cli.train {name}: {r['img_s']!r} img/s "
+                f"synchronised, {r['forwards']} forwards, launches "
+                f"{only(r['launches'])} ({smi})")
+    ens = np.load(logs / "ensemble_logits.npy")
+    log(f"[isic] `python -m fedvit_torch.cli.train --fold 0`: {train_s!r} "
+        f"s from start to end (tables, decode, upload, 2 epochs, "
+        f"checkpoints, TTA test); peak {train_peak!r} GiB; launches "
+        f"{only(train_counts)}; plain versions called {plain}; "
+        f"ensemble_logits.npy {ens.shape}, finite "
+        f"{bool(np.isfinite(ens).all())} ({smi})")
+    bad_eval = [r for r in evals + ttas if r["launches"] != {
+        k: (BLOCKS * r["forwards"] if k == "K1" else 0) for k in fns}]
+    if fold.get("shared") or not fold.get("train"):
+        raise RuntimeError("fold 0's training and validation lesions "
+                           "overlap, or the fold did not run")
+    if len(epochs) != ISIC_EPOCHS or any(e["per_step"] != want_step
+                                         for e in epochs) or \
+            len(evals) != ISIC_EPOCHS or len(ttas) != 1 or bad_eval or \
+            any(plain.values()):
+        raise RuntimeError(f"cli.train did not launch the kernels as it "
+                           f"should: want {only(want_step)} a step and "
+                           f"{BLOCKS} K1 a forward, no plain version")
+    if not all((logs / "fold0" / f"{k}_fold0" / "state.pt").exists()
+               for k in ("best", "resume")) or \
+            ens.shape != (ISIC_TEST, 8) or not np.isfinite(ens).all() or \
+            "Pretrained init" not in fold_log:
+        raise RuntimeError("cli.train's checkpoints, ensemble logits or "
+                           "pretrained init are missing")
+    tta_bs = max(1, cfg.training.batch_size // 4)
+    shapes = {"K1": check_k1_inputs("[isic] 13c", fa, train_k1, [
+        (8 * tta_bs, 197, 2304)])}
+    del train_k1
 
-        # 13e. cli.train_federated on the same files
-        fed_log = tmp / "fed"
-        with fed_instruments(fa, ln) as rec:
-            fed_s, printed, fed_peak = run_cli(
-                "cli.train_federated", fed_cli.main, [
-                    "--config", str(config), "--clients", str(FED_CLIENTS),
-                    "--rounds", str(ISIC_ROUNDS), "--log", str(fed_log)])
-        history = json.loads((fed_log / "federated_history.json").read_text())
-        launches = per_round(rec["counts"])
-        for line in printed.splitlines():
-            if line.startswith("[fed]"):
-                log(f"[isic] cli.train_federated: {line}")
-        log(f"[isic] 13e `python -m fedvit_torch.cli.train_federated` on the "
-            f"ISIC files ({FED_CLIENTS} clients x {FED_STEPS} local steps of "
-            f"{cfg.training.batch_size}, {ISIC_ROUNDS} rounds): {fed_s!r} s "
-            f"from start to end (tables, the whole training split decoded, "
-            f"rounds, checkpoints); rounds "
-            f"{[h['round_time_s'] for h in history]} s; peak {fed_peak!r} "
-            f"GiB; launches a round {launches}, want {fed_want()}; plain "
-            f"versions called {rec['plain']} ({smi})")
-        if len(history) != ISIC_ROUNDS or not all(
-                math.isfinite(h[k]) for h in history
-                for k in ("loss", "accuracy", "balanced_accuracy", "macro_f1")):
-            raise RuntimeError("the federated CLI's history is wrong")
-        if any(n != fed_want() for n in launches) or \
-                len(launches) != ISIC_ROUNDS or any(rec["plain"].values()):
-            raise RuntimeError("a federated round on the ISIC files did not "
-                               "launch the kernels as it should")
-        shapes["K7"], shapes["K8"] = check_augment_batch(
-            "[isic] 13e", make_device_augment(cfg, train=True),
-            rec.pop("batch"), SEED + 13)
+    # 13d. cli.predict --isic_dir on the fold's best checkpoint, with TTA
+    preds = []
+    with contextlib.ExitStack() as stack:
+        plain = stack.enter_context(plain_calls(fa, ln))
+        stack.enter_context(rebound(serve, "evaluate_with_tta", timed_eval(
+            preds, serve.evaluate_with_tta, tta_forwards)))
+        predict_k1 = stack.enter_context(k1_inputs())
+        before = now()
+        predict_s, printed, predict_peak = run_cli(
+            "cli.predict", predict_cli.main, [
+                "--config", str(config), "--isic_dir", str(root),
+                "--checkpoint", str(logs / "fold0" / "best_fold0"),
+                "--tta", "--output", str(tmp / "predictions.csv"),
+                "--logits_out", str(tmp / "predict_logits.npy")])
+        predict_counts = delta(before)
+    import pandas as pd
+    got = np.load(tmp / "predict_logits.npy")
+    rows = pd.read_csv(tmp / "predictions.csv")
+    same_order = list(rows["image"]) == list(test_df["image"])
+    err = rel_rms(got, ens)
+    log(f"[isic] 13d `python -m fedvit_torch.cli.predict --isic_dir ... "
+        f"--tta`: {predict_s!r} s from start to end; TTA "
+        f"{preds[0]['img_s']!r} img/s synchronised at batch "
+        f"{cfg.training.batch_size} ({preds[0]['forwards']} forwards; "
+        f"cli.train's TTA test ran at {max(1, cfg.training.batch_size // 4)}"
+        f"); peak {predict_peak!r} GiB; launches {only(predict_counts)}; "
+        f"plain versions called {plain}; {len(rows)} CSV rows in the test "
+        f"frame's order: {same_order}; report printed: "
+        f"{'macro avg' in printed}; logits against ensemble_logits.npy: "
+        f"bit-equal {np.array_equal(got, ens)}, RMS error {err!r} x RMS "
+        f"logit (limit {LOGITS_RTOL_BF16!r}: the batch sizes differ) "
+        f"({smi})")
+    if predict_counts != {k: (BLOCKS * preds[0]["forwards"] if k == "K1"
+                              else 0) for k in fns} or any(plain.values()):
+        raise RuntimeError("cli.predict did not launch K1 alone, 12 a "
+                           "forward")
+    if not err <= LOGITS_RTOL_BF16 or got.shape != ens.shape or \
+            len(rows) != ISIC_TEST or not same_order or \
+            "macro avg" not in printed:
+        raise RuntimeError("cli.predict's logits, rows or report are wrong")
+    shapes["K1"] += check_k1_inputs("[isic] 13d", fa, predict_k1, [
+        (8 * cfg.training.batch_size, 197, 2304)])
+    del predict_k1
+
+    # 13e. cli.train_federated on the same files
+    fed_log = tmp / "fed"
+    with fed_instruments(fa, ln) as rec:
+        fed_s, printed, fed_peak = run_cli(
+            "cli.train_federated", fed_cli.main, [
+                "--config", str(config), "--clients", str(FED_CLIENTS),
+                "--rounds", str(ISIC_ROUNDS), "--log", str(fed_log)])
+    history = json.loads((fed_log / "federated_history.json").read_text())
+    launches = per_round(rec["counts"])
+    for line in printed.splitlines():
+        if line.startswith("[fed]"):
+            log(f"[isic] cli.train_federated: {line}")
+    log(f"[isic] 13e `python -m fedvit_torch.cli.train_federated` on the "
+        f"ISIC files ({FED_CLIENTS} clients x {FED_STEPS} local steps of "
+        f"{cfg.training.batch_size}, {ISIC_ROUNDS} rounds): {fed_s!r} s "
+        f"from start to end (tables, the whole training split decoded, "
+        f"rounds, checkpoints); rounds "
+        f"{[h['round_time_s'] for h in history]} s; peak {fed_peak!r} "
+        f"GiB; launches a round {launches}, want {fed_want()}; plain "
+        f"versions called {rec['plain']} ({smi})")
+    if len(history) != ISIC_ROUNDS or not all(
+            math.isfinite(h[k]) for h in history
+            for k in ("loss", "accuracy", "balanced_accuracy", "macro_f1")):
+        raise RuntimeError("the federated CLI's history is wrong")
+    if any(n != fed_want() for n in launches) or \
+            len(launches) != ISIC_ROUNDS or any(rec["plain"].values()):
+        raise RuntimeError("a federated round on the ISIC files did not "
+                           "launch the kernels as it should")
+    shapes["K7"], shapes["K8"] = check_augment_batch(
+        "[isic] 13e", make_device_augment(cfg, train=True),
+        rec.pop("batch"), SEED + 13)
     log(f"[isic] phase 13 in {time.perf_counter() - phase_t0!r} s ({smi})")
     return {"launches": {k: {"train_cli": train_counts[k],
                              "predict_cli": predict_counts[k],
@@ -4994,13 +5026,541 @@ def on_device_masks_phase(fa, ln, smi, packages):
             "segment": segment}
 
 
+# ---------------------------------------------------------------------------
+# 15. The old generation on the card: a HybridViT on ViT-B/16@224 — the
+#     Attention U-Net branch, the three fusions, MetadataEmbedding, the
+#     LayerNorm head, JointLoss and named-view TTA
+# ---------------------------------------------------------------------------
+
+OLD_FUSIONS = ("attention", "concat", "cross_attention")
+OLD_SERVE_IMAGES, OLD_SERVE_BATCH = 256, 64      # 4 forwards a fusion
+OLD_SEG_WEIGHT = 0.3
+OLD_XATTN_MICRO = 32         # the cross-attention step: macro 64 as 2 x 32
+OLD_VIEWS = ("original", "hflip", "vflip", "crop_tl", "crop_br", "crop_center")
+# K4's launches a micro-batch: the ViT's 25, the head's LayerNorm (D 512)
+# and, with the cross-attention fusion, its LayerNorm (D 768)
+OLD_NORMS = {"attention": NORMS + 1, "concat": NORMS + 1,
+             "cross_attention": NORMS + 2}
+# The old generation's LayerNorms give K4 fp32 rows (flax's
+# nn.LayerNorm(dtype=float32) promotes its input): the head's at D 512 and
+# the cross-attention's at D 768, 64 rows a micro-batch. Held and timed in
+# fp32 and, beside it, bf16.
+K4_OLD_SHAPES = ((64, 512), (64, 768))
+# The seg mask of the kernel path against the plain attention path: no
+# kernel is on the U-Net's path, so the two are the same computation; bit
+# equality is expected, and where cuDNN picks another algorithm between the
+# two calls, the RMS of the difference is held to 1e-3 of the RMS mask.
+SEG_MASK_RTOL = 1e-3
+# cuDNN's convolution kernels in a device profile (forward, data and weight
+# gradients; the layout transposes around them): the U-Net's and the
+# fusion's 1x1 convs (the ViT's patch embedding is a matmul)
+CONV_NAMES = (r"fprop", r"dgrad", r"wgrad", r"conv", r"implicit_gemm",
+              r"nchwToNhwc", r"nhwcToNchw")
+
+
+def old_gen_raw(fusion, joint, micro=MICRO):
+    """The HybridViT's YAML as a dict: ViT-B/16@224, bf16, the U-Net at its
+    default channels, ``fusion``, ``metadata.style: embedding``, the
+    LayerNorm head. ``joint``: JointLoss on 4-channel canvases
+    (``loss.seg_weight`` 0.3, the mask a target), drop-path 0.1 and the
+    phase-6 recipe at macro batch 2 x ``micro``; else 3-channel serving."""
+    return {"data": {"use_segmentation_mask": joint},
+            "model": {"backbone": "vit_base_patch16_224", "image_size": 224,
+                      "compute_dtype": "bfloat16",
+                      "drop_path_rate": 0.1 if joint else 0.0,
+                      "segmentation": {"enabled": True, "fusion_type": fusion},
+                      "metadata": {"style": "embedding"},
+                      "classifier": {"layer_norm": True}},
+            "loss": {"type": "asymmetric",
+                     "seg_weight": OLD_SEG_WEIGHT if joint else 0.0},
+            "training": {"batch_size": micro,
+                         "gradient_accumulation_steps": ACCUM,
+                         "optimizer": {"lr": 1e-4},
+                         "scheduler": {"warmup_epochs": 0},
+                         "llrd": {"decay_rate": 0.75, "head_lr_mult": 10.0},
+                         "grad_clip": 1.0, "ema": {"decay": 0.9995}}}
+
+
+def old_gen_model(cfg, seed):
+    """The seeded HybridViT on the card, its weights moved by ``perturb``."""
+    from fedvit_torch.models import build_model
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator().manual_seed(seed))
+    perturb(model, seed)
+    return model
+
+
+def settle_batchnorms(model, images):
+    """Set the U-Net's BatchNorm running statistics to those of one
+    training-mode forward of ``images`` (momentum 0 for that call), as
+    training leaves them. With ``perturb``'s weights and untrained running
+    statistics, evaluation scales the U-Net's activations by ~1.4 a layer,
+    and its features would drown the backbone's in the concat and
+    cross-attention fusions."""
+    from fedvit_torch.models.unet import FlaxBatchNorm
+    norms = [m for m in model.seg_branch.modules()
+             if isinstance(m, FlaxBatchNorm)]
+    for m in norms:
+        m.momentum = 0.0
+    model.seg_branch.train()
+    with torch.no_grad():
+        model.seg_branch(images)
+    model.seg_branch.eval()
+    for m in norms:
+        m.momentum = 0.9
+
+
+def canvases(n, channels, seed):
+    """``n`` seeded 272² uint8 canvases (ViT-B/16@224's) with ``channels``
+    channels (the 4th a mask), their labels and metadata, on the host."""
+    from fedvit_torch.data.pipeline import ArrayDataSource
+    data = serving_inputs(n, 272, seed).gather(np.arange(n))
+    data["image"] = np.ascontiguousarray(data["image"][..., :channels])
+    return ArrayDataSource(data)
+
+
+def old_serving(fa, attention_from_qkvb, smi, fusion):
+    """15a for one fusion type; returns K1's launches."""
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.data.pipeline import make_device_augment
+    from fedvit_torch.eval.serve import _evaluate, _to_device, make_eval_step
+
+    tag = f"old-serve {fusion}"
+    cfg = from_dict(old_gen_raw(fusion, joint=False))
+    model = old_gen_model(cfg, SEED + 15)
+    source = canvases(OLD_SERVE_IMAGES, 3, SEED + 15)
+    augment = make_device_augment(cfg, False)
+    batch = augment(_to_device(source.gather(np.arange(OLD_SERVE_BATCH)),
+                               torch.device("cuda")))
+    settle_batchnorms(model, batch["image"])
+    step = make_eval_step(model, cfg, augment=augment)
+    _evaluate(step, source, OLD_SERVE_BATCH, cfg.num_classes)     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_qkvb.launches = 0
+    t0 = time.perf_counter()
+    served = _evaluate(step, source, OLD_SERVE_BATCH, cfg.num_classes)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = expect_launches(tag, fa, OLD_SERVE_IMAGES // OLD_SERVE_BATCH)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with attention_replaced_by(attention_from_qkvb):
+        plain = _evaluate(step, source, OLD_SERVE_BATCH, cfg.num_classes)
+    compare_logits(tag, served["logits"], plain["logits"])
+    with attention_replaced_by(
+            lambda qkv, bias, h: attention_from_qkvb(qkv, bias * 0, h)):
+        no_bias = _evaluate(step, source, OLD_SERVE_BATCH, cfg.num_classes)
+    control = rel_rms(no_bias["logits"], plain["logits"])
+    log(f"[{tag}] control, plain attention without the qkv bias: RMS error "
+        f"{control!r} x RMS logit (must exceed {LOGITS_RTOL_BF16!r})")
+    if not control > LOGITS_RTOL_BF16:
+        raise RuntimeError(f"{tag}: the logits check cannot tell a dropped "
+                           f"qkv bias")
+    with torch.inference_mode():
+        got = model(batch["image"], batch["metadata"])
+        with attention_replaced_by(attention_from_qkvb):
+            want = model(batch["image"], batch["metadata"])
+    mask, ref = got["seg_mask"].float(), want["seg_mask"].float()
+    same = bool(torch.equal(mask, ref))
+    err = float((mask - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+    log(f"[{tag}] seg_mask {tuple(mask.shape)} finite "
+        f"{bool(torch.isfinite(mask).all())}, kernel path against plain path: "
+        f"bit-equal {same}, RMS error {err!r} x RMS mask (limit "
+        f"{SEG_MASK_RTOL!r} where not bit-equal); features "
+        f"{tuple(got['features'].shape)}")
+    if mask.shape != (OLD_SERVE_BATCH, 224, 224, 1) or \
+            not bool(torch.isfinite(mask).all()) or not err <= SEG_MASK_RTOL:
+        raise RuntimeError(f"{tag}: the seg mask is wrong or moves with the "
+                           f"attention path")
+    img_s = OLD_SERVE_IMAGES / serve_s
+    log(f"[{tag}] HybridViT (ViT-B/16@224 + Attention U-Net, {fusion} "
+        f"fusion, MetadataEmbedding, LayerNorm head) bf16 3ch bs "
+        f"{OLD_SERVE_BATCH}: {OLD_SERVE_IMAGES} images in {serve_s!r} s = "
+        f"{img_s!r} img/s, peak {peak!r} GiB ({smi})")
+    return launches
+
+
+def old_train(fa, ln, attention_from_qkvb, smi, fusion, micro, n_timed,
+              check, trace=False):
+    """15b: the JointLoss step of the HybridViT with ``fusion`` at macro
+    batch 2 x ``micro`` of 4-channel uint8 canvases through the fused train
+    augment: 1 warm-up step and ``n_timed`` timed ones, their launches held
+    a step; with ``check``, the gradient gate, the seg term and the JointLoss
+    control; with ``trace``, a profile of one step. Returns the launches a
+    step."""
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.data.pipeline import make_device_augment
+    from fedvit_torch.eval.serve import _to_device
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    from fedvit_torch.train import losses
+    from fedvit_torch.train import step as step_module
+    from fedvit_torch.train.losses import build_loss
+    from fedvit_torch.train.optim import build_optimizer
+    from fedvit_torch.train.state import TrainState
+    from fedvit_torch.train.step import make_train_step
+
+    tag = f"old-train {fusion}"
+    raw = old_gen_raw(fusion, joint=True, micro=micro)
+    cfg = from_dict(copy.deepcopy(raw))
+    model = old_gen_model(cfg, SEED + 15)
+    tx, _ = build_optimizer(cfg, model, steps_per_epoch=100)
+    state = TrainState.create(model, tx, seed=SEED)
+    augment = make_device_augment(cfg, True)
+    step = make_train_step(cfg, build_loss(cfg), augment=augment)
+    macro = micro * ACCUM
+    source = canvases((1 + n_timed) * macro, 4, SEED + 16)
+    batches = [_to_device(source.gather(np.arange(i * macro, (i + 1) * macro)),
+                          torch.device("cuda")) for i in range(1 + n_timed)]
+    fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p, before[n]) and not n.startswith("metadata_branch.")]
+    log(f"[{tag}] warm-up step: loss {float(m['loss'])!r}, grad_norm "
+        f"{float(m['grad_norm'])!r}; parameters outside the metadata "
+        f"embedding (which no entry point runs) that did not move: {still[:5]}")
+    if still or not math.isfinite(float(m["loss"])):
+        raise RuntimeError(f"{tag}: the warm-up step did not move the "
+                           f"parameters or its loss is not finite")
+    del before
+    torch.cuda.reset_peak_memory_stats()
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics = []
+    for batch in batches[1:]:
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = {k: fn.launches / n_timed for k, fn in fns.items()}
+    want = {k: 0.0 for k in fns} | {
+        "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
+        "K4": ACCUM * OLD_NORMS[fusion], "K7": 12.0, "K8": 3.0}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses_ = [float(m["loss"]) for m in metrics]
+    log(f"[{tag}] launches a step over {n_timed} steps: "
+        f"{({k: v for k, v in counts.items() if v})} (want "
+        f"{({k: v for k, v in want.items() if v})}); losses {losses_}")
+    if counts != want or not all(map(math.isfinite, losses_)):
+        raise RuntimeError(f"{tag}: the step did not launch the kernels as it "
+                           f"should, or its loss is not finite")
+    img_s = n_timed * macro / train_s
+    log(f"[{tag}] JointLoss step (seg_weight {OLD_SEG_WEIGHT}), HybridViT "
+        f"ViT-B/16@224 + Attention U-Net, {fusion} fusion, bf16, 4ch uint8 "
+        f"272² canvases through the fused train augment, macro batch {macro} "
+        f"({ACCUM} x {micro}): {n_timed} steps in {train_s!r} s = {img_s!r} "
+        f"img/s, {train_s / n_timed * 1e3!r} ms/step, peak {peak!r} GiB "
+        f"({smi})")
+    if trace:
+        trace_training(f"profile-{tag}", step, state, batches[2], smi, {
+            "K2": K2_NAMES, "K3": K3_NAMES, "K4": K4_NAMES,
+            "convolutions (cuDNN)": CONV_NAMES})
+    if not check:
+        return counts
+
+    # the gradients, kernels against the plain attention and LayerNorm
+    # backward, with K3's bias gradient zeroed as the control. The U-Net and
+    # the fusion's seg side take the classification loss's gradient through
+    # the fusion's pooled map, sums over the backbone's features that cancel,
+    # so each leaf is allowed its own rounding noise as well, measured as in
+    # phase 8 against the plain path with its attention computed in fp32.
+    # The seg term of each path is recorded.
+    seg_terms = []
+
+    def recording(seg_mask, target):
+        value = losses.bce_dice_loss(seg_mask, target)
+        seg_terms.append((seg_mask.detach().clone(), target.detach().clone(),
+                          value.detach().clone()))
+        return value
+
+    def plain_fp32(qkv, bias, heads):
+        return attention_from_qkvb(qkv.float(), bias.float(), heads).to(
+            qkv.dtype)
+
+    with rebound(step_module, "bce_dice_loss", recording):
+        got = grads_by_path(model, state, step, batches[1], {
+            "kernel": (),
+            "plain": (attention_replaced_by(attention_from_qkvb),
+                      layer_norm_backward_replaced_by(ln.ln_bwd_plain)),
+            "fp32": (attention_replaced_by(plain_fp32),
+                     layer_norm_backward_replaced_by(ln.ln_bwd_plain)),
+            "control": (attention_replaced_by(k3_without_dbias(fa)),)})
+    meta = [n for n in got["plain"][0] if n.startswith("metadata_branch.")]
+    if any(float(got[p][0][n].abs().max()) for p in got for n in meta):
+        raise RuntimeError(f"{tag}: the metadata embedding, which no entry "
+                           f"point runs, has a gradient")
+    for grads, _ in got.values():          # exactly 0 on every path
+        for n in meta:
+            del grads[n]
+    compare_grads(tag, got, GRAD_RTOL_BF16,
+                  [n for n in got["plain"][0] if n.endswith("attn.qkv.bias")],
+                  "K3's dbias zeroed", zero_grad=(),
+                  report=("attn.qkv.bias", "classifier.0.weight",
+                          "classifier.2.weight", "conv1.weight",
+                          "bn2.weight", "seg_proj1.weight"))
+    for prefix in ("seg_branch.", "fusion."):
+        group = [n for n in got["plain"][0] if n.startswith(prefix)]
+        errs = [rel_rms(got["kernel"][0][n].cpu().numpy(),
+                        got["plain"][0][n].cpu().numpy()) for n in group]
+        log(f"[{tag}]   {prefix}* {len(group)} leaves: error median "
+            f"{float(np.median(errs))!r}, largest {max(errs)!r}")
+    # the seg term: 4 paths x ACCUM micro-batches recorded; the kernel path's
+    # first ACCUM recomputed from its own seg_mask and target
+    worst = 0.0
+    for seg_mask, target, value in seg_terms[:ACCUM]:
+        again = losses.bce_dice_loss(seg_mask, target)
+        worst = max(worst, abs(float(again) - float(value)))
+        in_range = bool(((target >= 0) & (target <= 1)).all())
+        if seg_mask.shape != (micro, 224, 224, 1) or \
+                target.shape != seg_mask.shape or not in_range:
+            raise RuntimeError(f"{tag}: the seg term's mask or target is "
+                               f"wrong: {tuple(seg_mask.shape)}, "
+                               f"{tuple(target.shape)}, in [0, 1] {in_range}")
+    log(f"[{tag}] seg term: {len(seg_terms)} calls (4 paths x {ACCUM} "
+        f"micro-batches); the kernel path's {[float(v) for _, _, v in seg_terms[:ACCUM]]} "
+        f"against bce_dice_loss recomputed on its own seg_mask and target: "
+        f"largest |difference| {worst!r}; target in [0, 1], its mean "
+        f"{float(seg_terms[0][1].mean())!r}")
+    if len(seg_terms) != 4 * ACCUM or worst != 0.0:
+        raise RuntimeError(f"{tag}: the seg term is not bce_dice_loss of the "
+                           f"step's seg_mask and target")
+    # the JointLoss control: the same model (3 channels, the mask a target)
+    # and batch through a step built with seg_weight 0
+    off_raw = copy.deepcopy(raw)
+    off_raw["loss"]["seg_weight"] = 0.0
+    off_cfg = from_dict(off_raw)
+    off = make_train_step(off_cfg, build_loss(off_cfg), augment=augment)
+    zero = grads_by_path(model, state, off, batches[1], {"off": ()})
+    leaf = "seg_branch.decoder.final_conv.weight"
+    on_g = float(got["kernel"][0][leaf].abs().max())
+    off_g = float(zero["off"][0][leaf].abs().max())
+    log(f"[{tag}] JointLoss control: {leaf} max |grad| {on_g!r} at seg_weight "
+        f"{OLD_SEG_WEIGHT}, {off_g!r} from a step built with seg_weight 0 "
+        f"(must be exactly 0); seg_weight of the steps {step.seg_weight} and "
+        f"{off.seg_weight}")
+    if off_g != 0.0 or not on_g > 0.0 or off.seg_weight != 0.0:
+        raise RuntimeError(f"{tag}: the JointLoss control failed")
+    return counts
+
+
+def old_cli(fa, ln, smi, tmp):
+    """15c: the user's path on phase 13's ISIC layout under ``tmp``;
+    returns the launches by entry point."""
+    from fedvit_torch.cli import predict as predict_cli
+    from fedvit_torch.cli import train as train_cli
+    from fedvit_torch.core.config import load_config
+    from fedvit_torch.eval import serve
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    from fedvit_torch.train import loop
+
+    root, work = tmp / "ISIC", tmp / "old_gen"
+    work.mkdir()
+    fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
+
+    def now():
+        return {k: fn.launches for k, fn in fns.items()}
+
+    def only(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    raw = isic_config(root, tmp / "pretrained")
+    del raw["model"]["pretrained_path"]
+    raw["model"].update({"pretrained": False,
+                         "segmentation": {"enabled": True,
+                                          "fusion_type": "attention"},
+                         "metadata": {"style": "embedding"},
+                         "classifier": {"layer_norm": True}})
+    raw["loss"] = {"seg_weight": OLD_SEG_WEIGHT}
+    raw["training"].update({"epochs": 1, "two_stage": {
+        "enabled": True, "stage1_epochs": 1}})
+    config = work / "joint.yaml"
+    config.write_text(json.dumps(raw))
+    cfg = load_config(str(config))
+
+    # cli.train --fold 0: stage 1 (the backbone frozen), stage 2, TTA test
+    calls = []
+
+    def counting(kind, fn, units):
+        def wrapped(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = now(), time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.append({"kind": kind, "s": time.perf_counter() - t0,
+                          "units": units(*args, **kwargs),
+                          "launches": {k: v - before[k]
+                                       for k, v in now().items()}})
+            return out
+        return wrapped
+
+    def epoch_steps(step, state, src, macro_bs, *args, **kwargs):
+        return len(src) // macro_bs
+
+    def eval_forwards(step, src, batch_size, *args, **kwargs):
+        return math.ceil(len(src) / batch_size)
+
+    def tta_forwards(cfg_, model, src, batch_size=None):
+        return math.ceil(len(src) / (batch_size or max(
+            1, cfg_.training.batch_size // 4)))
+
+    with contextlib.ExitStack() as stack:
+        plain = stack.enter_context(plain_calls(fa, ln))
+        for name, kind, units in (("_train_epoch", "epoch", epoch_steps),
+                                  ("_evaluate", "validation", eval_forwards),
+                                  ("evaluate_with_tta", "tta", tta_forwards)):
+            stack.enter_context(rebound(loop, name, counting(
+                kind, getattr(loop, name), units)))
+        before = now()
+        train_s, _, train_peak = run_cli("cli.train", train_cli.main, [
+            "--config", str(config), "--fold", "0", "--log",
+            str(work / "log")])
+        train_counts = {k: v - before[k] for k, v in now().items()}
+    fold_log = (work / "log" / "fold0" / "train_fold0.log").read_text()
+    for line in fold_log.splitlines():
+        if any(s in line for s in ("[stage1]", " E0", "Fold 0 Test")):
+            log(f"[old-cli] cli.train: {line.split(' | ', 1)[-1].strip()}")
+    want_step = {k: 0 for k in fns} | {
+        "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
+        "K4": ACCUM * OLD_NORMS["attention"], "K7": 12, "K8": 3}
+    bad = []
+    for c in calls:
+        per = ({k: v / c["units"] for k, v in c["launches"].items()}
+               if c["kind"] == "epoch" else c["launches"])
+        want = (want_step if c["kind"] == "epoch" else
+                {k: (BLOCKS * c["units"] if k == "K1" else 0) for k in fns})
+        log(f"[old-cli] cli.train {c['kind']}: {c['units']} "
+            f"{'steps' if c['kind'] == 'epoch' else 'forwards'} in "
+            f"{c['s']!r} s; launches {'a step ' if c['kind'] == 'epoch' else ''}"
+            f"{only(per)} ({smi})")
+        if per != want:
+            bad.append(c["kind"])
+    kinds = [c["kind"] for c in calls]
+    ens = np.load(work / "log" / "ensemble_logits.npy")
+    log(f"[old-cli] 15c `python -m fedvit_torch.cli.train --fold 0` (JointLoss, "
+        f"two-stage: 1 epoch with the backbone frozen, then 1): {train_s!r} s "
+        f"from start to end; peak {train_peak!r} GiB; calls {kinds}; launches "
+        f"{only(train_counts)}; plain versions called {plain}; "
+        f"ensemble_logits.npy {ens.shape} finite "
+        f"{bool(np.isfinite(ens).all())} ({smi})")
+    if bad or kinds.count("epoch") != 2 or "tta" not in kinds or \
+            any(plain.values()) or ens.shape != (ISIC_TEST, 8) or \
+            not np.isfinite(ens).all():
+        raise RuntimeError(f"cli.train on the HybridViT did not run or launch "
+                           f"as it should: {bad}")
+
+    # cli.predict --isic_dir --tta on the fold's best checkpoint (8 views of
+    # 4-channel canvases; the model slices the mask off)
+    with plain_calls(fa, ln) as plain:
+        before = now()
+        predict_s, _, predict_peak = run_cli("cli.predict", predict_cli.main, [
+            "--config", str(config), "--isic_dir", str(root),
+            "--checkpoint", str(work / "log" / "fold0" / "best_fold0"),
+            "--tta", "--output", str(work / "joint.csv"),
+            "--logits_out", str(work / "joint.npy")])
+        predict_counts = {k: v - before[k] for k, v in now().items()}
+    got = np.load(work / "joint.npy")
+    forwards = math.ceil(ISIC_TEST / cfg.training.batch_size)
+    log(f"[old-cli] `python -m fedvit_torch.cli.predict --isic_dir --tta` on "
+        f"best_fold0: {predict_s!r} s from start to end; peak "
+        f"{predict_peak!r} GiB; launches {only(predict_counts)} for "
+        f"{forwards} forwards of 8 views; plain versions called {plain}; "
+        f"logits {got.shape} finite {bool(np.isfinite(got).all())} ({smi})")
+    if predict_counts != {k: (BLOCKS * forwards if k == "K1" else 0)
+                          for k in fns} or any(plain.values()) or \
+            got.shape != (ISIC_TEST, 8) or not np.isfinite(got).all():
+        raise RuntimeError("cli.predict --tta on the HybridViT did not launch "
+                           "K1 alone, 12 a forward, or its logits are wrong")
+
+    # cli.predict --tta with the named views, 3-channel canvases, from a .pt
+    # state dict of the seeded HybridViT
+    named = copy.deepcopy(raw)
+    named["data"]["use_segmentation_mask"] = False
+    named["loss"] = {"seg_weight": 0.0}
+    named["training"]["tta"] = {"views": list(OLD_VIEWS)}
+    named_config = work / "named.yaml"
+    named_config.write_text(json.dumps(named))
+    named_cfg = load_config(str(named_config))
+    model = old_gen_model(named_cfg, SEED + 17)
+    torch.save(model.state_dict(), work / "hybrid_vit.pt")
+    del model
+    with contextlib.ExitStack() as stack:
+        plain = stack.enter_context(plain_calls(fa, ln))
+        shapes = stack.enter_context(k1_inputs())
+        before = now()
+        named_s, _, named_peak = run_cli("cli.predict", predict_cli.main, [
+            "--config", str(named_config), "--isic_dir", str(root),
+            "--checkpoint", str(work / "hybrid_vit.pt"), "--tta",
+            "--output", str(work / "named.csv"),
+            "--logits_out", str(work / "named.npy")])
+        named_counts = {k: v - before[k] for k, v in now().items()}
+        rows = sorted(s[0] for s in shapes)
+    logits = np.load(work / "named.npy")
+    bs = named_cfg.training.batch_size
+    log(f"[old-cli] `python -m fedvit_torch.cli.predict --isic_dir --tta` with "
+        f"training.tta.views {list(OLD_VIEWS)}, 3-channel canvases, a .pt "
+        f"state dict: {named_s!r} s from start to end; peak {named_peak!r} "
+        f"GiB; launches {only(named_counts)}; K1's batch rows {rows} (views x "
+        f"batch {bs}); plain versions called {plain}; logits {logits.shape} "
+        f"finite {bool(np.isfinite(logits).all())} ({smi})")
+    if named_counts != {k: (BLOCKS * forwards if k == "K1" else 0)
+                        for k in fns} or any(plain.values()) or \
+            rows != [len(OLD_VIEWS) * bs] or \
+            logits.shape != (ISIC_TEST, 8) or not np.isfinite(logits).all():
+        raise RuntimeError("named-view TTA did not run 6 views a row through "
+                           "K1, or its logits are wrong")
+    return {k: {"train_cli": train_counts[k], "predict_cli": predict_counts[k],
+                "named_view_predict": named_counts[k]}
+            for k in ("K1", "K2", "K3", "K4", "K7", "K8")}
+
+
+def old_gen_phase(fa, ln, smi, tmp, trace=False):
+    """Phase 15 (with ``trace``, a profile of one JointLoss step); returns the launches of K1-K4, K7 and K8 by path
+    ("launches") and K4's records at the old generation's widths ("k4")."""
+    from fedvit_torch.ops.attention import attention_from_qkvb
+
+    phase_t0 = time.perf_counter()
+    launches = {k: {} for k in ("K1", "K2", "K3", "K4", "K7", "K8")}
+    # 15a. serving, each fusion type
+    for fusion in OLD_FUSIONS:
+        launches["K1"][f"serve_{fusion}"] = old_serving(
+            fa, attention_from_qkvb, smi, fusion)
+        torch.cuda.empty_cache()
+    # 15b. the JointLoss step; the cross-attention's at 2 x 32
+    counts = old_train(fa, ln, attention_from_qkvb, smi, "attention", MICRO,
+                       TIMED_STEPS, check=True, trace=trace)
+    torch.cuda.empty_cache()
+    xcounts = old_train(fa, ln, attention_from_qkvb, smi, "cross_attention",
+                        OLD_XATTN_MICRO, 1, check=False)
+    torch.cuda.empty_cache()
+    for k in ("K2", "K3", "K4", "K7", "K8"):
+        launches[k]["step_attention"] = counts[k]
+        launches[k]["step_cross_attention"] = xcounts[k]
+    # 15c. the user's path
+    for k, v in old_cli(fa, ln, smi, tmp).items():
+        launches[k].update(v)
+    # K4 at the widths the old generation adds
+    k4 = []
+    for shape in K4_OLD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = check_k4(ln, shape, dtype, True)
+            k4.append({"shape": list(shape), "dtype": short(dtype), **rec})
+    log(f"[old] phase 15 in {time.perf_counter() - phase_t0!r} s ({smi})")
+    return {"launches": launches, "k4": k4}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
                         help="also break the time of a serving batch (phases 5 "
                              "and 7), of a training step (phases 6 and 8), "
-                             "of a fold step (phase 9) and of a federated "
-                             "round (phase 12) down")
+                             "of a fold step (phase 9), of a federated "
+                             "round (phase 12) and of a JointLoss step "
+                             "(phase 15) down")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a GPU",
@@ -5182,14 +5742,19 @@ def main() -> int:
     # 12. federated training of ViT-B/16@224
     torch.cuda.empty_cache()
     fed = fed_phase(fa, ln, smi, args.trace)
-    # 13. the user's ISIC path through the CLIs
-    torch.cuda.empty_cache()
-    isic = isic_phase(fa, ln, smi, probe.stdout.strip())
-    # 14. lesion masks segmented on the card
-    torch.cuda.empty_cache()
-    masks = on_device_masks_phase(fa, ln, smi, probe.stdout.strip())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_isic_") as tmp:
+        # 13. the user's ISIC path through the CLIs
+        torch.cuda.empty_cache()
+        isic = isic_phase(fa, ln, smi, probe.stdout.strip(), Path(tmp))
+        # 14. lesion masks segmented on the card
+        torch.cuda.empty_cache()
+        masks = on_device_masks_phase(fa, ln, smi, probe.stdout.strip())
+        # 15. the old generation: a HybridViT on ViT-B/16@224
+        torch.cuda.empty_cache()
+        old = old_gen_phase(fa, ln, smi, Path(tmp), args.trace)
     for rec, key in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4"),
                      (k7, "K7"), (k8, "K8")):
+        rec["launches_old_gen"] = old["launches"][key]
         rec["launches_federated_round"] = fed["launches_round"][key]
         rec["federated"] = fed["shapes"][key]
         rec["launches_isic"] = isic["launches"][key]
@@ -5235,7 +5800,8 @@ def main() -> int:
          "source": "fedvit_torch/csrc/layer_norm_bwd.cu",
          "replaces": "fedvit_tpu/ops/layer_norm.py:90",
          "launches": counts["K4"], **k4,
-         "launches_swin_train": swin_counts["K4"], "swin_shapes": k4_swin},
+         "launches_swin_train": swin_counts["K4"], "swin_shapes": k4_swin,
+         "old_gen_shapes": old["k4"]},
         {"name": "window_attention_fwd", "route": "cuda",
          "source": "fedvit_torch/csrc/window_attention.cu",
          "replaces": "fedvit_tpu/ops/flash_attention.py:992", **k5},

@@ -2,7 +2,8 @@
 
 Counterparts: ``fedvit_tpu/train/step.py::make_eval_step`` and
 ``fedvit_tpu/train/loop.py``'s ``_pad_batch``, ``_evaluate``, ``_softmax``,
-``_make_tta_step`` and ``evaluate_with_tta``. The model carries its own
+``_make_tta_step`` and ``evaluate_with_tta`` (the 8 deterministic views, or
+the old generation's named views of ``training.tta.views``). The model carries its own
 weights (the JAX functions take ``params``/``batch_stats``; the fold trainer
 evaluates on the EMA shadow by swapping it into the model, ``TrainState.
 ema_weights``), batches arrive as dicts of uint8 canvases, numpy on the host
@@ -121,17 +122,19 @@ def _evaluate(eval_step: Callable, source, batch_size: int,
 
 
 def _make_tta_step(model: nn.Module, size: int, use_mask: bool,
-                   use_meta: bool) -> Callable:
+                   use_meta: bool, named_views: Tuple[str, ...] = ()
+                   ) -> Callable:
     """tta_step(raw (B, H, W, 3|4) uint8, metadata (B, 13)) → view-averaged
-    logits (B, C): the 8 views of ``tta_views`` go through one forward of
-    B·8 images. The mask comes only from a packed 4th channel, as in JAX,
-    which never segments here: a mask model given 3-channel canvases (those
-    of ``data.on_device_masks``) is refused where JAX's forward fails on
-    them."""
+    logits (B, C): the views go through one forward of B·T images. They are
+    the 8 of ``tta_views``, or with ``named_views`` those of
+    ``tta_views_named`` on the RGB channels. The mask comes only from a
+    packed 4th channel, as in JAX, which never segments here: a mask model
+    given 3-channel canvases (those of ``data.on_device_masks``) is refused
+    where JAX's forward fails on them."""
 
     @torch.inference_mode()
     def tta_step(raw: torch.Tensor, metadata: torch.Tensor) -> torch.Tensor:
-        if use_mask and raw.shape[-1] != 4:
+        if use_mask and not named_views and raw.shape[-1] != 4:
             raise ValueError(
                 "TTA takes the mask from a 4th canvas channel and does not "
                 "segment: with data.use_segmentation_mask and "
@@ -142,7 +145,10 @@ def _make_tta_step(model: nn.Module, size: int, use_mask: bool,
         img = I.to_float(raw[..., :3])
         mask = (I.to_float(raw[..., 3:4])
                 if use_mask and raw.shape[-1] == 4 else None)
-        views, mviews = I.tta_views(img, mask, out_size=size)
+        if named_views:
+            views, mviews = I.tta_views_named(img, named_views, size), None
+        else:
+            views, mviews = I.tta_views(img, mask, out_size=size)
         if mviews is not None:
             views = torch.cat([views, mviews], dim=-1)
         b, t = views.shape[:2]
@@ -157,17 +163,22 @@ def _make_tta_step(model: nn.Module, size: int, use_mask: bool,
 def evaluate_with_tta(cfg: Config, model: nn.Module, source,
                       batch_size: Optional[int] = None
                       ) -> Tuple[List[int], List[int], np.ndarray]:
-    """TTA eval: 8 deterministic views, logits averaged over the views
-    (reference utils.py:200-230 + TTADataset). Returns (y_pred, y_true,
-    logits (N, C))."""
-    if cfg.training.tta.views:
-        raise NotImplementedError(
-            "tta.views (old-generation named-view TTA) is not yet ported")
+    """TTA eval: 8 deterministic views, or the named views of
+    ``training.tta.views``, logits averaged over the views (reference
+    utils.py:200-230 + TTADataset; data_old.py:208-304). Returns (y_pred,
+    y_true, logits (N, C)). Named views are a 3-channel pipeline and refuse
+    ``data.use_segmentation_mask``, as JAX's do."""
+    named_views = tuple(cfg.training.tta.views)
+    if named_views and cfg.data.use_segmentation_mask:
+        raise ValueError(
+            "tta.views (old-gen corner-crop TTA, data_old.py:208-304) is a "
+            "3-channel pipeline — the old generation feeds masks to the "
+            "segmentation branch, not as a 4th input channel")
     bs = batch_size or max(1, cfg.training.batch_size // 4)
     device = _device_of(model)
     tta_step = _make_tta_step(model, cfg.model.image_size,
                               cfg.data.use_segmentation_mask,
-                              cfg.model.metadata.enabled)
+                              cfg.model.metadata.enabled, named_views)
     y_true, y_pred, all_logits = [], [], []
     for batch in source.sequential_batches(bs):
         n = len(batch["label"])

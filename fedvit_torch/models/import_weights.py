@@ -16,6 +16,14 @@ A SwinV2 backbone (``layers_{s}`` in the tree) is the exact inverse of
 merging at the end of stage s becomes ``layers.{s+1}.downsample`` with the four
 pixel chunks of its reduction kernel permuted from row-major to timm's order.
 
+The old generation's modules keep JAX's names (``seg_branch``, ``fusion``, the
+head's ``ln``, ``metadata_branch`` in either style) with torch's leaf names.
+Conv kernels (kh, kw, in, out) become (out, in, kh, kw); the decoder's
+transposed convs (``up{i}``) become (in, out, kh, kw) flipped in both spatial
+axes, since flax's ``nn.ConvTranspose`` correlates; embedding tables keep
+their layout; the U-Net's ``batch_stats`` become ``running_mean`` and
+``running_var``. ``load_jax_variables`` loads such a tree into a model.
+
 The file-level import (``load_torch_file``, ``import_pretrained_file``) is
 the port of the other half of ``fedvit_tpu/models/import_weights.py``: a
 timm or reference weights file (``.pt``/``.pth``/``.bin``, ``.safetensors``,
@@ -45,11 +53,16 @@ _RENAMES = {
     "metadata_branch": {"fc1": "net.0", "bn1": "net.1", "fc2": "net.4",
                         "bn2": "net.5"},
     "classifier": {"fc1": "0", "fc2": "3"},
+    "classifier_ln": {"fc1": "0", "ln": "2", "fc2": "4"},
     "attn": {"cpb_fc1": "cpb_mlp.0", "cpb_fc2": "cpb_mlp.2"},
     "backbone": {"patch_norm": "patch_embed.norm"},
 }
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-           "mean": "running_mean", "var": "running_var"}
+           "mean": "running_mean", "var": "running_var",
+           "embedding": "weight"}
+_MODULES = ("backbone", "metadata_branch", "classifier", "seg_branch",
+            "fusion")
+_TRANSPOSED = re.compile(r"^up\d+$")
 _BLOCK = re.compile(r"^blocks_(\d+)$")
 _STAGE = re.compile(r"^layers_(\d+)$")
 _MERGE_CHUNKS = [0, 2, 1, 3]   # row-major ↔ timm's 2×2 pixel-chunk order
@@ -64,7 +77,7 @@ def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], A
     return out
 
 
-def _name(path: Tuple[str, ...]) -> str:
+def _name(path: Tuple[str, ...], head_ln: bool = False) -> str:
     parts = []
     for i, p in enumerate(path[:-1]):
         m = _BLOCK.match(p)
@@ -77,6 +90,8 @@ def _name(path: Tuple[str, ...]) -> str:
             parts.append(f"layers.{s}")
             continue
         parent = path[i - 1] if i else ""
+        if parent == "classifier" and head_ln:
+            parent = "classifier_ln"
         parts.append(_RENAMES.get(parent, {}).get(p, p))
     leaf = path[-1]
     parts.append(_LEAVES.get(leaf, leaf))
@@ -87,20 +102,23 @@ def state_dict_from_jax(variables: Dict[str, Any],
                         patch_size: Optional[int] = None
                         ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` for JAX ISICClassifier ``variables`` (ViT or
-    SwinV2 backbone, MetadataBranch, ClassifierHead). ``patch_size`` defaults
-    to 16 for a ViT and 4 for a SwinV2. Raises on a leaf of a module the port
-    does not have yet (the old-generation branches)."""
+    SwinV2 backbone, either metadata branch, the classifier head with or
+    without its LayerNorm, the segmentation branch and the fusion).
+    ``patch_size`` defaults to 16 for a ViT and 4 for a SwinV2. Raises on a
+    leaf of a module the port does not have. A partial tree (gradients of
+    some leaves) gives the entries of those leaves."""
     params = variables["params"]
     swin = "layers_0" in params.get("backbone", {})
+    head_ln = "ln" in params.get("classifier", {})
     if patch_size is None:
         patch_size = 4 if swin else 16
     sd: Dict[str, torch.Tensor] = {}
     for path, v in _flatten(params).items():
         v = np.asarray(v, np.float32)
-        if path[0] not in ("backbone", "metadata_branch", "classifier"):
+        if path[0] not in _MODULES:
             raise NotImplementedError(
-                f"{'/'.join(path)}: no counterpart in fedvit_torch yet")
-        name = _name(path)
+                f"{'/'.join(path)}: no counterpart in fedvit_torch")
+        name = _name(path, head_ln)
         if path[-1] == "kernel":
             if "patch_embed" in path:
                 rows, d = v.shape
@@ -109,6 +127,10 @@ def state_dict_from_jax(variables: Dict[str, Any],
             elif path[-3:-1] == ("downsample", "reduction"):
                 c4, c2 = v.shape
                 v = v.reshape(4, c4 // 4, c2)[_MERGE_CHUNKS].reshape(c4, c2).T
+            elif v.ndim == 4 and _TRANSPOSED.match(path[-2]):
+                v = v[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif v.ndim == 4:
+                v = v.transpose(3, 2, 0, 1)
             else:
                 v = v.T
         if swin and path[1] == "patch_embed":   # a Dense with no proj level
@@ -116,9 +138,31 @@ def state_dict_from_jax(variables: Dict[str, Any],
         sd[name] = torch.from_numpy(np.ascontiguousarray(v))
     for path, v in _flatten(variables.get("batch_stats", {})).items():
         sd[_name(path)] = torch.from_numpy(np.asarray(v, np.float32).copy())
-        if path[-1] == "mean":
+        # torch's BatchNorm (the MLP metadata branch) counts its batches;
+        # the U-Net's flax-semantics BatchNorm keeps no count
+        if path[-1] == "mean" and path[0] != "seg_branch":
             sd[_name(path[:-1] + ("num_batches_tracked",))] = torch.tensor(0)
     return sd
+
+
+def load_jax_variables(model: torch.nn.Module, variables: Dict[str, Any],
+                       patch_size: Optional[int] = None) -> torch.nn.Module:
+    """Load JAX ISICClassifier ``variables`` into the port's ``model``,
+    strictly, but for one case: a model with ``metadata.style: embedding``
+    loads a tree without ``metadata_branch`` and keeps its own init there.
+    JAX creates those parameters on no entry point (every caller passes the
+    flat ``metadata`` and never ``metadata_raw``, so the branch never runs
+    at init); the port has them, and with no ``metadata_raw`` they change no
+    output. Returns ``model``."""
+    sd = state_dict_from_jax(variables, patch_size)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    if getattr(model, "metadata_style", "mlp") != "mlp" and \
+            "metadata_branch" not in variables["params"]:
+        missing = [k for k in missing if not k.startswith("metadata_branch.")]
+    if missing or unexpected:
+        raise KeyError(f"the JAX variables do not fit the model: missing "
+                       f"{missing[:5]}, unexpected {unexpected[:5]}")
+    return model
 
 
 # ---------------------------------------------------------------------------

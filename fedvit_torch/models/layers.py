@@ -17,6 +17,7 @@ from fedvit_torch.ops.activations import GELU, gelu
 from fedvit_torch.ops.flash_attention import (flash_attention_qkv,
                                               flash_attention_qkvb,
                                               flash_attention_xqkv)
+from fedvit_torch.ops.layer_norm import LayerNorm
 
 # the ViT's ``model.attention_impl`` values; ``xla`` is not ported (its port
 # would be the plain version on the card)
@@ -64,6 +65,18 @@ class TorchBatchNorm(nn.BatchNorm1d):
             self.num_batches_tracked.add_(1)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+class LayerNormF32(LayerNorm):
+    """flax ``nn.LayerNorm(dtype=float32)`` (eps 1e-6): the input promoted to
+    fp32 before the statistics, fp32 output, so the backward (K4 on the card)
+    runs in fp32."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim, eps, torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
 
 
 def _keep_mask(shape, keep: float, generator: Optional[torch.Generator],
@@ -195,6 +208,6 @@ def trunc_normal_(t: torch.Tensor, generator: torch.Generator,
                                  generator=generator)
 
 
-__all__ = ["Dense", "TorchBatchNorm", "Dropout", "DropPath", "run_sequential",
+__all__ = ["Dense", "TorchBatchNorm", "LayerNormF32", "Dropout", "DropPath", "run_sequential",
            "Mlp", "MultiHeadAttention", "GELU", "trunc_normal_",
            "VIT_ATTENTION_IMPLS"]

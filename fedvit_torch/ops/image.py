@@ -557,3 +557,30 @@ def tta_views(img: torch.Tensor, mask: Optional[torch.Tensor] = None,
     views = torch.stack([i for i, _ in out], dim=1)
     mviews = None if mask is None else torch.stack([m for _, m in out], dim=1)
     return views, mviews
+
+
+def tta_views_named(img: torch.Tensor, names, out_size: int = 384
+                    ) -> torch.Tensor:
+    """The old generation's named TTA views (reference data_old.py:208-304):
+    a cubic resize to 1.14·size clipped to [0, 1], then per name:
+    ``original``, ``hflip`` and ``vflip`` of the centre crop, ``crop_tl`` and
+    ``crop_br`` the corners of the resized image, ``crop_center`` (and any
+    unknown name) the centre crop. Returns (B, len(names), S, S, C),
+    normalised."""
+    rs = int(out_size * 1.14)
+    big = torch.clamp(resize(img, (rs, rs), "cubic"), 0.0, 1.0)
+    center = center_crop(big, out_size)
+    views = []
+    for name in names:
+        if name == "hflip":
+            v = hflip(center)
+        elif name == "vflip":
+            v = vflip(center)
+        elif name == "crop_tl":
+            v = big[:, :out_size, :out_size, :]
+        elif name == "crop_br":
+            v = big[:, -out_size:, -out_size:, :]
+        else:
+            v = center
+        views.append(normalize(v))
+    return torch.stack(views, dim=1)

@@ -6,11 +6,10 @@ Every loss computes in fp32 whatever the logits' dtype:
 * ``cross_entropy_loss`` with class weights and label smoothing, with
   ``torch.nn.CrossEntropyLoss`` semantics (JAX :78-106);
 * ``focal_loss`` (JAX :109-126);
+* ``bce_dice_loss`` and ``joint_loss`` — the old generation's segmentation
+  term and its cls + λ·seg objective (JAX :133-172);
 * ``mixup_criterion`` — the λ-weighted two-target loss (JAX :176-184);
 * ``build_loss`` — from the config, with ``loss.class_weights`` honoured.
-
-The old generation's ``bce_dice_loss`` and ``joint_loss`` raise: the port's
-``build_model`` refuses the segmentation branch they train.
 """
 
 from __future__ import annotations
@@ -91,16 +90,35 @@ def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     return per_sample.mean()
 
 
-def bce_dice_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "bce_dice_loss trains the old-generation segmentation branch, which "
-        "fedvit_torch does not port yet")
+def bce_dice_loss(seg_logits: torch.Tensor, seg_targets: torch.Tensor,
+                  bce_weight: float = 0.5, smooth: float = 1.0) -> torch.Tensor:
+    """Binary cross-entropy with logits plus the Dice loss of a predicted
+    mask, in fp32: the BCE is the mean over every element, the Dice ratio
+    is taken per sample and then averaged. seg_logits and seg_targets are
+    (B, H, W, 1), the targets in [0, 1]."""
+    x = seg_logits.float()
+    t = seg_targets.float()
+    bce = (torch.clamp(x, min=0) - x * t
+           + torch.log1p(torch.exp(-x.abs()))).mean()
+    probs = torch.sigmoid(x)
+    axes = tuple(range(1, x.dim()))
+    inter = (probs * t).sum(dim=axes)
+    union = probs.sum(dim=axes) + t.sum(dim=axes)
+    dice = 1.0 - ((2.0 * inter + smooth) / (union + smooth)).mean()
+    return bce_weight * bce + (1.0 - bce_weight) * dice
 
 
-def joint_loss(*args, **kwargs):
-    raise NotImplementedError(
-        "joint_loss trains the old-generation segmentation branch, which "
-        "fedvit_torch does not port yet")
+def joint_loss(cls_loss_fn: LossFn, logits: torch.Tensor,
+               targets: torch.Tensor,
+               seg_logits: Optional[torch.Tensor] = None,
+               seg_targets: Optional[torch.Tensor] = None,
+               seg_weight: float = 0.3) -> torch.Tensor:
+    """cls + λ·seg (reference train_old.py:392-396); the seg term only with
+    both seg tensors and λ > 0."""
+    loss = cls_loss_fn(logits, targets)
+    if seg_logits is not None and seg_targets is not None and seg_weight > 0:
+        loss = loss + seg_weight * bce_dice_loss(seg_logits, seg_targets)
+    return loss
 
 
 def mixup_criterion(criterion: LossFn, logits: torch.Tensor,

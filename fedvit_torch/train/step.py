@@ -23,6 +23,11 @@ Parameters are fp32 and are cast to the compute dtype where they are used
 (``models/layers.py::Dense``), as flax does: no ``torch.autocast`` and no
 GradScaler, since bf16 has fp32's exponent range.
 
+In the old generation's JointLoss mode (``models/isic.py::is_joint_loss``)
+each micro-batch's loss adds ``loss.seg_weight`` × ``bce_dice_loss`` of the
+model's ``seg_mask`` against the 4th channel of the mixed input mapped back
+to [0, 1] (x·0.5 + 0.5): the mask rides the augment and the mix as a target.
+
 On a CUDA model every LayerNorm runs K4 backward and every attention a
 forward and a backward kernel (``ops/``): K2 and K3 in a ViT (per micro-batch
 of a ViT-B, 12, 12 and 25 K4 launches), K5's log-sum-exp entry and K6 in a
@@ -40,7 +45,8 @@ import torch
 from fedvit_torch.core.config import Config
 from fedvit_torch.eval.serve import _to_device
 from fedvit_torch.train.ema import ema_update
-from fedvit_torch.train.losses import LossFn, mixup_criterion
+from fedvit_torch.models.isic import is_joint_loss
+from fedvit_torch.train.losses import LossFn, bce_dice_loss, mixup_criterion
 from fedvit_torch.train.mixup import make_mix_fn
 from fedvit_torch.train.optim import global_norm
 from fedvit_torch.train.state import TrainState
@@ -59,6 +65,8 @@ class TrainStep:
         self.ema_enabled = t.ema.enabled
         self.ema_decay = t.ema.decay
         self.mix = make_mix_fn(cfg.augmentation)
+        self.seg_weight = float(cfg.loss.seg_weight) if is_joint_loss(cfg) \
+            else 0.0
 
     def accumulate_grads(self, state: TrainState, batch: Dict
                          ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
@@ -90,16 +98,24 @@ class TrainStep:
             if self.mix is not None:
                 x, ya, yb, lam = self.mix(x, y, rng=state.np_rng,
                                           generator=state.generator)
-            logits = model(x, meta, generator=state.generator)["logits"]
+            out = model(x, meta, generator=state.generator)
+            logits = out["logits"]
             if self.mix is None:
                 loss = self.loss_fn(logits, y)
             else:
                 loss = mixup_criterion(self.loss_fn, logits, ya, yb, lam)
+            if self.seg_weight > 0:
+                loss = loss + self.seg_weight * bce_dice_loss(
+                    out["seg_mask"], x[..., 3:4] * 0.5 + 0.5)
             loss.backward()
             loss_sum += loss.detach()
         grads = {}
         for name, p in params.items():
-            if p.grad is None:             # a branch this batch did not use
+            # a branch this batch did not use (the embedding style's
+            # MetadataEmbedding, which no entry point runs) takes a zero
+            # gradient; AdamW's weight decay alone then moves it, which
+            # changes no output
+            if p.grad is None:
                 p.grad = torch.zeros_like(p)
             if self.accum > 1:
                 p.grad.mul_(1.0 / self.accum)

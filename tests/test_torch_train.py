@@ -128,8 +128,21 @@ def test_mixup_criterion_matches_jax():
 
 
 def test_old_generation_losses_raise():
+    """The old generation's losses are ported: they compute JAX's values
+    (``tests/test_torch_joint_loss.py`` holds them in full) and raise only on
+    inputs they cannot take."""
+    logits, _ = _logits(4, b=6, c=5)
+    seg = logits.reshape(2, 3, 5, 1)
+    target = (seg > 0).astype(np.float32)
+    want = jl.joint_loss(jl.asymmetric_focal_loss, jnp.asarray(logits[:2]),
+                         jnp.asarray([1, 3]), jnp.asarray(seg),
+                         jnp.asarray(target), 0.3)
+    got = tl.joint_loss(tl.asymmetric_focal_loss, torch.from_numpy(logits[:2]),
+                        torch.tensor([1, 3]), torch.from_numpy(seg),
+                        torch.from_numpy(target), 0.3)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
     for fn in (tl.bce_dice_loss, tl.joint_loss):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises((TypeError, AttributeError)):
             fn(None, None)
 
 
