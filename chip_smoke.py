@@ -210,7 +210,7 @@ Phases, one line of output each (or a few):
 
 13. the user's ISIC path through its entry points' ``main(argv)``, in this
    process, on the card, under a temporary directory of the run's own
-   (phase 15 reads its layout after phase 14):
+   (phases 15 and 16 read its layout after phase 14):
    a. a seeded ISIC-2019 layout written with PIL and pandas: the one-hot
       ground truth with UNK rows (dropped), metadata with NaN ages,
       mixed-case sex, ``anatom_site_general`` and lesions of 1-4 images,
@@ -305,6 +305,31 @@ Phases, one line of output each (or a few):
       a row);
    d. K4 at the old generation's widths, (64, 512) and (64, 768), fp32 and
       bf16, against ``ln_bwd_plain``, timed, with their bounds.
+16. what a JAX YAML reached that the port refused before:
+   a. ``model.remat``: ViT-B/16@224 at 2 x 64, the JointLoss HybridViT of
+      15b at 2 x 64 and SwinV2-L@384 at 8 x 2 and 16 x 1, each built with
+      ``model.remat: true`` (drop-path 0.1) and run with its blocks
+      rematerialised and not: one macro batch's loss, every gradient and the
+      generator's state after it from one state, bit-equal (else each leaf
+      within phase 8's limit, the leaves that differ printed); a warm-up and
+      3 timed steps each way, ms/step, peak memory (remat's below the peak
+      without at each shape; SwinV2-L at 16 x 1 without remat is tried and
+      whether it fits is printed), launches a step (remat runs the forward
+      kernel under grad twice: 24 K2 a ViT-B micro-batch, 48 of K5's entry a
+      SwinV2-L one; K3, K4, K6, K7, K8 as without); serving the remat ViT-B
+      launches 12 K1 a forward and no K2;
+   b. the plain attention options on the weights of ``auto``: ViT-B with
+      ``attention_impl: xla``, SwinV2-L with ``packed`` and ``xla``, one
+      serving batch (256, 32) and one training step after a warm-up each: no
+      attention kernel launched (K4 as on the kernel path), the logits
+      within the model's serving gate of ``auto``'s, the step's loss too;
+      img/s and peak memory beside ``auto``'s, whose launches are held as
+      before;
+   c. ``python -m fedvit_torch.cli.verify --device cuda`` in a process of
+      its own: exit 0, 14 PASS, no FAIL;
+   d. ``cli.train --fold 0 --profile DIR`` on phase 13's layout and YAML:
+      one trace of optimizer steps 2-4, naming the port's K2, K3, K4, K7 and
+      K8; its seconds beside phase 13c's run without ``--profile``.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -1113,9 +1138,9 @@ def training_batches(cfg, n_batches: int, macro: int):
 
 
 def training_setup(backbone, image_size, micro, accum, drop_path, llrd,
-                   attention_impl="auto"):
+                   attention_impl="auto", remat=False, n_batches=1 + TIMED_STEPS):
     """The current-generation recipe on ``backbone``: (cfg, model, state,
-    step, 1 + TIMED_STEPS macro batches)."""
+    step, ``n_batches`` macro batches)."""
     from fedvit_torch.core.config import (AugmentationConfig, Config,
                                           DataConfig, LLRDConfig, LossConfig,
                                           ModelConfig, OptimizerConfig,
@@ -1131,7 +1156,7 @@ def training_setup(backbone, image_size, micro, accum, drop_path, llrd,
         data=DataConfig(use_segmentation_mask=True),
         model=ModelConfig(backbone=backbone, image_size=image_size,
                           compute_dtype="bfloat16", drop_path_rate=drop_path,
-                          attention_impl=attention_impl),
+                          attention_impl=attention_impl, remat=remat),
         training=TrainingConfig(
             batch_size=micro, gradient_accumulation_steps=accum,
             optimizer=OptimizerConfig(lr=1e-4),
@@ -1146,7 +1171,7 @@ def training_setup(backbone, image_size, micro, accum, drop_path, llrd,
     tx, _ = build_optimizer(cfg, model, steps_per_epoch=100)
     state = TrainState.create(model, tx, seed=SEED)
     step = make_train_step(cfg, build_loss(cfg))
-    batches = training_batches(cfg, 1 + TIMED_STEPS, micro * accum)
+    batches = training_batches(cfg, n_batches, micro * accum)
     return cfg, model, state, step, batches
 
 
@@ -4529,7 +4554,7 @@ def isic_phase(fa, ln, smi, packages, tmp):
                              "predict_cli": predict_counts[k],
                              "federated_cli_round": launches[-1].get(k, 0)}
                          for k in path_kernels},
-            "shapes": shapes}
+            "shapes": shapes, "train_cli_s": train_s}
 
 
 
@@ -5553,6 +5578,609 @@ def old_gen_phase(fa, ln, smi, tmp, trace=False):
     return {"launches": launches, "k4": k4}
 
 
+# ---------------------------------------------------------------------------
+# 16. What a JAX YAML reached that the port refused: model.remat, the plain
+#     attention options, cli/verify, cli/train --profile (utils/profiling)
+# ---------------------------------------------------------------------------
+
+REMAT_TIMED = 3              # timed steps each way, after one warm-up step
+REMAT_DROP_PATH = 0.1
+# Remat's gradients against the same step's without, from one state: the
+# recomputation runs the same kernels on the same inputs, so the two are
+# expected bit-equal (no kernel of the port uses atomics; cuBLAS picks its
+# algorithm by shape). Where a leaf is not, it is held to phase 8's leaf
+# limit, and the leaves that differ are printed with their errors.
+REMAT_LEAF_RTOL = SWIN_GRAD_RTOL_BF16
+# The SwinV2-L@384 shapes of 16a, (micro-batch, accumulation): phase 8's and
+# the 16-image micro-batch that only remat is expected to fit
+SWIN_REMAT_SHAPES = ((SWIN_MICRO, SWIN_ACCUM), (2 * SWIN_MICRO, 1))
+# The trace of ``cli.train --profile``: the kernels of a fold step that it
+# must name (K1 runs in validation, outside the traced steps)
+PROFILE_KERNELS = {"K2": K2_NAMES, "K3": K3_NAMES, "K4": K4_NAMES,
+                   "K7": ("shift_kernel",), "K8": ("equalize_kernel",)}
+VERIFY_CHECKS = 14
+
+
+@contextlib.contextmanager
+def remat_set(model, on: bool):
+    """Inside the block the model's transformer blocks are rematerialised
+    (``on``) or not: the ``remat`` flag of each module that holds one (the
+    ViT, each SwinV2 stage), which ``build_model`` sets from
+    ``model.remat``."""
+    mods = [m for m in model.modules()
+            if isinstance(getattr(m, "remat", None), bool)]
+    if not mods:
+        raise RuntimeError("the model holds no remat flag")
+    before = [m.remat for m in mods]
+    for m in mods:
+        m.remat = on
+    try:
+        yield
+    finally:
+        for m, b in zip(mods, before):
+            m.remat = b
+
+
+def remat_same_result(tag, model, state, step, batch) -> dict:
+    """One macro batch's gradients, loss and the generator's state after
+    them, without and with remat from one state (generators, buffers):
+    bit-equal, else each leaf within REMAT_LEAF_RTOL and the generator's
+    state equal. Leaves the state and the buffers as it found them."""
+    snap = (state.generator.get_state(),
+            copy.deepcopy(state.np_rng.bit_generator.state),
+            {n: t.clone() for n, t in model.named_buffers()})
+
+    def restore():
+        state.generator.set_state(snap[0])
+        state.np_rng.bit_generator.state = copy.deepcopy(snap[1])
+        with torch.no_grad():
+            for n, t in model.named_buffers():
+                t.copy_(snap[2][n])
+
+    got = {}
+    for on in (False, True):
+        restore()
+        with remat_set(model, on):
+            grads, loss, _ = step.accumulate_grads(state, batch)
+        got[on] = ({n: g.clone() for n, g in grads.items()}, loss.clone(),
+                   state.generator.get_state())
+        for p in model.parameters():
+            p.grad = None
+    restore()
+    (g0, l0, s0), (g1, l1, s1) = got[False], got[True]
+    differ = {n: rel_rms(g1[n].float().cpu().numpy(),
+                         g0[n].float().cpu().numpy())
+              for n in g0 if not torch.equal(g0[n], g1[n])}
+    same_loss, same_gen = bool(torch.equal(l0, l1)), bool(torch.equal(s0, s1))
+    loss_err = abs(float(l1) - float(l0)) / abs(float(l0))
+    log(f"[{tag}] remat against no remat, one macro batch from one state: "
+        f"loss {float(l0)!r} vs {float(l1)!r} (bit-equal {same_loss}); "
+        f"{len(differ)} of {len(g0)} gradient leaves differ in their bits"
+        f"{f', by kind (count, largest RMS error / RMS grad) {group_max(differ)}' if differ else ''}"
+        f"; the generator's state after the step bit-equal {same_gen}")
+    over = {n: e for n, e in differ.items() if not e <= REMAT_LEAF_RTOL}
+    if not same_gen or over or not loss_err <= REMAT_LEAF_RTOL:
+        raise RuntimeError(f"{tag}: remat changes the step's result: "
+                           f"generator {same_gen}, loss {loss_err!r}, leaves "
+                           f"over {REMAT_LEAF_RTOL!r}: {over}")
+    return {"bit_equal": same_loss and not differ,
+            "leaves_differ": len(differ),
+            "largest_leaf_err": max(differ.values(), default=0.0)}
+
+
+def remat_timed(tag, what, fns, smi, state, step, batches, want) -> dict:
+    """A warm-up step on ``batches[0]``, then one timed step on each of the
+    others: ms/step and peak memory over the timed steps, their launches a
+    step held to ``want``, finite losses."""
+    state, _ = step(state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in fns.values():
+        fn.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for batch in batches[1:]:
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = len(batches) - 1
+    counts = {k: fn.launches / n for k, fn in fns.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    macro = batches[0]["image"].shape[0]
+    got = {k: v for k, v in counts.items() if v}
+    log(f"[{tag}] {what}, macro batch {macro} ({step.accum} x "
+        f"{macro // step.accum}): {n} steps after a warm-up in {dt!r} s = "
+        f"{dt / n * 1e3!r} ms/step, {n * macro / dt!r} img/s, peak {peak!r} "
+        f"GiB; launches a step {got} (want "
+        f"{({k: v for k, v in want.items() if v})}); losses {losses} ({smi})")
+    if counts != want or not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"{tag}: the step did not launch the kernels as it "
+                           f"should, or its loss is not finite")
+    return {"ms_step": dt / n * 1e3, "img_s": n * macro / dt,
+            "peak_gib": peak, "launches_step": got}
+
+
+def remat_pair(tag, what, fns, smi, model, state, step, batches, want,
+               check=True) -> dict:
+    """16a at one shape: the same-result gate (with ``check``), then the
+    timed steps without and with remat; remat's peak must be below the
+    peak without. ``want(on)`` gives the launches a step."""
+    rec = {"same_result": remat_same_result(tag, model, state, step,
+                                            batches[0])} if check else {}
+    for on in (False, True):
+        with remat_set(model, on):
+            rec["remat" if on else "no_remat"] = remat_timed(
+                f"{tag}{' remat' if on else ''}",
+                f"{what}{', remat' if on else ''}", fns, smi, state, step,
+                batches, want(on))
+    off, on = rec["no_remat"]["peak_gib"], rec["remat"]["peak_gib"]
+    log(f"[{tag}] peak {on!r} GiB with remat against {off!r} without "
+        f"({on / off!r}x); ms/step {rec['remat']['ms_step']!r} against "
+        f"{rec['no_remat']['ms_step']!r} "
+        f"({rec['remat']['ms_step'] / rec['no_remat']['ms_step']!r}x) ({smi})")
+    if not on < off:
+        raise RuntimeError(f"{tag}: remat did not lower the peak memory")
+    return rec
+
+
+def remat_phase(fa, ln, smi) -> dict:
+    """16a: ViT-B/16@224 at 2 x 64, the JointLoss HybridViT at 2 x 64 and
+    SwinV2-L@384 at 8 x 2 and 16 x 1, each built with ``model.remat: true``
+    and run without and with it; serving a remat ViT-B. Returns the records
+    by shape and the launches by path."""
+    import dataclasses
+
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.data.pipeline import make_device_augment
+    from fedvit_torch.eval.serve import _to_device
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    from fedvit_torch.train.losses import build_loss
+    from fedvit_torch.train.optim import build_optimizer
+    from fedvit_torch.train.state import TrainState
+    from fedvit_torch.train.step import make_train_step
+
+    fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
+    zero = {k: 0.0 for k in fns}
+    records = {}
+
+    # ViT-B/16@224 at 2 x 64 (phase 6's recipe, drop-path 0.1)
+    cfg, model, state, step, batches = training_setup(
+        "vit_base_patch16_224", 224, MICRO, ACCUM, REMAT_DROP_PATH, 0.75,
+        remat=True, n_batches=1 + REMAT_TIMED)
+    records["vit_b_2x64"] = remat_pair(
+        "remat vit-b", "ViT-B/16@224 bf16 4ch+meta", fns, smi, model, state,
+        step, batches, lambda on: zero | {
+            "K2": ACCUM * BLOCKS * (1 + on), "K3": ACCUM * BLOCKS,
+            "K4": ACCUM * NORMS})
+    # serving the remat model: no checkpoint, so K1 and no K2
+    model.eval()
+    for fn in fns.values():
+        fn.launches = 0
+    with torch.inference_mode():
+        model(batches[0]["image"][:MICRO], batches[0]["metadata"][:MICRO])
+    served = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    log(f"[remat vit-b] serving the remat model, one forward of {MICRO}: "
+        f"launches {served} (want {{'K1': {BLOCKS}}})")
+    if served != {"K1": BLOCKS}:
+        raise RuntimeError("serving a remat model does not launch K1 alone")
+    records["vit_b_serve_launches"] = served
+    del cfg, model, state, step, batches
+    torch.cuda.empty_cache()
+
+    # the JointLoss HybridViT at 2 x 64 through the fused train augment
+    raw = old_gen_raw("attention", joint=True)
+    raw["model"]["remat"] = True
+    cfg = from_dict(raw)
+    model = old_gen_model(cfg, SEED + 16)
+    tx, _ = build_optimizer(cfg, model, steps_per_epoch=100)
+    state = TrainState.create(model, tx, seed=SEED)
+    step = make_train_step(cfg, build_loss(cfg),
+                           augment=make_device_augment(cfg, True))
+    macro = MICRO * ACCUM
+    source = canvases((1 + REMAT_TIMED) * macro, 4, SEED + 16)
+    batches = [_to_device(source.gather(np.arange(i * macro, (i + 1) * macro)),
+                          torch.device("cuda"))
+               for i in range(1 + REMAT_TIMED)]
+    records["joint_loss_2x64"] = remat_pair(
+        "remat joint-loss", "JointLoss HybridViT (ViT-B/16@224 + Attention "
+        "U-Net, attention fusion) bf16, 4ch uint8 272² canvases through the "
+        "fused train augment", fns, smi, model, state, step, batches,
+        lambda on: zero | {
+            "K2": ACCUM * BLOCKS * (1 + on), "K3": ACCUM * BLOCKS,
+            "K4": ACCUM * OLD_NORMS["attention"], "K7": 12.0, "K8": 3.0})
+    del cfg, model, state, step, batches, source
+    torch.cuda.empty_cache()
+
+    # SwinV2-L@384 at 8 x 2 and 16 x 1, the same macro batches of 16
+    cfg, model, state, step, batches = training_setup(
+        SWIN, SWIN_SIZE, SWIN_MICRO, SWIN_ACCUM, REMAT_DROP_PATH, SWIN_LLRD,
+        remat=True, n_batches=1 + REMAT_TIMED)
+    blocks, norms = sum(SWIN_DEPTHS), sum(SWIN_NORMS)
+
+    def swin_want(accum):
+        return lambda on: zero | {"K5_lse": accum * blocks * (1 + on),
+                                  "K6": accum * blocks, "K4": accum * norms}
+
+    what = "SwinV2-L@384 bf16 4ch+meta"
+    records["swinv2_l_8x2"] = remat_pair(
+        "remat swinv2-l 8x2", what, fns, smi, model, state, step, batches,
+        swin_want(SWIN_ACCUM))
+    micro16, accum16 = SWIN_REMAT_SHAPES[1]
+    cfg16 = cfg.replace(training=dataclasses.replace(
+        cfg.training, batch_size=micro16,
+        gradient_accumulation_steps=accum16))
+    step16 = make_train_step(cfg16, build_loss(cfg16))
+    rec16 = {}
+    with remat_set(model, True):
+        rec16["remat"] = remat_timed(
+            "remat swinv2-l 16x1 remat", f"{what}, remat", fns, smi, state,
+            step16, batches, swin_want(accum16)(True))
+    # without remat: whether a micro-batch of 16 fits at all
+    fits = True
+    with remat_set(model, False):
+        try:
+            rec16["no_remat"] = remat_timed(
+                "remat swinv2-l 16x1", what, fns, smi, state, step16,
+                batches, swin_want(accum16)(False))
+        except torch.cuda.OutOfMemoryError as e:
+            fits = False
+            reached = torch.cuda.max_memory_allocated() / 2 ** 30
+            message = str(e).splitlines()[0]
+    if not fits:
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.empty_cache()
+        rec16["no_remat"] = {"fits": False, "peak_gib_at_failure": reached}
+        log(f"[remat swinv2-l 16x1] without remat a micro-batch of 16 does "
+            f"not fit: out of memory at {reached!r} GiB allocated "
+            f"({message[:200]}) ({smi})")
+    on = rec16["remat"]["peak_gib"]
+    off = rec16["no_remat"].get("peak_gib")
+    log(f"[remat swinv2-l 16x1] peak with remat {on!r} GiB; without "
+        f"{'did not fit' if off is None else repr(off) + ' GiB'} "
+        f"(the card: {torch.cuda.get_device_properties(0).total_memory / 2 ** 30!r} "
+        f"GiB) ({smi})")
+    if off is not None and not on < off:
+        raise RuntimeError("remat did not lower SwinV2-L's peak at 16 x 1")
+    records["swinv2_l_16x1"] = rec16
+    del cfg, cfg16, model, state, step, step16, batches
+    torch.cuda.empty_cache()
+    launches = {}
+    for shape, rec in records.items():
+        for way in ("no_remat", "remat"):
+            for k, v in rec.get(way, {}).get("launches_step", {}).items():
+                launches.setdefault(k, {})[f"{shape}_{way}_a_step"] = v
+    launches["K1"] = {"vit_b_remat_serve_a_forward":
+                      records["vit_b_serve_launches"]["K1"]}
+    return {"records": records, "launches": launches}
+
+
+def serve_once(tag, fa, ln, smi, model, cfg, source, batch):
+    """One serving batch of ``batch`` images through ``_evaluate`` after a
+    warm-up: (logits, img/s, peak GiB, launches)."""
+    from fedvit_torch.data.pipeline import make_device_augment
+    from fedvit_torch.eval.serve import _evaluate, make_eval_step
+
+    step = make_eval_step(model, cfg, augment=make_device_augment(cfg, False))
+    _evaluate(step, source, batch, cfg.num_classes)            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, ln)
+    t0 = time.perf_counter()
+    out = _evaluate(step, source, batch, cfg.num_classes)
+    torch.cuda.synchronize()
+    img_s = batch / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = {k: v for k, v in launch_counts(fa, ln).items() if v}
+    log(f"[{tag}] serving, one batch of {batch}: {img_s!r} img/s, peak "
+        f"{peak!r} GiB, launches {counts} ({smi})")
+    return out["logits"], img_s, peak, counts
+
+
+def plain_attention_phase(fa, ln, smi) -> dict:
+    """16b: ViT-B/16@224 with ``attention_impl: xla`` and SwinV2-L@384 with
+    ``packed`` and ``xla`` against ``auto`` on the same weights: one serving
+    batch and one training step after a warm-up each, no attention kernel
+    launched on the plain paths (K4, the LayerNorm backward, runs under
+    every value, as in JAX), the logits within the serving gate of the
+    model, the step's loss within it too. Returns the records."""
+    import dataclasses
+
+    from fedvit_torch.data.pipeline import canvas_size
+    from fedvit_torch.models import build_model
+    from fedvit_torch.train.losses import build_loss
+    from fedvit_torch.train.optim import build_optimizer
+    from fedvit_torch.train.state import TrainState
+    from fedvit_torch.train.step import make_train_step
+
+    attention = set(counted(fa, None))
+    records = {}
+    for name, backbone, size, impls, batch, micro, accum, drop, llrd, \
+            limit, serve_want, step_want in (
+            ("vit_b", "vit_base_patch16_224", 224, ("xla",), SERVE_BATCH,
+             MICRO, ACCUM, 0.1, 0.75, LOGITS_RTOL_BF16, {"K1": BLOCKS},
+             {"K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
+              "K4": ACCUM * NORMS}),
+            ("swinv2_l", SWIN, SWIN_SIZE, ("packed", "xla"), SWIN_BATCH,
+             SWIN_MICRO, SWIN_ACCUM, SWIN_DROP_PATH, SWIN_LLRD,
+             SWIN_LOGITS_RTOL_BF16, {"K5": sum(SWIN_DEPTHS)},
+             {"K5_lse": SWIN_ACCUM * sum(SWIN_DEPTHS),
+              "K6": SWIN_ACCUM * sum(SWIN_DEPTHS),
+              "K4": SWIN_ACCUM * sum(SWIN_NORMS)})):
+        cfg, model, state, step, batches = training_setup(
+            backbone, size, micro, accum, drop, llrd, n_batches=2)
+        weights = {k: v.clone() for k, v in model.state_dict().items()}
+        source = serving_inputs(batch, canvas_size(size), SEED + 16)
+        rec = {}
+
+        def run(impl, model, state, step):
+            tag = f"plain-attention {name} {impl}"
+            logits, img_s, peak, served = serve_once(
+                tag, fa, ln, smi, model, cfg, source, batch)
+            torch.cuda.reset_peak_memory_stats()
+            state, first = step(state, batches[0])
+            torch.cuda.synchronize()
+            reset_counts(fa, ln)
+            t0 = time.perf_counter()
+            state, m = step(state, batches[1])
+            loss = float(m["loss"])
+            train_s = time.perf_counter() - t0
+            trained = {k: v for k, v in launch_counts(fa, ln).items() if v}
+            train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"[{tag}] training step after a warm-up, macro batch "
+                f"{micro * accum} ({accum} x {micro}): {train_s * 1e3!r} ms, "
+                f"{micro * accum / train_s!r} img/s, peak {train_peak!r} GiB, "
+                f"losses {float(first['loss'])!r}, {loss!r}, launches "
+                f"{trained} ({smi})")
+            return {"logits": logits, "loss": loss, "serve_img_s": img_s,
+                    "serve_peak_gib": peak, "serve_launches": served,
+                    "train_ms": train_s * 1e3,
+                    "train_img_s": micro * accum / train_s,
+                    "train_peak_gib": train_peak, "train_launches": trained}
+
+        rec["auto"] = run("auto", model, state, step)
+        if rec["auto"]["serve_launches"] != serve_want or \
+                rec["auto"]["train_launches"] != step_want:
+            raise RuntimeError(f"{name} auto: the kernels were not launched "
+                               f"as before: want {serve_want} and {step_want}")
+        del model, state, step
+        torch.cuda.empty_cache()
+        for impl in impls:
+            icfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                         attention_impl=impl))
+            imodel = build_model(icfg, device="cuda")
+            imodel.load_state_dict(weights)
+            tx, _ = build_optimizer(icfg, imodel, steps_per_epoch=100)
+            rec[impl] = run(impl, imodel, TrainState.create(imodel, tx, SEED),
+                            make_train_step(icfg, build_loss(icfg)))
+            tag = f"plain-attention {name} {impl}"
+            compare_logits(tag, rec[impl]["logits"], rec["auto"]["logits"],
+                           limit)
+            loss_err = abs(rec[impl]["loss"] - rec["auto"]["loss"]) / abs(
+                rec["auto"]["loss"])
+            fired = {k: v for k, v in {**rec[impl]["serve_launches"],
+                                       **rec[impl]["train_launches"]}.items()
+                     if k in attention}
+            log(f"[{tag}] against auto: the step's loss {rec[impl]['loss']!r} "
+                f"vs {rec['auto']['loss']!r}, relative {loss_err!r} (limit "
+                f"{limit!r}); attention kernels launched {fired} (want none); "
+                f"serving {rec[impl]['serve_img_s']!r} img/s and peak "
+                f"{rec[impl]['serve_peak_gib']!r} GiB against auto's "
+                f"{rec['auto']['serve_img_s']!r} and "
+                f"{rec['auto']['serve_peak_gib']!r}; training "
+                f"{rec[impl]['train_img_s']!r} img/s and peak "
+                f"{rec[impl]['train_peak_gib']!r} GiB against "
+                f"{rec['auto']['train_img_s']!r} and "
+                f"{rec['auto']['train_peak_gib']!r} ({smi})")
+            if fired or rec[impl]["train_launches"] != {"K4": step_want["K4"]} \
+                    or not loss_err <= limit:
+                raise RuntimeError(f"{tag}: a kernel ran on the plain path, "
+                                   f"or its step disagrees with auto's")
+            del imodel, tx
+            torch.cuda.empty_cache()
+        for r in rec.values():
+            del r["logits"]
+        records[name] = rec
+        del weights, batches, source
+        torch.cuda.empty_cache()
+    return records
+
+
+def verify_phase(fa, ln, smi) -> dict:
+    """16c: ``python -m fedvit_torch.cli.verify --device cuda`` in a
+    process of its own: exit 0, every check PASS, none FAIL. Then its
+    ``main`` again in this process, every count set to 0 just before and
+    the inputs of the kernels' entries recorded: every check passes again,
+    K1-K4, K7 and K8 each launch once for each call of their entry and no
+    other kernel runs. Then each of these kernels against its plain version
+    at each shape and dtype that run gave it (K1 at N = 5 in fp32 and bf16,
+    K2-K4 in fp32, K7 and K8 at the shapes of verify's augments), to the
+    tolerances of the earlier phases. Returns the launches, the records by
+    kernel and shape, and the seconds."""
+    from fedvit_torch.cli import verify as verify_cli
+    from fedvit_torch.models import layers
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    from fedvit_torch.ops.attention import attention_from_qkvb
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "fedvit_torch.cli.verify", "--device", "cuda"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    passed, failed = out.stdout.count("[PASS]"), out.stdout.count("[FAIL]")
+    for line in out.stdout.splitlines():
+        if line.startswith(("Device:", "  [")) or "tests passed" in line:
+            log(f"[verify] {line.strip()}")
+    log(f"[verify] `python -m fedvit_torch.cli.verify --device cuda`: exit "
+        f"{out.returncode}, {passed} PASS, {failed} FAIL in {seconds!r} s "
+        f"({smi})")
+    if out.returncode != 0 or passed != VERIFY_CHECKS or failed:
+        raise RuntimeError(f"cli.verify failed on the card:\n"
+                           f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+
+    # the same main in this process, counted, the kernels' inputs recorded
+    seen = {"attention": [], "K4": [], "K7": [], "K8": []}
+
+    def recording(module, name, key, describe):
+        fn = getattr(module, name)
+
+        def wrapped(*args):
+            seen[key].append(describe(*args))
+            return fn(*args)
+        return rebound(module, name, wrapped)
+
+    def attention(qkv, bias, heads):
+        grad = torch.is_grad_enabled() and (qkv.requires_grad
+                                            or bias.requires_grad)
+        return tuple(qkv.shape), qkv.dtype, heads, grad
+
+    fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
+    for fn in fns.values():
+        fn.launches = 0
+    with contextlib.ExitStack() as stack:
+        for module, name, key, describe in (
+                (layers, "flash_attention_qkvb", "attention", attention),
+                (ln, "layer_norm_bwd", "K4",
+                 lambda x, *_: (tuple(x.shape), x.dtype)),
+                (rs, "row_shift", "K7",
+                 lambda img, _: ("rows", tuple(img.shape), img.dtype)),
+                (rs, "col_shift", "K7",
+                 lambda img, _: ("columns", tuple(img.shape), img.dtype)),
+                (ra, "equalize", "K8",
+                 lambda img, *_: (tuple(img.shape), img.dtype))):
+            stack.enter_context(recording(module, name, key, describe))
+        in_s, stdout, peak = run_cli("cli.verify", verify_cli.main,
+                                     ["--device", "cuda"])
+    launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
+    grads = sum(1 for *_, grad in seen["attention"] if grad)
+    calls = {"K1": len(seen["attention"]) - grads, "K2": grads, "K3": grads,
+             "K4": len(seen["K4"]), "K7": len(seen["K7"]),
+             "K8": len(seen["K8"])}
+    passed, failed = stdout.count("[PASS]"), stdout.count("[FAIL]")
+    log(f"[verify] cli.verify's main in this process: {passed} PASS, "
+        f"{failed} FAIL in {in_s!r} s, peak {peak!r} GiB; launches "
+        f"{launches} against the calls of their entries {calls}; inputs: "
+        f"attention (shape, dtype, heads, grad) {sorted(set(seen['attention']), key=str)}, "
+        f"K4 {sorted(set(seen['K4']), key=str)}, K7 "
+        f"{sorted(set(seen['K7']), key=str)}, K8 "
+        f"{sorted(set(seen['K8']), key=str)} ({smi})")
+    if passed != VERIFY_CHECKS or failed or launches != calls or \
+            not all(calls.values()):
+        raise RuntimeError("cli.verify in this process: a check failed, a "
+                           "kernel of its path did not launch, or a kernel "
+                           "launched other than once a call of its entry")
+    if any(dtype != torch.float32 for *_, dtype in seen["K7"] + seen["K8"]):
+        raise RuntimeError("cli.verify gave K7 or K8 other than float32")
+
+    # each kernel against its plain version at the shapes that run gave it
+    recs = {k: [] for k in calls}
+
+    def tagged(rec, shape, dtype):
+        return rec | {"shape": list(shape), "dtype": short(dtype)}
+
+    for shape, dtype, heads, grad in sorted(set(seen["attention"]), key=str):
+        b, n, e3 = shape
+        d = e3 // 3 // heads
+        if grad:
+            recs["K2"].append(tagged(check_k2(
+                fa, attention_from_qkvb, b, n, heads, dtype, False, d=d),
+                shape, dtype))
+            recs["K3"].append(tagged(check_k3(
+                fa, attention_from_qkvb, b, n, heads, dtype, False, d=d),
+                shape, dtype))
+        else:
+            atol = K1_ATOL_FP32 if dtype == torch.float32 else K1_ATOL_BF16
+            recs["K1"].append(tagged(check_k1(
+                fa, attention_from_qkvb, b, n, heads, d, dtype, atol, False),
+                shape, dtype))
+    for shape, dtype in sorted(set(seen["K4"]), key=str):
+        recs["K4"].append(tagged(check_k4(ln, shape, dtype, False), shape,
+                                 dtype))
+    for i, (kind, shape, _) in enumerate(sorted(set(seen["K7"]), key=str)):
+        recs["K7"].append(check_k7(rs, shape, 2 if kind == "rows" else 1,
+                                   SEED + 160 + i, False))
+    for i, (shape, _) in enumerate(sorted(set(seen["K8"]), key=str)):
+        recs["K8"].append(check_k8(ra, shape, SEED + 170 + i, False))
+        check_k8(ra, shape, SEED + 180 + i, False, spans=True)
+    return {"passed": passed, "s": seconds, "in_process_s": in_s,
+            "launches": launches, "shapes": recs}
+
+
+def profile_cli_phase(fa, ln, smi, tmp, plain_s) -> dict:
+    """16d: ``cli.train --fold 0 --profile DIR`` on phase 13's layout and
+    YAML: one trace written, of optimizer steps 2-4, naming K2, K3, K4, K7
+    and K8; its seconds beside phase 13c's run without ``--profile``.
+    Returns the launches of the run and the record."""
+    from fedvit_torch.cli import train as train_cli
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+
+    fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
+    before = {k: fn.launches for k, fn in fns.items()}
+    trace_dir = tmp / "profile16"
+    seconds, _, peak = run_cli("cli.train --profile", train_cli.main, [
+        "--config", str(tmp / "isic.yaml"), "--fold", "0",
+        "--log", str(tmp / "log16"), "--profile", str(trace_dir)])
+    launches = {k: fn.launches - before[k] for k, fn in fns.items()
+                if fn.launches - before[k]}
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise RuntimeError(f"cli.train --profile wrote {len(files)} traces")
+    nbytes = files[0].stat().st_size
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = [str(e.get("name", "")) for e in events]
+    steps = sorted(n for n in set(names) if n.startswith("ProfilerStep#"))
+    found = {k: sum(1 for n in names if in_group(n, patterns))
+             for k, patterns in PROFILE_KERNELS.items()}
+    device_us = sum(float(e.get("dur", 0)) for e in events
+                    if e.get("cat") == "kernel")
+    log(f"[profile-cli] `python -m fedvit_torch.cli.train --fold 0 --profile "
+        f"DIR`: {seconds!r} s from start to end against {plain_s!r} s for "
+        f"phase 13c's run without --profile ({seconds / plain_s!r}x); peak "
+        f"{peak!r} GiB; launches {launches}; trace {files[0].name} "
+        f"({nbytes} bytes, {len(events)} events) of {steps}; kernel events "
+        f"by name {found}, {device_us / 1e3!r} ms of kernel time in the "
+        f"traced steps ({smi})")
+    if steps != ["ProfilerStep#1", "ProfilerStep#2", "ProfilerStep#3"] or \
+            not all(found.values()):
+        raise RuntimeError("the trace of cli.train --profile does not hold "
+                           "the traced steps or does not name the port's "
+                           "kernels")
+    return {"launches": launches, "s": seconds, "plain_s": plain_s,
+            "trace_bytes": nbytes, "kernel_events": found}
+
+
+def last_options_phase(fa, ln, smi, tmp, plain_cli_s) -> dict:
+    """Phase 16; returns the launches by kernel and path and the records."""
+    phase_t0 = time.perf_counter()
+    remat = remat_phase(fa, ln, smi)
+    torch.cuda.empty_cache()
+    plain = plain_attention_phase(fa, ln, smi)
+    torch.cuda.empty_cache()
+    verified = verify_phase(fa, ln, smi)
+    torch.cuda.empty_cache()
+    profiled = profile_cli_phase(fa, ln, smi, tmp, plain_cli_s)
+    launches = remat["launches"]
+    for name, rec in plain.items():
+        for where in ("serve", "train"):
+            for k, v in rec["auto"][f"{where}_launches"].items():
+                launches.setdefault(k, {})[f"{name}_auto_{where}"] = v
+    for k, v in verified["launches"].items():
+        launches.setdefault(k, {})["verify_cli"] = v
+    for k, v in profiled["launches"].items():
+        launches.setdefault(k, {})["profile_cli"] = v
+    log(f"[phase16] phase 16 in {time.perf_counter() - phase_t0!r} s ({smi})")
+    return {"launches": launches, "remat": remat["records"],
+            "plain_attention": plain, "verify": verified,
+            "profile_cli": profiled}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
@@ -5752,6 +6380,13 @@ def main() -> int:
         # 15. the old generation: a HybridViT on ViT-B/16@224
         torch.cuda.empty_cache()
         old = old_gen_phase(fa, ln, smi, Path(tmp), args.trace)
+        # 16. remat, the plain attention options, cli.verify, --profile
+        torch.cuda.empty_cache()
+        last = last_options_phase(fa, ln, smi, Path(tmp), isic["train_cli_s"])
+    for rec, key in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4"),
+                     (k5, "K5"), (k5_lse, "K5_lse"), (k6, "K6"), (k7, "K7"),
+                     (k8, "K8")):
+        rec["launches_phase16"] = last["launches"].get(key, {})
     for rec, key in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4"),
                      (k7, "K7"), (k8, "K8")):
         rec["launches_old_gen"] = old["launches"][key]
@@ -5759,6 +6394,7 @@ def main() -> int:
         rec["federated"] = fed["shapes"][key]
         rec["launches_isic"] = isic["launches"][key]
         rec["launches_on_device_masks"] = masks["launches"][key]
+        rec["verify_cli"] = last["verify"]["shapes"][key]
         if key in isic["shapes"]:
             rec["isic"] = isic["shapes"][key]
     extra = [{"name": name, "route": "cuda", "source": f"fedvit_torch/csrc/{src}",

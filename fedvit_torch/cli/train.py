@@ -14,8 +14,9 @@ logits go to ``<log>/ensemble_logits.npy``, and with real test labels the
 per-fold and ensemble metrics and the classification report to the log
 (``<log>/train_main.log``, ``<log>/fold{k}/train_fold{k}.log`` and stdout).
 ``training.auto_batch_size`` probes the batch size first. ``--profile DIR``
-writes a ``torch.profiler`` trace of optimizer steps 2-4 of the run (the
-first is its warm-up) into DIR (TensorBoard's format). ``--device`` picks the device, ``cuda`` by default; without a card
+writes a ``torch.profiler`` trace (``utils/profiling.py::trace``) of
+optimizer steps 2-4 of the run (the first is its warm-up) into DIR
+(TensorBoard's format). ``--device`` picks the device, ``cuda`` by default; without a card
 the command fails unless ``--device cpu`` is given.
 """
 
@@ -28,6 +29,7 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 
 def setup_logging(log_dir: str, fold: int = -1) -> logging.Logger:
@@ -58,22 +60,6 @@ def setup_logging(log_dir: str, fold: int = -1) -> logging.Logger:
 PROFILE_STEPS = 3
 
 
-def _profiler(out_dir: str, device):
-    """A ``torch.profiler`` context, stepped once per optimizer step, that
-    records ``PROFILE_STEPS`` steps after the first and writes their trace
-    into ``out_dir`` (on exit if the run has fewer)."""
-    from torch.profiler import (ProfilerActivity, profile, schedule,
-                                tensorboard_trace_handler)
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities,
-                   schedule=schedule(wait=0, warmup=1, active=PROFILE_STEPS,
-                                     repeat=1),
-                   on_trace_ready=tensorboard_trace_handler(out_dir))
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="ISIC 2019 — K-Fold CV Training (PyTorch/CUDA port)")
@@ -100,6 +86,7 @@ def main(argv=None) -> int:
     from fedvit_torch.eval.metrics import classification_report
     from fedvit_torch.train.loop import (aggregate_fold_metrics,
                                          ensemble_folds, train_fold)
+    from fedvit_torch.utils.profiling import trace
 
     device = resolve_device(args.device)
     cfg = load_config(args.config).replace(seed=args.seed)
@@ -142,8 +129,11 @@ def main(argv=None) -> int:
 
     fold_list = list(range(n_folds)) if args.fold < 0 else [args.fold]
     fold_results = []
-    profile_cm = (_profiler(args.profile, device) if args.profile
-                  else contextlib.nullcontext())
+    profile_cm = contextlib.nullcontext()
+    if args.profile:
+        profile_cm = trace(args.profile, schedule=torch.profiler.schedule(
+            wait=0, warmup=1, active=PROFILE_STEPS, repeat=1),
+            cuda=device.type == "cuda")
     with profile_cm as prof:
         for f in fold_list:
             trn_idx, val_idx = splits[f]

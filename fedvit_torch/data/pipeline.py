@@ -208,14 +208,16 @@ class HostDataSource:
 
 
 class ArrayDataSource:
-    """HostDataSource-compatible source over in-memory arrays. data:
-    {"image" (N, H, W, 3|4) uint8 canvases, the mask as the 4th channel;
-    "label" (N,); "metadata" (N, 13)}."""
+    """HostDataSource-compatible source over in-memory arrays (synthetic
+    fixtures, pre-decoded datasets), as ``fedvit_tpu``'s. data: {"image"
+    (N, H, W, 3|4) uint8 canvases or [0, 1] floats (stored as uint8
+    canvases, as JAX's are), the mask as the 4th channel; "label" (N,);
+    "metadata" (N, 13)}."""
 
     def __init__(self, data: Dict[str, np.ndarray]):
         img = np.asarray(data["image"])
-        if img.dtype != np.uint8:
-            raise TypeError(f"images must be uint8 canvases, got {img.dtype}")
+        if img.dtype != np.uint8:       # clipped, scaled by 255, truncated
+            img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
         self.images = img
         self.labels = np.asarray(data["label"], np.int32)
         self.metadata = np.asarray(data["metadata"], np.float32)

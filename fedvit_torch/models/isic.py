@@ -55,14 +55,14 @@ class ISICClassifier(nn.Module):
                  seg_decoder_channels: Sequence[int] = (256, 128, 64, 32),
                  fusion_type: str = "attention", mask_as_target: bool = False,
                  compute_dtype: str = "bfloat16",
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", remat: bool = False):
         super().__init__()
         dtype = DTYPES[compute_dtype]
         self.in_channels = in_channels
         self.mask_as_target = mask_as_target
         self.backbone, dim = build_backbone(
             backbone_name, image_size, in_channels, drop_path_rate, pool,
-            compute_dtype, attention_impl, pretrained)
+            compute_dtype, attention_impl, pretrained, remat)
         self.seg_enabled = seg_enabled
         if seg_enabled:
             self.seg_branch = SegmentationBranch(
@@ -179,7 +179,8 @@ def build_model(cfg: Config, device: str = "cuda",
         seg_encoder_channels=tuple(m.segmentation.encoder_channels),
         seg_decoder_channels=tuple(m.segmentation.decoder_channels),
         fusion_type=m.segmentation.fusion_type,
-        compute_dtype=m.compute_dtype, attention_impl=m.attention_impl)
+        compute_dtype=m.compute_dtype, attention_impl=m.attention_impl,
+        remat=m.remat)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     return init_weights(model, generator).to(dev).eval()

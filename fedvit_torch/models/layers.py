@@ -7,21 +7,24 @@ reference/timm parameter names so state dicts cross between the packages.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from fedvit_torch.ops.activations import GELU, gelu
+from fedvit_torch.ops.attention import attention_from_qkvb
 from fedvit_torch.ops.flash_attention import (flash_attention_qkv,
                                               flash_attention_qkvb,
                                               flash_attention_xqkv)
 from fedvit_torch.ops.layer_norm import LayerNorm
 
-# the ViT's ``model.attention_impl`` values; ``xla`` is not ported (its port
-# would be the plain version on the card)
-VIT_ATTENTION_IMPLS = ("auto", "pallas", "packed", "mega")
+# the ViT's ``model.attention_impl`` values, JAX's: ``xla`` is JAX's named XLA
+# composition, the plain attention on any device (no kernel)
+VIT_ATTENTION_IMPLS = ("auto", "pallas", "packed", "mega", "xla")
 
 
 class Dense(nn.Linear):
@@ -128,6 +131,52 @@ class DropPath(nn.Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def remat_block(block: nn.Module, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x, generator)`` rematerialised (flax ``nn.remat``): its
+    activations are not kept for the backward, which runs the block's
+    forward again to rebuild them.
+
+    Non-reentrant checkpointing: the first forward runs with grad enabled,
+    so the attention takes the same kernels as without remat, and what an
+    autograd ``Function`` saves through ``ctx.save_for_backward`` is freed.
+    The recomputation draws its dropout and drop-path masks from
+    ``generator`` set back to its state before the first forward, then puts
+    the generator's state as it stood back: the backward sees the forward's
+    own masks and later draws are those of a run without remat, as flax
+    replays the same rng key. Nothing is drawn from the global RNG, so its
+    state is neither saved nor moved."""
+    start = None if generator is None else generator.get_state()
+
+    @contextlib.contextmanager
+    def replay():
+        if generator is None:          # no masks drawn: nothing to replay
+            yield
+            return
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            yield
+        finally:
+            generator.set_state(now)
+
+    return checkpoint.checkpoint(
+        block, x, generator, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), replay()))
+
+
+def run_blocks(blocks: nn.ModuleList, x: torch.Tensor,
+               generator: Optional[torch.Generator],
+               remat: bool) -> torch.Tensor:
+    """Each of ``blocks`` in turn, rematerialised (``remat_block``) when
+    ``remat`` is set and a gradient is being recorded in training; evaluation,
+    TTA and serving never checkpoint."""
+    remat = remat and blocks.training and torch.is_grad_enabled()
+    for blk in blocks:
+        x = remat_block(blk, x, generator) if remat else blk(x, generator)
+    return x
+
+
 def run_sequential(layers: nn.Sequential, x: torch.Tensor,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
     """``nn.Sequential``'s forward, with the generator handed to each
@@ -152,22 +201,26 @@ class Mlp(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """The JAX package's MHA with its three compositions of the ``qkv``
-    projection and the attention, chosen by ``attention_impl``; then
-    ``proj``. The ``qkv`` parameters keep nn.Linear's (timm) layout in all
-    three, so the same weights load into each.
+    """The JAX package's MHA with its compositions of the ``qkv`` projection
+    and the attention, chosen by ``attention_impl``; then ``proj``. The
+    ``qkv`` parameters keep nn.Linear's (timm) layout in all of them, so the
+    same weights load into each.
 
     - ``auto``, ``pallas``: a bias-free ``x @ W_qkv`` matmul, then
       ``flash_attention_qkvb`` with the projection bias applied inside the op
       (K1 without grad, K2/K3 with), so the bias gradient comes only from the
       attention's backward;
+    - ``xla``: the same bias-free matmul, then ``ops/attention.py::
+      attention_from_qkvb``, the plain attention (JAX's named XLA
+      composition): no kernel on any device, and (B, H, N, N) fp32 scores
+      in device memory;
     - ``packed``: the ``qkv`` Dense with its bias, in the compute dtype, then
       ``flash_attention_qkv`` (K10);
     - ``mega``: ``flash_attention_xqkv`` (K11) on x, W and the bias cast to
       the compute dtype: the projection runs inside the kernel, its products
       summed in fp32 with the bias and rounded once.
 
-    Each attention op runs its CUDA kernels on a GPU tensor and its plain
+    Each kernel op runs its CUDA kernels on a GPU tensor and its plain
     version on a CPU tensor."""
 
     def __init__(self, dim: int, num_heads: int,
@@ -177,9 +230,9 @@ class MultiHeadAttention(nn.Module):
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
         if attention_impl not in VIT_ATTENTION_IMPLS:
-            raise NotImplementedError(
-                f"attention_impl={attention_impl!r} is not ported for the ViT "
-                f"(ported: {VIT_ATTENTION_IMPLS})")
+            raise ValueError(
+                f"attention_impl={attention_impl!r} is not one of the ViT's "
+                f"{VIT_ATTENTION_IMPLS}")
         self.num_heads = num_heads
         self.compute_dtype = dtype
         self.attention_impl = attention_impl
@@ -197,7 +250,9 @@ class MultiHeadAttention(nn.Module):
                                        self.qkv.bias.to(dt), self.num_heads)
         else:
             qkv = torch.matmul(x.to(dt), self.qkv.weight.to(dt).t())
-            out = flash_attention_qkvb(qkv, self.qkv.bias, self.num_heads)
+            attend = (attention_from_qkvb if self.attention_impl == "xla"
+                      else flash_attention_qkvb)
+            out = attend(qkv, self.qkv.bias, self.num_heads)
         return self.proj(out)
 
 
@@ -208,6 +263,7 @@ def trunc_normal_(t: torch.Tensor, generator: torch.Generator,
                                  generator=generator)
 
 
-__all__ = ["Dense", "TorchBatchNorm", "LayerNormF32", "Dropout", "DropPath", "run_sequential",
+__all__ = ["Dense", "TorchBatchNorm", "LayerNormF32", "Dropout", "DropPath",
+           "remat_block", "run_blocks", "run_sequential",
            "Mlp", "MultiHeadAttention", "GELU", "trunc_normal_",
            "VIT_ATTENTION_IMPLS"]

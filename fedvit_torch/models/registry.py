@@ -41,8 +41,10 @@ def build_backbone(name: str, image_size: int, in_channels: int = 3,
                    drop_path_rate: float = 0.1, pool: str = "cls",
                    compute_dtype: str = "float32",
                    attention_impl: str = "auto",
-                   pretrained: bool = False) -> Tuple[nn.Module, int]:
-    """Returns (module, num_features)."""
+                   pretrained: bool = False,
+                   remat: bool = False) -> Tuple[nn.Module, int]:
+    """Returns (module, num_features). ``remat`` rematerialises the
+    transformer blocks in training."""
     if pretrained:
         warnings.warn(
             "pretrained=True: weights are not downloaded; initializing "
@@ -53,7 +55,8 @@ def build_backbone(name: str, image_size: int, in_channels: int = 3,
         mod = VisionTransformer(
             image_size=image_size, patch_size=int(m.group(3)),
             in_channels=in_channels, drop_path_rate=drop_path_rate, pool=pool,
-            dtype=DTYPES[compute_dtype], attention_impl=attention_impl, **cfg)
+            dtype=DTYPES[compute_dtype], attention_impl=attention_impl,
+            remat=remat, **cfg)
         return mod, cfg["embed_dim"]
     if name.startswith("swin"):
         spec = BACKBONE_SPECS.get(name)
@@ -69,6 +72,6 @@ def build_backbone(name: str, image_size: int, in_channels: int = 3,
         mod = SwinTransformerV2(
             image_size=image_size, in_channels=in_channels,
             drop_path_rate=drop_path_rate, dtype=DTYPES[compute_dtype],
-            attention_impl=attention_impl, **spec)
+            attention_impl=attention_impl, remat=remat, **spec)
         return mod, mod.num_features
     raise ValueError(f"Unknown backbone: {name}")

@@ -35,16 +35,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedvit_torch.models.layers import Dense, DropPath, Mlp
+from fedvit_torch.models.layers import Dense, DropPath, Mlp, run_blocks
 from fedvit_torch.models.vit import PatchEmbed
+from fedvit_torch.ops.attention import windowed_attention_flat
 from fedvit_torch.ops.flash_attention import flash_attention_bias_flat
 from fedvit_torch.ops.layer_norm import LayerNorm
 
 LN_EPS = 1e-5
 # the SwinV2's ``model.attention_impl`` values: JAX maps ``pallas`` and
 # ``mega`` to the windowed kernel (``fedvit_tpu/ops/attention.py:162-167``),
-# K5/K6 here; ``packed`` and ``xla`` fall to its XLA branch, not ported
-SWIN_ATTENTION_IMPLS = ("auto", "pallas", "mega")
+# K5/K6 here; ``packed`` and ``xla`` fall to its XLA branch, the plain
+# ``windowed_attention_flat`` here (no kernel)
+SWIN_ATTENTION_IMPLS = ("auto", "pallas", "mega", "packed", "xla")
+PLAIN_IMPLS = ("packed", "xla")
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +149,15 @@ def shift_attention_mask(h: int, w: int, window: int, shift: int
 class WindowAttentionV2(nn.Module):
     """Scaled-cosine window attention with the continuous relative-position
     bias. ``forward`` takes (nW·B, w², C) window-major rows and the static
-    (nW, w², w²) mask or None."""
+    (nW, w², w²) mask or None.
+
+    ``attention_impl`` ``auto``, ``pallas`` and ``mega`` take
+    ``flash_attention_bias_flat`` (K5, and under grad K5's log-sum-exp entry
+    and K6, on a CUDA tensor); ``packed`` and ``xla`` the plain
+    ``ops/attention.py::windowed_attention_flat`` on the same normalised q,
+    k, v, bias and mask, JAX's XLA branch, on any device. That branch holds
+    all (nW, B, H, w², w²) scores in fp32 in device memory, where the
+    kernels keep a tile of them in registers."""
 
     def __init__(self, dim: int, num_heads: int, window: int,
                  pretrained_window: int = 0,
@@ -156,9 +167,10 @@ class WindowAttentionV2(nn.Module):
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
         if attention_impl not in SWIN_ATTENTION_IMPLS:
-            raise NotImplementedError(
-                f"attention_impl={attention_impl!r} is not ported for the "
-                f"SwinV2 (ported: {SWIN_ATTENTION_IMPLS})")
+            raise ValueError(
+                f"attention_impl={attention_impl!r} is not one of the "
+                f"SwinV2's {SWIN_ATTENTION_IMPLS}")
+        self.plain = attention_impl in PLAIN_IMPLS
         self.num_heads = num_heads
         self.window = window
         self.compute_dtype = dtype
@@ -206,9 +218,10 @@ class WindowAttentionV2(nn.Module):
         scale = torch.exp(torch.clamp(self.logit_scale, max=math.log(100.0)))
         qn = (q * self._inv_norm(q, scale)).reshape(rows, n, c)
         kn = (k * self._inv_norm(k)).reshape(rows, n, c)
-        out = flash_attention_bias_flat(qn.contiguous(), kn.contiguous(),
-                                        v.contiguous(),
-                                        self.relative_position_bias(), mask, h)
+        attend = (windowed_attention_flat if self.plain
+                  else flash_attention_bias_flat)
+        out = attend(qn.contiguous(), kn.contiguous(), v.contiguous(),
+                     self.relative_position_bias(), mask, h)
         return self.proj(out)
 
 
@@ -282,15 +295,18 @@ class PatchMergingV2(nn.Module):
 
 class SwinStage(nn.Module):
     """One resolution stage: the optional downsample (timm puts the patch
-    merging at the start of the stage it feeds), then ``depth`` blocks.
-    ``resolution`` is the map the blocks see."""
+    merging at the start of the stage it feeds), then ``depth`` blocks, each
+    rematerialised in training with ``remat`` (JAX's
+    ``nn.remat(SwinBlockV2)``; the patch merging is not). ``resolution`` is
+    the map the blocks see."""
 
     def __init__(self, dim: int, resolution: Tuple[int, int], depth: int,
                  num_heads: int, window: int, mlp_ratio: float,
                  drop_paths: Tuple[float, ...], pretrained_window: int,
                  downsample: bool, dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.downsample = PatchMergingV2(dim // 2, dtype) if downsample else None
         self.blocks = nn.ModuleList(
             SwinBlockV2(dim, resolution, num_heads, window,
@@ -302,9 +318,7 @@ class SwinStage(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.downsample is not None:
             x = self.downsample(x)
-        for blk in self.blocks:
-            x = blk(x, generator)
-        return x
+        return run_blocks(self.blocks, x, generator, self.remat)
 
 
 class SwinPatchEmbed(PatchEmbed):
@@ -324,7 +338,8 @@ class SwinPatchEmbed(PatchEmbed):
 class SwinTransformerV2(nn.Module):
     """Headless SwinV2 returning mean-pooled fp32 features
     (B, embed_dim · 2^(stages−1)) from (B, image_size, image_size, C) images.
-    In training mode the drop-path masks come from ``generator``."""
+    In training mode the drop-path masks come from ``generator``; with
+    ``remat`` every block is rematerialised (``SwinStage``)."""
 
     def __init__(self, image_size: int = 384, patch_size: int = 4,
                  in_channels: int = 3, embed_dim: int = 192,
@@ -334,7 +349,7 @@ class SwinTransformerV2(nn.Module):
                  pretrained_window_sizes: Tuple[int, ...] = (0, 0, 0, 0),
                  mlp_ratio: float = 4.0, drop_path_rate: float = 0.1,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", remat: bool = False):
         super().__init__()
         if image_size % patch_size:
             raise ValueError(f"image {image_size} not divisible by patch "
@@ -352,7 +367,8 @@ class SwinTransformerV2(nn.Module):
                 embed_dim * 2 ** s, (side // 2 ** s, side // 2 ** s), depth,
                 num_heads[s], window_size, mlp_ratio,
                 tuple(dpr[di:di + depth]), pretrained_window_sizes[s],
-                downsample=s > 0, dtype=dtype, attention_impl=attention_impl))
+                downsample=s > 0, dtype=dtype, attention_impl=attention_impl,
+                remat=remat))
             di += depth
         self.layers = nn.ModuleList(stages)
         self.norm = LayerNorm(self.num_features, LN_EPS, dtype)

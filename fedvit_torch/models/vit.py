@@ -9,7 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedvit_torch.models.layers import DropPath, Mlp, MultiHeadAttention
+from fedvit_torch.models.layers import (DropPath, Mlp, MultiHeadAttention,
+                                        run_blocks)
 from fedvit_torch.ops.layer_norm import LayerNorm
 
 
@@ -61,19 +62,22 @@ class ViTBlock(nn.Module):
 class VisionTransformer(nn.Module):
     """Headless ViT returning pooled fp32 features (B, embed_dim). In
     training mode the drop-path masks come from ``generator``; the dropout
-    rate is 0.0, as in the JAX package (``models/vit.py:84``)."""
+    rate is 0.0, as in the JAX package (``models/vit.py:84``). With
+    ``remat`` each block is rematerialised in training
+    (``layers.py::remat_block``), as JAX's ``nn.remat(ViTBlock)``."""
 
     def __init__(self, image_size: int = 224, patch_size: int = 16,
                  in_channels: int = 3, embed_dim: int = 768, depth: int = 12,
                  num_heads: int = 12, mlp_ratio: float = 4.0,
                  drop_path_rate: float = 0.1, pool: str = "cls",
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", remat: bool = False):
         super().__init__()
         if pool not in ("cls", "mean"):
             raise ValueError(f"pool must be 'cls' or 'mean', got {pool!r}")
         self.pool = pool
         self.compute_dtype = dtype
+        self.remat = remat
         self.num_features = embed_dim
         n = (image_size // patch_size) ** 2
         self.patch_embed = PatchEmbed(patch_size, in_channels, embed_dim, dtype)
@@ -91,8 +95,7 @@ class VisionTransformer(nn.Module):
         x = self.patch_embed(x.to(dt))
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
-        for blk in self.blocks:
-            x = blk(x, generator)
+        x = run_blocks(self.blocks, x, generator, self.remat)
         x = self.norm(x)
         feats = x[:, 0] if self.pool == "cls" else x[:, 1:].mean(dim=1)
         return feats.float()

@@ -31,7 +31,11 @@ to [0, 1] (x·0.5 + 0.5): the mask rides the augment and the mix as a target.
 On a CUDA model every LayerNorm runs K4 backward and every attention a
 forward and a backward kernel (``ops/``): K2 and K3 in a ViT (per micro-batch
 of a ViT-B, 12, 12 and 25 K4 launches), K5's log-sum-exp entry and K6 in a
-SwinV2 (per micro-batch of a SwinV2-L, 24, 24 and 53 K4 launches). The train
+SwinV2 (per micro-batch of a SwinV2-L, 24, 24 and 53 K4 launches). With
+``model.remat`` the backward runs each block's forward again, so the forward
+kernel under grad launches twice as often (24 K2 a ViT-B micro-batch, 48 of
+K5's entry a SwinV2-L one); the others as without. ``attention_impl`` ``xla``
+(and ``packed`` on a SwinV2) launches no attention kernel. The train
 augment, fused or called before the step, launches 12 K7 and 3 K8 a macro
 batch (``ops/row_shift.py``, ``ops/randaugment.py``).
 """
@@ -149,9 +153,6 @@ def make_train_step(cfg: Config, loss_fn: LossFn,
                     augment: Optional[Callable] = None) -> TrainStep:
     """The train step for ``cfg``. With ``augment`` (fn(batch, generator),
     the on-device train augment) the batch arrives as raw uint8 canvases;
-    without it, already augmented. ``model.remat`` is not ported and
-    raises."""
-    if cfg.model.remat:
-        raise NotImplementedError("model.remat (rematerialised blocks) is not "
-                                  "ported yet")
+    without it, already augmented. ``model.remat`` is the model's
+    (``build_model``): its blocks recompute their forward in the backward."""
     return TrainStep(cfg, loss_fn, augment)

@@ -1662,3 +1662,87 @@ def test_k4_gives_the_same_bits_twice(cuda, dtype):
     first = ln.layer_norm_bwd(x, w, dy, 1e-6)
     second = ln.layer_norm_bwd(x, w, dy, 1e-6)
     assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+# --- model.remat and the plain attention options on the card -----------------
+
+@pytest.mark.parametrize("backbone,size", [("vit_tiny_patch16_224", 32),
+                                           ("swinv2_tiny_window8_64", 64)])
+def test_remat_on_the_card_is_bit_equal_and_runs_the_forward_twice(
+        cuda, backbone, size):
+    """A rematerialised train-mode forward and backward (drop-path 0.1, the
+    masks from a CUDA generator) gives the gradients and the generator state
+    of the same pass without remat, bit for bit, and launches the forward
+    kernel under grad twice a block; the backward and K4 once."""
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.models import build_model
+
+    cfg = from_dict({"model": {"backbone": backbone, "image_size": size,
+                               "compute_dtype": "bfloat16",
+                               "drop_path_rate": 0.1, "remat": True},
+                     "data": {"use_segmentation_mask": True}})
+    model = build_model(cfg, device="cuda").train()
+    blocks = [m for m in model.modules()
+              if isinstance(getattr(m, "remat", None), bool)]
+    x = torch.randn(3, size, size, 4, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    fwd, bwd = ((fa.qkvb_attention_lse_cuda, fa.qkvb_attention_bwd_cuda)
+                if backbone.startswith("vit") else
+                (fa.window_attention_lse_cuda, fa.window_attention_bwd_cuda))
+    got = {}
+    for on in (False, True):
+        for m in blocks:
+            m.remat = on
+        g = torch.Generator(device="cuda").manual_seed(2)
+        before = [f.launches for f in (fwd, bwd, ln.layer_norm_bwd_cuda)]
+        model(x, generator=g)["logits"].float().square().sum().backward()
+        torch.cuda.synchronize()
+        got[on] = ([f.launches - b for f, b in
+                    zip((fwd, bwd, ln.layer_norm_bwd_cuda), before)],
+                   {n: p.grad.clone() for n, p in model.named_parameters()
+                    if p.grad is not None}, g.get_state())
+        model.zero_grad(set_to_none=True)
+    (n0, g0, s0), (n1, g1, s1) = got[False], got[True]
+    assert n1 == [2 * n0[0], n0[1], n0[2]] and n0[0] > 0
+    assert g0.keys() == g1.keys()
+    for n in g0:
+        assert torch.equal(g0[n], g1[n]), n
+    assert torch.equal(s0, s1)
+
+
+@pytest.mark.parametrize("backbone,size,impl", [
+    ("vit_tiny_patch16_224", 32, "xla"), ("swinv2_tiny_window8_64", 64, "xla"),
+    ("swinv2_tiny_window8_64", 64, "packed")])
+def test_plain_attention_options_launch_no_attention_kernel(cuda, backbone,
+                                                            size, impl):
+    """``xla`` (and ``packed`` on a SwinV2) run the plain attention on the
+    card, forward and backward: no attention kernel, K4 as usual; in fp32
+    the logits match ``auto``'s on the same weights within 1e-4 of the RMS
+    logit (the kernels' fp32 sums in another order; TF32 is off)."""
+    from fedvit_torch.core.config import from_dict
+    from fedvit_torch.models import build_model
+
+    def cfg(value):
+        return from_dict({"model": {"backbone": backbone, "image_size": size,
+                                    "compute_dtype": "float32",
+                                    "attention_impl": value},
+                          "data": {"use_segmentation_mask": True}})
+
+    auto = build_model(cfg("auto"), device="cuda")
+    plain = build_model(cfg(impl), device="cuda")
+    plain.load_state_dict(auto.state_dict())
+    x = torch.randn(2, size, size, 4, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    fns = [f for f in vars(fa).values() if hasattr(f, "launches")]
+    before = [f.launches for f in fns]
+    k4 = ln.layer_norm_bwd_cuda.launches
+    logits = plain(x)["logits"]
+    logits.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == before
+    assert ln.layer_norm_bwd_cuda.launches > k4
+    with torch.no_grad():
+        want = auto(x)["logits"].float()
+    err = ((logits.detach().float() - want).square().mean()
+           / want.square().mean()).sqrt()
+    assert float(err) <= 1e-4

@@ -7,14 +7,19 @@ logits atol 1e-4 — fp32 throughout, the two frameworks sum in other orders
 through 12 blocks.
 """
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from fedvit_torch.models.import_weights import state_dict_from_jax
 from fedvit_tpu.models.import_weights import import_torch_isic
 
-from torch_parity import configs, flat, jax_variables, torch_model
+from torch_parity import (configs, flat, jax_variables, shallow_vit,
+                          torch_model)
 
 ATOL = 1e-4
 
@@ -78,8 +83,8 @@ def test_cuda_entry_point_refuses_without_a_card():
 
 
 def test_unported_branches_raise():
-    """The old generation's options are ported and build; what is still not
-    ported (rematerialised blocks) raises."""
+    """The old generation's options and rematerialised blocks are ported:
+    each builds, and a remat model takes a train step."""
     _, tcfg = configs(True)
     from fedvit_torch.models import build_model
     m = tcfg.model
@@ -91,16 +96,34 @@ def test_unported_branches_raise():
         model = build_model(tcfg.replace(model=model_cfg), device="cpu")
         assert "metadata_branch.age_proj.weight" in model.state_dict() or \
             "seg_branch.decoder.final_conv.weight" in model.state_dict()
-    # a Swin model trains like a ViT; rematerialised blocks are not ported
+    # a Swin model trains like a ViT, and so does a rematerialised one
     from fedvit_torch.train.losses import build_loss
     from fedvit_torch.train.step import TrainStep, make_train_step
     swin = tcfg.replace(model=m.__class__(
         **{**m.__dict__, "backbone": "swin_small_patch4_window12_384"}))
     assert isinstance(make_train_step(swin, build_loss(swin)), TrainStep)
-    remat = tcfg.replace(model=m.__class__(
-        **{**swin.model.__dict__, "remat": True}))
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_train_step(remat, build_loss(remat))
+    remat = tcfg.replace(model=m.__class__(**{**m.__dict__, "remat": True}))
+    _takes_a_step(remat)
+
+
+def _takes_a_step(tcfg):
+    """A train step of the model ``tcfg`` builds (vit_tiny cut to 2 blocks)
+    on a seeded batch of 4: a finite loss, the step counted."""
+    from fedvit_torch.models import build_model
+    from fedvit_torch.train.losses import build_loss
+    from fedvit_torch.train.optim import build_optimizer
+    from fedvit_torch.train.state import TrainState
+    from fedvit_torch.train.step import make_train_step
+    with shallow_vit():
+        model = build_model(tcfg, device="cpu")
+    tx, _ = build_optimizer(tcfg, model, steps_per_epoch=4)
+    state = TrainState.create(model, tx, seed=0)
+    rng = np.random.default_rng(3)
+    s, c = tcfg.model.image_size, tcfg.in_channels
+    state, metrics = make_train_step(tcfg, build_loss(tcfg))(state, {
+        "image": rng.normal(size=(4, s, s, c)).astype(np.float32),
+        "label": rng.integers(0, 8, 4), "metadata": rng.random((4, 13))})
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
 
 
 def _with_impl(backbone, impl):
@@ -113,12 +136,47 @@ def _with_impl(backbone, impl):
 @pytest.mark.parametrize("backbone,impl", [
     ("vit", "xla"), ("swin", "xla"), ("swin", "packed")])
 def test_attention_has_one_path(backbone, impl):
-    """The values without a port are refused, so no setting routes around
-    the kernels: ``xla`` (its port would be the plain version on the card)
-    and, on the SwinV2, ``packed``, which JAX runs through its XLA branch."""
-    from fedvit_torch.models import build_model
-    with pytest.raises(NotImplementedError, match="attention_impl"):
-        build_model(_with_impl(backbone, impl), device="cpu")
+    """The values JAX runs through its XLA branch on any device, ``xla`` and,
+    on the SwinV2, ``packed``, take the port's plain attention on any
+    device: the logits and every parameter's gradient of a fixed weighting
+    of them against JAX's model with the same ``attention_impl``, fp32, at
+    1e-4 (of the leaf's largest |value| for the gradients: sums in another
+    order through vit_tiny cut to 2 blocks or the two-stage SwinV2)."""
+    jcfg, tcfg = configs(True, backbone=backbone)
+    jcfg = jcfg.replace(model=dataclasses.replace(jcfg.model,
+                                                  attention_impl=impl))
+    tcfg = _with_impl(backbone, impl)
+    with shallow_vit():
+        jmodel, variables = jax_variables(jcfg, seed=4)
+        tmodel = torch_model(tcfg, variables)
+        _logits_and_grads_match_jax(jmodel, variables, tmodel)
+
+
+def _logits_and_grads_match_jax(jmodel, variables, tmodel):
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 32, 32, 4)).astype(np.float32)
+    meta = rng.normal(size=(2, 13)).astype(np.float32)
+    weights = rng.normal(size=(2, 8)).astype(np.float32)
+
+    def objective(params):
+        out = jmodel.apply({**variables, "params": params}, jnp.asarray(x),
+                           jnp.asarray(meta), deterministic=True)
+        return (out["logits"] * weights).sum(), out["logits"]
+
+    (_, want), want_g = jax.jit(jax.value_and_grad(objective, has_aux=True))(
+        variables["params"])
+    want_g = state_dict_from_jax({"params": jax.device_get(want_g)})
+    got = tmodel(torch.from_numpy(x), torch.from_numpy(meta))["logits"]
+    (got * torch.from_numpy(weights)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL)
+    grads = {n: p.grad for n, p in tmodel.named_parameters()}
+    assert grads.keys() == want_g.keys()
+    for n, g in grads.items():
+        w = want_g[n].numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=ATOL * max(1.0, np.abs(w).max()),
+                                   err_msg=n)
 
 
 @pytest.mark.parametrize("backbone,impl", [

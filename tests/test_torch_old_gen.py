@@ -358,9 +358,12 @@ def test_embedding_style_uses_metadata_raw_when_given():
 
 
 def test_old_generation_refusals_are_gone():
-    """Every old-generation option builds; model.remat and
-    training.data_parallel keep their refusals."""
+    """Every old-generation option builds, and so does model.remat, whose
+    HybridViT takes a train step; training.data_parallel over several CUDA
+    devices keeps its refusal (``train/loop.py``)."""
     from fedvit_torch.train.losses import build_loss, joint_loss
+    from fedvit_torch.train.optim import build_optimizer
+    from fedvit_torch.train.state import TrainState
     from fedvit_torch.train.step import make_train_step
     for fusion in ("attention", "concat", "cross_attention"):
         tcfg = tconfig.from_dict(old_gen_raw(fusion, 32))
@@ -375,5 +378,11 @@ def test_old_generation_refusals_are_gone():
     raw = old_gen_raw("attention", 32)
     raw["model"]["remat"] = True
     remat = tconfig.from_dict(raw)
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_train_step(remat, build_loss(remat))
+    with shallow_vit():
+        model = build_model(remat, device="cpu")
+    tx, _ = build_optimizer(remat, model, steps_per_epoch=4)
+    state = TrainState.create(model, tx, seed=0)
+    batch = {"image": seeded(4, 32, 32, 4, seed=8),
+             "label": np.arange(4) % 8, "metadata": seeded(4, 13, seed=9)}
+    state, metrics = make_train_step(remat, build_loss(remat))(state, batch)
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1

@@ -485,10 +485,13 @@ def test_step_refuses_what_is_not_ported(tiny):
     augment = lambda batch, generator: batch   # noqa: E731
     assert make_train_step(tcfg, tl.build_loss(tcfg),
                            augment=augment).augment is augment
+    # and so is model.remat: the model built with it takes a step
     remat = tcfg.replace(model=tcfg.model.__class__(
         **{**tcfg.model.__dict__, "remat": True}))
-    with pytest.raises(NotImplementedError, match="remat"):
-        make_train_step(remat, tl.build_loss(remat))
+    state = _torch_state(remat, tiny[4])
+    state, metrics = make_train_step(remat, tl.build_loss(remat))(
+        state, _batches(1, 8, seed=6)[0])
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
 
 
 def test_eval_step_after_a_train_step_is_deterministic(tiny):
