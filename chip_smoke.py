@@ -330,6 +330,31 @@ Phases, one line of output each (or a few):
    d. ``cli.train --fold 0 --profile DIR`` on phase 13's layout and YAML:
       one trace of optimizer steps 2-4, naming the port's K2, K3, K4, K7 and
       K8; its seconds beside phase 13c's run without ``--profile``.
+17. data parallelism and the federated meshes on two ranks that share the
+   card (processes of their own, a gloo group joined through a file; the
+   one-process references first, on this process):
+   a. the data-parallel SwinV2-L@384 bf16 step (the model's default drop
+      path, metadata and its BatchNorm, MixUp/CutMix) at macro batch 16 as
+      2 x 8 rows against 16 x 1 on one process: the loss and every leaf's
+      gradient within phase 8's limits, the control without the gradient
+      all-reduce failing them, the ranks bit-equal after 2 steps, launches
+      a rank (24 K5 entry, 24 K6, 53 K4 a step), peak and ms/step a rank;
+   b. phase 13's ``cli.train --fold 0`` with ``training.data_parallel`` (1
+      epoch) on both ranks against one process: exit 0, the validation
+      loss and the test logits within their limits, rank 1 writing no
+      checkpoint and printing nothing, the parameters after each epoch
+      bit-equal, launches a rank;
+   c. a FedAvg round of ViT-B/16@224 (4 clients x 4 local steps of 32) on a
+      client mesh of the two ranks against one process: each client's
+      leaves bit-equal, the global leaves within fp32 summation order, the
+      control where rank 1 drops its clients' sum failing, launches a rank;
+   d. the fp32 round of one client, one local step of 32, on a 1 x 2
+      client x data mesh against the 1-D round: JAX's contract (the loss
+      within 1e-4 (1 + |loss|), the parameters within 3 lr steps);
+   e. ``torch.distributed.is_nccl_available()`` and one NCCL all-reduce at
+      world 1 on the card.
+   No time of phase 17 measures scaling: two ranks halve one card and gloo
+   stages every collective through the host.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -3433,8 +3458,8 @@ def fed_instruments(fa, ln, on_round_end=None):
         rec["drawn"].append(out.copy())
         return out
 
-    def counting_local_train(cfg, loss_fn):
-        inner = make_local_train(cfg, loss_fn)
+    def counting_local_train(cfg, loss_fn, *args):
+        inner = make_local_train(cfg, loss_fn, *args)
 
         def local_train(model, batches, *args, **kwargs):
             rec["local_trainings"] += 1
@@ -3750,8 +3775,8 @@ def trace_fed(fa, ln, cfg, train, ev, smi):
             return out
         return wrapped
 
-    def timed_local(cfg_, loss_fn):
-        return synced("local steps", make_local_train(cfg_, loss_fn))
+    def timed_local(cfg_, loss_fn, *args):
+        return synced("local steps", make_local_train(cfg_, loss_fn, *args))
 
     def host_timed_draw(self):
         t0 = time.perf_counter()
@@ -3907,8 +3932,8 @@ def fed_phase(fa, ln, smi, trace):
         make_local_train = fedavg.make_local_train
         build_local_optimizer = fedavg.build_local_optimizer
 
-        def capturing(cfg_, loss_fn):
-            inner = make_local_train(cfg_, loss_fn)
+        def capturing(cfg_, loss_fn, *args):
+            inner = make_local_train(cfg_, loss_fn, *args)
 
             def local_train(m, *args, **kwargs):
                 last = two_rec["round"] == 2
@@ -6181,6 +6206,675 @@ def last_options_phase(fa, ln, smi, tmp, plain_cli_s) -> dict:
             "profile_cli": profiled}
 
 
+# ---------------------------------------------------------------------------
+# 17. Data parallelism and the federated meshes: two ranks that share the card
+# ---------------------------------------------------------------------------
+
+# Two ranks share the one H100 (gloo: NCCL refuses two ranks on one device,
+# and gloo moves the CUDA tensors of a collective through the host), each a
+# process of its own started here. Their times are not a measure of data
+# parallelism's scaling: the two ranks halve one card, and every collective
+# is staged through host memory.
+DP_RANKS = 2
+DP_SWIN_MACRO = 16            # 17a: SwinV2-L at 16 x 1, 8 rows a rank
+DP_SWIN_STEPS = 2             # the replicas must agree after more than one
+DP_FED_STEPS = 4              # 17c: 4 clients x 4 local steps of 32
+DP_FED_IMAGES = 640
+DP_TIMEOUT = 900.0            # the whole world of phase 17, seconds
+# 17b: cli.train --fold 0 with training.data_parallel on two ranks against
+# the same command on one process, one epoch of macro batch 128. The ranks
+# run each micro-batch of 64 as 32 + 32 rows, so cuBLAS and K4 sum in other
+# orders than on 64 rows: bf16 roundings an ulp apart in each step, which
+# Adam turns into ±lr moves of gradients within rounding of 0 (lr 1e-4, the
+# head's 1e-3) over the epoch's steps. The validation loss is held to 2% and
+# the test logits (TTA) as RMS difference over RMS logit to
+# LOGITS_RTOL_BF16, the limit of phase 3's one-ulp differences through 12
+# bf16 blocks.
+DP_CLI_LOSS_RTOL = 0.02
+# 17d: JAX's own contract for a client x data round against the 1-D round
+# (tests/test_federated.py:231-245), in fp32: the pre-update loss within
+# 1e-4 (1 + |loss|), each parameter within 3 lr steps.
+DP_2D_LOSS_RTOL = 1e-4
+
+
+def dp_swin_setup(n_batches):
+    """17a's recipe: SwinV2-L@384, bf16, 4 channels, metadata (its
+    BatchNorm), the model's default drop path, MixUp/CutMix, one
+    micro-batch of 16."""
+    from fedvit_torch.core.config import ModelConfig
+    return training_setup(SWIN, SWIN_SIZE, DP_SWIN_MACRO, 1,
+                          ModelConfig().drop_path_rate, SWIN_LLRD,
+                          n_batches=n_batches)
+
+
+def dp_fed_config(dim):
+    """17c's round (``dim`` "client": bf16, 4 clients x 4 local steps of 32,
+    the train augment) or 17d's ("data": fp32, one client, one step, no
+    augment, mix, dropout, drop path or metadata)."""
+    import dataclasses
+    from fedvit_torch.core.config import (AugmentationConfig, CutmixConfig,
+                                          MixupConfig)
+    cfg = fed_config(1)
+    if dim == "client":
+        return cfg.replace(federated=dataclasses.replace(
+            cfg.federated, local_steps=DP_FED_STEPS))
+    return cfg.replace(
+        model=dataclasses.replace(
+            cfg.model, compute_dtype="float32", drop_path_rate=0.0,
+            metadata=dataclasses.replace(cfg.model.metadata, enabled=False),
+            classifier=dataclasses.replace(cfg.model.classifier,
+                                           dropout=0.0)),
+        augmentation=AugmentationConfig(mixup=MixupConfig(enabled=False),
+                                        cutmix=CutmixConfig(enabled=False)),
+        federated=dataclasses.replace(cfg.federated, num_clients=1,
+                                      local_steps=1, augment=False))
+
+
+def dp_fed_inputs(cfg):
+    """The round's server and working copy, its batches on the card
+    {key: (C, S, B, ...)}, the clients' weights and ids."""
+    import copy as copy_
+    from fedvit_torch.data.synthetic import make_synthetic_dataset
+    from fedvit_torch.fed.partition import client_weights, partition
+    from fedvit_torch.fed.server import sample_client_indices
+    fed = cfg.federated
+    data = make_synthetic_dataset(n=DP_FED_IMAGES, image_size=224, seed=SEED)
+    data["image"] = np.concatenate([data.pop("image"), data["mask"]], -1)
+    parts = partition("dirichlet", data["label"], fed.num_clients,
+                      alpha=0.5, seed=cfg.seed)
+    rng = np.random.default_rng(SEED)
+    idx = np.stack([sample_client_indices(data["label"], p, fed.local_steps,
+                                          cfg.training.batch_size, rng)
+                    for p in parts])
+    batches = {k: torch.from_numpy(np.ascontiguousarray(
+        data[k][idx.reshape(-1)]).reshape(idx.shape + data[k].shape[1:]))
+        .cuda() for k in ("image", "label", "metadata")}
+    server = fed_model(cfg)
+    return (server, copy_.deepcopy(server), batches,
+            client_weights(parts).astype(np.float32),
+            list(range(fed.num_clients)))
+
+
+def leaves_digest(leaves) -> str:
+    """SHA-256 of the bytes of ``leaves`` in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def client_records(into, absacc=None, drop=False):
+    """Rebinds ``fedavg.accumulate``: each client's leaves' digest goes to
+    ``into``, Σ wᵢ|θᵢ| to ``absacc`` when given; with ``drop`` the client
+    joins no sum (the control)."""
+    from fedvit_torch.fed import fedavg
+    accumulate = fedavg.accumulate
+
+    def recording(acc, leaves, weight):
+        into.append(leaves_digest(leaves))
+        if absacc is not None:
+            accumulate(absacc, [t.abs() for t in leaves], weight)
+        if not drop:
+            accumulate(acc, leaves, weight)
+
+    with rebound(fedavg, "accumulate", recording):
+        yield
+
+
+def dp_references(fa, ln, smi, tmp: Path, work: Path) -> dict:
+    """17a-17d on one process, the references the ranks are held to; the
+    large ones saved under ``work``, 17b's config too (``tmp`` holds phase
+    13's layout and imported weights)."""
+    from fedvit_torch.cli import train as train_cli
+    from fedvit_torch.fed.fedavg import federated_leaves, make_federated_round
+    from fedvit_torch.ops.attention import windowed_attention_flat as plain
+    from fedvit_torch.train import loop
+    from fedvit_torch.train.losses import build_loss
+    ref = {}
+
+    # 17a. the SwinV2-L step at 16 x 1: kernel path, and the plain path in
+    # bf16 and with fp32 attention for each leaf's rounding noise (phase 8)
+    def plain_fp32(q, k, v, bias, mask, heads):
+        return plain(q.float(), k.float(), v.float(), bias, mask,
+                     heads).to(q.dtype)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, state, step, batches = dp_swin_setup(DP_SWIN_STEPS)
+    got = grads_by_path(model, state, step, batches[0], {
+        "kernel": (),
+        "plain": (window_attention_replaced_by(plain),
+                  layer_norm_backward_replaced_by(ln.ln_bwd_plain)),
+        "fp32": (window_attention_replaced_by(plain_fp32),
+                 layer_norm_backward_replaced_by(ln.ln_bwd_plain))})
+    noise = {n: rel_rms(g.cpu().numpy(), got["fp32"][0][n].cpu().numpy())
+             for n, g in got["plain"][0].items()}
+    torch.save({"grads": {n: g.cpu() for n, g in got["kernel"][0].items()},
+                "loss": got["kernel"][1], "noise": noise},
+               work / "dp17a_ref.pt")
+    ref["a"] = {"loss": got["kernel"][1],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[dp] 17a reference: SwinV2-L@384 bf16 step at {DP_SWIN_MACRO} x 1 "
+        f"on one process, loss {got['kernel'][1]!r}, peak "
+        f"{ref['a']['peak_gib']!r} GiB with three gradient passes ({smi})")
+    del cfg, model, state, step, batches, got
+    torch.cuda.empty_cache()
+
+    # 17b. cli.train --fold 0 on phase 13's layout, one process
+    config = work / "dp17b.yaml"
+    raw = isic_config(tmp / "ISIC", tmp / "pretrained")
+    raw["training"].update(epochs=1, data_parallel=True)
+    config.write_text(json.dumps(raw))
+    vals = []
+    evaluate = loop._evaluate
+
+    def recording(*a, **k):
+        out = evaluate(*a, **k)
+        vals.append(float(out["loss"]))
+        return out
+
+    with rebound(loop, "_evaluate", recording):
+        seconds, _, peak = run_cli("dp 17b one process", train_cli.main, [
+            "--config", str(config), "--fold", "0",
+            "--log", str(work / "log17b_one")])
+    ref["b"] = {"val_loss": vals,
+                "logits": np.load(work / "log17b_one" / "ensemble_logits.npy"),
+                "s": seconds, "peak_gib": peak}
+    log(f"[dp] 17b reference: cli.train --fold 0 on one process, 1 epoch, "
+        f"validation losses {vals} in {seconds!r} s, peak {peak!r} GiB "
+        f"({smi})")
+    torch.cuda.empty_cache()
+
+    # 17c. a FedAvg round of 4 clients x 4 local steps of 32, one process
+    cfg = dp_fed_config("client")
+    server, working, batches, weights, clients = dp_fed_inputs(cfg)
+    before = [t.detach().clone() for t in federated_leaves(server).values()]
+    absacc = [torch.zeros_like(t) for t in before]
+    digests = []
+    with client_records(digests, absacc):
+        metrics = make_federated_round(cfg, build_loss(cfg))(
+            server, working, batches, weights, clients, 1, SEED)
+    leaves = federated_leaves(server)
+    torch.save({"leaves": {n: t.detach().cpu() for n, t in leaves.items()},
+                "scale": {n: (a + b.abs()).cpu() for n, a, b in
+                          zip(leaves, absacc, before)}},
+               work / "dp17c_ref.pt")
+    ref["c"] = {"loss": float(metrics["loss"]), "clients": digests}
+    log(f"[dp] 17c reference: a round of {len(clients)} clients x "
+        f"{cfg.federated.local_steps} local steps of "
+        f"{cfg.training.batch_size} on one process, loss "
+        f"{ref['c']['loss']!r} ({smi})")
+    del server, working, batches, absacc, before, leaves
+    torch.cuda.empty_cache()
+
+    # 17d. the fp32 1-D round the 2-D mesh is held to
+    cfg = dp_fed_config("data")
+    server, working, batches, weights, clients = dp_fed_inputs(cfg)
+    metrics = make_federated_round(cfg, build_loss(cfg))(
+        server, working, batches, weights, clients, 1, SEED)
+    torch.save({n: t.detach().cpu()
+                for n, t in federated_leaves(server).items()},
+               work / "dp17d_ref.pt")
+    ref["d"] = {"loss": float(metrics["loss"])}
+    log(f"[dp] 17d reference: the fp32 round of one client, one local step "
+        f"of {cfg.training.batch_size}, on one process, loss "
+        f"{ref['d']['loss']!r} ({smi})")
+    del server, working, batches
+    torch.cuda.empty_cache()
+    return ref
+
+
+def rank_counts(fa, ln) -> dict:
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def reset_rank_counts(fa, ln) -> None:
+    from fedvit_torch.ops import randaugment as ra
+    from fedvit_torch.ops import row_shift as rs
+    reset_counts(fa, ln)
+    rs.shift_cuda.launches = ra.equalize_cuda.launches = 0
+
+
+def same_on_ranks(tensors) -> bool:
+    """Whether this rank's ``tensors`` hold rank 0's bits."""
+    import torch.distributed as dist
+    flat = torch.cat([t.detach().reshape(-1).float() if t.is_floating_point()
+                      else t.detach().reshape(-1).double().float()
+                      for t in tensors])
+    theirs = flat.clone()
+    dist.broadcast(theirs, src=0)
+    return bool(torch.equal(flat, theirs))
+
+
+def rank_swin(fa, ln, tmp: Path, rank: int) -> dict:
+    """17a on a rank: the DP step's gradients (and the control's, without
+    the gradient all-reduce) from the fresh state, saved by rank 0; then
+    two steps, their launches and peak, and the replicas compared."""
+    import torch.distributed as dist
+    from fedvit_torch.parallel.data import DataParallel
+    from fedvit_torch.train import step as step_module
+    from fedvit_torch.train.losses import build_loss
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, state, _, batches = dp_swin_setup(DP_SWIN_STEPS)
+    step = step_module.make_train_step(cfg, build_loss(cfg),
+                                       data=DataParallel(dist.group.WORLD))
+    got = grads_by_path(model, state, step, batches[0], {
+        "dp": (),
+        "control": (rebound(step_module, "all_reduce_flat",
+                            lambda *a, **k: None),)})
+    if rank == 0:
+        torch.save({"dp": {n: g.cpu() for n, g in got["dp"][0].items()},
+                    "loss": got["dp"][1],
+                    "control": {n: g.cpu()
+                                for n, g in got["control"][0].items()}},
+                   tmp / "dp17a_rank0.pt")
+    del got
+    torch.cuda.empty_cache()
+    dist.barrier()
+    reset_rank_counts(fa, ln)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for batch in batches:
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = rank_counts(fa, ln)
+    from fedvit_torch.ops.layer_norm import LayerNorm
+    norms = sum(isinstance(m, LayerNorm) for m in model.modules())
+    equal = same_on_ranks([*model.state_dict().values(),
+                           *state.ema.values()])
+    gen_equal = same_on_ranks([state.generator.get_state()])
+    return {"counts": counts, "losses": losses, "equal": equal,
+            "generator_equal": gen_equal, "norms": norms,
+            "ms_step": seconds / len(batches) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def rank_cli(fa, ln, tmp: Path, rank: int) -> dict:
+    """17b on a rank: ``cli.train`` main in this process, its validation
+    losses, this rank's checkpoint writes and the digest of its parameters
+    after each epoch."""
+    import io
+    from fedvit_torch.cli import train as train_cli
+    from fedvit_torch.train import checkpoint as ckpt
+    from fedvit_torch.train import loop
+    vals, writes, digests, steps = [], [], [], []
+    evaluate, atomic, epoch = loop._evaluate, ckpt._atomic_save, \
+        loop._train_epoch
+
+    def recording_eval(*a, **k):
+        out = evaluate(*a, **k)
+        vals.append(float(out["loss"]))
+        return out
+
+    def recording_write(obj, path):
+        writes.append(str(path))
+        return atomic(obj, path)
+
+    def recording_epoch(step, state, src, macro_bs, *a, **k):
+        out = epoch(step, state, src, macro_bs, *a, **k)
+        digests.append(leaves_digest(state.model.state_dict().values()))
+        steps.append(len(src) // macro_bs)
+        return out
+
+    reset_rank_counts(fa, ln)
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with rebound(loop, "_evaluate", recording_eval), \
+            rebound(ckpt, "_atomic_save", recording_write), \
+            rebound(loop, "_train_epoch", recording_epoch), \
+            contextlib.redirect_stdout(out):
+        rc = train_cli.main(["--config", str(tmp / "dp17b.yaml"), "--fold",
+                             "0", "--log", str(tmp / "log17b_dp")])
+    torch.cuda.synchronize()
+    return {"rc": rc, "val_loss": vals, "writes": writes, "digests": digests,
+            "steps": sum(steps), "counts": rank_counts(fa, ln),
+            "s": time.perf_counter() - t0, "stdout_lines":
+            len(out.getvalue().splitlines()),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def rank_fed(fa, ln, tmp: Path, rank: int, dim: str) -> dict:
+    """17c (``dim`` "client": a client mesh of the ranks, then the control
+    where rank 1 adds none of its clients) or 17d ("data": a 1 x 2 client
+    x data mesh) on a rank; rank 0 saves the global leaves."""
+    import copy as copy_
+    from fedvit_torch.fed.fedavg import (client_slots, federated_leaves,
+                                         make_federated_round)
+    from fedvit_torch.parallel import mesh as pmesh
+    from fedvit_torch.train.losses import build_loss
+    cfg = dp_fed_config(dim)
+    server, work, batches, weights, clients = dp_fed_inputs(cfg)
+    if dim == "client":
+        mesh = pmesh.client_mesh()
+    else:
+        mesh = pmesh.make_mesh([1, DP_RANKS], ["client", "data"])
+    slots = client_slots(mesh, "client", len(clients))
+    local = {k: v[slots] for k, v in batches.items()}
+    if dim == "data":
+        lo, hi = pmesh.row_piece(cfg.training.batch_size,
+                                 mesh.size(1), pmesh.mesh_coordinate(
+                                     mesh, "data"))
+        local = {k: v[:, :, lo:hi] for k, v in local.items()}
+    initial = copy_.deepcopy(server)
+    round_fn = make_federated_round(cfg, build_loss(cfg), mesh)
+    digests = []
+    reset_rank_counts(fa, ln)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with client_records(digests):
+        metrics = round_fn(server, work, local, weights, clients, 1, SEED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = rank_counts(fa, ln)
+    leaves = federated_leaves(server)
+    if rank == 0:
+        torch.save({n: t.detach().cpu() for n, t in leaves.items()},
+                   tmp / f"dp17{'c' if dim == 'client' else 'd'}_rank0.pt")
+    equal = same_on_ranks(list(leaves.values()))
+    out = {"loss": float(metrics["loss"]), "clients": {
+        int(clients[s]): d for s, d in zip(range(slots.start, slots.stop),
+                                           digests)},
+        "counts": counts, "equal": equal, "s": seconds,
+        "local_rows": int(local["label"].shape[2])}
+    if dim == "client":
+        with client_records([], drop=rank == 1):
+            make_federated_round(cfg, build_loss(cfg), mesh)(
+                initial, work, local, weights, clients, 1, SEED)
+        if rank == 0:
+            torch.save({n: t.detach().cpu()
+                        for n, t in federated_leaves(initial).items()},
+                       tmp / "dp17c_control.pt")
+    return out
+
+
+def rank_main(rank: int, tmp: str, out) -> None:
+    """One rank of phase 17: joins the gloo group of DP_RANKS ranks on the
+    card through a file under ``tmp``, runs 17a-17d in order, freeing the
+    card between them, and puts (rank, True, results) or (rank, False,
+    traceback) on ``out``."""
+    import os
+    import traceback
+    import torch.distributed as dist
+    try:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(DP_RANKS),
+                          LOCAL_RANK=str(rank),
+                          LOCAL_WORLD_SIZE=str(DP_RANKS))
+        from fedvit_torch.ops import flash_attention as fa
+        from fedvit_torch.ops import layer_norm as ln
+        from fedvit_torch.parallel.mesh import init_process_group_from_env
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        backend = []
+        init_process_group_from_env(
+            "cuda", init_method=f"file://{tmp}/dp17_store",
+            log=backend.append)
+        tmp_ = Path(tmp)
+        results = {"backend": backend[0]}
+        for name, fn in (("a", lambda: rank_swin(fa, ln, tmp_, rank)),
+                         ("b", lambda: rank_cli(fa, ln, tmp_, rank)),
+                         ("c", lambda: rank_fed(fa, ln, tmp_, rank, "client")),
+                         ("d", lambda: rank_fed(fa, ln, tmp_, rank, "data"))):
+            results[name] = fn()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        out.put((rank, True, results))
+    except Exception:                              # noqa: BLE001
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_dp_ranks(tmp: Path) -> list:
+    """Start the DP_RANKS ranks of phase 17 and wait for them; a rank that
+    fails, or a world that outlasts DP_TIMEOUT, fails the run, and every
+    rank is stopped."""
+    import multiprocessing
+    import queue
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=rank_main, args=(r, str(tmp), out))
+             for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        deadline = time.monotonic() + DP_TIMEOUT
+        while len(results) < DP_RANKS:
+            try:
+                rank, ok, value = out.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise RuntimeError(f"phase 17's ranks did not finish in "
+                                   f"{DP_TIMEOUT!r} s")
+            if not ok:
+                raise RuntimeError(f"phase 17: rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    return [results[r] for r in range(DP_RANKS)]
+
+
+def nccl_record(tmp: Path) -> dict:
+    """17e: whether this PyTorch has NCCL, and one NCCL all-reduce on the
+    card at world 1 (the backend a multi-card cell would take)."""
+    import torch.distributed as dist
+    available = dist.is_nccl_available()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store",
+                            rank=0, world_size=1)
+    try:
+        t = torch.arange(4.0, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        result = t.cpu().tolist()
+        version = torch.cuda.nccl.version()
+        version = ".".join(map(str, version)) \
+            if isinstance(version, tuple) else str(version)
+    finally:
+        dist.destroy_process_group()
+    return {"available": available, "all_reduce": result, "version": version}
+
+
+def dp_phase(fa, ln, smi, tmp: Path) -> dict:
+    """Phase 17 (``tmp`` holds phase 13's layout and imported weights);
+    returns the launches of each kernel on each rank by sub-phase."""
+    phase_t0 = time.perf_counter()
+    work = tmp / "dp17"
+    work.mkdir()
+    ref = dp_references(fa, ln, smi, tmp, work)
+    ranks_t0 = time.perf_counter()
+    ranks = run_dp_ranks(work)
+    ranks_s = time.perf_counter() - ranks_t0
+    log(f"[dp] {DP_RANKS} ranks on one {smi}, {ranks[0]['backend']}; the "
+        f"ranks' world ran 17a-17d in {ranks_s!r} s. Two ranks that share "
+        f"one card, with gloo staging every collective through the host: "
+        f"no time below measures data parallelism's scaling")
+    launches = {}
+    for r, res in enumerate(ranks):
+        for sub in "abcd":
+            for k, v in res[sub]["counts"].items():
+                if v:
+                    launches.setdefault(k, {}).setdefault(
+                        f"rank{r}", {})[f"17{sub}"] = v
+
+    # 17a
+    want_a = {k: 0 for k in ranks[0]["a"]["counts"]} | {
+        "K5_lse": DP_SWIN_STEPS * sum(SWIN_DEPTHS),
+        "K6": DP_SWIN_STEPS * sum(SWIN_DEPTHS),
+        "K4": DP_SWIN_STEPS * ranks[0]["a"]["norms"]}
+    refa = torch.load(work / "dp17a_ref.pt", weights_only=True)
+    got = torch.load(work / "dp17a_rank0.pt", weights_only=True)
+    noise = refa["noise"]
+    left_out = {n for n, v in noise.items() if v > NOISY_LEAF}
+    if not set(ZERO_GRAD) <= left_out:
+        raise RuntimeError("17a: a bias before a training-mode BatchNorm is "
+                           "not all noise")
+    allowed = {n: SWIN_GRAD_RTOL_BF16 + 2 * noise[n] for n in noise
+               if n not in left_out}
+    errs = {n: rel_rms(got["dp"][n].numpy(), refa["grads"][n].numpy())
+            for n in allowed}
+    ctrl = {n: rel_rms(got["control"][n].numpy(), refa["grads"][n].numpy())
+            for n in allowed}
+    over = {n: (e, allowed[n]) for n, e in errs.items() if not e <= allowed[n]}
+    caught = [n for n in allowed if ctrl[n] > allowed[n]]
+    loss_err = abs(got["loss"] - refa["loss"]) / abs(refa["loss"])
+    worst = sorted(errs.items(), key=lambda kv: -kv[1] / allowed[kv[0]])[:3]
+    log(f"[dp] 17a SwinV2-L@384 bf16 DP step, macro batch {DP_SWIN_MACRO} as "
+        f"{DP_RANKS} x {DP_SWIN_MACRO // DP_RANKS} rows, against {DP_SWIN_MACRO}"
+        f" x 1 on one process: loss {got['loss']!r} vs {refa['loss']!r} "
+        f"(relative {loss_err!r}, limit {SWIN_GRAD_RTOL_BF16!r}); RMS error / "
+        f"RMS grad over {len(errs)} leaves (limit {SWIN_GRAD_RTOL_BF16!r} + "
+        f"2 x the leaf's noise; {len(left_out)} noisy leaves left out): median "
+        f"{float(np.median(list(errs.values())))!r}, nearest their limits "
+        f"{[(n, e, allowed[n]) for n, e in worst]}; control, no gradient "
+        f"all-reduce: {len(caught)} of {len(allowed)} leaves over their "
+        f"limits, median error {float(np.median(list(ctrl.values())))!r}")
+    for r, res in enumerate(ranks):
+        a = res["a"]
+        log(f"[dp] 17a rank {r}: {DP_SWIN_STEPS} steps, losses {a['losses']}, "
+            f"{a['ms_step']!r} ms/step (two ranks sharing the card, not a "
+            f"scaling figure), peak {a['peak_gib']!r} GiB; launches "
+            f"{ {k: v for k, v in a['counts'].items() if v} } (want "
+            f"{ {k: v for k, v in want_a.items() if v} }); parameters, "
+            f"statistics and EMA bit-equal to rank 0's: {a['equal']}, "
+            f"generator {a['generator_equal']} ({smi})")
+    del refa, got
+    if over or not loss_err <= SWIN_GRAD_RTOL_BF16:
+        raise RuntimeError(f"17a: the DP step's gradients disagree with the "
+                           f"one-process step's: {over}")
+    if len(caught) <= len(allowed) // 2:
+        raise RuntimeError("17a: the gradient check cannot tell a missing "
+                           "gradient all-reduce")
+    if any(res["a"]["counts"] != want_a or not res["a"]["equal"]
+           or not res["a"]["generator_equal"] for res in ranks):
+        raise RuntimeError("17a: a rank launched other kernels than the "
+                           "step's, or the replicas differ")
+
+    # 17b
+    b0, b1 = ranks[0]["b"], ranks[1]["b"]
+    logits = np.load(work / "log17b_dp" / "ensemble_logits.npy")
+    want_logits = ref["b"]["logits"]
+    val_err = [abs(a - w) / abs(w) for a, w in
+               zip(b0["val_loss"], ref["b"]["val_loss"])]
+    logit_err = rel_rms(logits, want_logits)
+    steps = b0["steps"]
+    want_b = {"K2": steps * 2 * BLOCKS, "K3": steps * 2 * BLOCKS,
+              "K4": steps * 2 * NORMS, "K7": steps * 12, "K8": steps * 3}
+    log(f"[dp] 17b cli.train --fold 0, training.data_parallel, {DP_RANKS} "
+        f"ranks: exit {b0['rc']} and {b1['rc']} in {b0['s']!r} s (one "
+        f"process: {ref['b']['s']!r} s; two ranks sharing the card, not a "
+        f"scaling figure); validation losses {b0['val_loss']} vs one "
+        f"process's {ref['b']['val_loss']} (relative {val_err}, limit "
+        f"{DP_CLI_LOSS_RTOL!r}); test logits RMS error / RMS logit "
+        f"{logit_err!r} (limit {LOGITS_RTOL_BF16!r}); checkpoint writes by "
+        f"rank {len(b0['writes'])} and {len(b1['writes'])}, stdout lines "
+        f"{b0['stdout_lines']} and {b1['stdout_lines']}; parameters after "
+        f"each epoch bit-equal: {b0['digests'] == b1['digests']}; launches "
+        f"rank 0 { {k: v for k, v in b0['counts'].items() if v} }, rank 1 "
+        f"{ {k: v for k, v in b1['counts'].items() if v} } ({steps} steps; "
+        f"want {want_b} and K1 > 0); peaks {b0['peak_gib']!r} and "
+        f"{b1['peak_gib']!r} GiB ({smi})")
+    if b0["rc"] != 0 or b1["rc"] != 0 or not b0["writes"] or b1["writes"] \
+            or b0["digests"] != b1["digests"] or not b0["digests"] \
+            or len(b0["val_loss"]) != len(ref["b"]["val_loss"]) \
+            or not all(e <= DP_CLI_LOSS_RTOL for e in val_err) \
+            or not logit_err <= LOGITS_RTOL_BF16 \
+            or not np.isfinite(logits).all():
+        raise RuntimeError("17b: the data-parallel cli.train disagrees with "
+                           "the one-process run, or a rank other than 0 "
+                           "wrote, or the replicas differ")
+    for b in (b0, b1):
+        if any(b["counts"].get(k) != v for k, v in want_b.items()) or \
+                not b["counts"].get("K1"):
+            raise RuntimeError("17b: a rank did not launch the fold's "
+                               "kernels as it should")
+
+    # 17c
+    refc = torch.load(work / "dp17c_ref.pt", weights_only=True)
+    gotc = torch.load(work / "dp17c_rank0.pt", weights_only=True)
+    ctrlc = torch.load(work / "dp17c_control.pt", weights_only=True)
+    worst = control = 0.0
+    for n, want in refc["leaves"].items():
+        scale = refc["scale"][n] + 1e-30
+        worst = max(worst, float(((gotc[n] - want).abs() / scale).max()))
+        control = max(control, float(((ctrlc[n] - want).abs() / scale).max()))
+    clients = {**ranks[0]["c"]["clients"], **ranks[1]["c"]["clients"]}
+    same_clients = [clients.get(c) == d
+                    for c, d in enumerate(ref["c"]["clients"])]
+    loss_c = abs(ranks[0]["c"]["loss"] - ref["c"]["loss"])
+    want_c = 2 * DP_FED_STEPS      # local steps a rank: 2 clients each
+    want_c = {"K2": want_c * BLOCKS, "K3": want_c * BLOCKS,
+              "K4": want_c * NORMS, "K7": want_c * 12, "K8": want_c * 3}
+    log(f"[dp] 17c FedAvg round of ViT-B/16@224, 4 clients x "
+        f"{DP_FED_STEPS} local steps of {FED_BATCH} on a client mesh of "
+        f"{DP_RANKS} ranks (2 clients a rank) against one process: each "
+        f"client's leaves bit-equal {same_clients}; global leaves largest "
+        f"|got - want| / (|θ| + Σwᵢ|θᵢ|) {worst!r} (limit {AGG_RTOL!r}, fp32 "
+        f"summation order); loss {ranks[0]['c']['loss']!r} vs "
+        f"{ref['c']['loss']!r}; ranks bit-equal {ranks[1]['c']['equal']}; "
+        f"control, rank 1 drops its clients' sum: {control!r} (must exceed); "
+        f"round {ranks[0]['c']['s']!r} s on rank 0 (shared card, not a "
+        f"scaling figure); launches rank 0 "
+        f"{ {k: v for k, v in ranks[0]['c']['counts'].items() if v} } (want "
+        f"{want_c}) ({smi})")
+    if not all(same_clients) or not worst <= AGG_RTOL or \
+            not loss_c <= 1e-6 * abs(ref["c"]["loss"]) or \
+            not ranks[1]["c"]["equal"]:
+        raise RuntimeError("17c: the client-mesh round disagrees with the "
+                           "one-process round")
+    if not control > AGG_RTOL:
+        raise RuntimeError("17c: the check cannot tell a rank that drops its "
+                           "clients' sum")
+    if any({k: v for k, v in res["c"]["counts"].items() if v} != want_c
+           for res in ranks):
+        raise RuntimeError("17c: a rank did not launch its clients' kernels "
+                           "as it should")
+
+    # 17d
+    refd = torch.load(work / "dp17d_ref.pt", weights_only=True)
+    gotd = torch.load(work / "dp17d_rank0.pt", weights_only=True)
+    lr = dp_fed_config("data").training.optimizer.lr
+    param_err = max(float((gotd[n] - w).abs().max()) for n, w in refd.items())
+    loss_d = abs(ranks[0]["d"]["loss"] - ref["d"]["loss"])
+    want_d = {"K2": BLOCKS, "K3": BLOCKS, "K4": NORMS}
+    log(f"[dp] 17d the fp32 round on a 1 x {DP_RANKS} client x data mesh "
+        f"({ranks[0]['d']['local_rows']} rows a rank) against the 1-D round: "
+        f"loss {ranks[0]['d']['loss']!r} vs {ref['d']['loss']!r} (|diff| "
+        f"{loss_d!r}, limit {DP_2D_LOSS_RTOL * (1 + abs(ref['d']['loss']))!r}"
+        f"); largest parameter difference {param_err!r} (limit 3·lr·steps "
+        f"{3 * lr!r}); ranks bit-equal {ranks[1]['d']['equal']}; launches "
+        f"rank 0 { {k: v for k, v in ranks[0]['d']['counts'].items() if v} }"
+        f" (want {want_d}) ({smi})")
+    if not loss_d < DP_2D_LOSS_RTOL * (1 + abs(ref["d"]["loss"])) or \
+            not param_err <= 3 * lr or not ranks[1]["d"]["equal"] or \
+            any({k: v for k, v in res["d"]["counts"].items() if v} != want_d
+                for res in ranks):
+        raise RuntimeError("17d: the client x data round breaks JAX's "
+                           "contract")
+
+    # 17e
+    nccl = nccl_record(work)
+    log(f"[dp] 17e NCCL: torch.distributed.is_nccl_available() "
+        f"{nccl['available']}, NCCL {nccl['version']}, one all-reduce of "
+        f"[0, 1, 2, 3] at world 1 on the card: {nccl['all_reduce']} ({smi})")
+    if nccl["all_reduce"] != [0.0, 1.0, 2.0, 3.0]:
+        raise RuntimeError("17e: the NCCL all-reduce at world 1 is wrong")
+    log(f"[dp] phase 17 in {time.perf_counter() - phase_t0!r} s ({smi})")
+    return {"launches": launches, "nccl": nccl}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
@@ -6383,10 +7077,14 @@ def main() -> int:
         # 16. remat, the plain attention options, cli.verify, --profile
         torch.cuda.empty_cache()
         last = last_options_phase(fa, ln, smi, Path(tmp), isic["train_cli_s"])
+        # 17. data parallelism and the federated meshes on two ranks
+        torch.cuda.empty_cache()
+        dp = dp_phase(fa, ln, smi, Path(tmp))
     for rec, key in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4"),
                      (k5, "K5"), (k5_lse, "K5_lse"), (k6, "K6"), (k7, "K7"),
                      (k8, "K8")):
         rec["launches_phase16"] = last["launches"].get(key, {})
+        rec["launches_phase17"] = dp["launches"].get(key, {})
     for rec, key in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4"),
                      (k7, "K7"), (k8, "K8")):
         rec["launches_old_gen"] = old["launches"][key]

@@ -18,6 +18,16 @@ writes a ``torch.profiler`` trace (``utils/profiling.py::trace``) of
 optimizer steps 2-4 of the run (the first is its warm-up) into DIR
 (TensorBoard's format). ``--device`` picks the device, ``cuda`` by default; without a card
 the command fails unless ``--device cpu`` is given.
+
+With ``training.data_parallel: true`` on a machine with N > 1 cards the
+command trains each fold data-parallel over N ranks, one a card, as the JAX
+package's trains over its N devices: it starts the N ranks itself
+(``parallel/mesh.py::launch_ranks``, the command again with torchrun's
+environment) and waits for them. Under ``torchrun --nproc_per_node N`` (or
+any launcher that sets ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``) each
+process is one rank, also with ``--device cpu`` (gloo). Rank 0 alone logs
+and writes; ``training.auto_batch_size`` takes the least batch size any
+rank's probe found.
 """
 
 from __future__ import annotations
@@ -79,19 +89,28 @@ def main(argv=None) -> int:
 
     from fedvit_torch.core.config import load_config
     from fedvit_torch.core.device import resolve_device
+    from fedvit_torch.parallel.mesh import main_on_ranks
+
+    resolve_device(args.device)
+    cfg = load_config(args.config).replace(seed=args.seed)
+    return main_on_ranks("fedvit_torch.cli.train", argv, args.device,
+                         cfg.training.data_parallel,
+                         lambda device: _run(args, cfg, device))
+
+
+def _run(args, cfg, device) -> int:
     from fedvit_torch.data.isic import (has_real_test_labels, load_isic_data,
                                         print_class_distribution)
     from fedvit_torch.data.pipeline import HostDataSource
     from fedvit_torch.data.splits import make_cv_splits
     from fedvit_torch.eval.metrics import classification_report
+    from fedvit_torch.parallel.mesh import is_writer, silent
     from fedvit_torch.train.loop import (aggregate_fold_metrics,
                                          ensemble_folds, train_fold)
     from fedvit_torch.utils.profiling import trace
 
-    device = resolve_device(args.device)
-    cfg = load_config(args.config).replace(seed=args.seed)
-    logger = setup_logging(args.log)
-    log = logger.info
+    writer = is_writer()
+    log = setup_logging(args.log).info if writer else silent
 
     t = cfg.training
     n_folds = t.cv.n_splits
@@ -130,7 +149,7 @@ def main(argv=None) -> int:
     fold_list = list(range(n_folds)) if args.fold < 0 else [args.fold]
     fold_results = []
     profile_cm = contextlib.nullcontext()
-    if args.profile:
+    if args.profile and writer:
         profile_cm = trace(args.profile, schedule=torch.profiler.schedule(
             wait=0, warmup=1, active=PROFILE_STEPS, repeat=1),
             cuda=device.type == "cuda")
@@ -140,12 +159,13 @@ def main(argv=None) -> int:
             trn_src = HostDataSource(train_full_df.iloc[trn_idx], cfg)
             val_src = HostDataSource(train_full_df.iloc[val_idx], cfg)
             fold_dir = os.path.join(args.log, f"fold{f}")
-            fold_log = setup_logging(fold_dir, fold=f)
+            fold_log = (setup_logging(fold_dir, fold=f).info if writer
+                        else silent)
             fold_results.append(train_fold(
                 cfg, f, trn_src, val_src, test_source, workdir=fold_dir,
-                log=fold_log.info, resume=args.resume, device=device,
+                log=fold_log, resume=args.resume, device=device,
                 on_step=None if prof is None else prof.step))
-    if args.profile:
+    if args.profile and writer:
         log(f"  Profiler trace written → {args.profile}")
 
     has_gt = has_real_test_labels(test_df)
@@ -155,7 +175,7 @@ def main(argv=None) -> int:
     ens = (ensemble_folds(fold_results, test_df["label"].values,
                           cfg.num_classes, log, compute=has_gt)
            if test_source is not None else {})
-    if ens:
+    if ens and writer:
         avg = ens["ensemble_logits"]
         np.save(os.path.join(args.log, "ensemble_logits.npy"), avg)
         log(f"  Ensemble logits saved → {args.log}/ensemble_logits.npy")

@@ -16,6 +16,12 @@ Without ``--config`` the defaults are the JAX package's:
 ViT-B/16@224, bf16, batch 4, 4 clients. ``--device`` picks the device,
 ``cuda`` by default; without a card the command fails unless ``--device cpu``
 is given.
+
+Ranks are launched as for ``cli.train``: on a machine with N > 1 cards the
+command runs N ranks itself, one a card; under ``torchrun --nproc_per_node
+N`` (also with ``--device cpu``, gloo) each process is one rank. The
+clients are then spread over a client mesh of the ranks
+(``fed/server.py``); rank 0 alone evaluates, logs and writes.
 """
 
 from __future__ import annotations
@@ -47,18 +53,26 @@ def main(argv=None) -> int:
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    import torch
-    from fedvit_torch.core.config import Config, load_config
     from fedvit_torch.core.device import resolve_device
-    from fedvit_torch.fed.server import train_federated
-    from fedvit_torch.models import build_model
+    from fedvit_torch.parallel.mesh import main_on_ranks
 
     if args.resume and args.checkpoint_every <= 0:
         raise SystemExit(
             "--resume requires --checkpoint-every > 0: with checkpointing "
             "disabled there is no workdir to resume from (and the resumed "
             "run would stop persisting progress).")
-    device = resolve_device(args.device)
+    resolve_device(args.device)
+    return main_on_ranks("fedvit_torch.cli.train_federated", argv,
+                         args.device, True, lambda device: _run(args, device))
+
+
+def _run(args, device) -> int:
+    import torch
+    from fedvit_torch.core.config import Config, load_config
+    from fedvit_torch.fed.server import train_federated
+    from fedvit_torch.models import build_model
+    from fedvit_torch.parallel.mesh import is_writer
+
     cfg = load_config(args.config) if args.config else Config()
     cfg = cfg.replace(seed=args.seed)
     over = {}
@@ -70,7 +84,8 @@ def main(argv=None) -> int:
     cfg = cfg.replace(federated=dataclasses.replace(cfg.federated,
                                                     enabled=True, **over))
 
-    os.makedirs(args.log, exist_ok=True)
+    if is_writer():
+        os.makedirs(args.log, exist_ok=True)
 
     # ---- data: raw images (uint8 canvases, or [0, 1] floats); every
     # client's local step and the per-round evaluation run the device
@@ -103,10 +118,11 @@ def main(argv=None) -> int:
                              checkpoint_every=max(1, args.checkpoint_every),
                              device=device)
 
-    hist_path = os.path.join(args.log, "federated_history.json")
-    with open(hist_path, "w") as f:
-        json.dump(result.history, f, indent=2)
-    print(f"History saved → {hist_path}")
+    if is_writer():
+        hist_path = os.path.join(args.log, "federated_history.json")
+        with open(hist_path, "w") as f:
+            json.dump(result.history, f, indent=2)
+        print(f"History saved → {hist_path}")
     return 0
 
 

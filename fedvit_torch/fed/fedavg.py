@@ -17,8 +17,18 @@ statistics alike, as JAX averages ``params`` and ``batch_stats``.
 Everything on the leaves is ``torch._foreach_*`` over all of them at once.
 
 The JAX package maps clients onto a mesh axis (``vmap`` within a device,
-``psum`` across devices); on one card the same values come from the loop
-above. Each client draws its augment, mix and dropout from a
+``psum`` across devices). Here, given a mesh (``parallel/mesh.py``), rank c
+on its ``"client"`` axis trains the active slots [c·cpd, (c+1)·cpd) (cpd =
+the active clients over the axis size), one after another, and the fp32
+accumulators and the weighted loss are summed over the axis in one flat
+all-reduce before every rank takes the server step; without one (a single
+process), the loop above runs every client. With a ``"data"`` axis too,
+each client's local batch is cut over it and its local steps are per shard
+(JAX's ``shard_map``): each data rank runs the plain step on its shard with
+the client's generators, and after each step the gradients, loss and
+BatchNorm statistics are averaged over the data axis (``train/step.py``).
+A client's training depends on its id, not on the rank that runs it.
+Each client draws its augment, mix and dropout from a
 ``torch.Generator`` and its MixUp / CutMix λ and box from a numpy generator,
 both seeded from (seed, round, client) alone (``client_generators``): a
 resumed round needs nothing but its number.
@@ -30,14 +40,17 @@ augment) and 12 K2, 12 K3 and 25 K4 (``train/step.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
 from fedvit_torch.core.config import Config
 from fedvit_torch.data.pipeline import make_device_augment
+from fedvit_torch.parallel.data import DataParallel, all_reduce_flat
+from fedvit_torch.parallel.mesh import mesh_coordinate
 from fedvit_torch.train.losses import LossFn
 from fedvit_torch.train.optim import AdamWLLRD
 from fedvit_torch.train.state import TrainState
@@ -82,7 +95,8 @@ def federated_leaves(model: nn.Module) -> Dict[str, torch.Tensor]:
     return leaves
 
 
-def make_local_train(cfg: Config, loss_fn: LossFn) -> Callable:
+def make_local_train(cfg: Config, loss_fn: LossFn,
+                     data: Optional[DataParallel] = None) -> Callable:
     """One client's local training for a round:
 
     ``local_train(model, batches, generator, np_rng) → mean loss`` trains
@@ -90,11 +104,13 @@ def make_local_train(cfg: Config, loss_fn: LossFn) -> Callable:
     ``batches``' leading entries ({key: (S, B, ...)}), with a fresh local
     optimizer. The device augment draws from ``generator``; the mix from
     ``np_rng`` and ``generator``; dropout and drop-path from ``generator``.
-    Gradient accumulation does not apply: a local step is one batch."""
+    Gradient accumulation does not apply: a local step is one batch. With
+    ``data`` (per-shard semantics) the batches are this rank's shard of the
+    client's and each step is averaged over the data group."""
     training = dataclasses.replace(cfg.training, gradient_accumulation_steps=1)
     step = make_train_step(cfg.replace(training=training), loss_fn,
                            augment=make_device_augment(
-                               cfg, train=cfg.federated.augment))
+                               cfg, train=cfg.federated.augment), data=data)
 
     def local_train(model: nn.Module, batches: Dict[str, torch.Tensor],
                     generator: torch.Generator,
@@ -129,20 +145,40 @@ def server_step(global_leaves: List[torch.Tensor], acc: List[torch.Tensor],
     torch._foreach_add_(global_leaves, delta)
 
 
-def make_federated_round(cfg: Config, loss_fn: LossFn) -> Callable:
+def client_slots(mesh: Optional[DeviceMesh], axis: str, active: int
+                 ) -> slice:
+    """The active-client slots this rank trains: all of them without a
+    mesh, else [c·cpd, (c+1)·cpd) for rank c of the mesh's ``axis``."""
+    if mesh is None:
+        return slice(0, active)
+    cpd = active // mesh.size(mesh.mesh_dim_names.index(axis))
+    c = mesh_coordinate(mesh, axis)
+    return slice(c * cpd, (c + 1) * cpd)
+
+
+def make_federated_round(cfg: Config, loss_fn: LossFn,
+                         mesh: Optional[DeviceMesh] = None) -> Callable:
     """The FedAvg round:
 
     ``round_fn(server, work, batches, weights, clients, rnd, base)
     → {"loss": weighted mean client loss}``
 
     ``server`` holds the global model and is updated in place; ``work`` is
-    the clients' working copy (same architecture, overwritten). ``batches``
-    is {key: (C, S, B, ...)} on the models' device, ``weights`` the (C,)
-    float32 client weights (summing to 1), ``clients`` the C client ids and
-    ``base`` the run's seed, which with ``rnd`` seed each client's
-    generators."""
+    the clients' working copy (same architecture, overwritten). ``weights``
+    are the (C,) float32 weights of the C active clients (summing to 1),
+    ``clients`` their ids and ``base`` the run's seed, which with ``rnd``
+    seed each client's generators. ``batches`` is {key: (C, S, B, ...)} on
+    the models' device; with ``mesh`` it is this rank's part of that, the
+    clients of ``client_slots`` and, with a ``"data"`` axis, this rank's
+    rows of each batch (``row_piece``)."""
     server_lr = cfg.federated.server_lr
-    local_train = make_local_train(cfg, loss_fn)
+    axis = cfg.federated.mesh_axis
+    client_group = data = None
+    if mesh is not None:
+        client_group = mesh.get_group(axis)
+        if "data" in mesh.mesh_dim_names:
+            data = DataParallel(mesh.get_group("data"), spmd=False)
+    local_train = make_local_train(cfg, loss_fn, data)
 
     def round_fn(server: nn.Module, work: nn.Module,
                  batches: Dict[str, torch.Tensor], weights: np.ndarray,
@@ -155,25 +191,30 @@ def make_federated_round(cfg: Config, loss_fn: LossFn) -> Callable:
         work_buffers = dict(work.named_buffers())
         counts = [(b, work_buffers[n]) for n, b in server.named_buffers()
                   if n.endswith("num_batches_tracked")]
+        slots = client_slots(mesh, axis, len(clients))
         acc = [torch.zeros_like(t) for t in global_leaves]
         losses = []
-        for i, client in enumerate(clients):
+        for i, slot in enumerate(range(slots.start, slots.stop)):
             with torch.no_grad():
                 torch._foreach_copy_(work_leaves, global_leaves)
                 for src, dst in counts:
                     dst.copy_(src)
-            generator, np_rng = client_generators(base, rnd, int(client),
-                                                  device)
+            generator, np_rng = client_generators(base, rnd,
+                                                  int(clients[slot]), device)
             losses.append(local_train(work, {k: v[i] for k, v in
                                              batches.items()},
                                       generator, np_rng))
-            accumulate(acc, work_leaves, float(weights[i]))
+            accumulate(acc, work_leaves, float(weights[slot]))
+        w = torch.as_tensor(np.asarray(weights[slots], np.float32),
+                            device=device)
+        loss = (torch.stack(losses) * w).sum()
+        if client_group is not None:
+            all_reduce_flat(acc + [loss], client_group)
         server_step(global_leaves, acc, server_lr)
         for n, b in server.named_buffers():
             if n.endswith("num_batches_tracked"):
                 b.add_(batches["label"].shape[1])
-        w = torch.as_tensor(np.asarray(weights, np.float32), device=device)
-        return {"loss": (torch.stack(losses) * w).sum()}
+        return {"loss": loss}
 
     return round_fn
 

@@ -30,6 +30,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
 from fedvit_torch.core.config import Config, to_dict
 from fedvit_torch.core.device import resolve_device
@@ -38,8 +39,11 @@ from fedvit_torch.data.pipeline import make_device_augment
 from fedvit_torch.data.sampling import compute_class_weights
 from fedvit_torch.eval.metrics import compute_metrics
 from fedvit_torch.eval.serve import make_eval_step
-from fedvit_torch.fed.fedavg import make_federated_round, stack_client_batches
+from fedvit_torch.fed.fedavg import client_slots, make_federated_round
 from fedvit_torch.fed.partition import client_weights, partition
+from fedvit_torch.parallel.mesh import (client_mesh, is_writer,
+                                        mesh_coordinate, row_piece,
+                                        world_size, writer_log)
 from fedvit_torch.train import checkpoint as ckpt
 from fedvit_torch.train.ema import ema_init, ema_update, shadow_weights
 from fedvit_torch.train.losses import build_loss
@@ -106,11 +110,15 @@ class RoundBatches:
 
     def __init__(self, cfg: Config, train_data: Dict[str, np.ndarray],
                  parts: List[np.ndarray], weights: np.ndarray,
-                 local_steps: int, rng: np.random.Generator, device):
+                 local_steps: int, rng: np.random.Generator, device,
+                 slots: Optional[Callable[[int], slice]] = None,
+                 rows: slice = slice(None)):
         fed = cfg.federated
         self.cfg, self.train_data, self.parts = cfg, train_data, parts
         self.weights, self.local_steps, self.rng = weights, local_steps, rng
         self.device = device
+        self.slots = slots or (lambda active: slice(0, active))
+        self.rows = rows
         self.active_count = min(fed.clients_per_round or fed.num_clients,
                                 fed.num_clients)
         keys = tuple(k for k in ("image", "label", "metadata")
@@ -134,26 +142,26 @@ class RoundBatches:
         w_round = self.weights[active]
         w_round = w_round / w_round.sum()
         weighted = cfg.training.use_weighted_sampler
+        idx = np.stack([
+            sample_client_indices(
+                self.train_data["label"], self.parts[c],
+                self.local_steps, bs, rng, weighted=weighted,
+                num_classes=cfg.num_classes)
+            for c in active])                        # (C, S, B)
+        # every rank draws the whole round; it uploads its own part
+        idx = idx[self.slots(len(active))][:, :, self.rows]
         if self.resident is not None:
-            idx = np.stack([
-                sample_client_indices(
-                    self.train_data["label"], self.parts[c],
-                    self.local_steps, bs, rng, weighted=weighted,
-                    num_classes=cfg.num_classes)
-                for c in active])                    # (C, S, B)
             flat = torch.from_numpy(idx.reshape(-1).astype(np.int64)).to(
                 self.device)
             batches = {k: v.index_select(0, flat).reshape(idx.shape
                                                           + v.shape[1:])
                        for k, v in self.resident.items()}
         else:
-            per_client = [
-                sample_client_batches(
-                    self.train_data, self.parts[c], self.local_steps, bs,
-                    rng, weighted=weighted, num_classes=cfg.num_classes)
-                for c in active]
-            batches = {k: torch.from_numpy(v).to(self.device)
-                       for k, v in stack_client_batches(per_client).items()}
+            batches = {k: torch.from_numpy(
+                np.ascontiguousarray(v[idx.reshape(-1)])
+                .reshape(idx.shape + v.shape[1:])).to(self.device)
+                for k, v in self.train_data.items()
+                if k in ("image", "label", "metadata")}
         return batches, w_round, active
 
 
@@ -188,6 +196,7 @@ def train_federated(
     resume: bool = False,
     checkpoint_every: int = 1,
     device: str = "cuda",
+    mesh: Optional[DeviceMesh] = None,
 ) -> FederatedResult:
     """Run ``cfg.federated.rounds`` rounds of FedAvg from ``model``'s weights
     on ``device`` (the card unless the caller asks for the CPU).
@@ -201,9 +210,40 @@ def train_federated(
     the numpy generator's state, the clients' generator seed) is saved every
     ``checkpoint_every`` rounds and after the last; ``resume=True``
     continues from the last save, drawing what the uninterrupted run would
-    have drawn."""
+    have drawn.
+
+    In a process group of more than one rank the round runs over ``mesh``
+    (default: a client mesh of every rank, ``parallel/mesh.py``): every rank
+    makes the same host draws and uploads only its clients' batches (its
+    rows of them on a 2-D client × data mesh), the round sums the clients
+    over the ranks (``fed/fedavg.py``), and every rank holds the same
+    server. Rank 0 alone evaluates, logs and writes the checkpoints, and
+    gives every rank its history entry; every rank loads on resume."""
     fed = cfg.federated
     dev = resolve_device(device)
+    if mesh is None and world_size() > 1:
+        mesh = client_mesh()
+    slots, rows = None, slice(None)
+    if mesh is not None:
+        axis_size = mesh.size(mesh.mesh_dim_names.index(fed.mesh_axis))
+        if fed.num_clients % axis_size:
+            raise ValueError(
+                f"num_clients={fed.num_clients} must be divisible by the mesh "
+                f"'{fed.mesh_axis}' axis size ({axis_size}); pick a client "
+                f"count that tiles the device mesh (each device hosts "
+                f"num_clients/{axis_size} clients)")
+        cpr = min(fed.clients_per_round or fed.num_clients, fed.num_clients)
+        if cpr % axis_size and cpr != fed.num_clients:
+            raise ValueError(f"clients_per_round={cpr} must tile the mesh "
+                             f"axis ({axis_size})")
+        slots = lambda active: client_slots(mesh, fed.mesh_axis,  # noqa: E731
+                                            active)
+        if "data" in mesh.mesh_dim_names:
+            rows = slice(*row_piece(cfg.training.batch_size,
+                                    mesh.size(mesh.mesh_dim_names.index(
+                                        "data")),
+                                    mesh_coordinate(mesh, "data")))
+    log_fn = writer_log(log_fn)
     class_w = None
     if cfg.loss.class_weights:
         # balanced weights from the SERVER's global training labels — every
@@ -212,7 +252,7 @@ def train_federated(
         class_w = torch.from_numpy(compute_class_weights(
             np.asarray(train_data["label"]), cfg.num_classes)).to(dev)
     loss_fn = build_loss(cfg, class_w)
-    round_fn = make_federated_round(cfg, loss_fn)
+    round_fn = make_federated_round(cfg, loss_fn, mesh)
 
     # --- partition data over clients ---------------------------------------
     parts = partition(fed.partition, train_data["label"], fed.num_clients,
@@ -253,7 +293,7 @@ def train_federated(
                f"continuing at round {start_round}")
 
     round_batches = RoundBatches(cfg, train_data, parts, weights, local_steps,
-                                 rng, dev)
+                                 rng, dev, slots, rows)
 
     # --- per-round evaluation -------------------------------------------------
     # The eval set is padded to whole batches (the last row repeated) and
@@ -299,7 +339,7 @@ def train_federated(
             entry = {"round": rnd, "loss": float(metrics["loss"]),
                      "local_steps": local_steps,
                      "round_time_s": time.time() - t0}
-            if eval_data is not None:
+            if eval_data is not None and is_writer():
                 with shadow_weights(server, ema_params):
                     probs = evaluate()
                 m = compute_metrics(y_true, probs.argmax(-1), cfg.num_classes,
@@ -309,6 +349,10 @@ def train_federated(
                 if "auroc" in m:
                     entry["auroc"] = m["auroc"]
 
+            if mesh is not None:
+                box = [entry]
+                torch.distributed.broadcast_object_list(box, src=0)
+                entry = box[0]
             history.append(entry)
             log_fn(f"[fed] round {rnd:03d} | loss {entry['loss']:.4f}"
                    + (f" | acc {entry.get('accuracy', float('nan')):.4f}"

@@ -21,6 +21,7 @@ from fedvit_torch.ops.flash_attention import (flash_attention_qkv,
                                               flash_attention_qkvb,
                                               flash_attention_xqkv)
 from fedvit_torch.ops.layer_norm import LayerNorm
+from fedvit_torch.parallel import data as data_parallel
 
 # the ViT's ``model.attention_impl`` values, JAX's: ``xla`` is JAX's named XLA
 # composition, the plain attention on any device (no kernel)
@@ -49,7 +50,9 @@ class TorchBatchNorm(nn.BatchNorm1d):
     the running mean and the *unbiased* running variance by momentum 0.1;
     the branch is written out because ``nn.BatchNorm1d`` refuses a batch of
     1 in training, which the JAX module takes (factor n / max(n - 1, 1)).
-    Evaluation uses the running statistics."""
+    Evaluation uses the running statistics. Inside a data-parallel SPMD step
+    the mean and variance are the whole micro-batch's, their sums taken over
+    the group with autograd (``parallel/data.py``)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -58,9 +61,17 @@ class TorchBatchNorm(nn.BatchNorm1d):
         x32 = x.float()
         if not self.training:
             return super().forward(x32)
-        n = x32.shape[0]
-        mean = x32.mean(0)
-        var = ((x32 - mean) ** 2).mean(0)
+        rows = data_parallel.rows()
+        if rows is None:
+            n = x32.shape[0]
+            mean = x32.mean(0)
+            var = ((x32 - mean) ** 2).mean(0)
+        else:
+            n = rows.n
+            own = x32[:rows.valid]
+            mean = data_parallel.all_reduce_sum(own.sum(0), rows.group) / n
+            var = data_parallel.all_reduce_sum(((own - mean) ** 2).sum(0),
+                                               rows.group) / n
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(m * mean)
@@ -85,11 +96,19 @@ class LayerNormF32(LayerNorm):
 def _keep_mask(shape, keep: float, generator: Optional[torch.Generator],
                device: torch.device) -> torch.Tensor:
     """Bernoulli(keep) mask drawn from the caller's generator — never the
-    global one, so the train step's generator decides every mask."""
+    global one, so the train step's generator decides every mask. Inside a
+    data-parallel SPMD step (``parallel/data.py``) the mask is drawn at the
+    whole micro-batch's shape and the rank keeps its rows' part: the same
+    masks as the unsharded step, and every rank's generator moves alike."""
     if generator is None:
         raise ValueError("dropout in training mode needs the step's "
                          "torch.Generator (pass generator=...)")
-    return torch.rand(shape, generator=generator, device=device) < keep
+    rows = data_parallel.rows()
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device) < keep
+    whole = torch.rand((rows.n,) + tuple(shape[1:]), generator=generator,
+                       device=device)
+    return whole[rows.held] < keep
 
 
 class Dropout(nn.Module):

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedvit_torch.ops.image import resize
+from fedvit_torch.parallel import data as data_parallel
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -85,7 +86,9 @@ class FlaxBatchNorm(nn.Module):
     statistics and moves the running mean and the *biased* running variance
     as 0.9·r + 0.1·s (torch's BatchNorm keeps the unbiased one, which is why
     this is not ``TorchBatchNorm``); evaluation uses the running statistics.
-    Its buffers are ``running_mean`` and ``running_var`` alone."""
+    Its buffers are ``running_mean`` and ``running_var`` alone. Inside a
+    data-parallel SPMD step the moments are the whole micro-batch's
+    (``parallel/data.py``)."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -101,8 +104,20 @@ class FlaxBatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             axes = tuple(range(x32.dim() - 1))
-            mean = x32.mean(axes)
-            var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
+            rows = data_parallel.rows()
+            if rows is None:
+                mean = x32.mean(axes)
+                mean_sq = (x32 * x32).mean(axes)
+            else:
+                # the whole micro-batch's moments: both sums in one
+                # all-reduce over the data group, with autograd
+                own = x32[:rows.valid]
+                count = rows.n * (x32[0].numel() // x32.shape[-1])
+                sums = data_parallel.all_reduce_sum(
+                    torch.cat([own.sum(axes), (own * own).sum(axes)]),
+                    rows.group) / count
+                mean, mean_sq = sums.chunk(2)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean)

@@ -10,7 +10,8 @@ A checkpoint is a directory:
   ``epochs_without_improve`` and ``config``.
 
 Restoring both generators makes a resumed run draw what the uninterrupted
-one would have drawn from them. Files are read with ``weights_only=True``.
+one would have drawn from them. In a process group every save is rank 0's
+alone, followed by a barrier, and every rank loads. Files are read with ``weights_only=True``.
 Checkpoints written by ``fedvit_tpu`` (orbax) are not read here.
 
 A pretrained starting point (``save_pretrained``) is a ``variables.pt``
@@ -37,6 +38,7 @@ import torch
 from torch import nn
 
 from fedvit_torch.core.config import Config, to_dict
+from fedvit_torch.parallel.mesh import barrier, is_writer
 
 
 def _state_tree(state) -> Dict[str, Any]:
@@ -60,17 +62,21 @@ def save_checkpoint(path: str, state, epoch: int, best_metric: float,
                     epochs_without_improve: int = 0,
                     cfg: Optional[Config] = None) -> None:
     """Write a full training checkpoint of ``state`` to ``path`` (a
-    directory)."""
-    path = Path(path).absolute()
-    path.mkdir(parents=True, exist_ok=True)
-    _atomic_save(_state_tree(state), path / "state.pt")
-    meta = {
-        "epoch": int(epoch),
-        "best_metric": float(best_metric),
-        "epochs_without_improve": int(epochs_without_improve),
-        "config": to_dict(cfg) if cfg is not None else None,
-    }
-    (path / "meta.json").write_text(json.dumps(meta, indent=2, default=str))
+    directory); in a process group, rank 0 writes and every rank waits for
+    it."""
+    if is_writer():
+        path = Path(path).absolute()
+        path.mkdir(parents=True, exist_ok=True)
+        _atomic_save(_state_tree(state), path / "state.pt")
+        meta = {
+            "epoch": int(epoch),
+            "best_metric": float(best_metric),
+            "epochs_without_improve": int(epochs_without_improve),
+            "config": to_dict(cfg) if cfg is not None else None,
+        }
+        (path / "meta.json").write_text(json.dumps(meta, indent=2,
+                                                   default=str))
+    barrier()
 
 
 def _copy_into(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]):
@@ -142,18 +148,22 @@ def load_serving_weights(path: str, model: nn.Module, ema: bool = True) -> bool:
 
 def save_pretrained(path: str, model: nn.Module, cfg: Optional[Config] = None,
                     source: str = "") -> None:
-    """Write ``model``'s state dict as a pretrained starting point."""
-    path = Path(path).absolute()
-    path.mkdir(parents=True, exist_ok=True)
-    _atomic_save(model.state_dict(), path / "variables.pt")
-    meta = {
-        "kind": "pretrained",
-        "source": source,
-        "backbone": cfg.model.backbone if cfg else None,
-        "image_size": cfg.model.image_size if cfg else None,
-        "in_channels": cfg.in_channels if cfg else None,
-    }
-    (path / "pretrained_meta.json").write_text(json.dumps(meta, indent=2))
+    """Write ``model``'s state dict as a pretrained starting point; in a
+    process group, rank 0 writes and every rank waits for it."""
+    if is_writer():
+        path = Path(path).absolute()
+        path.mkdir(parents=True, exist_ok=True)
+        _atomic_save(model.state_dict(), path / "variables.pt")
+        meta = {
+            "kind": "pretrained",
+            "source": source,
+            "backbone": cfg.model.backbone if cfg else None,
+            "image_size": cfg.model.image_size if cfg else None,
+            "in_channels": cfg.in_channels if cfg else None,
+        }
+        (path / "pretrained_meta.json").write_text(json.dumps(meta,
+                                                              indent=2))
+    barrier()
 
 
 def load_pretrained(path: str, model: nn.Module,
@@ -208,8 +218,18 @@ def save_federated_checkpoint(path: str, model: nn.Module,
     Crash-safe: state and meta are written together into ``fed_ckpt.tmp/``
     and promoted with two directory renames (atomic on one filesystem); the
     previous generation survives as ``fed_ckpt.old`` until the new one is
-    live, so state and meta never desynchronise."""
-    base = Path(path).absolute()
+    live, so state and meta never desynchronise. In a process group, rank 0
+    writes and every rank waits for it."""
+    if is_writer():
+        _write_federated(Path(path).absolute(), model, ema_params, rnd,
+                         history, np_rng_state, generator_base, cfg)
+    barrier()
+
+
+def _write_federated(base: Path, model: nn.Module,
+                     ema_params: Optional[Dict[str, torch.Tensor]], rnd: int,
+                     history, np_rng_state: Dict, generator_base: int,
+                     cfg: Optional[Config]) -> None:
     tmp, live, old = (base / "fed_ckpt.tmp", base / "fed_ckpt",
                       base / "fed_ckpt.old")
     if tmp.exists():

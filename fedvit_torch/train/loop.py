@@ -21,8 +21,18 @@ Randomness follows the JAX package's structure with torch generators:
   which checkpoints save and restore.
 
 On a CUDA device each optimizer step launches the augment's kernels (12 K7,
-3 K8) and the step's (``train/step.py``). Data parallelism over several
-cards is not ported yet and raises.
+3 K8) and the step's (``train/step.py``).
+
+With ``training.data_parallel`` in a process group of more than one rank
+(JAX's rule: more than one device) the fold is data-parallel over a
+``"data"`` mesh of every rank (``parallel/``), with the values of the
+unsharded fold: each rank draws the same batch plans and augment draws,
+augments the whole macro batch and trains on its rows of each micro-batch
+(``train/step.py``); the state is broadcast from rank 0 first. Every rank
+evaluates the whole validation and test split, and takes rank 0's metrics
+and logits, so the best-checkpoint and early-stopping decisions are one.
+Rank 0 alone logs and writes the checkpoints (``train/checkpoint.py``);
+every rank reads them.
 """
 
 from __future__ import annotations
@@ -43,6 +53,9 @@ from fedvit_torch.eval.metrics import classification_report, compute_metrics
 from fedvit_torch.eval.serve import (_evaluate, _softmax, _to_device,
                                      evaluate_with_tta, make_eval_step)
 from fedvit_torch.models import build_model
+from fedvit_torch.parallel.data import DataParallel
+from fedvit_torch.parallel.mesh import (data_mesh, replicate, world_size,
+                                        writer_log)
 from fedvit_torch.train import checkpoint as ckpt
 from fedvit_torch.train.ema import ema_init
 from fedvit_torch.train.losses import build_loss, cross_entropy_loss
@@ -71,6 +84,18 @@ def batch_generator(base: int, i: int, device) -> torch.Generator:
     seed = np.random.SeedSequence([base % 2 ** 63, i]).generate_state(
         1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def _agree(obj, dp: Optional[DataParallel]):
+    """Rank 0's ``obj`` on every rank of the data group (a picklable
+    value), so that every rank decides alike; ``obj`` itself without
+    one."""
+    if dp is None:
+        return obj
+    box = [obj]
+    torch.distributed.broadcast_object_list(
+        box, group_src=0, group=dp.group)
+    return box[0]
 
 
 @dataclasses.dataclass
@@ -116,12 +141,12 @@ def train_fold(cfg: Config, fold: int, train_source, val_source,
     (train.py:221-371). With ``workdir``, the best checkpoint goes to
     ``{workdir}/best_fold{fold}`` and the last epoch's to
     ``{workdir}/resume_fold{fold}``, which ``resume`` continues from.
-    ``on_step()`` runs after each optimizer step."""
+    ``on_step()`` runs after each optimizer step. With
+    ``training.data_parallel`` in a group of several ranks, every rank calls
+    it alike and trains its rows (module docstring)."""
     t = cfg.training
     dev = resolve_device(device)
-    if t.data_parallel and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("training.data_parallel over several CUDA "
-                                  "devices is not ported yet")
+    log = writer_log(log)
     # the canvases go to the card once when they fit (DeviceDataSource)
     train_source = maybe_device_resident(train_source, cfg, dev)
     val_source = maybe_device_resident(val_source, cfg, dev)
@@ -150,9 +175,24 @@ def train_fold(cfg: Config, fold: int, train_source, val_source,
     log(f" Train: {len(train_source):,}  |  Val: {len(val_source):,}")
     log(f" Parameters: {sum(p.numel() for p in model.parameters()):,}")
 
+    # data-parallel fold training: the state replicated over a "data" mesh,
+    # each micro-batch's rows cut over it, the gradients all-reduced
+    dp = None
+    if t.data_parallel and world_size() > 1:
+        mesh = data_mesh()
+        ndev = mesh.size()
+        if macro_bs % ndev:
+            raise ValueError(f"batch {macro_bs} not divisible by {ndev} "
+                             f"data-parallel devices")
+        replicate(mesh, model)
+        if state.ema is not None:
+            replicate(mesh, state.ema)
+        dp = DataParallel(mesh.get_group("data"))
+        log(f" Data-parallel: batch sharded over {ndev} devices")
+
     augment_train = make_device_augment(cfg, train=True)
     augment_eval = make_device_augment(cfg, train=False)
-    train_step = make_train_step(cfg, loss_fn)
+    train_step = make_train_step(cfg, loss_fn, data=dp)
     # validation uses the training criterion (reference validate train.py:199)
     eval_step = make_eval_step(model, cfg, augment=augment_eval)
 
@@ -200,6 +240,7 @@ def train_fold(cfg: Config, fold: int, train_source, val_source,
         with state.ema_weights():
             val = _evaluate(eval_step, val_source, t.batch_size,
                             cfg.num_classes, loss_fn=loss_fn)
+        val = _agree(val, dp)
         lr_now = float(schedule(state.step))
         log(f"  E{epoch:02d} | trn_loss {train_loss:.4f} | "
             f"val_loss {val['loss']:.4f} | val_acc {val['accuracy']:.4f} | "
@@ -247,6 +288,7 @@ def train_fold(cfg: Config, fold: int, train_source, val_source,
             logits = res["logits"]
             preds = logits.argmax(-1).tolist()
             labels = [int(v) for v in test_source.labels]
+    preds, labels, logits = _agree((preds, labels, logits), dp)
     logits = np.asarray(logits)
     probs = _softmax(logits)
 

@@ -10,6 +10,11 @@ Every loss computes in fp32 whatever the logits' dtype:
   term and its cls + λ·seg objective (JAX :133-172);
 * ``mixup_criterion`` — the λ-weighted two-target loss (JAX :176-184);
 * ``build_loss`` — from the config, with ``loss.class_weights`` honoured.
+
+Inside a data-parallel SPMD step each returns the rank's share of the whole
+micro-batch's loss (its rows' sum over the whole micro-batch's count or
+class weight, ``parallel/data.py``): the shares sum over the ranks to the
+unsharded loss, and their gradients to its gradient.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from fedvit_torch.core.config import Config
+from fedvit_torch.parallel.data import (element_mean, own_sum, row_sum,
+                                        weight_sum)
 
 LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -46,7 +53,7 @@ def asymmetric_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     w_pos = torch.clamp(1.0 - probs, min=0.0) ** gamma_pos
     w_neg = torch.clamp(probs, min=0.0) ** gamma_neg
     loss = -(w_pos * loss_pos + w_neg * loss_neg)
-    return loss.sum(-1).mean()
+    return row_sum(loss.sum(-1))
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -62,7 +69,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     eps = label_smoothing
     if class_weights is None:
         q = one_hot * (1.0 - eps) + eps / num_classes if eps > 0 else one_hot
-        return -(q * log_probs).sum(-1).mean()
+        return row_sum(-(q * log_probs).sum(-1))
     w = class_weights.float().to(logits.device)
     w_y = w[targets.long()]
     nll = -(one_hot * log_probs).sum(-1) * w_y
@@ -71,7 +78,7 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
         per_sample = (1.0 - eps) * nll + eps * smooth
     else:
         per_sample = nll
-    return per_sample.sum() / torch.clamp(w_y.sum(), min=1e-12)
+    return own_sum(per_sample) / torch.clamp(weight_sum(w_y), min=1e-12)
 
 
 def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -86,8 +93,9 @@ def focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     per_sample = -((1.0 - torch.exp(log_pt)) ** gamma) * log_pt
     if class_weights is not None:
         w = class_weights.float().to(logits.device)[targets.long()]
-        return (per_sample * w).sum() / torch.clamp(w.sum(), min=1e-12)
-    return per_sample.mean()
+        return own_sum(per_sample * w) / torch.clamp(weight_sum(w),
+                                                     min=1e-12)
+    return row_sum(per_sample)
 
 
 def bce_dice_loss(seg_logits: torch.Tensor, seg_targets: torch.Tensor,
@@ -98,13 +106,13 @@ def bce_dice_loss(seg_logits: torch.Tensor, seg_targets: torch.Tensor,
     (B, H, W, 1), the targets in [0, 1]."""
     x = seg_logits.float()
     t = seg_targets.float()
-    bce = (torch.clamp(x, min=0) - x * t
-           + torch.log1p(torch.exp(-x.abs()))).mean()
+    bce = element_mean(torch.clamp(x, min=0) - x * t
+                       + torch.log1p(torch.exp(-x.abs())))
     probs = torch.sigmoid(x)
     axes = tuple(range(1, x.dim()))
     inter = (probs * t).sum(dim=axes)
     union = probs.sum(dim=axes) + t.sum(dim=axes)
-    dice = 1.0 - ((2.0 * inter + smooth) / (union + smooth)).mean()
+    dice = 1.0 - row_sum((2.0 * inter + smooth) / (union + smooth))
     return bce_weight * bce + (1.0 - bce_weight) * dice
 
 

@@ -2,7 +2,8 @@
 utils.py:325-350): grow the batch from ``start`` by ``step`` up to ``limit``,
 running one forward of synthetic zeros (B, size, size, C) and (B, 13) at each
 size, and back off at the first CUDA out-of-memory error, emptying the
-allocator's cache after it."""
+allocator's cache after it. In a process group every rank probes and all
+take the least size found, so that every rank trains with one size."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 from torch import nn
 
 from fedvit_torch.core.config import Config
+from fedvit_torch.parallel.mesh import world_size
 
 
 @torch.inference_mode()
@@ -48,5 +50,9 @@ def auto_batch_size(cfg: Config, model: Optional[nn.Module] = None,
         log(f"[AutoBS] batch_size {bs} OK")
         last_ok = bs
         bs += step
+    if world_size() > 1:
+        found = torch.tensor([last_ok], device=dev)
+        torch.distributed.all_reduce(found, op=torch.distributed.ReduceOp.MIN)
+        last_ok = int(found.item())
     log(f"[AutoBS] Using batch_size = {last_ok}")
     return last_ok

@@ -19,6 +19,17 @@ Metrics are ``loss`` and ``grad_norm``, the global norm of the averaged
 gradients before clipping, as tensors on the model's device (reading them
 waits for the device).
 
+Data-parallel (``data``, ``parallel/data.py``): under SPMD semantics every
+rank is given the whole macro batch, augments and mixes it from the same
+draws, and runs forward and backward on its rows of each micro-batch
+(``row_piece``: even pieces where the ranks divide the micro-batch, else
+the first pieces a row longer), each rank's loss its share of the whole
+micro-batch's. Per shard, each rank runs the plain step on its shard. At
+the end of ``accumulate_grads`` one flat all-reduce over the group sums the
+gradients and the loss (SPMD: the unsharded step's; per shard: their mean,
+with the BatchNorm statistics's mean in a second), so ``apply_update``
+clips the global gradient and every rank makes the same update.
+
 Parameters are fp32 and are cast to the compute dtype where they are used
 (``models/layers.py::Dense``), as flax does: no ``torch.autocast`` and no
 GradScaler, since bf16 has fp32's exponent range.
@@ -50,6 +61,9 @@ from fedvit_torch.core.config import Config
 from fedvit_torch.eval.serve import _to_device
 from fedvit_torch.train.ema import ema_update
 from fedvit_torch.models.isic import is_joint_loss
+from fedvit_torch.parallel.data import (DataParallel, Rows, all_reduce_flat,
+                                        holding)
+from fedvit_torch.parallel.mesh import row_piece
 from fedvit_torch.train.losses import LossFn, bce_dice_loss, mixup_criterion
 from fedvit_torch.train.mixup import make_mix_fn
 from fedvit_torch.train.optim import global_norm
@@ -60,10 +74,12 @@ class TrainStep:
     """``step(state, batch) → (state, metrics)``, and its two halves."""
 
     def __init__(self, cfg: Config, loss_fn: LossFn,
-                 augment: Optional[Callable] = None):
+                 augment: Optional[Callable] = None,
+                 data: Optional[DataParallel] = None):
         t = cfg.training
         self.loss_fn = loss_fn
         self.augment = augment
+        self.data = data
         self.accum = max(1, t.gradient_accumulation_steps)
         self.use_meta = cfg.model.metadata.enabled
         self.ema_enabled = t.ema.enabled
@@ -94,24 +110,34 @@ class TrainStep:
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
+        spmd = self.data is not None and self.data.spmd
         loss_sum = torch.zeros((), device=device)
         for i in range(self.accum):
             sl = slice(i * micro, (i + 1) * micro)
             x, y = images[sl], labels[sl]
             meta = metadata[sl] if metadata is not None else None
+            ya = yb = lam = None
             if self.mix is not None:
                 x, ya, yb, lam = self.mix(x, y, rng=state.np_rng,
                                           generator=state.generator)
-            out = model(x, meta, generator=state.generator)
-            logits = out["logits"]
-            if self.mix is None:
-                loss = self.loss_fn(logits, y)
+            if not spmd:
+                loss = self._micro_loss(model, state, x, y, meta, ya, yb, lam)
+                loss.backward()
             else:
-                loss = mixup_criterion(self.loss_fn, logits, ya, yb, lam)
-            if self.seg_weight > 0:
-                loss = loss + self.seg_weight * bce_dice_loss(
-                    out["seg_mask"], x[..., 3:4] * 0.5 + 0.5)
-            loss.backward()
+                # every rank mixed the whole micro-batch from the same draws
+                # (the partners of its rows are augmented and mixed here, not
+                # gathered); it runs its own rows, under which the layers
+                # and the losses see the whole micro-batch
+                lo, hi = row_piece(micro, self.data.size, self.data.index)
+                rows = Rows(self.data.group, lo, hi, micro)
+                own = rows.held
+                with holding(rows):
+                    loss = self._micro_loss(
+                        model, state, x[own], y[own],
+                        None if meta is None else meta[own],
+                        None if ya is None else ya[own],
+                        None if yb is None else yb[own], lam)
+                    loss.backward()
             loss_sum += loss.detach()
         grads = {}
         for name, p in params.items():
@@ -126,7 +152,30 @@ class TrainStep:
             grads[name] = p.grad
         stats = {name: t for name, t in model.named_buffers()
                  if name.endswith(("running_mean", "running_var"))}
-        return grads, loss_sum * (1.0 / self.accum), stats
+        loss = loss_sum * (1.0 / self.accum)
+        if self.data is not None:
+            # SPMD: the ranks' shares sum to the unsharded gradients and
+            # loss; per shard: the mean over the shards (JAX's pmean), the
+            # BatchNorm statistics too
+            group, scale = self.data.group, 1.0
+            if not self.data.spmd:
+                scale = 1.0 / self.data.size
+                all_reduce_flat(list(stats.values()), group, scale)
+            all_reduce_flat(list(grads.values()) + [loss], group, scale)
+        return grads, loss, stats
+
+    def _micro_loss(self, model, state: TrainState, x, y, meta, ya, yb, lam
+                    ) -> torch.Tensor:
+        out = model(x, meta, generator=state.generator)
+        logits = out["logits"]
+        if self.mix is None:
+            loss = self.loss_fn(logits, y)
+        else:
+            loss = mixup_criterion(self.loss_fn, logits, ya, yb, lam)
+        if self.seg_weight > 0:
+            loss = loss + self.seg_weight * bce_dice_loss(
+                out["seg_mask"], x[..., 3:4] * 0.5 + 0.5)
+        return loss
 
     def apply_update(self, state: TrainState,
                      grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -150,9 +199,12 @@ class TrainStep:
 
 
 def make_train_step(cfg: Config, loss_fn: LossFn,
-                    augment: Optional[Callable] = None) -> TrainStep:
+                    augment: Optional[Callable] = None,
+                    data: Optional[DataParallel] = None) -> TrainStep:
     """The train step for ``cfg``. With ``augment`` (fn(batch, generator),
     the on-device train augment) the batch arrives as raw uint8 canvases;
     without it, already augmented. ``model.remat`` is the model's
-    (``build_model``): its blocks recompute their forward in the backward."""
-    return TrainStep(cfg, loss_fn, augment)
+    (``build_model``): its blocks recompute their forward in the backward.
+    With ``data`` the step is data-parallel over its group: SPMD (every rank
+    given the whole macro batch) or per shard (each its shard)."""
+    return TrainStep(cfg, loss_fn, augment, data)

@@ -359,8 +359,9 @@ def test_embedding_style_uses_metadata_raw_when_given():
 
 def test_old_generation_refusals_are_gone():
     """Every old-generation option builds, and so does model.remat, whose
-    HybridViT takes a train step; training.data_parallel over several CUDA
-    devices keeps its refusal (``train/loop.py``)."""
+    HybridViT takes a train step. training.data_parallel no longer refuses
+    either: it trains over the ranks of a process group (``train/loop.py``,
+    ``tests/test_torch_ddp.py``)."""
     from fedvit_torch.train.losses import build_loss, joint_loss
     from fedvit_torch.train.optim import build_optimizer
     from fedvit_torch.train.state import TrainState
