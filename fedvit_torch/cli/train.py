@@ -16,8 +16,11 @@ per-fold and ensemble metrics and the classification report to the log
 ``training.auto_batch_size`` probes the batch size first. ``--profile DIR``
 writes a ``torch.profiler`` trace (``utils/profiling.py::trace``) of
 optimizer steps 2-4 of the run (the first is its warm-up) into DIR
-(TensorBoard's format). ``--device`` picks the device, ``cuda`` by default; without a card
-the command fails unless ``--device cpu`` is given.
+(TensorBoard's format); the program's spans (``fedvit.train.step``,
+``fedvit.train.forward_backward``, ...; ``utils/profiling.py::span``) are
+ranges in it, on the clock of the kernels they launched. ``--device`` picks
+the device, ``cuda`` by default; without a card the command fails unless
+``--device cpu`` is given.
 
 With ``training.data_parallel: true`` on a machine with N > 1 cards the
 command trains each fold data-parallel over N ranks, one a card, as the JAX
@@ -83,7 +86,9 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", type=str, default=None, metavar="DIR",
                         help="Write a torch.profiler trace of optimizer "
                              "steps 2-4 of the run into DIR (view with "
-                             "TensorBoard)")
+                             "TensorBoard); the program's spans "
+                             "(fedvit.train.step, fedvit.data.gather, ...) "
+                             "are ranges in it")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 

@@ -14,6 +14,8 @@ on the device (``fedvit_tpu/data/pipeline.py``).
 
 A dataset that fits ``data.device_resident_mb`` is uploaded to the card once
 (``DeviceDataSource``) and its batches gathered there from index plans.
+Every source's gather of a batch is the span ``data.gather``
+(``utils/profiling.py``).
 
 PIL and pandas are imported where files are read, so the rest of the port
 runs without them.
@@ -37,6 +39,7 @@ from fedvit_torch.data.constants import encode_metadata_batch
 from fedvit_torch.data.sampling import epoch_indices
 from fedvit_torch.ops import image as I
 from fedvit_torch.ops.cvseg import segment_lesion_batch
+from fedvit_torch.utils.profiling import span
 
 
 def canvas_size(image_size: int) -> int:
@@ -185,10 +188,11 @@ class HostDataSource:
     def gather(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
         """{"image" (B, canvas, canvas, 3|4) uint8, "label", "metadata"}."""
         idx = np.asarray(indices).reshape(-1)
-        with ThreadPoolExecutor(self.workers) as pool:
-            imgs = list(pool.map(self._fetch_one, idx.tolist()))
-        return {"image": np.stack(imgs), "label": self.labels[idx],
-                "metadata": self.metadata[idx]}
+        with span("data.gather"):
+            with ThreadPoolExecutor(self.workers) as pool:
+                imgs = list(pool.map(self._fetch_one, idx.tolist()))
+            return {"image": np.stack(imgs), "label": self.labels[idx],
+                    "metadata": self.metadata[idx]}
 
     def epoch_batches(self, batch_size: int, rng: np.random.Generator,
                       weighted: bool, drop_last: bool = True
@@ -227,9 +231,10 @@ class ArrayDataSource:
         return len(self.labels)
 
     def gather(self, indices: np.ndarray) -> Dict[str, np.ndarray]:
-        idx = np.asarray(indices).reshape(-1)
-        return {"image": self.images[idx], "label": self.labels[idx],
-                "metadata": self.metadata[idx]}
+        with span("data.gather"):
+            idx = np.asarray(indices).reshape(-1)
+            return {"image": self.images[idx], "label": self.labels[idx],
+                    "metadata": self.metadata[idx]}
 
     def epoch_batches(self, batch_size: int, rng: np.random.Generator,
                       weighted: bool, drop_last: bool = True
@@ -286,9 +291,10 @@ class DeviceDataSource:
         return len(self.labels)
 
     def _take(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {"image": self.images.index_select(0, idx),
-                "label": self.labels_dev.index_select(0, idx),
-                "metadata": self.meta_dev.index_select(0, idx)}
+        with span("data.gather"):
+            return {"image": self.images.index_select(0, idx),
+                    "label": self.labels_dev.index_select(0, idx),
+                    "metadata": self.meta_dev.index_select(0, idx)}
 
     def gather(self, indices: np.ndarray) -> Dict[str, torch.Tensor]:
         idx = torch.from_numpy(np.asarray(indices, np.int64).reshape(-1))

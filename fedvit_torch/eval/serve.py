@@ -22,6 +22,7 @@ from torch import nn
 from fedvit_torch.core.config import Config
 from fedvit_torch.eval.metrics import compute_metrics
 from fedvit_torch.ops import image as I
+from fedvit_torch.utils.profiling import span
 
 
 def _device_of(model: nn.Module) -> torch.device:
@@ -44,18 +45,23 @@ def make_eval_step(model: nn.Module, cfg: Config,
     transform from ``make_device_augment``) its "image" is the raw uint8
     canvas. The model runs in evaluation mode (``deterministic=True`` in
     the JAX step), whatever mode a train step left it in. ``_evaluate``
-    computes the loss the JAX step returns beside the logits."""
+    computes the loss the JAX step returns beside the logits. The copy to
+    the device, the augment and the forward are the spans ``serve.copy``,
+    ``serve.augment`` and ``serve.forward`` (``utils/profiling.py``)."""
     use_meta = cfg.model.metadata.enabled
     device = _device_of(model)
 
     @torch.inference_mode()
     def eval_step(batch: Dict) -> torch.Tensor:
         model.eval()
-        batch = _to_device(batch, device)
+        with span("serve.copy"):
+            batch = _to_device(batch, device)
         if augment is not None:
-            batch = augment(batch)
+            with span("serve.augment"):
+                batch = augment(batch)
         metadata = batch.get("metadata") if use_meta else None
-        return model(batch["image"], metadata)["logits"]
+        with span("serve.forward"):
+            return model(batch["image"], metadata)["logits"]
 
     return eval_step
 

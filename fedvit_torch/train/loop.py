@@ -38,6 +38,7 @@ every rank reads them.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -62,6 +63,7 @@ from fedvit_torch.train.losses import build_loss, cross_entropy_loss
 from fedvit_torch.train.optim import build_head_optimizer, build_optimizer
 from fedvit_torch.train.state import TrainState
 from fedvit_torch.train.step import make_train_step
+from fedvit_torch.utils.profiling import span
 
 
 def init_model_state(cfg: Config, rng_seed: int = 0,
@@ -116,18 +118,33 @@ def _train_epoch(step, state, source, macro_bs: int, rng_np, weighted: bool,
                  augment, base: int, device, on_step=None
                  ) -> Tuple[object, float]:
     """One epoch of optimizer steps; returns (state, mean train loss).
-    ``on_step()`` runs after each optimizer step."""
+    ``on_step()`` runs after each optimizer step.
+
+    Each step runs in three spans (``utils/profiling.py``): ``train.fetch``
+    (the source's next batch, the sampler's plan on the first, and its copy
+    to ``device``), ``train.augment`` (the batch's generator and the
+    augment) and ``train.step``; the epoch ends with the fetch that finds
+    the source exhausted and ``train.epoch_end``, the read of its losses."""
     losses = []
-    for i, batch in enumerate(source.epoch_batches(macro_bs, rng_np, weighted)):
-        batch = augment(_to_device(batch, device),
-                        batch_generator(base, i, device))
-        state, m = step(state, batch)
+    batches = iter(source.epoch_batches(macro_bs, rng_np, weighted))
+    for i in itertools.count():
+        with span("train.fetch"):
+            batch = next(batches, None)
+            if batch is not None:
+                batch = _to_device(batch, device)
+        if batch is None:
+            break
+        with span("train.augment"):
+            batch = augment(batch, batch_generator(base, i, device))
+        with span("train.step"):
+            state, m = step(state, batch)
         losses.append(m["loss"])
         if on_step is not None:
             on_step()
-    if not losses:
-        return state, float("nan")
-    return state, float(np.mean(torch.stack(losses).cpu().numpy()))
+    with span("train.epoch_end"):
+        if not losses:
+            return state, float("nan")
+        return state, float(np.mean(torch.stack(losses).cpu().numpy()))
 
 
 def train_fold(cfg: Config, fold: int, train_source, val_source,

@@ -19,6 +19,11 @@ Metrics are ``loss`` and ``grad_norm``, the global norm of the averaged
 gradients before clipping, as tensors on the model's device (reading them
 waits for the device).
 
+The stages are spans (``utils/profiling.py``): ``train.augment`` (a fused
+augment), ``train.forward_backward`` (the micro-batches and the gradients'
+average), ``train.allreduce`` (data-parallel only) and ``train.update``
+(``apply_update``).
+
 Data-parallel (``data``, ``parallel/data.py``): under SPMD semantics every
 rank is given the whole macro batch, augments and mixes it from the same
 draws, and runs forward and backward on its rows of each micro-batch
@@ -68,6 +73,7 @@ from fedvit_torch.train.losses import LossFn, bce_dice_loss, mixup_criterion
 from fedvit_torch.train.mixup import make_mix_fn
 from fedvit_torch.train.optim import global_norm
 from fedvit_torch.train.state import TrainState
+from fedvit_torch.utils.profiling import span
 
 
 class TrainStep:
@@ -99,7 +105,8 @@ class TrainStep:
         device = next(model.parameters()).device
         batch = _to_device(batch, device)
         if self.augment is not None:
-            batch = self.augment(batch, state.generator)
+            with span("train.augment"):
+                batch = self.augment(batch, state.generator)
         images, labels = batch["image"], batch["label"].long()
         metadata = batch.get("metadata") if self.use_meta else None
         b = images.shape[0]
@@ -110,8 +117,31 @@ class TrainStep:
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
+        with span("train.forward_backward"):
+            loss_sum, grads = self._micro_batches(state, params, images,
+                                                  labels, metadata, micro)
+        stats = {name: t for name, t in model.named_buffers()
+                 if name.endswith(("running_mean", "running_var"))}
+        loss = loss_sum * (1.0 / self.accum)
+        if self.data is not None:
+            # SPMD: the ranks' shares sum to the unsharded gradients and
+            # loss; per shard: the mean over the shards (JAX's pmean), the
+            # BatchNorm statistics too
+            group, scale = self.data.group, 1.0
+            with span("train.allreduce"):
+                if not self.data.spmd:
+                    scale = 1.0 / self.data.size
+                    all_reduce_flat(list(stats.values()), group, scale)
+                all_reduce_flat(list(grads.values()) + [loss], group, scale)
+        return grads, loss, stats
+
+    def _micro_batches(self, state: TrainState, params, images, labels,
+                       metadata, micro: int):
+        """(loss sum, grads by name): each micro-batch's mix, forward, loss
+        and backward, then the gradients averaged over them."""
+        model = state.model
         spmd = self.data is not None and self.data.spmd
-        loss_sum = torch.zeros((), device=device)
+        loss_sum = torch.zeros((), device=images.device)
         for i in range(self.accum):
             sl = slice(i * micro, (i + 1) * micro)
             x, y = images[sl], labels[sl]
@@ -150,19 +180,7 @@ class TrainStep:
             if self.accum > 1:
                 p.grad.mul_(1.0 / self.accum)
             grads[name] = p.grad
-        stats = {name: t for name, t in model.named_buffers()
-                 if name.endswith(("running_mean", "running_var"))}
-        loss = loss_sum * (1.0 / self.accum)
-        if self.data is not None:
-            # SPMD: the ranks' shares sum to the unsharded gradients and
-            # loss; per shard: the mean over the shards (JAX's pmean), the
-            # BatchNorm statistics too
-            group, scale = self.data.group, 1.0
-            if not self.data.spmd:
-                scale = 1.0 / self.data.size
-                all_reduce_flat(list(stats.values()), group, scale)
-            all_reduce_flat(list(grads.values()) + [loss], group, scale)
-        return grads, loss, stats
+        return loss_sum, grads
 
     def _micro_loss(self, model, state: TrainState, x, y, meta, ya, yb, lam
                     ) -> torch.Tensor:
@@ -182,13 +200,14 @@ class TrainStep:
         """Optimizer update, EMA and ``step += 1``, in place; returns the
         global norm of ``grads`` before clipping (all of them, also where the
         optimizer updates only the head)."""
-        grad_norm = global_norm(grads.values())
-        state.tx.step(state.model, grads, state.opt_state)
-        if self.ema_enabled and state.ema is not None:
-            ema_update(state.ema, state.model, self.ema_decay)
-        for p in state.model.parameters():
-            p.grad = None
-        state.step += 1
+        with span("train.update"):
+            grad_norm = global_norm(grads.values())
+            state.tx.step(state.model, grads, state.opt_state)
+            if self.ema_enabled and state.ema is not None:
+                ema_update(state.ema, state.model, self.ema_decay)
+            for p in state.model.parameters():
+                p.grad = None
+            state.step += 1
         return grad_norm
 
     def __call__(self, state: TrainState, batch: Dict

@@ -1,7 +1,8 @@
 """``fedvit_torch.cli.verify`` and ``fedvit_torch.utils.profiling`` on the
 CPU: the harness's 14 checks pass and a broken one fails the command by
-name; ``StepTimer`` gives JAX's stats on the same times; ``trace`` writes a
-trace; ``cli.train --profile`` writes its trace through ``trace``."""
+name; ``trace`` writes a trace with a ``span``'s range in it;
+``cli.train --profile`` writes its trace through ``trace``, with the
+epoch loop's spans in it."""
 
 import copy
 import json
@@ -15,7 +16,6 @@ import pytest
 from fedvit_torch.cli import train as tcli
 from fedvit_torch.cli import verify
 from fedvit_torch.utils import profiling
-from fedvit_tpu.utils import profiling as jprofiling
 
 from tests.torch_parity import TINY, shallow_vit, write_isic_tree
 
@@ -58,41 +58,23 @@ def test_array_source_takes_float_images_as_jax_does():
         np.testing.assert_array_equal(got[k], want[k])
 
 
-@pytest.mark.parametrize("times,skip", [
-    ([0.5, 0.4, 0.1, 0.3, 0.2], 2), ([0.5, 0.4, 0.1, 0.3], 0),
-    ([0.7, 0.2], 2), ([0.9, 0.1, 0.4], 1), ([], 2)],
-    ids=["skip2", "skip0", "all_skipped", "skip1", "empty"])
-def test_step_timer_stats_match_jax(times, skip):
-    got, want = profiling.StepTimer(skip), jprofiling.StepTimer(skip)
-    got.times, want.times = list(times), list(times)
-    assert got.stats() == want.stats()
-
-
-def test_step_timer_times_each_step():
-    timer = profiling.StepTimer(skip=1)
-    for _ in range(3):
-        with timer:
-            sum(range(1000))
-    assert len(timer.times) == 3 and all(t >= 0 for t in timer.times)
-    assert timer.stats()["steps"] == 2
-
-
 def test_trace_writes_a_trace_on_the_cpu(tmp_path):
     import torch
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("verify_span"):
+        with profiling.span("verify_span"):
             torch.ones(64, 64).matmul(torch.ones(64, 64))
     files = list(tmp_path.glob("*.pt.trace.json"))
     assert len(files) == 1
     names = {str(e.get("name", "")) for e in
              json.loads(files[0].read_text())["traceEvents"]}
-    assert "verify_span" in names
+    assert "fedvit.verify_span" in names
     assert any(n.startswith("aten::") for n in names)
 
 
 def test_cli_train_profiles_through_utils_trace(tmp_path):
     """``cli.train --profile`` on a tiny ISIC layout opens one
-    ``utils.profiling.trace`` with a schedule, and its trace is written."""
+    ``utils.profiling.trace`` with a schedule, and its trace is written with
+    the profiled steps' ``fedvit.train.step`` spans in it."""
     root = write_isic_tree(tmp_path / "ISIC", n_train=24, test=None,
                            masks=tmp_path / "masks")
     raw = copy.deepcopy(TINY)
@@ -118,4 +100,8 @@ def test_cli_train_profiles_through_utils_trace(tmp_path):
                           str(tmp_path / "trace"), "--device", "cpu"]) == 0
     assert len(opened) == 1 and opened[0][1] is not None
     assert opened[0][2] is False            # a CPU run records no CUDA activity
-    assert len(list((tmp_path / "trace").glob("*.pt.trace.json"))) == 1
+    files = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(files) == 1
+    steps = [e for e in json.loads(files[0].read_text())["traceEvents"]
+             if e.get("name") == "fedvit.train.step"]
+    assert steps and all(e.get("cat") == "user_annotation" for e in steps)

@@ -165,6 +165,29 @@ def steps(raw: Dict, batches: List[Dict], class_weights, data: bool,
     return out
 
 
+def step_span_counts(raw: Dict, batch: Dict) -> Dict[str, int]:
+    """One data-parallel train step over the default group from the seeded
+    model; how many spans of each of the step's names it recorded
+    (``utils/profiling.py``)."""
+    from fedvit_torch.parallel.data import DataParallel
+    from fedvit_torch.train.losses import build_loss
+    from fedvit_torch.train.optim import build_optimizer
+    from fedvit_torch.train.state import TrainState
+    from fedvit_torch.train.step import make_train_step
+    from fedvit_torch.utils.profiling import reset_spans, span_stats
+    with shallow():
+        cfg, model = model_from(raw)
+        tx, _ = build_optimizer(cfg, model, steps_per_epoch=4)
+        state = TrainState.create(model, tx, 5)
+        step = make_train_step(cfg, build_loss(cfg),
+                               data=DataParallel(dist.group.WORLD))
+        reset_spans()
+        step(state, batch)
+    names = ("train.augment", "train.forward_backward", "train.allreduce",
+             "train.update")
+    return {n: span_stats(n).count if span_stats(n) else 0 for n in names}
+
+
 # --- the fold --------------------------------------------------------------------
 
 def fold(raw: Dict, state_dict, data: Dict, workdir: str,
