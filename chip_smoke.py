@@ -5,7 +5,11 @@
     python3 chip_smoke.py --trace    # and where the time of a serving batch
                                      # and of a training step goes
 
-Phases, one line of output each (or a few):
+Phases, one line of output each (or a few). Every gate on launch counts
+holds the LayerNorm forward kernel's count too ("LN" beside K1-K12): one
+launch a LayerNorm forward, 25 a ViT-B forward (26 or 27 with the
+HybridViT's head and cross-attention), 53 a SwinV2-L one, and again for the
+blocks' two each in a forward that remat recomputes.
 
 1. the card (``nvidia-smi`` name and power limit, ``torch.cuda``), which of
    PIL, pandas, PyYAML and OpenCV import (in a process of their own; phase 13
@@ -21,8 +25,9 @@ Phases, one line of output each (or a few):
 3. serving: a ViT-B/16@224 ``ISICClassifier`` (4 channels, metadata, bf16,
    seeded random weights) takes seeded 272² uint8 canvases through the eval
    augment and forward (``eval/serve.py::_evaluate``) at batch 256, with a
-   ragged last batch; the kernel's launch count must be 12 per forward and
-   the logits must match the same model run with the plain attention;
+   ragged last batch; the kernel's launch count must be 12 per forward, the
+   LayerNorm forward kernel's 25, and the logits must match the same model
+   run with the plain attention;
 4. the same for 8-view TTA (``evaluate_with_tta``) at batch 32;
 5. with ``--trace`` only: a serving batch broken into stages (each ended by
    a synchronise, host clock) and a ``torch.profiler`` trace of
@@ -37,12 +42,19 @@ Phases, one line of output each (or a few):
       MixUp/CutMix, AdamW with LLRD, clip, EMA, macro batch 128 as 2
       micro-batches of 64 made by the eval augment from seeded 272² uint8
       canvases; 1 warm-up step then 5 timed ones, img/s and peak memory, the
-      launch counts (2 × (12 K2, 12 K3, 25 K4) a step, no K1), the parameters
+      launch counts (2 × (12 K2, 12 K3, 25 K4, 25 LayerNorm forwards) a step,
+      no K1), the parameters
       and the EMA shadow must move as the update says;
    c. the gradients of one macro batch through the kernels against the same
       step through the plain attention and LayerNorm backward, leaf by leaf,
       and a control with K3's bias gradient zeroed that must fail the check;
    with ``--trace``, a ``torch.profiler`` trace of one training step;
+   d. the LayerNorm forward kernel (``csrc/layer_norm_fwd.cu``) against
+      ``layer_norm_plain`` in the four (input, output) dtype pairs at small
+      and odd shapes, then timed at the cells' shapes (a SwinV2-L serving
+      batch of 32 at its four widths, ViT-B's 128 x 197 rows of 768) and the
+      HybridViT's fp32 rows, beside its byte bound, the plain forward and
+      ``F.layer_norm``;
 7. SwinV2-L@384 serving (``swinv2_large_window12to24_192to384``):
    a. K5 (the windowed attention with a relative-position bias and a shift
       mask) against its plain version: small fp32 cases with a ragged N,
@@ -56,7 +68,7 @@ Phases, one line of output each (or a few):
    b. serving: the ``ISICClassifier`` on SwinV2-L (4 channels, metadata, bf16,
       seeded perturbed weights) takes seeded 448² uint8 canvases through
       ``_evaluate`` at batch 32 with a ragged last batch; 24 K5 launches per
-      forward and none of K1-K4; the logits against the same model with the
+      forward, 53 of the LayerNorm forward and none of K1-K4; the logits against the same model with the
       plain attention, and a control with the relative-position bias zeroed
       that must fail the check;
    c. the same for 8-view TTA at batch 8;
@@ -316,12 +328,14 @@ Phases, one line of output each (or a few):
       without at each shape; SwinV2-L at 16 x 1 without remat is tried and
       whether it fits is printed), launches a step (remat runs the forward
       kernel under grad twice: 24 K2 a ViT-B micro-batch, 48 of K5's entry a
-      SwinV2-L one; K3, K4, K6, K7, K8 as without); serving the remat ViT-B
-      launches 12 K1 a forward and no K2;
+      SwinV2-L one, and the blocks' LayerNorm forwards twice; K3, K4, K6,
+      K7, K8 as without); serving the remat ViT-B launches 12 K1 and 25
+      LayerNorm forwards a forward and no K2;
    b. the plain attention options on the weights of ``auto``: ViT-B with
       ``attention_impl: xla``, SwinV2-L with ``packed`` and ``xla``, one
       serving batch (256, 32) and one training step after a warm-up each: no
-      attention kernel launched (K4 as on the kernel path), the logits
+      attention kernel launched (K4 and the LayerNorm forward as on the
+      kernel path), the logits
       within the model's serving gate of ``auto``'s, the step's loss too;
       img/s and peak memory beside ``auto``'s, whose launches are held as
       before;
@@ -468,6 +482,20 @@ K11_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -5}
 # order); dgamma and dbeta 1e-4 (fp32 sums over the rows in another order).
 K4_DX_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
 K4_SUM_TOL = 1e-4
+# The LayerNorm forward kernel against layer_norm_plain: the same roundings
+# in the same order but for the fp32 sums of x and x² (another order), each
+# output rounded once. fp32 output: max |difference| over max |value| (or 1);
+# bf16 output: one bf16 ulp of the larger of the two values, or that share
+# of the largest value at elements near zero (fp32 noise, where an ulp is
+# smaller than it).
+LN_FWD_TOL = 1e-6
+# The forward kernel at the cells' shapes, bf16 to bf16, (rows, D): a
+# SwinV2-L serving batch of 32 at its four widths (stage 3 also at 8
+# images) and a ViT-B training micro-batch of 128 (the benchmark's 1 x 128);
+# then the HybridViT head's and fusion's fp32 rows, 64 a micro-batch.
+LN_FWD_SHAPES = ((294912, 192), (73728, 384), (18432, 768), (4608, 1536),
+                 (1152, 1536), (25216, 768))
+LN_FWD_OLD_SHAPES = ((64, 512), (64, 768))
 # The gradient of each parameter over one macro batch, kernel path against
 # the plain attention and LayerNorm backward, as the RMS of the difference
 # over the RMS of the plain gradient. As for the logits: bf16 roundings that
@@ -788,12 +816,24 @@ def compare_logits(name, got, want, limit=LOGITS_RTOL_BF16):
         raise RuntimeError(f"{name}: kernel path disagrees with the plain path")
 
 
-def expect_launches(name, fa, forwards):
-    got = fa.flash_attention_qkvb.launches
-    log(f"[{name}] K1 launches {got} for {forwards} forwards")
-    if got != BLOCKS * forwards:
-        raise RuntimeError(f"{name}: {got} K1 launches, want {BLOCKS * forwards}")
-    return got
+def serving_want(fns, forwards, norms=NORMS) -> dict:
+    """The launches of ``forwards`` ViT-B serving forwards, by each kernel of
+    ``fns``: 12 K1 and ``norms`` LayerNorm forwards a forward, nothing else."""
+    return {k: 0 for k in fns} | {"K1": BLOCKS * forwards,
+                                  "LN": norms * forwards}
+
+
+def expect_launches(name, fa, ln, forwards, norms=NORMS):
+    """K1's launches (BLOCKS a forward) and the LayerNorm forward kernel's
+    (``norms`` a forward) since both counts were zeroed; returns K1's."""
+    got = (fa.flash_attention_qkvb.launches, ln.layer_norm_fwd_cuda.launches)
+    want = (BLOCKS * forwards, norms * forwards)
+    log(f"[{name}] K1 and LayerNorm forward launches {got} for {forwards} "
+        f"forwards (want {want})")
+    if got != want:
+        raise RuntimeError(f"{name}: {got} K1 and LayerNorm forward launches, "
+                           f"want {want}")
+    return got[0]
 
 
 # The names of the ViT attention kernels in a device profile: the demangled
@@ -1099,9 +1139,101 @@ def check_k4(ln, shape, dtype, timed):
     return rec
 
 
+def ln_fwd_error(got, want) -> tuple:
+    """(max |got − want|, whether every element is within the forward's
+    tolerance: ``LN_FWD_TOL``)."""
+    diff = (got.float() - want.float()).abs()
+    scale = max(1.0, float(want.float().abs().max()))
+    if got.dtype == torch.float32:
+        return float(diff.max()), float(diff.max()) <= LN_FWD_TOL * scale
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
+    ok = bool(((diff <= ulp) | (diff <= LN_FWD_TOL * scale)).all())
+    return float(diff.max()), ok
+
+
+def check_ln_fwd(ln, shape, xdt, ydt, timed):
+    """The LayerNorm forward kernel through ``layer_norm_fwd`` against
+    ``layer_norm_plain``; timed, against its byte bound (x read and y
+    written once), the plain forward and ``F.layer_norm`` (weights in x's
+    dtype), each on enough copies of its inputs, in turn, to exceed the 50 MB
+    L2 cache, as a caller finds it after the kernels before."""
+    d = shape[-1]
+    x = (seeded(shape, torch.float32, SEED + 40 + d, 2.0) + 0.5).to(xdt)
+    w = 1.0 + seeded((d,), torch.float32, SEED + 41 + d, 0.3)
+    b = seeded((d,), torch.float32, SEED + 42 + d, 0.2)
+    before = ln.layer_norm_fwd_cuda.launches
+    got = ln.layer_norm_fwd(x, w, b, 1e-6, ydt)
+    again = ln.layer_norm_fwd(x, w, b, 1e-6, ydt)
+    torch.cuda.synchronize()
+    launched = ln.layer_norm_fwd_cuda.launches - before
+    want = ln.layer_norm_plain(x, w, b, 1e-6, ydt)
+    err, ok = ln_fwd_error(got, want)
+    log(f"[ln-fwd] x {shape} {short(xdt)} -> {short(ydt)}: max_abs_err "
+        f"{err!r}, within one bf16 ulp or {LN_FWD_TOL!r} of the largest value: "
+        f"{ok}; launches {launched} for 2 calls; the same bits twice "
+        f"{torch.equal(got, again)}")
+    if not ok or launched != 2 or not torch.equal(got, again) or \
+            got.dtype != ydt:
+        raise RuntimeError("the LayerNorm forward kernel disagrees with its "
+                           "plain version or did not launch once a call")
+    rec = {"max_abs_err": err}
+    if not timed:
+        return rec
+    nbytes = x.numel() * (x.element_size() + got.element_size()) + 2 * d * 4
+    copies = max(1, math.ceil(100e6 / nbytes))
+    xs = [x.clone() for _ in range(copies)]
+
+    def cycling(fn):
+        it = itertools.cycle(xs)
+        return lambda: fn(next(it))
+
+    rec["ms"] = cuda_ms(cycling(lambda xi: ln.layer_norm_fwd(xi, w, b, 1e-6,
+                                                             ydt)))
+    rec["plain_ms"] = cuda_ms(cycling(lambda xi: ln.layer_norm_plain(
+        xi, w, b, 1e-6, ydt)))
+    if xdt == ydt:
+        wl, bl = w.to(xdt), b.to(xdt)
+        rec["library_ms"] = cuda_ms(cycling(
+            lambda xi: torch.nn.functional.layer_norm(xi, (d,), wl, bl, 1e-6)))
+    # per element: the two sums 3, (x − mu) r g + b 4, the cast 1
+    rec.update(bound(nbytes, 8.0 * x.numel(), torch.float32))
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    log(f"[ln-fwd] x {shape} {short(xdt)} -> {short(ydt)}: kernel "
+        f"{rec['ms']!r} ms, {100 * rec['share_of_bound']!r}% of its bound "
+        f"{rec['bound_ms']!r} ms by {rec['bound_by']} ({nbytes} B); plain "
+        f"{rec['plain_ms']!r} ms; F.layer_norm {rec.get('library_ms')!r} ms; "
+        f"{copies} copies of x in turn")
+    return rec
+
+
+def ln_fwd_phase(ln) -> dict:
+    """6d: the LayerNorm forward kernel against its plain version in each
+    (input, output) dtype pair at small and odd row counts, then timed at the
+    cells' shapes (``LN_FWD_SHAPES``) and the HybridViT's fp32 rows."""
+    for xdt, ydt in ((torch.float32, torch.float32),
+                     (torch.bfloat16, torch.bfloat16),
+                     (torch.float32, torch.bfloat16),
+                     (torch.bfloat16, torch.float32)):
+        for shape in ((1, 192), (7, 384), (9, 768), (3, 37, 1536), (5, 2048),
+                      (65, 8), (33, 64)):
+            check_ln_fwd(ln, shape, xdt, ydt, False)
+    recs = {f"{rows}x{d}": check_ln_fwd(ln, (rows, d), torch.bfloat16,
+                                        torch.bfloat16, True)
+            for rows, d in LN_FWD_SHAPES}
+    recs |= {f"{rows}x{d} float32": check_ln_fwd(ln, (rows, d), torch.float32,
+                                                 torch.float32, True)
+             for rows, d in LN_FWD_OLD_SHAPES}
+    slow = {k: r for k, r in recs.items() if "library_ms" in r
+            and r["ms"] > r["library_ms"]}
+    log(f"[ln-fwd] shapes where F.layer_norm is faster: {sorted(slow)}")
+    return recs
+
+
 def counted(fa, ln) -> dict:
-    """Every kernel wrapper that counts its launches, by kernel (the
-    attention kernels only when ``ln`` is None)."""
+    """Every kernel wrapper that counts its launches, by kernel, the
+    LayerNorm forward kernel as "LN" (the attention kernels only when ``ln``
+    is None)."""
     fns = {"K1": fa.flash_attention_qkvb, "K2": fa.qkvb_attention_lse_cuda,
            "K3": fa.qkvb_attention_bwd_cuda,
            "K10": fa.flash_attention_qkv, "K10_lse": fa.qkv_attention_lse_cuda,
@@ -1116,7 +1248,8 @@ def counted(fa, ln) -> dict:
            "K12": fa.flash_attention_cosine_flat,
            "K12_lse": fa.cosine_window_attention_lse_cuda,
            "K12_bwd": fa.cosine_window_attention_bwd_cuda}
-    return fns if ln is None else fns | {"K4": ln.layer_norm_bwd_cuda}
+    return fns if ln is None else fns | {"K4": ln.layer_norm_bwd_cuda,
+                                         "LN": ln.layer_norm_fwd_cuda}
 
 
 def launch_counts(fa, ln) -> dict:
@@ -1386,7 +1519,7 @@ def train_phase(fa, ln, attention_from_qkvb, smi, trace):
     state = warm_up_step("train", cfg, model, state, step, batches[0])
     want = {k: 0 for k in counted(fa, ln)} | {
         "K2": TIMED_STEPS * ACCUM * BLOCKS, "K3": TIMED_STEPS * ACCUM * BLOCKS,
-        "K4": TIMED_STEPS * ACCUM * NORMS}
+        "K4": TIMED_STEPS * ACCUM * NORMS, "LN": TIMED_STEPS * ACCUM * NORMS}
     state, counts = timed_steps("train", "ViT-B/16@224 bf16 4ch+meta", fa, ln,
                                 state, step, batches[1:], want, smi)
 
@@ -1577,7 +1710,8 @@ def swin_phase(fa, ln, smi, trace):
 
     def expect(name, forwards):
         got = launch_counts(fa, ln)
-        want = {k: 0 for k in got} | {"K5": blocks * forwards}
+        want = {k: 0 for k in got} | {"K5": blocks * forwards,
+                                      "LN": sum(SWIN_NORMS) * forwards}
         log(f"[{name}] launches for {forwards} forwards: {got} (want {want})")
         if got != want:
             raise RuntimeError(f"{name}: the SwinV2 forward did not launch the "
@@ -1829,7 +1963,7 @@ def swin_train_phase(fa, ln, smi, trace):
     micro_batches = TIMED_STEPS * SWIN_ACCUM
     want = {k: 0 for k in counted(fa, ln)} | {
         "K5_lse": micro_batches * blocks, "K6": micro_batches * blocks,
-        "K4": micro_batches * norms}
+        "K4": micro_batches * norms, "LN": micro_batches * norms}
     state, counts = timed_steps("swin-train", "SwinV2-L@384 bf16 4ch+meta", fa,
                                 ln, state, step, batches[1:], want, smi)
     if trace:
@@ -2132,7 +2266,8 @@ def fold_phase(fa, ln, rs, ra, smi, trace):
     save, load = checkpoint.save_checkpoint, checkpoint.load_checkpoint
     lines = []
     want = {k: 0.0 for k in fns} | {"K7": 12.0, "K8": 3.0, "K2": ACCUM * BLOCKS,
-                                      "K3": ACCUM * BLOCKS, "K4": ACCUM * NORMS}
+                                      "K3": ACCUM * BLOCKS, "K4": ACCUM * NORMS,
+                                      "LN": ACCUM * NORMS}
     try:
         with contextlib.ExitStack() as stack:
             for module, name, fn in ((loop, "_train_epoch", timed_epoch),
@@ -2690,7 +2825,8 @@ def impl_train(fa, ln, impl, smi, trace):
     micro_batches = TIMED_STEPS * ACCUM
     want = {k: 0 for k in counted(fa, ln)} | {
         f"{kernel}_lse": micro_batches * BLOCKS,
-        f"{kernel}_bwd": micro_batches * BLOCKS, "K4": micro_batches * NORMS}
+        f"{kernel}_bwd": micro_batches * BLOCKS, "K4": micro_batches * NORMS,
+        "LN": micro_batches * NORMS}
     state, counts = timed_steps(tag, f"ViT-B/16@224 bf16 4ch+meta {impl}", fa,
                                 ln, state, step, batches[1:], want, smi)
     control, control_name = impl_control_grads(fa, impl)
@@ -3486,12 +3622,14 @@ def fed_instruments(fa, ln, on_round_end=None):
 
 def plain_versions(fa, ln):
     """(module, name) of the plain versions of the phase's kernels: K1-K3's
-    attention and K3's kernel-order backward, K4, K7's two shifts, K8."""
+    attention and K3's kernel-order backward, the LayerNorm forward, K4,
+    K7's two shifts, K8."""
     from fedvit_torch.ops import randaugment as ra
     from fedvit_torch.ops import row_shift as rs
     return ((fa, "attention_from_qkvb"), (fa, "qkvb_attention_bwd_plain"),
-            (ln, "ln_bwd_plain"), (rs, "row_shift_plain"),
-            (rs, "col_shift_plain"), (ra, "equalize_plain"))
+            (ln, "layer_norm_plain"), (ln, "ln_bwd_plain"),
+            (rs, "row_shift_plain"), (rs, "col_shift_plain"),
+            (ra, "equalize_plain"))
 
 
 @contextlib.contextmanager
@@ -3519,11 +3657,14 @@ def per_round(counts):
 
 
 def fed_want():
-    """Launches a round: 4 × 8 local steps of (12 K2, 12 K3, 25 K4, 12 K7,
-    3 K8) and 12 K1 a forward of the evaluation (4 batches of 64)."""
+    """Launches a round: 4 × 8 local steps of (12 K2, 12 K3, 25 K4, 25
+    LayerNorm forwards, 12 K7, 3 K8) and (12 K1, 25 LayerNorm forwards) a
+    forward of the evaluation (4 batches of 64)."""
     steps = FED_CLIENTS * FED_STEPS
-    return {"K1": BLOCKS * FED_EVAL // FED_EVAL_BATCH, "K2": steps * BLOCKS,
-            "K3": steps * BLOCKS, "K4": steps * NORMS, "K7": steps * 12,
+    forwards = FED_EVAL // FED_EVAL_BATCH
+    return {"K1": BLOCKS * forwards, "K2": steps * BLOCKS,
+            "K3": steps * BLOCKS, "K4": steps * NORMS,
+            "LN": (steps + forwards) * NORMS, "K7": steps * 12,
             "K8": steps * 3}
 
 
@@ -4311,7 +4452,7 @@ def isic_phase(fa, ln, smi, packages, tmp):
 
     phase_t0 = time.perf_counter()
     fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
-    path_kernels = ("K1", "K2", "K3", "K4", "K7", "K8")
+    path_kernels = ("K1", "K2", "K3", "K4", "LN", "K7", "K8")
 
     def now():
         return {k: fn.launches for k, fn in fns.items()}
@@ -4457,7 +4598,7 @@ def isic_phase(fa, ln, smi, packages, tmp):
         f"lesions, lesions on both sides: {len(fold.get('shared', ()))}")
     want_step = {k: 0.0 for k in fns} | {
         "K7": 12.0, "K8": 3.0, "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
-        "K4": ACCUM * NORMS}
+        "K4": ACCUM * NORMS, "LN": ACCUM * NORMS}
     for i, e in enumerate(epochs):
         log(f"[isic] cli.train epoch {i + 1}: {e['steps']} steps in "
             f"{e['s']!r} s = {e['img_s']!r} train img/s synchronised "
@@ -4476,8 +4617,8 @@ def isic_phase(fa, ln, smi, packages, tmp):
         f"{only(train_counts)}; plain versions called {plain}; "
         f"ensemble_logits.npy {ens.shape}, finite "
         f"{bool(np.isfinite(ens).all())} ({smi})")
-    bad_eval = [r for r in evals + ttas if r["launches"] != {
-        k: (BLOCKS * r["forwards"] if k == "K1" else 0) for k in fns}]
+    bad_eval = [r for r in evals + ttas
+                if r["launches"] != serving_want(fns, r["forwards"])]
     if fold.get("shared") or not fold.get("train"):
         raise RuntimeError("fold 0's training and validation lesions "
                            "overlap, or the fold did not run")
@@ -4487,7 +4628,8 @@ def isic_phase(fa, ln, smi, packages, tmp):
             any(plain.values()):
         raise RuntimeError(f"cli.train did not launch the kernels as it "
                            f"should: want {only(want_step)} a step and "
-                           f"{BLOCKS} K1 a forward, no plain version")
+                           f"{BLOCKS} K1 and {NORMS} LayerNorm forwards a "
+                           f"forward, no plain version")
     if not all((logs / "fold0" / f"{k}_fold0" / "state.pt").exists()
                for k in ("best", "resume")) or \
             ens.shape != (ISIC_TEST, 8) or not np.isfinite(ens).all() or \
@@ -4531,10 +4673,10 @@ def isic_phase(fa, ln, smi, packages, tmp):
         f"bit-equal {np.array_equal(got, ens)}, RMS error {err!r} x RMS "
         f"logit (limit {LOGITS_RTOL_BF16!r}: the batch sizes differ) "
         f"({smi})")
-    if predict_counts != {k: (BLOCKS * preds[0]["forwards"] if k == "K1"
-                              else 0) for k in fns} or any(plain.values()):
-        raise RuntimeError("cli.predict did not launch K1 alone, 12 a "
-                           "forward")
+    if predict_counts != serving_want(fns, preds[0]["forwards"]) or \
+            any(plain.values()):
+        raise RuntimeError("cli.predict did not launch K1 and the LayerNorm "
+                           "forward alone, 12 and 25 a forward")
     if not err <= LOGITS_RTOL_BF16 or got.shape != ens.shape or \
             len(rows) != ISIC_TEST or not same_order or \
             "macro avg" not in printed:
@@ -4827,7 +4969,7 @@ def on_device_masks_phase(fa, ln, smi, packages):
                for i, (b, size) in enumerate(SEG_SHAPES)]
 
     fns = counted(fa, ln) | {"K7": rs.shift_cuda, "K8": ra.equalize_cuda}
-    path_kernels = ("K1", "K2", "K3", "K4", "K7", "K8")
+    path_kernels = ("K1", "K2", "K3", "K4", "LN", "K7", "K8")
 
     def now():
         return {k: fn.launches for k, fn in fns.items()}
@@ -4952,7 +5094,7 @@ def on_device_masks_phase(fa, ln, smi, packages):
         ens = np.load(logs / "ensemble_logits.npy")
         want_step = {k: 0.0 for k in fns} | {
             "K7": 12.0, "K8": 3.0, "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
-            "K4": ACCUM * NORMS}
+            "K4": ACCUM * NORMS, "LN": ACCUM * NORMS}
         for i, e in enumerate(epochs):
             step_ms = e["s"] / e["steps"] * 1e3
             log(f"[masks] cli.train epoch {i + 1}: {e['steps']} steps in "
@@ -4971,9 +5113,7 @@ def on_device_masks_phase(fa, ln, smi, packages):
             f"ensemble_logits.npy {ens.shape}, finite "
             f"{bool(np.isfinite(ens).all())} ({smi})")
         bad_eval = [r for r in evals if r["segment_calls"] != r["forwards"]
-                    or r["launches"] != {k: (BLOCKS * r["forwards"]
-                                             if k == "K1" else 0)
-                                         for k in fns}]
+                    or r["launches"] != serving_want(fns, r["forwards"])]
         if len(epochs) != ISIC_EPOCHS or any(
                 e["per_step"] != want_step or e["segment_calls"] != e["steps"]
                 or not math.isfinite(e["loss"]) for e in epochs) or \
@@ -5015,8 +5155,8 @@ def on_device_masks_phase(fa, ln, smi, packages):
             f"called {plain}; logits {got.shape}, finite "
             f"{bool(np.isfinite(got).all())}, RMS difference from "
             f"ensemble_logits.npy {rel_rms(got, ens)!r} x RMS logit ({smi})")
-        if predict_counts != {k: (BLOCKS * forwards if k == "K1" else 0)
-                              for k in fns} or any(plain.values()) or \
+        if predict_counts != serving_want(fns, forwards) or \
+                any(plain.values()) or \
                 len(predict_calls) != forwards or \
                 got.shape != (ISIC_TEST, 8) or not np.isfinite(got).all():
             raise RuntimeError("cli.predict with on-device masks did not run "
@@ -5052,6 +5192,7 @@ def on_device_masks_phase(fa, ln, smi, packages):
         eval_forwards = math.ceil(ISIC_TEST / cfg.training.batch_size)
         fed_want_ = {"K1": BLOCKS * eval_forwards, "K2": steps * BLOCKS,
                      "K3": steps * BLOCKS, "K4": steps * NORMS,
+                     "LN": (steps + eval_forwards) * NORMS,
                      "K7": steps * 12, "K8": steps * 3}
         log(f"[masks] 14d `python -m fedvit_torch.cli.train_federated` on the "
             f"ISIC files with on-device masks ({MASK_CLIENTS} clients x "
@@ -5174,6 +5315,7 @@ def old_serving(fa, attention_from_qkvb, smi, fusion):
     from fedvit_torch.core.config import from_dict
     from fedvit_torch.data.pipeline import make_device_augment
     from fedvit_torch.eval.serve import _evaluate, _to_device, make_eval_step
+    from fedvit_torch.ops import layer_norm as ln
 
     tag = f"old-serve {fusion}"
     cfg = from_dict(old_gen_raw(fusion, joint=False))
@@ -5187,12 +5329,13 @@ def old_serving(fa, attention_from_qkvb, smi, fusion):
     _evaluate(step, source, OLD_SERVE_BATCH, cfg.num_classes)     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_qkvb.launches = 0
+    reset_counts(fa, ln)
     t0 = time.perf_counter()
     served = _evaluate(step, source, OLD_SERVE_BATCH, cfg.num_classes)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = expect_launches(tag, fa, OLD_SERVE_IMAGES // OLD_SERVE_BATCH)
+    launches = expect_launches(tag, fa, ln, OLD_SERVE_IMAGES // OLD_SERVE_BATCH,
+                               OLD_NORMS[fusion])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with attention_replaced_by(attention_from_qkvb):
         plain = _evaluate(step, source, OLD_SERVE_BATCH, cfg.num_classes)
@@ -5289,7 +5432,8 @@ def old_train(fa, ln, attention_from_qkvb, smi, fusion, micro, n_timed,
     counts = {k: fn.launches / n_timed for k, fn in fns.items()}
     want = {k: 0.0 for k in fns} | {
         "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
-        "K4": ACCUM * OLD_NORMS[fusion], "K7": 12.0, "K8": 3.0}
+        "K4": ACCUM * OLD_NORMS[fusion], "LN": ACCUM * OLD_NORMS[fusion],
+        "K7": 12.0, "K8": 3.0}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses_ = [float(m["loss"]) for m in metrics]
     log(f"[{tag}] launches a step over {n_timed} steps: "
@@ -5474,15 +5618,16 @@ def old_cli(fa, ln, smi, tmp):
     for line in fold_log.splitlines():
         if any(s in line for s in ("[stage1]", " E0", "Fold 0 Test")):
             log(f"[old-cli] cli.train: {line.split(' | ', 1)[-1].strip()}")
+    norms = OLD_NORMS["attention"]
     want_step = {k: 0 for k in fns} | {
-        "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
-        "K4": ACCUM * OLD_NORMS["attention"], "K7": 12, "K8": 3}
+        "K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS, "K4": ACCUM * norms,
+        "LN": ACCUM * norms, "K7": 12, "K8": 3}
     bad = []
     for c in calls:
         per = ({k: v / c["units"] for k, v in c["launches"].items()}
                if c["kind"] == "epoch" else c["launches"])
         want = (want_step if c["kind"] == "epoch" else
-                {k: (BLOCKS * c["units"] if k == "K1" else 0) for k in fns})
+                serving_want(fns, c["units"], norms))
         log(f"[old-cli] cli.train {c['kind']}: {c['units']} "
             f"{'steps' if c['kind'] == 'epoch' else 'forwards'} in "
             f"{c['s']!r} s; launches {'a step ' if c['kind'] == 'epoch' else ''}"
@@ -5520,11 +5665,12 @@ def old_cli(fa, ln, smi, tmp):
         f"{predict_peak!r} GiB; launches {only(predict_counts)} for "
         f"{forwards} forwards of 8 views; plain versions called {plain}; "
         f"logits {got.shape} finite {bool(np.isfinite(got).all())} ({smi})")
-    if predict_counts != {k: (BLOCKS * forwards if k == "K1" else 0)
-                          for k in fns} or any(plain.values()) or \
+    if predict_counts != serving_want(fns, forwards, norms) or \
+            any(plain.values()) or \
             got.shape != (ISIC_TEST, 8) or not np.isfinite(got).all():
-        raise RuntimeError("cli.predict --tta on the HybridViT did not launch "
-                           "K1 alone, 12 a forward, or its logits are wrong")
+        raise RuntimeError(f"cli.predict --tta on the HybridViT did not launch "
+                           f"K1 and the LayerNorm forward alone, {BLOCKS} and "
+                           f"{norms} a forward, or its logits are wrong")
 
     # cli.predict --tta with the named views, 3-channel canvases, from a .pt
     # state dict of the seeded HybridViT
@@ -5557,24 +5703,25 @@ def old_cli(fa, ln, smi, tmp):
         f"GiB; launches {only(named_counts)}; K1's batch rows {rows} (views x "
         f"batch {bs}); plain versions called {plain}; logits {logits.shape} "
         f"finite {bool(np.isfinite(logits).all())} ({smi})")
-    if named_counts != {k: (BLOCKS * forwards if k == "K1" else 0)
-                        for k in fns} or any(plain.values()) or \
+    if named_counts != serving_want(fns, forwards, norms) or \
+            any(plain.values()) or \
             rows != [len(OLD_VIEWS) * bs] or \
             logits.shape != (ISIC_TEST, 8) or not np.isfinite(logits).all():
         raise RuntimeError("named-view TTA did not run 6 views a row through "
                            "K1, or its logits are wrong")
     return {k: {"train_cli": train_counts[k], "predict_cli": predict_counts[k],
                 "named_view_predict": named_counts[k]}
-            for k in ("K1", "K2", "K3", "K4", "K7", "K8")}
+            for k in ("K1", "K2", "K3", "K4", "LN", "K7", "K8")}
 
 
 def old_gen_phase(fa, ln, smi, tmp, trace=False):
-    """Phase 15 (with ``trace``, a profile of one JointLoss step); returns the launches of K1-K4, K7 and K8 by path
+    """Phase 15 (with ``trace``, a profile of one JointLoss step); returns
+    the launches of K1-K4, the LayerNorm forward, K7 and K8 by path
     ("launches") and K4's records at the old generation's widths ("k4")."""
     from fedvit_torch.ops.attention import attention_from_qkvb
 
     phase_t0 = time.perf_counter()
-    launches = {k: {} for k in ("K1", "K2", "K3", "K4", "K7", "K8")}
+    launches = {k: {} for k in ("K1", "K2", "K3", "K4", "LN", "K7", "K8")}
     # 15a. serving, each fusion type
     for fusion in OLD_FUSIONS:
         launches["K1"][f"serve_{fusion}"] = old_serving(
@@ -5587,7 +5734,7 @@ def old_gen_phase(fa, ln, smi, tmp, trace=False):
     xcounts = old_train(fa, ln, attention_from_qkvb, smi, "cross_attention",
                         OLD_XATTN_MICRO, 1, check=False)
     torch.cuda.empty_cache()
-    for k in ("K2", "K3", "K4", "K7", "K8"):
+    for k in ("K2", "K3", "K4", "LN", "K7", "K8"):
         launches[k]["step_attention"] = counts[k]
         launches[k]["step_cross_attention"] = xcounts[k]
     # 15c. the user's path
@@ -5779,7 +5926,7 @@ def remat_phase(fa, ln, smi) -> dict:
         "remat vit-b", "ViT-B/16@224 bf16 4ch+meta", fns, smi, model, state,
         step, batches, lambda on: zero | {
             "K2": ACCUM * BLOCKS * (1 + on), "K3": ACCUM * BLOCKS,
-            "K4": ACCUM * NORMS})
+            "K4": ACCUM * NORMS, "LN": ACCUM * (NORMS + 2 * BLOCKS * on)})
     # serving the remat model: no checkpoint, so K1 and no K2
     model.eval()
     for fn in fns.values():
@@ -5788,9 +5935,10 @@ def remat_phase(fa, ln, smi) -> dict:
         model(batches[0]["image"][:MICRO], batches[0]["metadata"][:MICRO])
     served = {k: fn.launches for k, fn in fns.items() if fn.launches}
     log(f"[remat vit-b] serving the remat model, one forward of {MICRO}: "
-        f"launches {served} (want {{'K1': {BLOCKS}}})")
-    if served != {"K1": BLOCKS}:
-        raise RuntimeError("serving a remat model does not launch K1 alone")
+        f"launches {served} (want {{'K1': {BLOCKS}, 'LN': {NORMS}}})")
+    if served != {"K1": BLOCKS, "LN": NORMS}:
+        raise RuntimeError("serving a remat model does not launch K1 and the "
+                           "LayerNorm forward alone")
     records["vit_b_serve_launches"] = served
     del cfg, model, state, step, batches
     torch.cuda.empty_cache()
@@ -5815,7 +5963,9 @@ def remat_phase(fa, ln, smi) -> dict:
         "fused train augment", fns, smi, model, state, step, batches,
         lambda on: zero | {
             "K2": ACCUM * BLOCKS * (1 + on), "K3": ACCUM * BLOCKS,
-            "K4": ACCUM * OLD_NORMS["attention"], "K7": 12.0, "K8": 3.0})
+            "K4": ACCUM * OLD_NORMS["attention"],
+            "LN": ACCUM * (OLD_NORMS["attention"] + 2 * BLOCKS * on),
+            "K7": 12.0, "K8": 3.0})
     del cfg, model, state, step, batches, source
     torch.cuda.empty_cache()
 
@@ -5825,9 +5975,10 @@ def remat_phase(fa, ln, smi) -> dict:
         remat=True, n_batches=1 + REMAT_TIMED)
     blocks, norms = sum(SWIN_DEPTHS), sum(SWIN_NORMS)
 
-    def swin_want(accum):
+    def swin_want(accum):     # remat recomputes the blocks' two LayerNorms
         return lambda on: zero | {"K5_lse": accum * blocks * (1 + on),
-                                  "K6": accum * blocks, "K4": accum * norms}
+                                  "K6": accum * blocks, "K4": accum * norms,
+                                  "LN": accum * (norms + 2 * blocks * on)}
 
     what = "SwinV2-L@384 bf16 4ch+meta"
     records["swinv2_l_8x2"] = remat_pair(
@@ -5909,7 +6060,7 @@ def plain_attention_phase(fa, ln, smi) -> dict:
     """16b: ViT-B/16@224 with ``attention_impl: xla`` and SwinV2-L@384 with
     ``packed`` and ``xla`` against ``auto`` on the same weights: one serving
     batch and one training step after a warm-up each, no attention kernel
-    launched on the plain paths (K4, the LayerNorm backward, runs under
+    launched on the plain paths (K4 and the LayerNorm forward run under
     every value, as in JAX), the logits within the serving gate of the
     model, the step's loss within it too. Returns the records."""
     import dataclasses
@@ -5926,15 +6077,18 @@ def plain_attention_phase(fa, ln, smi) -> dict:
     for name, backbone, size, impls, batch, micro, accum, drop, llrd, \
             limit, serve_want, step_want in (
             ("vit_b", "vit_base_patch16_224", 224, ("xla",), SERVE_BATCH,
-             MICRO, ACCUM, 0.1, 0.75, LOGITS_RTOL_BF16, {"K1": BLOCKS},
+             MICRO, ACCUM, 0.1, 0.75, LOGITS_RTOL_BF16,
+             {"K1": BLOCKS, "LN": NORMS},
              {"K2": ACCUM * BLOCKS, "K3": ACCUM * BLOCKS,
-              "K4": ACCUM * NORMS}),
+              "K4": ACCUM * NORMS, "LN": ACCUM * NORMS}),
             ("swinv2_l", SWIN, SWIN_SIZE, ("packed", "xla"), SWIN_BATCH,
              SWIN_MICRO, SWIN_ACCUM, SWIN_DROP_PATH, SWIN_LLRD,
-             SWIN_LOGITS_RTOL_BF16, {"K5": sum(SWIN_DEPTHS)},
+             SWIN_LOGITS_RTOL_BF16,
+             {"K5": sum(SWIN_DEPTHS), "LN": sum(SWIN_NORMS)},
              {"K5_lse": SWIN_ACCUM * sum(SWIN_DEPTHS),
               "K6": SWIN_ACCUM * sum(SWIN_DEPTHS),
-              "K4": SWIN_ACCUM * sum(SWIN_NORMS)})):
+              "K4": SWIN_ACCUM * sum(SWIN_NORMS),
+              "LN": SWIN_ACCUM * sum(SWIN_NORMS)})):
         cfg, model, state, step, batches = training_setup(
             backbone, size, micro, accum, drop, llrd, n_batches=2)
         weights = {k: v.clone() for k, v in model.state_dict().items()}
@@ -6000,7 +6154,9 @@ def plain_attention_phase(fa, ln, smi) -> dict:
                 f"{rec[impl]['train_peak_gib']!r} GiB against "
                 f"{rec['auto']['train_img_s']!r} and "
                 f"{rec['auto']['train_peak_gib']!r} ({smi})")
-            if fired or rec[impl]["train_launches"] != {"K4": step_want["K4"]} \
+            if fired or rec[impl]["serve_launches"] != {
+                    "LN": serve_want["LN"]} or rec[impl]["train_launches"] != {
+                    "K4": step_want["K4"], "LN": step_want["LN"]} \
                     or not loss_err <= limit:
                 raise RuntimeError(f"{tag}: a kernel ran on the plain path, "
                                    f"or its step disagrees with auto's")
@@ -6050,7 +6206,7 @@ def verify_phase(fa, ln, smi) -> dict:
                            f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
 
     # the same main in this process, counted, the kernels' inputs recorded
-    seen = {"attention": [], "K4": [], "K7": [], "K8": []}
+    seen = {"attention": [], "K4": [], "LN": [], "K7": [], "K8": []}
 
     def recording(module, name, key, describe):
         fn = getattr(module, name)
@@ -6073,6 +6229,9 @@ def verify_phase(fa, ln, smi) -> dict:
                 (layers, "flash_attention_qkvb", "attention", attention),
                 (ln, "layer_norm_bwd", "K4",
                  lambda x, *_: (tuple(x.shape), x.dtype)),
+                (ln, "layer_norm_fwd", "LN",
+                 lambda x, w, b, eps, dtype: (tuple(x.shape), x.dtype,
+                                              dtype or x.dtype)),
                 (rs, "row_shift", "K7",
                  lambda img, _: ("rows", tuple(img.shape), img.dtype)),
                 (rs, "col_shift", "K7",
@@ -6085,14 +6244,15 @@ def verify_phase(fa, ln, smi) -> dict:
     launches = {k: fn.launches for k, fn in fns.items() if fn.launches}
     grads = sum(1 for *_, grad in seen["attention"] if grad)
     calls = {"K1": len(seen["attention"]) - grads, "K2": grads, "K3": grads,
-             "K4": len(seen["K4"]), "K7": len(seen["K7"]),
-             "K8": len(seen["K8"])}
+             "K4": len(seen["K4"]), "LN": len(seen["LN"]),
+             "K7": len(seen["K7"]), "K8": len(seen["K8"])}
     passed, failed = stdout.count("[PASS]"), stdout.count("[FAIL]")
     log(f"[verify] cli.verify's main in this process: {passed} PASS, "
         f"{failed} FAIL in {in_s!r} s, peak {peak!r} GiB; launches "
         f"{launches} against the calls of their entries {calls}; inputs: "
         f"attention (shape, dtype, heads, grad) {sorted(set(seen['attention']), key=str)}, "
-        f"K4 {sorted(set(seen['K4']), key=str)}, K7 "
+        f"K4 {sorted(set(seen['K4']), key=str)}, LayerNorm forward "
+        f"{sorted(set(seen['LN']), key=str)}, K7 "
         f"{sorted(set(seen['K7']), key=str)}, K8 "
         f"{sorted(set(seen['K8']), key=str)} ({smi})")
     if passed != VERIFY_CHECKS or failed or launches != calls or \
@@ -6127,6 +6287,9 @@ def verify_phase(fa, ln, smi) -> dict:
     for shape, dtype in sorted(set(seen["K4"]), key=str):
         recs["K4"].append(tagged(check_k4(ln, shape, dtype, False), shape,
                                  dtype))
+    for shape, xdt, ydt in sorted(set(seen["LN"]), key=str):
+        recs["LN"].append(tagged(check_ln_fwd(ln, shape, xdt, ydt, False),
+                                 shape, xdt) | {"out_dtype": short(ydt)})
     for i, (kind, shape, _) in enumerate(sorted(set(seen["K7"]), key=str)):
         recs["K7"].append(check_k7(rs, shape, 2 if kind == "rows" else 1,
                                    SEED + 160 + i, False))
@@ -6713,7 +6876,8 @@ def dp_phase(fa, ln, smi, tmp: Path) -> dict:
     want_a = {k: 0 for k in ranks[0]["a"]["counts"]} | {
         "K5_lse": DP_SWIN_STEPS * sum(SWIN_DEPTHS),
         "K6": DP_SWIN_STEPS * sum(SWIN_DEPTHS),
-        "K4": DP_SWIN_STEPS * ranks[0]["a"]["norms"]}
+        "K4": DP_SWIN_STEPS * ranks[0]["a"]["norms"],
+        "LN": DP_SWIN_STEPS * ranks[0]["a"]["norms"]}
     refa = torch.load(work / "dp17a_ref.pt", weights_only=True)
     got = torch.load(work / "dp17a_rank0.pt", weights_only=True)
     noise = refa["noise"]
@@ -6772,6 +6936,9 @@ def dp_phase(fa, ln, smi, tmp: Path) -> dict:
     steps = b0["steps"]
     want_b = {"K2": steps * 2 * BLOCKS, "K3": steps * 2 * BLOCKS,
               "K4": steps * 2 * NORMS, "K7": steps * 12, "K8": steps * 3}
+    # and the LayerNorm forward: NORMS a micro-batch and a served forward
+    want_ln = [NORMS * (2 * steps + b["counts"].get("K1", 0) // BLOCKS)
+               for b in (b0, b1)]
     log(f"[dp] 17b cli.train --fold 0, training.data_parallel, {DP_RANKS} "
         f"ranks: exit {b0['rc']} and {b1['rc']} in {b0['s']!r} s (one "
         f"process: {ref['b']['s']!r} s; two ranks sharing the card, not a "
@@ -6784,7 +6951,7 @@ def dp_phase(fa, ln, smi, tmp: Path) -> dict:
         f"each epoch bit-equal: {b0['digests'] == b1['digests']}; launches "
         f"rank 0 { {k: v for k, v in b0['counts'].items() if v} }, rank 1 "
         f"{ {k: v for k, v in b1['counts'].items() if v} } ({steps} steps; "
-        f"want {want_b} and K1 > 0); peaks {b0['peak_gib']!r} and "
+        f"want {want_b}, K1 > 0 and LN {want_ln}); peaks {b0['peak_gib']!r} and "
         f"{b1['peak_gib']!r} GiB ({smi})")
     if b0["rc"] != 0 or b1["rc"] != 0 or not b0["writes"] or b1["writes"] \
             or b0["digests"] != b1["digests"] or not b0["digests"] \
@@ -6795,9 +6962,9 @@ def dp_phase(fa, ln, smi, tmp: Path) -> dict:
         raise RuntimeError("17b: the data-parallel cli.train disagrees with "
                            "the one-process run, or a rank other than 0 "
                            "wrote, or the replicas differ")
-    for b in (b0, b1):
+    for b, ln_ in zip((b0, b1), want_ln):
         if any(b["counts"].get(k) != v for k, v in want_b.items()) or \
-                not b["counts"].get("K1"):
+                not b["counts"].get("K1") or b["counts"].get("LN") != ln_:
             raise RuntimeError("17b: a rank did not launch the fold's "
                                "kernels as it should")
 
@@ -6816,7 +6983,8 @@ def dp_phase(fa, ln, smi, tmp: Path) -> dict:
     loss_c = abs(ranks[0]["c"]["loss"] - ref["c"]["loss"])
     want_c = 2 * DP_FED_STEPS      # local steps a rank: 2 clients each
     want_c = {"K2": want_c * BLOCKS, "K3": want_c * BLOCKS,
-              "K4": want_c * NORMS, "K7": want_c * 12, "K8": want_c * 3}
+              "K4": want_c * NORMS, "LN": want_c * NORMS, "K7": want_c * 12,
+              "K8": want_c * 3}
     log(f"[dp] 17c FedAvg round of ViT-B/16@224, 4 clients x "
         f"{DP_FED_STEPS} local steps of {FED_BATCH} on a client mesh of "
         f"{DP_RANKS} ranks (2 clients a rank) against one process: each "
@@ -6848,7 +7016,7 @@ def dp_phase(fa, ln, smi, tmp: Path) -> dict:
     lr = dp_fed_config("data").training.optimizer.lr
     param_err = max(float((gotd[n] - w).abs().max()) for n, w in refd.items())
     loss_d = abs(ranks[0]["d"]["loss"] - ref["d"]["loss"])
-    want_d = {"K2": BLOCKS, "K3": BLOCKS, "K4": NORMS}
+    want_d = {"K2": BLOCKS, "K3": BLOCKS, "K4": NORMS, "LN": NORMS}
     log(f"[dp] 17d the fp32 round on a 1 x {DP_RANKS} client x data mesh "
         f"({ranks[0]['d']['local_rows']} rows a rank) against the 1-D round: "
         f"loss {ranks[0]['d']['loss']!r} vs {ref['d']['loss']!r} (|diff| "
@@ -6976,11 +7144,12 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa.flash_attention_qkvb.launches = 0
+    reset_counts(fa, ln)
     t0 = time.perf_counter()
     served = _evaluate(step, source, SERVE_BATCH, cfg.num_classes)
     serve_s = time.perf_counter() - t0
-    launches = expect_launches("serve", fa, math.ceil(SERVE_IMAGES / SERVE_BATCH))
+    launches = expect_launches("serve", fa, ln,
+                               math.ceil(SERVE_IMAGES / SERVE_BATCH))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     with attention_replaced_by(attention_from_qkvb):
         plain = _evaluate(step, source, SERVE_BATCH, cfg.num_classes)
@@ -7000,12 +7169,12 @@ def main() -> int:
 
     # 4. 8-view TTA at batch 32
     tta_source = serving_inputs(TTA_IMAGES, canvas_size(cfg.model.image_size))
-    fa.flash_attention_qkvb.launches = 0
+    reset_counts(fa, ln)
     t0 = time.perf_counter()
     _, _, tta_logits = evaluate_with_tta(cfg, model, tta_source,
                                          batch_size=TTA_BATCH)
     tta_s = time.perf_counter() - t0
-    expect_launches("tta", fa, math.ceil(TTA_IMAGES / TTA_BATCH))
+    expect_launches("tta", fa, ln, math.ceil(TTA_IMAGES / TTA_BATCH))
     with attention_replaced_by(attention_from_qkvb):
         _, _, tta_plain = evaluate_with_tta(cfg, model, tta_source,
                                             batch_size=TTA_BATCH)
@@ -7033,6 +7202,9 @@ def main() -> int:
             check(fa, attention_from_qkvb, 8, n, 16, torch.bfloat16, False,
                   d=80)["max_abs_err"])
     k4 = check_k4(ln, (MICRO, n, e), torch.bfloat16, True)
+
+    # 6d. the LayerNorm forward kernel
+    ln_fwd = ln_fwd_phase(ln)
 
     # 6b, 6c. the training step
     counts = train_phase(fa, ln, attention_from_qkvb, smi, args.trace)
@@ -7136,6 +7308,11 @@ def main() -> int:
          "launches": counts["K4"], **k4,
          "launches_swin_train": swin_counts["K4"], "swin_shapes": k4_swin,
          "old_gen_shapes": old["k4"]},
+        {"name": "layer_norm_fwd", "route": "cuda",
+         "source": "fedvit_torch/csrc/layer_norm_fwd.cu",
+         "replaces": "none (XLA fuses the JAX package's forward)",
+         "launches": counts["LN"], "launches_swin_train": swin_counts["LN"],
+         "shapes": ln_fwd, "verify_cli": last["verify"]["shapes"]["LN"]},
         {"name": "window_attention_fwd", "route": "cuda",
          "source": "fedvit_torch/csrc/window_attention.cu",
          "replaces": "fedvit_tpu/ops/flash_attention.py:992", **k5},

@@ -1,9 +1,10 @@
 // Helpers shared by the kernels in this directory: 16-byte loads of fp32 or
-// bf16 into fp32 registers, rounding to the storage type, Hopper's cp.async,
-// ldmatrix and mma.sync for bf16, the mma fragments of row-major shared-memory
-// tiles and of accumulators, ex2 and bf16x2 adds, warp reductions, the
-// in-order column sum of an fp32 workspace, and the row normalisation of the
-// scaled-cosine attention (K12).
+// bf16 into fp32 registers or kept as loaded, rounding to the storage type,
+// Hopper's cp.async, ldmatrix and mma.sync for bf16, the mma fragments of
+// row-major shared-memory tiles and of accumulators, ex2 and bf16x2 adds,
+// warp reductions, the in-order column sum of an fp32 workspace, the row
+// normalisation of the scaled-cosine attention (K12), and the programmatic
+// dependent launch.
 
 #pragma once
 
@@ -74,6 +75,28 @@ struct Io<__nv_bfloat16> {
 #pragma unroll
       for (int i = 0; i < kN; ++i) p[i] = __float2bfloat16(f[i]);
     }
+  }
+};
+
+template <typename T>
+struct Raw;   // a 16-byte vector as loaded, bf16 kept packed
+
+template <>
+struct Raw<float> {
+  float4 v;
+  __device__ void load(const float* p) { v = *reinterpret_cast<const float4*>(p); }
+  __device__ void get(float* f) const { f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w; }
+};
+
+template <>
+struct Raw<__nv_bfloat16> {
+  uint4 v;
+  __device__ void load(const __nv_bfloat16* p) { v = *reinterpret_cast<const uint4*>(p); }
+  __device__ void get(float* f) const {
+    Io<__nv_bfloat16>::unpack(v.x, f);
+    Io<__nv_bfloat16>::unpack(v.y, f + 2);
+    Io<__nv_bfloat16>::unpack(v.z, f + 4);
+    Io<__nv_bfloat16>::unpack(v.w, f + 6);
   }
 };
 
@@ -256,4 +279,25 @@ __device__ __forceinline__ void normalize_rows(float* tile, int stride,
     for (int c = 0; c < D; ++c) x[c] = Io<T>::round(__fmul_rn(x[c], m));
     if (norms != nullptr) norms[r] = norm;
   }
+}
+
+// A programmatic dependent launch on stream s: the kernel's blocks may be
+// scheduled while the stream's previous kernel drains, and wait in
+// griddepcontrol.wait for its writes, so a launch's own latency hides
+// behind the kernel before it (the LayerNorm kernels)
+template <typename... Params, typename... Args>
+static cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                                    dim3 block, size_t smem, cudaStream_t s,
+                                    Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }

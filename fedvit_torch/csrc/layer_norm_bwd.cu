@@ -81,28 +81,6 @@ constexpr int kSlices = 32;                     // row slices of pass 2
 // 4 rows a warp read slower, on the card, than one row a warp)
 constexpr int kBlocksPerSm = 16;
 
-template <typename T>
-struct Raw;   // a 16-byte vector as loaded
-
-template <>
-struct Raw<float> {
-  float4 v;
-  __device__ void load(const float* p) { v = *reinterpret_cast<const float4*>(p); }
-  __device__ void get(float* f) const { f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w; }
-};
-
-template <>
-struct Raw<__nv_bfloat16> {
-  uint4 v;
-  __device__ void load(const __nv_bfloat16* p) { v = *reinterpret_cast<const uint4*>(p); }
-  __device__ void get(float* f) const {
-    Io<__nv_bfloat16>::unpack(v.x, f);
-    Io<__nv_bfloat16>::unpack(v.y, f + 2);
-    Io<__nv_bfloat16>::unpack(v.z, f + 4);
-    Io<__nv_bfloat16>::unpack(v.w, f + 6);
-  }
-};
-
 // Pass 1: rows (blockIdx.x * 8 + warp) * kR .. +kR-1, one warp; each cluster
 // of 8 blocks writes partial row blockIdx.x / 8 of part_g and part_b.
 template <typename T, int kPer, int kR>
@@ -287,27 +265,6 @@ ln_bwd_columns_kernel(const float* __restrict__ part_g,
     for (int i = 1; i < slices; ++i) total += sums[i][tx];
     (c < d ? dgamma : dbeta)[c < d ? c : c - d] = total;
   }
-}
-
-// A programmatic dependent launch on stream s: the kernel's blocks may be
-// scheduled while the stream's previous kernel drains, and wait in
-// griddepcontrol.wait for its writes, so a launch's own latency hides
-// behind the kernel before it (pass 1 behind the caller's last kernel, pass
-// 2 behind pass 1)
-template <typename... Params, typename... Args>
-cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
-                             size_t smem, cudaStream_t s, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // partial rows: one a cluster of 64 kR rows

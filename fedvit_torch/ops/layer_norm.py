@@ -1,13 +1,18 @@
 """LayerNorm with fp32 statistics and a fused backward
 (``fedvit_tpu/ops/layer_norm.py``).
 
-The forward is plain PyTorch, as the JAX package leaves it to XLA. Under grad
-it runs inside ``LayerNormFn``, a ``torch.autograd.Function`` that saves only
-x and the weight (``_ln_fwd_rule``) and whose backward is ``layer_norm_bwd``:
-on a CUDA tensor the hand-written kernel K4 (``csrc/layer_norm_bwd.cu``,
-replaces ``_ln_bwd_kernel``), on a CPU tensor its plain version
-``ln_bwd_plain`` (``_ln_bwd_xla``), which K4 is held to on the card.
-``layer_norm_bwd_cuda.launches`` counts K4's launches.
+The forward is ``layer_norm_fwd``: on a CUDA tensor the hand-written kernel
+``csrc/layer_norm_fwd.cu`` (one launch and one pass over the row, where JAX
+leaves the forward to XLA's fusion and ``layer_norm_plain`` would launch 14
+kernels), on a CPU tensor the plain version ``layer_norm_plain``, which the
+kernel is held to on the card.
+``layer_norm_fwd_cuda.launches`` counts the kernel's launches. Under grad the
+forward runs inside ``LayerNormFn``, a ``torch.autograd.Function`` that saves
+only x and the weight (``_ln_fwd_rule``) and whose backward is
+``layer_norm_bwd``: on a CUDA tensor the hand-written kernel K4
+(``csrc/layer_norm_bwd.cu``, replaces ``_ln_bwd_kernel``), on a CPU tensor
+its plain version ``ln_bwd_plain`` (``_ln_bwd_xla``), which K4 is held to on
+the card. ``layer_norm_bwd_cuda.launches`` counts K4's launches.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from torch import nn
 from fedvit_torch.core import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LN_MAX_D = 2048   # the forward kernel's largest D, K4's too (kMaxD in both)
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -36,6 +42,69 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
     var = torch.clamp(mean2 - mu * mu, min=0.0)
     xhat = (x32 - mu) * torch.rsqrt(var + eps)
     return (xhat * weight.float() + bias.float()).to(dtype)
+
+
+@functools.cache
+def _fwd_library() -> ctypes.CDLL:
+    lib = kernels.load("layer_norm_fwd")
+    lib.layer_norm_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    lib.layer_norm_fwd.restype = ctypes.c_int
+    return lib
+
+
+def layer_norm_fwd_cuda(x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, eps: float = 1e-6,
+                        dtype: torch.dtype = None) -> torch.Tensor:
+    """The forward kernel on a CUDA ``x`` (..., D) and the (D,) weight and
+    bias: y in ``dtype`` (default: x's dtype) and x's shape. Raises on
+    anything it does not take."""
+    dtype = dtype or x.dtype
+    if x.device.type != "cuda" or weight.device != x.device or \
+            bias.device != x.device:
+        raise ValueError(f"x, weight and bias must be on one CUDA device, got "
+                         f"{x.device}, {weight.device} and {bias.device}")
+    if x.dtype not in _DTYPES or dtype not in _DTYPES:
+        raise TypeError(f"x and the output must be float32 or bfloat16, got "
+                        f"{x.dtype} and {dtype}")
+    d = x.shape[-1] if x.dim() else 0
+    if weight.shape != (d,) or bias.shape != (d,):
+        raise ValueError(f"x {tuple(x.shape)}, weight {tuple(weight.shape)} "
+                         f"and bias {tuple(bias.shape)} do not match")
+    vec = 16 // x.element_size()
+    if d == 0 or d % vec or d > _LN_MAX_D:
+        raise ValueError(f"D={d} must be a multiple of {vec} and at most "
+                         f"{_LN_MAX_D} for {x.dtype}")
+    rows = x.numel() // d
+    if not 0 < rows < 2 ** 31:
+        raise ValueError(f"{rows} rows: the kernel takes 1 to 2^31 - 1")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    w, b = weight.float().contiguous(), bias.float().contiguous()
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("x, weight and bias must be 16-byte aligned")
+    y = torch.empty(x.shape, dtype=dtype, device=x.device)
+    err = _fwd_library().layer_norm_fwd(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), rows,
+        d, _DTYPES[x.dtype], _DTYPES[dtype], eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"layer_norm_fwd launch failed: CUDA error {err}")
+    layer_norm_fwd_cuda.launches += 1
+    return y
+
+
+layer_norm_fwd_cuda.launches = 0
+
+
+def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float = 1e-6, dtype: torch.dtype = None
+                   ) -> torch.Tensor:
+    """The LayerNorm forward: the kernel on a CUDA tensor,
+    ``layer_norm_plain`` on a CPU one."""
+    if x.device.type == "cpu":
+        return layer_norm_plain(x, weight, bias, eps, dtype)
+    return layer_norm_fwd_cuda(x.contiguous(), weight, bias, eps, dtype)
 
 
 def ln_bwd_plain(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
@@ -132,14 +201,15 @@ def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
 
 
 class LayerNormFn(torch.autograd.Function):
-    """Plain forward; backward through ``layer_norm_bwd``."""
+    """Forward through ``layer_norm_fwd``, backward through
+    ``layer_norm_bwd``."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, dtype):
         ctx.save_for_backward(x, weight)
         ctx.eps = eps
         ctx.bias_dtype = bias.dtype
-        return layer_norm_plain(x, weight, bias, eps, dtype)
+        return layer_norm_fwd(x, weight, bias, eps, dtype)
 
     @staticmethod
     def backward(ctx, dy):
@@ -155,7 +225,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     (default: x's dtype); under grad, its backward is the fused one."""
     if torch.is_grad_enabled():
         return LayerNormFn.apply(x, weight, bias, eps, dtype or x.dtype)
-    return layer_norm_plain(x, weight, bias, eps, dtype)
+    return layer_norm_fwd(x, weight, bias, eps, dtype)
 
 
 class LayerNorm(nn.Module):

@@ -99,6 +99,13 @@ Tolerances:
   above). The same bits every run.
 - K4 at SwinV2-L's widths and at row counts around its 8-row blocks and
   64-row clusters: its limits above; dgamma and dbeta the same bits twice.
+- The LayerNorm forward kernel against ``layer_norm_plain``: both take the
+  same roundings in the same order but for the fp32 sums of x and x² (another
+  summation order), and round once. A bf16 output within one bf16 ulp of the
+  larger of the two values, or within 1e-6 of the largest |value| (fp32
+  rounding noise at elements near zero, where an ulp is smaller than it); an
+  fp32 output within 1e-6 of the largest |value| (or of 1 when smaller). The
+  same bits every run.
 - ``gemm_product`` (K11's products alone) against ``product_plain``: both
   sum in fp32 and round once, so bf16 values differ by at most one bf16 ulp
   (2^-7 of the value) plus 1e-3 near zero; fp32 1e-5 of the value plus 1e-4.
@@ -326,13 +333,135 @@ def test_k3_k4_refuse_a_short_workspace(cuda):
 
 
 def test_layer_norm_function_launches_k4_under_grad(cuda):
+    """Under grad ``layer_norm`` launches the forward kernel once and K4
+    once, and nothing of the plain forward."""
     x = torch.randn(4, 9, 64, device="cuda", requires_grad=True)
     w = torch.ones(64, device="cuda", requires_grad=True)
     b = torch.zeros(64, device="cuda", requires_grad=True)
-    before = ln.layer_norm_bwd_cuda.launches
-    ln.layer_norm(x, w, b).square().sum().backward()
-    assert ln.layer_norm_bwd_cuda.launches == before + 1
+    before = (ln.layer_norm_fwd_cuda.launches, ln.layer_norm_bwd_cuda.launches)
+    y = ln.layer_norm(x, w, b)
+    assert ln.layer_norm_fwd_cuda.launches == before[0] + 1
+    y.square().sum().backward()
+    assert (ln.layer_norm_fwd_cuda.launches,
+            ln.layer_norm_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
     assert x.grad.shape == x.shape and w.grad.shape == b.grad.shape == (64,)
+    torch.testing.assert_close(y.detach(), ln.layer_norm_plain(x.detach(), w, b),
+                               atol=1e-6, rtol=0)
+
+
+def _ln_fwd_err(got, want):
+    """(|got − want| elementwise in fp32, max |want| or 1 when smaller)."""
+    diff = (got.float() - want.float()).abs()
+    return diff, max(1.0, float(want.float().abs().max()))
+
+
+def _ln_fwd_ok(got, want) -> bool:
+    """Within the forward's tolerance (module docstring)."""
+    assert got.dtype == want.dtype
+    diff, scale = _ln_fwd_err(got, want)
+    if got.dtype == torch.float32:
+        return float(diff.max()) <= 1e-6 * scale
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    _, e = torch.frexp(big)
+    ulp = torch.ldexp(torch.ones_like(big), e - 8)   # a bf16 ulp of big
+    return bool(((diff <= ulp) | (diff <= 1e-6 * scale)).all())
+
+
+LN_FWD_WIDTHS = [(192, torch.bfloat16, torch.bfloat16),
+                 (384, torch.bfloat16, torch.bfloat16),
+                 (768, torch.bfloat16, torch.bfloat16),
+                 (1536, torch.bfloat16, torch.bfloat16),
+                 (512, torch.float32, torch.float32),
+                 (768, torch.float32, torch.float32)]
+
+
+def _ln_fwd_inputs(rows, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(rows, d, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    w = 1.0 + 0.3 * torch.randn(d, device="cuda", generator=g)
+    b = 0.2 * torch.randn(d, device="cuda", generator=g)
+    return x, w, b
+
+
+@pytest.mark.parametrize("rows", [1, 7, 9, 1152, 25216, 294912])
+@pytest.mark.parametrize("d,xdt,ydt", LN_FWD_WIDTHS,
+                         ids=[f"{d}-{str(a)[6:]}-{str(b)[6:]}"
+                              for d, a, b in LN_FWD_WIDTHS])
+def test_ln_fwd_matches_plain(cuda, rows, d, xdt, ydt):
+    x, w, b = _ln_fwd_inputs(rows, d, xdt, rows + d)
+    before = ln.layer_norm_fwd_cuda.launches
+    y = ln.layer_norm_fwd(x, w, b, 1e-6, ydt)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_fwd_cuda.launches == before + 1
+    want = ln.layer_norm_plain(x, w, b, 1e-6, ydt)
+    assert y.dtype == ydt and y.shape == x.shape
+    assert _ln_fwd_ok(y, want), float(_ln_fwd_err(y, want)[0].max())
+    assert torch.equal(y, ln.layer_norm_fwd(x, w, b, 1e-6, ydt))
+
+
+@pytest.mark.parametrize("xdt,ydt", [(torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)],
+                         ids=["f32-bf16", "bf16-f32"])
+@pytest.mark.parametrize("shape", [(3, 197, 768), (9, 1536), (5, 8), (33, 2048),
+                                   (70, 384)])
+def test_ln_fwd_mixed_dtypes_match_plain(cuda, shape, xdt, ydt):
+    x, w, b = _ln_fwd_inputs(math.prod(shape[:-1]), shape[-1], xdt, 11)
+    x = x.reshape(shape)
+    before = ln.layer_norm_fwd_cuda.launches
+    y = ln.layer_norm(x, w, b, 1e-6, ydt)
+    assert ln.layer_norm_fwd_cuda.launches == before + 1
+    want = ln.layer_norm_plain(x, w, b, 1e-6, ydt)
+    assert y.dtype == ydt and y.shape == x.shape
+    assert _ln_fwd_ok(y, want), float(_ln_fwd_err(y, want)[0].max())
+
+
+def test_ln_fwd_refuses_what_it_does_not_take(cuda):
+    """D off the 16-byte vector or over the cap, fp16, a misaligned x: the
+    forward raises and launches nothing, on the card as K4 does. A strided x
+    is made contiguous and a bf16 weight cast, as K4 takes them."""
+    x, w, b = _ln_fwd_inputs(6, 24, torch.float32, 12)
+    refused = [
+        (x[:, :12].contiguous().to(torch.bfloat16), w[:12], b[:12]),  # D 12
+        (x[:, :6].contiguous(), w[:6], b[:6]),                        # D 6
+        (torch.randn(3, 2056, device="cuda"), torch.ones(2056, device="cuda"),
+         torch.zeros(2056, device="cuda")),                           # cap
+        (x.half(), w, b),                                             # fp16
+        (torch.empty(6 * 24 + 1, device="cuda")[1:].view(6, 24).copy_(x), w,
+         b)]                                                          # offset
+    for xi, wi, bi in refused:
+        before = ln.layer_norm_fwd_cuda.launches
+        with torch.no_grad(), pytest.raises((ValueError, TypeError)):
+            ln.layer_norm(xi, wi, bi, 1e-6)
+        with pytest.raises((ValueError, TypeError)):
+            ln.layer_norm(xi, wi, bi, 1e-6)
+        assert ln.layer_norm_fwd_cuda.launches == before
+    strided = x.t().contiguous().t()
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ln.layer_norm_fwd_cuda(strided, w, b)
+    for xi, wi in ((strided, w), (x, w.to(torch.bfloat16))):
+        before = ln.layer_norm_fwd_cuda.launches
+        with torch.no_grad():
+            y = ln.layer_norm(xi, wi, b, 1e-6)
+        assert ln.layer_norm_fwd_cuda.launches == before + 1
+        assert _ln_fwd_ok(y, ln.layer_norm_plain(xi, wi, b, 1e-6))
+
+
+def test_ln_fwd_cap_is_k4s(cuda):
+    """The forward takes D up to K4's cap and its library refuses more."""
+    for dtype in (0, 1):
+        assert ln._library().layer_norm_bwd_max_d(dtype) == ln._LN_MAX_D
+    x, w, b = _ln_fwd_inputs(2, ln._LN_MAX_D + 4, torch.float32, 13)
+    y = torch.empty_like(x)
+    assert ln._fwd_library().layer_norm_fwd(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), 2,
+        ln._LN_MAX_D + 4, 0, 0, 1e-6,
+        torch.cuda.current_stream().cuda_stream) != 0
+    torch.testing.assert_close(
+        ln.layer_norm_fwd_cuda(x[:, :ln._LN_MAX_D].contiguous(),
+                               w[:ln._LN_MAX_D], b[:ln._LN_MAX_D]),
+        ln.layer_norm_plain(x[:, :ln._LN_MAX_D], w[:ln._LN_MAX_D],
+                            b[:ln._LN_MAX_D]), atol=1e-5, rtol=0)
 
 
 def test_tiny_model_training_launches_k2_k3_k4(cuda):
@@ -355,11 +484,13 @@ def test_tiny_model_training_launches_k2_k3_k4(cuda):
     x = torch.randn(3, 32, 32, 4, generator=g)
     meta = torch.randn(3, 13, generator=g)
     counts = (fa.flash_attention_qkvb.launches, fa.qkvb_attention_lse_cuda.launches,
-              fa.qkvb_attention_bwd_cuda.launches, ln.layer_norm_bwd_cuda.launches)
+              fa.qkvb_attention_bwd_cuda.launches, ln.layer_norm_bwd_cuda.launches,
+              ln.layer_norm_fwd_cuda.launches)
     gpu(x.cuda(), meta.cuda())["logits"].square().sum().backward()
     after = (fa.flash_attention_qkvb.launches, fa.qkvb_attention_lse_cuda.launches,
-             fa.qkvb_attention_bwd_cuda.launches, ln.layer_norm_bwd_cuda.launches)
-    assert [a - c for a, c in zip(after, counts)] == [0, 12, 12, 25]
+             fa.qkvb_attention_bwd_cuda.launches, ln.layer_norm_bwd_cuda.launches,
+             ln.layer_norm_fwd_cuda.launches)
+    assert [a - c for a, c in zip(after, counts)] == [0, 12, 12, 25, 25]
     cpu(x, meta)["logits"].square().sum().backward()
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-3,

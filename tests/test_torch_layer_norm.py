@@ -1,4 +1,10 @@
-"""The port's LayerNorm backward against the JAX package's, on the CPU.
+"""The port's LayerNorm against the JAX package's, on the CPU.
+
+``layer_norm_fwd`` leaves every CPU tensor on ``layer_norm_plain`` (the
+kernel runs only on CUDA tensors), bit for bit, in each of the four
+(input, output) dtype pairs the port uses, and that plain forward is held to
+JAX's ``layer_norm`` forward: fp32 output atol 1e-5 (row means in another
+order), bf16 output one bf16 ulp of the largest value (both round once).
 
 ``fedvit_torch.ops.layer_norm.ln_bwd_plain`` is the version K4 is held to on
 the card, and ``LayerNormFn`` (the forward under grad) takes it on CPU
@@ -111,3 +117,48 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     x, dy, w, _ = _inputs((4, 64), seed=6)
     with pytest.raises(ValueError, match="CUDA"):
         tln.layer_norm_bwd_cuda(*(torch.from_numpy(a) for a in (x, w, dy)))
+
+
+FWD_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)]
+FWD_IDS = ["f32-f32", "bf16-bf16", "f32-bf16", "bf16-f32"]
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+@pytest.mark.parametrize("dtypes", FWD_DTYPES, ids=FWD_IDS)
+def test_forward_leaves_cpu_tensors_on_the_plain_version(shape, dtypes):
+    x, _, w, b = _inputs(shape, seed=shape[-1] + 7)
+    xt = torch.from_numpy(x).to(dtypes[0])
+    wt, bt = torch.from_numpy(w), torch.from_numpy(b)
+    before = tln.layer_norm_fwd_cuda.launches
+    got = tln.layer_norm_fwd(xt, wt, bt, EPS, dtypes[1])
+    with torch.no_grad():
+        no_grad = tln.layer_norm(xt, wt, bt, EPS, dtypes[1])
+    under_grad = tln.layer_norm(xt, wt.requires_grad_(), bt, EPS, dtypes[1])
+    assert tln.layer_norm_fwd_cuda.launches == before
+    want = tln.layer_norm_plain(xt, wt, bt, EPS, dtypes[1])
+    assert got.dtype == want.dtype == dtypes[1] and got.shape == shape
+    for y in (got, no_grad, under_grad):
+        assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("dtypes", FWD_DTYPES, ids=FWD_IDS)
+def test_plain_forward_matches_jax(dtypes):
+    x, _, w, b = _inputs((2, 37, 64), seed=8)
+    xt = torch.from_numpy(x).to(dtypes[0])
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+    want = np.asarray(jax_layer_norm(
+        jnp.asarray(xt.float().numpy()).astype(jdt[dtypes[0]]), jnp.asarray(w),
+        jnp.asarray(b), eps=EPS, dtype=jdt[dtypes[1]], impl="xla"
+    ).astype(jnp.float32))
+    got = tln.layer_norm_plain(xt, torch.from_numpy(w), torch.from_numpy(b),
+                               EPS, dtypes[1]).float().numpy()
+    atol = 1e-5 if dtypes[1] == torch.float32 else 2.0 ** -7 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=atol)
+
+
+def test_forward_kernel_wrapper_refuses_cpu_tensors():
+    x, _, w, b = _inputs((4, 64), seed=9)
+    args = [torch.from_numpy(a) for a in (x, w, b)]
+    with pytest.raises(ValueError, match="CUDA"):
+        tln.layer_norm_fwd_cuda(*args)
