@@ -15,6 +15,10 @@ drives, against the reference's three steps from the same inputs):
   by round-off alone (a key's bias under softmax; the port keeps it in one
   leaf with the query's and value's biases, so the rule goes element by
   element);
+- ``grad_gap.median``: the median over the leaves of ``grad_gap``'s gaps.
+  The largest gap is one leaf's bf16 noise (the class token's, as a rule)
+  and swings from seed to seed as far as the fp8 control's reading does;
+  the median is steady and parts the two;
 - ``ema_gap``: the EMA's change over the three steps as a share of the
   parameters' change, ‖s₃ − p₀‖ / ‖p₃ − p₀‖ over all the parameters at
   once, against the reference's share. The EMA's change follows the
@@ -56,20 +60,34 @@ def leaf_norms(tensors: Dict[str, torch.Tensor],
     return dict(zip(names, norms.cpu().tolist()))
 
 
+def leaf_gaps(got: Dict[str, float], want: Dict[str, float]
+              ) -> Dict[str, float]:
+    """Each leaf's |got − want| over max(want, median want)."""
+    med = float(np.median(list(want.values())))
+    return {n: abs(got.get(n, float("nan")) - w) / max(w, med, 1e-30)
+            for n, w in want.items()}
+
+
 def leaf_gap(got: Dict[str, float], want: Dict[str, float]
              ) -> Tuple[float, str]:
-    """(largest gap, its leaf): |got − want| over max(want, median want)."""
-    names = list(want)
-    med = float(np.median([want[n] for n in names]))
+    """(largest gap, its leaf) of ``leaf_gaps``."""
     worst, which = 0.0, ""
-    for n in names:
-        g = got.get(n, float("nan"))
-        gap = abs(g - want[n]) / max(want[n], med, 1e-30)
+    for n, gap in leaf_gaps(got, want).items():
         if not math.isfinite(gap):
             return float("inf"), n
         if gap > worst:
             worst, which = gap, n
     return worst, which
+
+
+def median_leaf_gap(got: Dict[str, float], want: Dict[str, float]
+                    ) -> Tuple[float, str]:
+    """(median of ``leaf_gaps``, "median leaf"); not finite where a leaf's
+    gap is not."""
+    gaps = list(leaf_gaps(got, want).values())
+    if not all(map(math.isfinite, gaps)):
+        return float("inf"), "a leaf is missing or not finite"
+    return float(np.median(gaps)), "median leaf"
 
 
 def global_norm(norms: Dict[str, float]) -> float:
@@ -122,6 +140,7 @@ def training_numbers(prog: Dict, ref: Dict) -> Dict[str, Tuple[float, str]]:
     keep = moving(ref["grads"])
     return {"loss_gap": loss,
             "grad_gap": leaf_gap(prog["grad"], ref["grad"]),
+            "grad_gap.median": median_leaf_gap(prog["grad"], ref["grad"]),
             "change_gap": leaf_gap(change_norms(prog["delta"], keep),
                                    change_norms(ref["delta"], keep)),
             "ema_gap": ema_share_gap(prog, ref)}

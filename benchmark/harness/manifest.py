@@ -2,18 +2,29 @@
 
 A cell is one entry of ``workloads``: a configuration and a traffic mix. The
 harness finds everything else by name, so a new cell, configuration, mix,
-mode or per-layer metric is new files and new manifest entries:
+mode, architecture or per-layer metric is new files and new manifest
+entries:
 
     configs/<config>.json     the configuration (its ``file`` in the manifest)
     traffic/<traffic>.json    the mix: its mode and that mode's parameters
     modes/<mode>.py           the code that drives the program for a mode
+    families/<family>.py      an architecture (a configuration's
+                              ``model.family``): its backbone's parameters,
+                              reference forward, operation counts, attention
+                              kernel names and tiny CPU size
     metrics/<metric>.py       a per-layer metric's reader
     limits/<workload>.json    the limits of the cell's correctness numbers
+
+A new architecture is new files only: ``families/<family>.py``,
+``configs/<name>.json``, ``traffic/<mix>.json`` and ``limits/<cell>.json``;
+entries in ``configs``, ``workloads`` and ``per_layer``; and the new cell's
+name added to the ``workloads`` list of each end-to-end metric it reports.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import re
@@ -23,6 +34,7 @@ from typing import Dict, List, Optional
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 REPO_DIR = BENCH_DIR.parent
+FAMILIES_DIR = BENCH_DIR / "families"
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -96,6 +108,18 @@ def metric_module(name: str, base: Path = BENCH_DIR) -> ModuleType:
     return load_module(base / "metrics" / f"{name}.py", f"metric_{name}")
 
 
+def family_module(family: str) -> ModuleType:
+    """The architecture ``family``: ``families/<family>.py`` under
+    ``FAMILIES_DIR``, loaded once (the reference asks for it at every
+    forward)."""
+    return _family(FAMILIES_DIR / f"{family}.py")
+
+
+@functools.lru_cache(maxsize=None)
+def _family(path: Path) -> ModuleType:
+    return load_module(path, f"family_{path.stem}")
+
+
 def problems(manifest: Dict, base: Path = BENCH_DIR) -> List[str]:
     """What in the manifest breaks the naming rules or names a file that is
     not there."""
@@ -111,6 +135,11 @@ def problems(manifest: Dict, base: Path = BENCH_DIR) -> List[str]:
             name_ok("reduced key", k)
         if not (base.parent / c["file"]).is_file():
             out.append(f"config file {c['file']} is missing")
+            continue
+        with open(base.parent / c["file"]) as f:
+            family = json.load(f)["model"]["family"]
+        if not (base / "families" / f"{family}.py").is_file():
+            out.append(f"families/{family}.py is missing")
     for w in manifest["workloads"]:
         for k in ("name", "config", "traffic"):
             name_ok(f"workload {k}", w[k])

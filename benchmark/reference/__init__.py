@@ -5,7 +5,8 @@ and takes nothing the program made. The benchmark hands it the same raw
 inputs it hands the program (canvases, metadata, labels, weights, seeds) and
 it works everything else out again:
 
-- ``models``: timm-layout ViT and SwinV2 backbones with a 4-channel patch
+- ``models``: the configuration's backbone (its family's module in
+  ``benchmark/families/``: timm-layout ViT or SwinV2) with a 4-channel patch
   embedding, the 13-dim metadata MLP and the classification head, written
   as functions of a dict of named tensors, in fp32 (or, for the control, in
   a lower precision);

@@ -1,9 +1,8 @@
 """Plain reference of the ISIC classifier, as functions of named tensors.
 
-The backbones follow timm's published architectures and parameter names
-(``vit_base_patch16_224``; ``swinv2_large_window12to24_192to384``), with the
-patch embedding widened to 4 input channels (RGB and the lesion mask). The
-classifier adds the 13-dim metadata MLP (Linear → BatchNorm → GELU → Dropout
+The backbone is the configuration's family (``benchmark/families/``: timm's
+published architecture and parameter names), with the patch embedding
+widened to 4 input channels (RGB and the lesion mask). The classifier adds the 13-dim metadata MLP (Linear → BatchNorm → GELU → Dropout
 → Linear → BatchNorm → GELU) and the head (Linear → GELU → Dropout →
 Linear) on the pooled features concatenated with the metadata embedding.
 
@@ -20,13 +19,13 @@ without drawing again.
 from __future__ import annotations
 
 import contextlib
-import math
+from types import ModuleType
 from typing import Dict, Iterator, List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils import checkpoint
+
+from benchmark.harness import manifest
 
 Params = Dict[str, torch.Tensor]
 
@@ -136,92 +135,48 @@ def patch_embed(img: torch.Tensor, p: Params, name: str, patch: int,
 # Parameter layout
 # ---------------------------------------------------------------------------
 
-def _heads(arch: Dict, stage: int = 0) -> int:
-    h = arch["num_heads"]
-    return h[stage] if isinstance(h, (list, tuple)) else h
+def family(arch: Dict) -> ModuleType:
+    """What the harness knows of the configuration's architecture:
+    ``families/<family>.py`` (``harness/manifest.py``)."""
+    return manifest.family_module(arch["family"])
 
 
-def feature_dim(arch: Dict) -> int:
-    if arch["family"] == "vit":
-        return arch["embed_dim"]
-    return arch["embed_dim"] * 2 ** (len(arch["depths"]) - 1)
+def linear_spec(name: str, n_in: int, n_out: int, bias: bool = True
+                ) -> List[Tuple[str, Tuple[int, ...]]]:
+    spec = [(f"{name}.weight", (n_out, n_in))]
+    if bias:
+        spec.append((f"{name}.bias", (n_out,)))
+    return spec
 
 
-def _block_names(arch: Dict) -> List[str]:
-    if arch["family"] == "vit":
-        return [f"backbone.blocks.{i}" for i in range(arch["depth"])]
-    return [f"backbone.layers.{s}.blocks.{b}"
-            for s, d in enumerate(arch["depths"]) for b in range(d)]
+def norm_spec(name: str, dim: int) -> List[Tuple[str, Tuple[int, ...]]]:
+    return [(f"{name}.weight", (dim,)), (f"{name}.bias", (dim,))]
 
 
 def param_spec(arch: Dict) -> List[Tuple[str, Tuple[int, ...]]]:
     """(name, shape) of every parameter of the classifier, in a fixed
-    order, with timm's names under ``backbone.`` and the metadata MLP's and
-    head's under ``metadata_branch.net.{0,1,4,5}`` and ``classifier.{0,3}``."""
-    spec: List[Tuple[str, Tuple[int, ...]]] = []
-    cin, patch, d0 = arch["in_chans"], arch["patch_size"], arch["embed_dim"]
-    r = arch["mlp_ratio"]
-
-    def lin(name, n_in, n_out, bias=True):
-        spec.append((f"{name}.weight", (n_out, n_in)))
-        if bias:
-            spec.append((f"{name}.bias", (n_out,)))
-
-    def norm(name, dim):
-        spec.append((f"{name}.weight", (dim,)))
-        spec.append((f"{name}.bias", (dim,)))
-
-    spec.append(("backbone.patch_embed.proj.weight", (d0, cin, patch, patch)))
-    spec.append(("backbone.patch_embed.proj.bias", (d0,)))
-    if arch["family"] == "vit":
-        n = (arch["image_size"] // patch) ** 2 + 1
-        spec.append(("backbone.cls_token", (1, 1, d0)))
-        spec.append(("backbone.pos_embed", (1, n, d0)))
-        for blk in _block_names(arch):
-            norm(f"{blk}.norm1", d0)
-            lin(f"{blk}.attn.qkv", d0, 3 * d0)
-            lin(f"{blk}.attn.proj", d0, d0)
-            norm(f"{blk}.norm2", d0)
-            lin(f"{blk}.mlp.fc1", d0, int(d0 * r))
-            lin(f"{blk}.mlp.fc2", int(d0 * r), d0)
-    else:
-        norm("backbone.patch_embed.norm", d0)
-        for s, depth in enumerate(arch["depths"]):
-            c = d0 * 2 ** s
-            if s > 0:
-                lin(f"backbone.layers.{s}.downsample.reduction", 2 * c, c,
-                    bias=False)
-                norm(f"backbone.layers.{s}.downsample.norm", c)
-            for b in range(depth):
-                blk = f"backbone.layers.{s}.blocks.{b}"
-                heads = _heads(arch, s)
-                spec.append((f"{blk}.attn.q_bias", (c,)))
-                spec.append((f"{blk}.attn.v_bias", (c,)))
-                spec.append((f"{blk}.attn.logit_scale", (heads, 1, 1)))
-                lin(f"{blk}.attn.qkv", c, 3 * c, bias=False)
-                lin(f"{blk}.attn.cpb_mlp.0", 2, 512)
-                lin(f"{blk}.attn.cpb_mlp.2", 512, heads, bias=False)
-                lin(f"{blk}.attn.proj", c, c)
-                norm(f"{blk}.norm1", c)
-                lin(f"{blk}.mlp.fc1", c, int(c * r))
-                lin(f"{blk}.mlp.fc2", int(c * r), c)
-                norm(f"{blk}.norm2", c)
-    norm("backbone.norm", feature_dim(arch))
+    order: the family's backbone (timm's names under ``backbone.``), then
+    the metadata MLP's and head's under ``metadata_branch.net.{0,1,4,5}``
+    and ``classifier.{0,3}``."""
+    fam = family(arch)
+    spec = fam.backbone_spec(arch)
     meta, head = arch["metadata"], arch["head"]
-    lin("metadata_branch.net.0", meta["input_dim"], meta["hidden_dim"])
-    norm("metadata_branch.net.1", meta["hidden_dim"])
-    lin("metadata_branch.net.4", meta["hidden_dim"], meta["output_dim"])
-    norm("metadata_branch.net.5", meta["output_dim"])
-    lin("classifier.0", feature_dim(arch) + meta["output_dim"],
-        head["hidden_dim"])
-    lin("classifier.3", head["hidden_dim"], head["num_classes"])
+    spec += linear_spec("metadata_branch.net.0", meta["input_dim"],
+                        meta["hidden_dim"])
+    spec += norm_spec("metadata_branch.net.1", meta["hidden_dim"])
+    spec += linear_spec("metadata_branch.net.4", meta["hidden_dim"],
+                        meta["output_dim"])
+    spec += norm_spec("metadata_branch.net.5", meta["output_dim"])
+    spec += linear_spec("classifier.0", fam.feature_dim(arch) + meta["output_dim"],
+                        head["hidden_dim"])
+    spec += linear_spec("classifier.3", head["hidden_dim"], head["num_classes"])
     return spec
 
 
 def drop_path_rates(arch: Dict) -> List[float]:
     """Stochastic depth of each block: linear from 0 to the rate over all
     blocks."""
-    n = len(_block_names(arch))
+    n = len(family(arch).block_names(arch))
     rate = arch["drop_path_rate"]
     return [rate * i / max(1, n - 1) for i in range(n)]
 
@@ -234,13 +189,14 @@ def draw_masks(arch: Dict, batch: int, generator: torch.Generator,
     branch's; then the metadata MLP's dropout (B, hidden) and the head's
     (B, hidden). A mask is ``uniform < keep``."""
     masks: Dict[str, Optional[torch.Tensor]] = {}
-    ones = (1, 1) if arch["family"] == "vit" else (1, 1, 1)
-    for blk, rate in zip(_block_names(arch), drop_path_rates(arch)):
+    fam = family(arch)
+    for blk, rate in zip(fam.block_names(arch), drop_path_rates(arch)):
         for branch in ("attn", "mlp"):
             if rate == 0.0:
                 masks[f"{blk}.{branch}"] = None
                 continue
-            u = torch.rand((batch,) + ones, generator=generator, device=device)
+            u = torch.rand((batch,) + fam.DROP_PATH_SHAPE, generator=generator,
+                           device=device)
             masks[f"{blk}.{branch}"] = u < (1.0 - rate)
     for name, sec in (("metadata", arch["metadata"]), ("head", arch["head"])):
         rate = sec["dropout"]
@@ -251,182 +207,6 @@ def draw_masks(arch: Dict, batch: int, generator: torch.Generator,
                        device=device)
         masks[name] = u < (1.0 - rate)
     return masks
-
-
-# ---------------------------------------------------------------------------
-# ViT
-# ---------------------------------------------------------------------------
-
-def vit_attention(x: torch.Tensor, p: Params, name: str, heads: int,
-                  prec: Precision) -> torch.Tensor:
-    b, n, d = x.shape
-    qkv = linear(x, p[f"{name}.qkv.weight"], p[f"{name}.qkv.bias"], prec)
-    q, k, v = qkv.reshape(b, n, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
-    scores = prec.out(prec(q) @ prec(k).transpose(-2, -1)) * (d // heads) ** -0.5
-    out = prec.out(prec(torch.softmax(scores, -1)) @ prec(v))
-    out = out.transpose(1, 2).reshape(b, n, d)
-    return linear(out, p[f"{name}.proj.weight"], p[f"{name}.proj.bias"], prec)
-
-
-def vit_features(img: torch.Tensor, p: Params, arch: Dict,
-                 masks: Dict[str, Optional[torch.Tensor]], prec: Precision,
-                 remat: bool) -> torch.Tensor:
-    eps = arch["ln_eps"]
-    heads = arch["num_heads"]
-    x = patch_embed(img, p, "backbone.patch_embed", arch["patch_size"], prec)
-    b = x.shape[0]
-    x = x.reshape(b, -1, x.shape[-1])
-    x = torch.cat([p["backbone.cls_token"].expand(b, -1, -1), x], 1)
-    x = x + p["backbone.pos_embed"]
-    for blk, rate in zip(_block_names(arch), drop_path_rates(arch)):
-        def block(x, blk=blk, rate=rate):
-            keep = 1.0 - rate
-            y = vit_attention(layer_norm(x, p, f"{blk}.norm1", eps), p,
-                              f"{blk}.attn", heads, prec)
-            x = x + drop(y, masks.get(f"{blk}.attn"), keep)
-            y = mlp(layer_norm(x, p, f"{blk}.norm2", eps), p, f"{blk}.mlp",
-                    prec)
-            return x + drop(y, masks.get(f"{blk}.mlp"), keep)
-        x = checkpoint.checkpoint(block, x, use_reentrant=False) if remat \
-            else block(x)
-    x = layer_norm(x, p, "backbone.norm", eps)
-    return x[:, 0] if arch.get("pool", "cls") == "cls" else x[:, 1:].mean(1)
-
-
-# ---------------------------------------------------------------------------
-# SwinV2
-# ---------------------------------------------------------------------------
-
-def relative_coords_table(window: int, pretrained_window: int) -> torch.Tensor:
-    """SwinV2's log-spaced coordinate table (2w−1, 2w−1, 2), the deltas
-    normalised by the pretrained window's extent minus one."""
-    r = np.arange(-(window - 1), window, dtype=np.float64)
-    table = np.stack(np.meshgrid(r, r, indexing="ij"), axis=-1)
-    table = table / max((pretrained_window or window) - 1, 1) * 8.0
-    table = np.sign(table) * np.log2(np.abs(table) + 1.0) / np.log2(8.0)
-    return torch.from_numpy(table.astype(np.float32))
-
-
-def relative_position_index(window: int) -> torch.Tensor:
-    """(w², w²) index into the flattened table of query − key offsets."""
-    ys, xs = np.meshgrid(np.arange(window), np.arange(window), indexing="ij")
-    ys, xs = ys.reshape(-1), xs.reshape(-1)
-    dy = ys[:, None] - ys[None, :] + window - 1
-    dx = xs[:, None] - xs[None, :] + window - 1
-    return torch.from_numpy(dy * (2 * window - 1) + dx)
-
-
-def shift_mask(h: int, w: int, window: int, shift: int) -> Optional[torch.Tensor]:
-    """(nW, w², w²) additive mask: −100 between tokens of different regions
-    of the cyclically shifted map, None without a shift."""
-    if shift == 0:
-        return None
-    region = torch.zeros(h, w)
-    cuts = ((0, h - window), (h - window, h - shift), (h - shift, h))
-    cuts_w = ((0, w - window), (w - window, w - shift), (w - shift, w))
-    label = 0
-    for y0, y1 in cuts:
-        for x0, x1 in cuts_w:
-            region[y0:y1, x0:x1] = label
-            label += 1
-    win = region.reshape(h // window, window, w // window, window)
-    win = win.permute(0, 2, 1, 3).reshape(-1, window * window)
-    return torch.where(win[:, :, None] != win[:, None, :], -100.0, 0.0)
-
-
-def swin_attention(x: torch.Tensor, p: Params, name: str, heads: int,
-                   window: int, pretrained_window: int,
-                   mask: Optional[torch.Tensor], prec: Precision,
-                   chunk: int) -> torch.Tensor:
-    """Scaled cosine attention over windows: x (windows, n, C)."""
-    rows, n, c = x.shape
-    d = c // heads
-    bias = torch.cat([p[f"{name}.q_bias"], torch.zeros_like(p[f"{name}.q_bias"]),
-                      p[f"{name}.v_bias"]])
-    qkv = linear(x, p[f"{name}.qkv.weight"], bias, prec)
-    q, k, v = qkv.reshape(rows, n, 3, heads, d).permute(2, 0, 3, 1, 4)
-    table = relative_coords_table(window, pretrained_window).to(x.device)
-    hid = F.relu(linear(table, p[f"{name}.cpb_mlp.0.weight"],
-                        p[f"{name}.cpb_mlp.0.bias"], prec))
-    cpb = linear(hid, p[f"{name}.cpb_mlp.2.weight"], None, prec)
-    idx = relative_position_index(window).to(x.device).reshape(-1)
-    rel = cpb.reshape(-1, heads)[idx].reshape(n, n, heads).permute(2, 0, 1)
-    rel = 16.0 * torch.sigmoid(rel)
-    scale = torch.exp(torch.clamp(p[f"{name}.logit_scale"], max=math.log(100.0)))
-    qn = F.normalize(q, dim=-1)
-    kn = F.normalize(k, dim=-1)
-    outs = []
-    for s in range(0, rows, chunk):          # windows of ``chunk`` at a time
-        e = min(rows, s + chunk)
-        att = prec.out(prec(qn[s:e]) @ prec(kn[s:e]).transpose(-2, -1)) * scale + rel
-        if mask is not None:
-            nw = mask.shape[0]
-            att = att + mask[torch.arange(s, e, device=x.device) % nw][:, None]
-        outs.append(prec.out(prec(torch.softmax(att, -1)) @ prec(v[s:e])))
-    out = torch.cat(outs).transpose(1, 2).reshape(rows, n, c)
-    return linear(out, p[f"{name}.proj.weight"], p[f"{name}.proj.bias"], prec)
-
-
-def windows(x: torch.Tensor, w: int) -> torch.Tensor:
-    """(B, H, W, C) → (B·nW, w², C), the windows of each image together."""
-    b, h, wd, c = x.shape
-    x = x.reshape(b, h // w, w, wd // w, w, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(-1, w * w, c)
-
-
-def unwindows(x: torch.Tensor, w: int, h: int, wd: int) -> torch.Tensor:
-    c = x.shape[-1]
-    b = x.shape[0] // ((h // w) * (wd // w))
-    x = x.reshape(b, h // w, wd // w, w, w, c).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(b, h, wd, c)
-
-
-def swin_features(img: torch.Tensor, p: Params, arch: Dict,
-                  masks: Dict[str, Optional[torch.Tensor]], prec: Precision,
-                  remat: bool, chunk: int = 64) -> torch.Tensor:
-    eps = arch["ln_eps"]
-    x = patch_embed(img, p, "backbone.patch_embed", arch["patch_size"], prec)
-    x = layer_norm(x, p, "backbone.patch_embed.norm", eps)
-    rates = iter(drop_path_rates(arch))
-    for s, depth in enumerate(arch["depths"]):
-        if s > 0:                 # 2×2 merge: chunks (0,0), (1,0), (0,1), (1,1)
-            b, h, w, c = x.shape
-            x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 4, 2, 5)
-            x = x.reshape(b, h // 2, w // 2, 4 * c)
-            name = f"backbone.layers.{s}.downsample"
-            x = linear(x, p[f"{name}.reduction.weight"], None, prec)
-            x = layer_norm(x, p, f"{name}.norm", eps)
-        _, h, w, _ = x.shape
-        window = arch["window_size"]
-        clamp = window >= min(h, w)
-        window = min(h, w) if clamp else window
-        heads = _heads(arch, s)
-        pw = arch["pretrained_window_sizes"][s]
-        for b_i in range(depth):
-            blk = f"backbone.layers.{s}.blocks.{b_i}"
-            shift = 0 if (clamp or b_i % 2 == 0) else window // 2
-            mask = shift_mask(h, w, window, shift)
-            mask = None if mask is None else mask.to(x.device)
-            rate = next(rates)
-
-            def block(x, blk=blk, shift=shift, mask=mask, rate=rate,
-                      window=window, heads=heads, pw=pw, h=h, w=w):
-                keep = 1.0 - rate
-                y = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
-                y = swin_attention(windows(y, window), p, f"{blk}.attn", heads,
-                                   window, pw, mask, prec, chunk)
-                y = unwindows(y, window, h, w)
-                if shift:
-                    y = torch.roll(y, (shift, shift), (1, 2))
-                x = x + drop(layer_norm(y, p, f"{blk}.norm1", eps),
-                             masks.get(f"{blk}.attn"), keep)
-                y = layer_norm(mlp(x, p, f"{blk}.mlp", prec), p,
-                               f"{blk}.norm2", eps)
-                return x + drop(y, masks.get(f"{blk}.mlp"), keep)
-            x = checkpoint.checkpoint(block, x, use_reentrant=False) if remat \
-                else block(x)
-    x = layer_norm(x, p, "backbone.norm", eps)
-    return x.reshape(x.shape[0], -1, x.shape[-1]).mean(1)
 
 
 # ---------------------------------------------------------------------------
@@ -455,8 +235,7 @@ def classifier(img: torch.Tensor, metadata: torch.Tensor, p: Params,
     (B, 13). ``masks`` from ``draw_masks`` in training, None in evaluation;
     ``running`` the BatchNorm running statistics, for evaluation."""
     masks = masks or {}
-    feats = (vit_features if arch["family"] == "vit" else swin_features)(
-        img, p, arch, masks, prec, remat)
+    feats = family(arch).features(img, p, arch, masks, prec, remat)
     meta, head = arch["metadata"], arch["head"]
     m = linear(metadata, p["metadata_branch.net.0.weight"],
                p["metadata_branch.net.0.bias"], prec)

@@ -22,6 +22,10 @@ Layout (everything the harness finds by name, see ``harness/manifest.py``):
     benchmark/traffic/         a mix: its mode and that mode's parameters
     benchmark/modes/           the code that drives the program for a mode
                                (``train_epoch``, ``predict``)
+    benchmark/families/        an architecture (a configuration's
+                               ``model.family``): its backbone's
+                               parameters, reference forward, operation
+                               counts, attention kernel names, tiny CPU size
     benchmark/metrics/         a per-layer metric: ``read(measured)``
                                returns its value, or None where the run has
                                nothing for it to read
@@ -36,6 +40,11 @@ parameters) and ``limits/<cell>.json``, and add the cell to ``workloads`` in
 in ``configs``; a mode is ``modes/<mode>.py`` with ``run(context) →
 Measured``; a per-layer metric is ``metrics/<name>.py`` with ``read`` and an
 entry in ``per_layer``. No file that is there needs an edit.
+
+A new architecture is new files only: ``families/<family>.py``,
+``configs/<name>.json``, ``traffic/<mix>.json`` and ``limits/<cell>.json``;
+entries in ``configs``, ``workloads`` and ``per_layer``; and the new cell's
+name added to the ``workloads`` list of each end-to-end metric it reports.
 
 The port's kernels build on a checkout's first run into ``build/kernels/``
 (``fedvit_torch/core/kernels.py``: nvcc for sm_90a, a library a source,
@@ -72,7 +81,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, t0: float,
     ctx = report.Context(cell, seed, seconds, trace, t0, dev)
     if log is not None:
         ctx.log = log
-    measured = manifest.mode_module(cell.mode).run(ctx)
+    measured = manifest.mode_module(cell.mode, cell.base).run(ctx)
     if dev.type == "cuda":
         record = devices.device_record(cell.chips)
     else:

@@ -6,10 +6,10 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark.harness import flops, inputs
+from benchmark.harness import flops, inputs, manifest
 from benchmark.harness.manifest import BENCH_DIR
 from benchmark.reference import models as ref_models
-from benchmark.tests.tiny import tiny_cell
+from benchmark.tests.tiny import FAMILIES, tiny_cell
 
 
 def arch_of(name):
@@ -17,7 +17,7 @@ def arch_of(name):
         return json.load(f)["model"]
 
 
-@pytest.mark.parametrize("family", ["vit", "swinv2"])
+@pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("batch", [1, 3])
 def test_forward_flops_match_the_flop_counter(family, batch):
     """Every product of the reference's forward, as torch counts them."""
@@ -72,8 +72,9 @@ def k6(rows, n, heads, masked):
 
 @pytest.mark.parametrize("b", [64, 128])
 def test_vit_attention_counts_are_chip_smokes(b):
-    assert flops.vit_call(b, 197, 768, 12, 64, "train_fwd") == k2(b, 197, 12, 64)
-    assert flops.vit_call(b, 197, 768, 12, 64, "train_bwd") == k3(b, 197, 12, 64)
+    vit_call = manifest.family_module("vit").vit_call
+    assert vit_call(b, 197, 768, 12, 64, "train_fwd") == k2(b, 197, 12, 64)
+    assert vit_call(b, 197, 768, 12, 64, "train_bwd") == k3(b, 197, 12, 64)
 
 
 @pytest.mark.parametrize("stage", [(16, 576, 6, 16), (4, 576, 12, 4),
@@ -82,11 +83,12 @@ def test_window_attention_counts_are_chip_smokes(stage):
     windows, n, heads, masked = stage
     rows = 8 * windows
     c = heads * 32
+    window_call = manifest.family_module("swinv2").window_call
     fwd = k5(rows, n, heads, masked)
-    assert flops.window_call(rows, n, c, heads, masked, "serve") == fwd
+    assert window_call(rows, n, c, heads, masked, "serve") == fwd
     lse = (fwd[0] + rows * heads * n * 4, fwd[1])
-    assert flops.window_call(rows, n, c, heads, masked, "train_fwd") == lse
-    assert flops.window_call(rows, n, c, heads, masked, "train_bwd") == \
+    assert window_call(rows, n, c, heads, masked, "train_fwd") == lse
+    assert window_call(rows, n, c, heads, masked, "train_bwd") == \
         k6(rows, n, heads, masked)
 
 

@@ -1,5 +1,6 @@
-"""What a run imports: no JAX, no JAX package, and a reference that loads
-nothing of the program. Each check runs in a fresh interpreter."""
+"""What a run imports: no JAX, no JAX package, and a reference (with the
+families' modules, which are reference code) that loads nothing of the
+program. Each check runs in a fresh interpreter."""
 
 import json
 import subprocess
@@ -15,6 +16,7 @@ HARNESS = ("benchmark.run", "benchmark.calibrate", "benchmark.harness.checks",
            "benchmark.harness.trace")
 REFERENCE = ("benchmark.reference", "benchmark.reference.models",
              "benchmark.reference.augment", "benchmark.reference.train")
+FAMILIES = sorted((BENCH_DIR / "families").glob("*.py"))
 # what the modes import from the program when a run builds it
 PROGRAM = ("fedvit_torch.core.config", "fedvit_torch.core.kernels",
            "fedvit_torch.data.pipeline", "fedvit_torch.eval.serve",
@@ -43,14 +45,14 @@ print(json.dumps(sorted({{m.split('.')[0] for m in sys.modules}})))
 
 def test_a_run_loads_no_jax_and_no_jax_package():
     files = sorted((BENCH_DIR / "modes").glob("*.py")) + \
-        sorted((BENCH_DIR / "metrics").glob("*.py"))
+        sorted((BENCH_DIR / "metrics").glob("*.py")) + FAMILIES
     names = loaded_after(HARNESS + REFERENCE + PROGRAM, files)
     assert "fedvit_torch" in names and "torch" in names
     assert not names & set(FORBIDDEN), names & set(FORBIDDEN)
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    names = loaded_after(REFERENCE)
+    names = loaded_after(REFERENCE, FAMILIES)
     assert "fedvit_torch" not in names
     assert not names & set(FORBIDDEN)
 

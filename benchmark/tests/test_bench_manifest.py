@@ -12,7 +12,9 @@ from benchmark.reference import models as ref_models
 
 MANIFEST = manifest.load_manifest()
 CELLS = [w["name"] for w in MANIFEST["workloads"]]
-NUMBERS = {"train_epoch": {"loss_gap", "grad_gap", "change_gap", "ema_gap"},
+CONFIGS = [c["name"] for c in MANIFEST["configs"]]
+NUMBERS = {"train_epoch": {"loss_gap", "grad_gap", "grad_gap.median",
+                           "change_gap", "ema_gap"},
            "predict": {"logit_gap"}}
 
 
@@ -85,7 +87,7 @@ def test_a_data_only_cell_is_picked_up(tmp_path):
     assert manifest.mode_module(cell.mode, base).run
 
 
-@pytest.mark.parametrize("config", ["vit-base-224", "swinv2-large-384"])
+@pytest.mark.parametrize("config", CONFIGS)
 def test_the_program_has_the_reference_parameters(config):
     """At the published sizes, the program's model (built on the meta
     device: shapes only) has exactly the reference's parameter names and
@@ -93,7 +95,8 @@ def test_the_program_has_the_reference_parameters(config):
     from fedvit_torch.core.config import from_dict
     from fedvit_torch.models.isic import ISICClassifier
 
-    with open(manifest.BENCH_DIR / "configs" / f"{config}.json") as f:
+    entry = next(c for c in MANIFEST["configs"] if c["name"] == config)
+    with open(manifest.REPO_DIR / entry["file"]) as f:
         conf = json.load(f)
     cfg = from_dict(conf["program"])
     m = cfg.model

@@ -7,12 +7,12 @@ import time
 import pytest
 
 from benchmark.harness import checks, manifest, report
-from benchmark.tests.tiny import CPU, tiny_cell
+from benchmark.tests.tiny import CPU, FAMILIES, tiny_cell
 
 SEED = 2 ** 31 + 77
 
 
-@pytest.mark.parametrize("family", ["vit", "swinv2"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_three_training_steps_match_the_program(family):
     cell = tiny_cell(family)
     mode = manifest.mode_module("train_epoch")
@@ -23,7 +23,7 @@ def test_three_training_steps_match_the_program(family):
     assert all(v < 1e-3 for v, _ in numbers.values()), numbers
 
 
-@pytest.mark.parametrize("family", ["vit", "swinv2"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_served_logits_match_the_program(family):
     cell = tiny_cell(family, mode="predict", resident=16, micro=4)
     ctx = report.Context(cell, SEED, 1.0, False, time.time(), CPU)

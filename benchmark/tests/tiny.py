@@ -1,6 +1,8 @@
 """Tiny cells for the harness's CPU tests: the real cells' files with the
-models cut to a size the CPU runs in seconds (ViT-Ti/16 at 32 px; SwinV2-T
-with windows of 8 at 64 px), their compute in fp32 or bf16."""
+models cut to the size each family's module gives (``TINY``: ViT-Ti/16 at
+32 px; SwinV2-T with windows of 8 at 64 px), their compute in fp32 or bf16.
+``FAMILIES`` is every architecture in ``benchmark/families/``, so that a
+new family brings its cases to the tests that run each family."""
 
 from __future__ import annotations
 
@@ -11,27 +13,21 @@ import torch
 
 from benchmark.harness import manifest
 
-TINY = {
-    "vit": ("vit-base-224", "vit_tiny_patch16_224", 32, 48,
-            {"embed_dim": 192, "depth": 12, "num_heads": 3}),
-    "swinv2": ("swinv2-large-384", "swinv2_tiny_window8_64", 64, 80,
-               {"embed_dim": 96, "depths": [2, 2, 6, 2],
-                "num_heads": [3, 6, 12, 24], "window_size": 8,
-                "pretrained_window_sizes": [0, 0, 0, 0]}),
-}
+FAMILIES = sorted(p.stem for p in manifest.FAMILIES_DIR.glob("*.py"))
 
 
 def tiny_cell(family: str, mode: str = "train_epoch", resident: int = 24,
               micro: int = 4, dtype: str = "float32",
               limits=None) -> manifest.Cell:
-    config_name, backbone, size, canvas, arch = TINY[family]
-    with open(manifest.BENCH_DIR / "configs" / f"{config_name}.json") as f:
+    tiny = manifest.family_module(family).TINY
+    with open(manifest.BENCH_DIR / "configs" / f"{tiny['config']}.json") as f:
         config = json.load(f)
     config = copy.deepcopy(config)
-    config["model"].update(arch, image_size=size)
-    config["inputs"]["canvas"] = canvas
+    config["model"].update(tiny["model"], image_size=tiny["image_size"])
+    config["inputs"]["canvas"] = tiny["canvas"]
     prog = config["program"]["model"]
-    prog.update(backbone=backbone, image_size=size, compute_dtype=dtype)
+    prog.update(backbone=tiny["backbone"], image_size=tiny["image_size"],
+                compute_dtype=dtype)
     if mode == "train_epoch":
         traffic = {"mode": mode, "resident": resident,
                    "class_counts": [4522, 12875, 3323, 867, 2624, 239, 253, 628],
@@ -39,7 +35,8 @@ def tiny_cell(family: str, mode: str = "train_epoch", resident: int = 24,
                    "program": {"training": {"batch_size": micro,
                                             "gradient_accumulation_steps": 1}}}
         limits = limits or {"loss_gap": 0.05, "grad_gap": 0.5,
-                            "change_gap": 0.5, "ema_gap": 0.5}
+                            "grad_gap.median": 0.5, "change_gap": 0.5,
+                            "ema_gap": 0.5}
     else:
         traffic = {"mode": mode, "host_images": resident,
                    "class_counts": [4522, 12875, 3323, 867, 2624, 239, 253, 628],
