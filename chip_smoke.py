@@ -369,6 +369,26 @@ blocks' two each in a forward that remat recomputes.
       world 1 on the card.
    No time of phase 17 measures scaling: two ranks halve one card and gloo
    stages every collective through the host.
+18. EVA-02-L/14@448 (``models/eva.py``), in this process:
+   a. the rotary kernel (``csrc/rotary.cu``, counted as "RoPE" in every
+      gate) on q and k by +θ and −θ against ``rotate_plain``, bit for bit:
+      small fp32 and bf16 cases, 3 heads, a batch of 9 rows, then the cell's
+      micro-batch, (32, 1025, 1024) bf16 in 16 heads, timed beside its byte
+      bound and the plain version; under grad one launch forward and one
+      back, the gradient the output's turned by −θ;
+   b. the ragged LayerNorm forward and K4's ragged pass (rows off 16 bytes
+      or over D 2048) against their plain versions at small and odd shapes
+      in each dtype pair, each launch counted by ``ragged_launches``, then
+      timed at the SwiGLU norm's (32 x 1,025, 2,730) bf16;
+   c. K9's three entries against their plain versions at the cell's
+      (32, 1025, 1024) bf16, 16 heads, timed;
+   d. the step of 8b on EVA-02-L at macro batch 64 as 2 x 32: 1 warm-up
+      step then 5 timed ones, img/s and peak memory, per micro-batch 24 of
+      K9's log-sum-exp entry, 24 K9 backwards, 48 RoPE, 73 LayerNorm
+      forwards and 73 K4 (24 of each ragged), none of any other kernel;
+   with ``--trace``, a profile of one EVA-02-L training step.
+   Its gradients are held to the plain reference by the benchmark's
+   ``eva02l448-train-4x32`` cell, not here.
 
 Any failure raises and exits non-zero. The second-to-last line is a JSON
 object with each kernel's numbers; the last line is
@@ -1232,8 +1252,9 @@ def ln_fwd_phase(ln) -> dict:
 
 def counted(fa, ln) -> dict:
     """Every kernel wrapper that counts its launches, by kernel, the
-    LayerNorm forward kernel as "LN" (the attention kernels only when ``ln``
-    is None)."""
+    LayerNorm forward kernel as "LN" and the rotary kernel as "RoPE" (the
+    attention kernels only when ``ln`` is None)."""
+    from fedvit_torch.ops import rotary
     fns = {"K1": fa.flash_attention_qkvb, "K2": fa.qkvb_attention_lse_cuda,
            "K3": fa.qkvb_attention_bwd_cuda,
            "K10": fa.flash_attention_qkv, "K10_lse": fa.qkv_attention_lse_cuda,
@@ -1249,7 +1270,8 @@ def counted(fa, ln) -> dict:
            "K12_lse": fa.cosine_window_attention_lse_cuda,
            "K12_bwd": fa.cosine_window_attention_bwd_cuda}
     return fns if ln is None else fns | {"K4": ln.layer_norm_bwd_cuda,
-                                         "LN": ln.layer_norm_fwd_cuda}
+                                         "LN": ln.layer_norm_fwd_cuda,
+                                         "RoPE": rotary.rotary_qk_cuda}
 
 
 def launch_counts(fa, ln) -> dict:
@@ -7043,12 +7065,212 @@ def dp_phase(fa, ln, smi, tmp: Path) -> dict:
     return {"launches": launches, "nccl": nccl}
 
 
+# ---------------------------------------------------------------------------
+# 18. EVA-02-L/14@448 training: the rotary kernel, the ragged LayerNorm, K9
+# ---------------------------------------------------------------------------
+
+EVA = "eva02_large_patch14_448.mim_m38m_ft_in22k_in1k"
+EVA_SIZE, EVA_PATCH, EVA_DEPTH, EVA_HEADS = 448, 14, 24, 16
+EVA_WIDTH, EVA_HIDDEN, EVA_REF_GRID = 1024, 2730, 16
+EVA_GRID = EVA_SIZE // EVA_PATCH                   # 32 x 32 patches
+EVA_TOKENS = 1 + EVA_GRID ** 2                     # and the class token
+EVA_MICRO, EVA_ACCUM = 32, 2                       # the cell's micro-batch
+EVA_DROP_PATH, EVA_LLRD = 0.2, 0.8
+# The names of the new kernels in a device profile: the rotary kernel
+# (``csrc/rotary.cu``) and the ragged LayerNorm forward and K4 pass; K9's
+# training entries are K10's kernels (attn_fwd/attn_bwd without a bias)
+ROPE_NAMES = (r"\brotary_kernel<",)
+LN_RAGGED_NAMES = (r"\bln_fwd_ragged_kernel<", r"\bln_bwd_ragged_kernel<")
+# the ragged LayerNorm's untimed cases, (x dtype, y dtype) → widths: rows
+# off 16 bytes (2,730 and 1,030 in bf16) and over D 2048 (4,096, 2,052)
+LN_RAGGED_CASES = {(torch.bfloat16, torch.bfloat16): (2730, 1030, 4096),
+                   (torch.float32, torch.float32): (2730, 2052),
+                   (torch.float32, torch.bfloat16): (2730,),
+                   (torch.bfloat16, torch.float32): (2730,)}
+K4_RAGGED_CASES = (((63, 2730), torch.bfloat16), ((4, 9, 1030), torch.bfloat16),
+                   ((129, 4096), torch.bfloat16), ((65, 2730), torch.float32),
+                   ((1057, 2052), torch.float32), ((3, 6), torch.float32))
+
+
+def check_rotary(rotary, b, grid, heads, d, dtype, timed):
+    """The rotary kernel (``rotary_qk_cuda``) on seeded (B, 1 + grid², E) q
+    and k against ``rotate_plain``, by +θ (the forward) and −θ (the
+    backward): the same bits (both take the same roundings), the class token
+    copied, the inputs left as they were, one launch a call; timed beside
+    its byte bound (q and k of the patch tokens read and written once and
+    the table read once) and the plain version. Returns a record a
+    direction."""
+    n, e = 1 + grid * grid, heads * d
+    cos, sin = rotary.rope_table(grid, d, EVA_REF_GRID, device="cuda")
+    q, k = (seeded((b, n, e), dtype, SEED + 180 + n + d + i) for i in range(2))
+    q0, k0 = q.clone(), k.clone()
+    tag = f"[rope] q, k {(b, n, e)} {short(dtype)} heads {heads} (d {d})"
+    recs = {}
+    for sign, name in ((1.0, "fwd"), (-1.0, "bwd")):
+        s = sin if sign > 0 else -sin
+        before = rotary.rotary_qk_cuda.launches
+        got = rotary.rotary_qk_cuda(q, k, cos, sin, sign)
+        torch.cuda.synchronize()
+        launched = rotary.rotary_qk_cuda.launches - before
+        same = all(torch.equal(a, rotary.rotate_plain(x, cos, s))
+                   for a, x in zip(got, (q, k)))
+        kept = torch.equal(q, q0) and torch.equal(k, k0)
+        log(f"{tag} by {name} θ: the plain version's bits {same}, the inputs "
+            f"as they were {kept}, launches {launched}")
+        if not (same and kept and launched == 1):
+            raise RuntimeError("the rotary kernel is not its plain version")
+        rec = recs[name] = {"same_bits": same}
+        if not timed:
+            continue
+        rec["ms"] = cuda_ms(lambda: rotary.rotary_qk_cuda(q, k, cos, sin, sign))
+        rec["plain_ms"] = cuda_ms(lambda: (rotary.rotate_plain(q, cos, s),
+                                           rotary.rotate_plain(k, cos, s)),
+                                  iters=5)
+        nbytes = 4 * b * (n - 1) * e * q.element_size() + 2 * cos.numel() * 4
+        # per element: two products and a sum
+        rec.update(bound(nbytes, 3.0 * 2 * q.numel(), torch.float32))
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        log(f"{tag} by {name} θ: kernel {rec['ms']!r} ms, "
+            f"{100 * rec['share_of_bound']!r}% of its bound "
+            f"{rec['bound_ms']!r} ms by {rec['bound_by']} ({nbytes} B); plain "
+            f"{rec['plain_ms']!r} ms")
+    return recs
+
+
+def check_rotary_grad(rotary) -> None:
+    """``rotary_qk`` under grad on the card: one launch forward and one
+    backward, q's and k's gradients the outputs' turned by −θ, bit for bit."""
+    cos, sin = rotary.rope_table(4, 64, EVA_REF_GRID, device="cuda")
+    q, k = (seeded((2, 17, 128), torch.float32, SEED + 190 + i).requires_grad_()
+            for i in range(2))
+    dq, dk = (seeded((2, 17, 128), torch.float32, SEED + 192 + i)
+              for i in range(2))
+    before = rotary.rotary_qk_cuda.launches
+    torch.autograd.backward(rotary.rotary_qk(q, k, cos, sin), [dq, dk])
+    torch.cuda.synchronize()
+    launched = rotary.rotary_qk_cuda.launches - before
+    same = torch.equal(q.grad, rotary.rotate_plain(dq, cos, -sin)) and \
+        torch.equal(k.grad, rotary.rotate_plain(dk, cos, -sin))
+    log(f"[rope] under grad: launches {launched} (want 2), the gradients the "
+        f"outputs' turned by −θ {same}")
+    if launched != 2 or not same:
+        raise RuntimeError("rotary_qk's backward is not the rotation by −θ")
+
+
+def ragged_counts(ln) -> tuple:
+    return (ln.layer_norm_fwd_cuda.ragged_launches,
+            ln.layer_norm_bwd_cuda.ragged_launches)
+
+
+def check_ln_ragged(ln):
+    """18b: the ragged LayerNorm forward and K4's ragged pass against their
+    plain versions (phase 6's and 8a's checks) at small and odd shapes, each
+    launch counted by the ragged counters, then timed at the cell's SwiGLU
+    norm, (32 x 1,025, 2,730) bf16; returns (forward's record, K4's)."""
+    before = ragged_counts(ln)
+    calls = 0
+    for (xdt, ydt), widths in LN_RAGGED_CASES.items():
+        for d in widths:
+            for shape in ((1, d), (7, d), (3, 37, d)):
+                check_ln_fwd(ln, shape, xdt, ydt, False)
+                calls += 1
+    for shape, dtype in K4_RAGGED_CASES:
+        check_k4(ln, shape, dtype, False)
+    got = tuple(a - b for a, b in zip(ragged_counts(ln), before))
+    want = (2 * calls, len(K4_RAGGED_CASES))
+    log(f"[ln-ragged] ragged launches (forward, K4) {got} (want {want})")
+    if got != want:
+        raise RuntimeError("rows off 16 bytes or over D 2048 did not take "
+                           "the ragged kernels once a call")
+    rows = EVA_MICRO * EVA_TOKENS
+    fwd = check_ln_fwd(ln, (rows, EVA_HIDDEN), torch.bfloat16, torch.bfloat16,
+                       True)
+    k4 = check_k4(ln, (EVA_MICRO, EVA_TOKENS, EVA_HIDDEN), torch.bfloat16, True)
+    k4["share_of_bound"] = k4["bound_ms"] / k4["ms"]
+    log(f"[ln-ragged] K4's ragged pass at ({rows}, {EVA_HIDDEN}): "
+        f"{100 * k4['share_of_bound']!r}% of its bound")
+    return fwd, k4
+
+
+def eva_train(fa, ln, smi, trace):
+    """18d: the step of phase 8b on EVA-02-L/14@448 at macro batch 64 as 2
+    micro-batches of 32 (the cell's micro-batch), drop-path 0.2, LLRD 0.8: a
+    warm-up step, then 5 timed ones whose launches a micro-batch must be 24
+    of K9's log-sum-exp entry, 24 K9 backwards, 48 rotary (q and k turned
+    once forward and once back a block), 73 LayerNorm forwards and 73 K4
+    (three a block and ``fc_norm``), 24 of each of them ragged (the SwiGLU
+    norm), and none of any other kernel. Returns the timed steps' counts."""
+    from fedvit_torch.ops.layer_norm import LayerNorm
+
+    cfg, model, state, step, batches = training_setup(
+        EVA, EVA_SIZE, EVA_MICRO, EVA_ACCUM, EVA_DROP_PATH, EVA_LLRD)
+    norms = [m for m in model.modules() if isinstance(m, LayerNorm)]
+    wide = sum(m.weight.numel() == EVA_HIDDEN for m in norms)
+    log(f"[eva-train] {EVA}: {len(model.backbone.blocks)} blocks, "
+        f"{len(norms)} LayerNorms, {wide} of them over {EVA_HIDDEN}")
+    if len(model.backbone.blocks) != EVA_DEPTH or \
+            len(norms) != 3 * EVA_DEPTH + 1 or wide != EVA_DEPTH:
+        raise RuntimeError("want 24 blocks of three LayerNorms, one of them "
+                           "the SwiGLU norm, and fc_norm")
+    state = warm_up_step("eva-train", cfg, model, state, step, batches[0])
+    micro_batches = TIMED_STEPS * EVA_ACCUM
+    want = {k: 0 for k in counted(fa, ln)} | {
+        "K9_lse": micro_batches * EVA_DEPTH, "K9_bwd": micro_batches * EVA_DEPTH,
+        "RoPE": 2 * micro_batches * EVA_DEPTH,
+        "K4": micro_batches * len(norms), "LN": micro_batches * len(norms)}
+    before = ragged_counts(ln)
+    state, counts = timed_steps("eva-train", "EVA-02-L/14@448 bf16 4ch+meta", fa,
+                                ln, state, step, batches[1:], want, smi)
+    ragged = tuple(a - b for a, b in zip(ragged_counts(ln), before))
+    log(f"[eva-train] ragged launches (forward, K4) in {len(batches) - 1} "
+        f"steps: {ragged} (want {(micro_batches * wide,) * 2})")
+    if ragged != (micro_batches * wide,) * 2:
+        raise RuntimeError("the SwiGLU norm did not take the ragged kernels "
+                           "once a micro-batch and block")
+    if trace:
+        trace_training("profile-eva-train", step, state, batches[1], smi, {
+            "K9 log-sum-exp entry": K10_LSE_NAMES, "K9 backward": K10_BWD_NAMES,
+            "RoPE": ROPE_NAMES, "ragged LayerNorm": LN_RAGGED_NAMES})
+    return counts | {"LN_ragged": ragged[0], "K4_ragged": ragged[1]}
+
+
+def eva02_phase(fa, ln, smi, trace):
+    """Phase 18; returns the records of the rotary kernel, the ragged
+    LayerNorm forward and K4 pass, K9 at the cell's shape, and the training
+    step's launch counts, for the kernels line."""
+    from fedvit_torch.ops import rotary
+    phase_t0 = time.perf_counter()
+    # 18a. the rotary kernel
+    for b, grid, heads, d, dtype in ((3, 4, 2, 64, torch.float32),
+                                     (2, 7, 2, 64, torch.bfloat16),
+                                     (3, 4, 3, 64, torch.bfloat16),
+                                     (9, EVA_GRID, EVA_HEADS, 64, torch.bfloat16)):
+        check_rotary(rotary, b, grid, heads, d, dtype, False)
+    check_rotary_grad(rotary)
+    rope = check_rotary(rotary, EVA_MICRO, EVA_GRID, EVA_HEADS,
+                        EVA_WIDTH // EVA_HEADS, torch.bfloat16, True)
+    torch.cuda.empty_cache()
+    # 18b. the ragged LayerNorm
+    ln_fwd, k4 = check_ln_ragged(ln)
+    torch.cuda.empty_cache()
+    # 18c. K9 at the cell's shape
+    k9 = check_k9(fa, EVA_MICRO, EVA_TOKENS, EVA_HEADS, EVA_WIDTH // EVA_HEADS,
+                  torch.bfloat16, ("fwd", "lse", "bwd"), True)
+    torch.cuda.empty_cache()
+    # 18d. the training step
+    counts = eva_train(fa, ln, smi, trace)
+    torch.cuda.empty_cache()
+    log(f"[eva] phase 18 in {time.perf_counter() - phase_t0!r} s ({smi})")
+    return {"rope": rope, "ln_fwd": ln_fwd, "k4": k4, "k9": k9,
+            "counts": counts}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", action="store_true",
                         help="also break the time of a serving batch (phases 5 "
-                             "and 7), of a training step (phases 6 and 8), "
-                             "of a fold step (phase 9), of a federated "
+                             "and 7), of a training step (phases 6, 8 and "
+                             "18), of a fold step (phase 9), of a federated "
                              "round (phase 12) and of a JointLoss step "
                              "(phase 15) down")
     args = parser.parse_args()
@@ -7252,6 +7474,13 @@ def main() -> int:
         # 17. data parallelism and the federated meshes on two ranks
         torch.cuda.empty_cache()
         dp = dp_phase(fa, ln, smi, Path(tmp))
+    # 18. EVA-02-L/14@448: the rotary kernel, the ragged LayerNorm, K9, a step
+    torch.cuda.empty_cache()
+    eva = eva02_phase(fa, ln, smi, args.trace)
+    for entry, rec in eva["k9"].items():
+        k9[entry]["eva02_l_448"] = rec
+    for entry, key in (("lse", "K9_lse"), ("bwd", "K9_bwd")):
+        k9[entry]["launches_eva02_train"] = eva["counts"][key]
     for rec, key in ((k1, "K1"), (k2, "K2"), (k3, "K3"), (k4, "K4"),
                      (k5, "K5"), (k5_lse, "K5_lse"), (k6, "K6"), (k7, "K7"),
                      (k8, "K8")):
@@ -7330,6 +7559,18 @@ def main() -> int:
         {"name": "equalize", "route": "cuda",
          "source": "fedvit_torch/csrc/equalize.cu",
          "replaces": "fedvit_tpu/ops/randaugment.py:206", **k8},
+        {"name": "rotary_qk", "route": "cuda",
+         "source": "fedvit_torch/csrc/rotary.cu",
+         "replaces": "none (the JAX package has no EVA-02 block)",
+         "launches_eva02_train": eva["counts"]["RoPE"], **eva["rope"]},
+        {"name": "layer_norm_fwd_ragged", "route": "cuda",
+         "source": "fedvit_torch/csrc/layer_norm_fwd.cu",
+         "replaces": "none (XLA fuses the JAX package's forward)",
+         "launches_eva02_train": eva["counts"]["LN_ragged"], **eva["ln_fwd"]},
+        {"name": "layer_norm_bwd_ragged", "route": "cuda",
+         "source": "fedvit_torch/csrc/layer_norm_bwd.cu",
+         "replaces": "fedvit_tpu/ops/layer_norm.py:90",
+         "launches_eva02_train": eva["counts"]["K4_ragged"], **eva["k4"]},
         *extra]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

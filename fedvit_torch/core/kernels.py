@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("qkvb_attention", "qkvb_attention_bwd",   # every csrc/<name>.cu
            "layer_norm_bwd", "layer_norm_fwd", "window_attention",
            "window_attention_bwd", "row_shift", "equalize", "xqkv_attention",
-           "xqkv_attention_bwd")
+           "xqkv_attention_bwd", "rotary")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")

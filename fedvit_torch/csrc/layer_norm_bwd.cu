@@ -55,6 +55,13 @@
 //   D 1536 (1,152) 10.6 MB -> 3.2 us.
 // The partial rows add 2 * D * 4 bytes a 64 kR rows, written and read back
 // (4% of the bytes at D = 768 bf16 with kR = 1).
+//
+// Rows whose size is a multiple of 4 bytes but not of 16, or over 2048, up to
+// D 4096, take ln_bwd_ragged_kernel (layer_norm_bwd_ragged) for pass 1: the
+// same arithmetic, a block of 128 threads a row in 4-byte words, rows in
+// turn, one partial row a block (about 8 blocks an SM); pass 2 as above.
+// EVA-02-L's SwiGLU norm, D 2,730 in bf16 at a micro-batch of 32 (32,800
+// rows): 537.3 MB -> 160.4 us. Every row the kernels above take keeps them.
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -62,6 +69,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "ln_ragged.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -359,6 +367,190 @@ int launch(const void* x, const void* dy, const void* gamma, void* dx,
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), parts, d));
 }
 
+// Rows whose size is a multiple of 4 bytes but not of 16 (EVA-02-L's SwiGLU
+// norm, D 2,730 in bf16), up to D 4096. Pass 1: block b, 128 threads, takes
+// rows rows_per_block b .. +rows_per_block - 1 in turn; thread t the row's
+// 4-byte words t, t + 128, ... (kPer at most), x's and dy's all in flight at
+// once; each row's sums by shuffles and then across the block's 4 warps in
+// order (ln_ragged::block_sum2), dx written, and the thread's own columns of
+// dy xhat and dy summed over the block's rows in registers and written as
+// partial row b of part_g and part_b. Pass 2 is ln_bwd_columns_kernel, as
+// for the rows above. The arithmetic is ln_bwd_rows_kernel's; its own name,
+// so that a reader of K4's pass 1 does not count it.
+template <typename T, int kPer>
+__global__ void __launch_bounds__(ln_ragged::kThreads)
+ln_bwd_ragged_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                     const float* __restrict__ gamma, T* __restrict__ dx,
+                     float* __restrict__ part_g, float* __restrict__ part_b,
+                     int rows, int d, float eps, int rows_per_block) {
+  using W = ln_ragged::Word<T>;
+  using U = typename W::U;
+  constexpr int kN = W::kN;
+  constexpr int kThreads = ln_ragged::kThreads;
+  __shared__ float2 red[ln_ragged::kWarps];
+  const int words = d / kN;
+  const float inv_d = 1.f / static_cast<float>(d);
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(rows, r0 + rows_per_block);
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  float ag[kPer][kN], ab[kPer][kN];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+#pragma unroll
+    for (int j = 0; j < kN; ++j) ag[k][j] = ab[k][j] = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const size_t base = static_cast<size_t>(r) * d;
+    const U* xw = reinterpret_cast<const U*>(x + base);
+    const U* gw = reinterpret_cast<const U*>(dy + base);
+    U xr[kPer], gr[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = threadIdx.x + kThreads * k;
+      if (i < words) {
+        xr[k] = xw[i];
+        gr[k] = gw[i];
+      }
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (threadIdx.x + kThreads * k < words) {
+        float f[kN];
+        W::get(xr[k], f);
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          s1 += f[j];
+          s2 += f[j] * f[j];
+        }
+      }
+    }
+    const float2 s = ln_ragged::block_sum2(s1, s2, red);
+    const float mu = s.x * inv_d;
+    const float rs = rsqrtf(fmaxf(s.y * inv_d - mu * mu, 0.f) + eps);
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = threadIdx.x + kThreads * k;
+      if (i < words) {
+        float xv[kN], gv[kN], wv[kN];
+        W::get(xr[k], xv);
+        W::get(gr[k], gv);
+        ln_ragged::load_floats<kN>(gamma + i * kN, wv);
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          const float xhat = (xv[j] - mu) * rs;
+          const float g = gv[j] * wv[j];
+          a += g;
+          b += g * xhat;
+        }
+      }
+    }
+    const float2 m = ln_ragged::block_sum2(a, b, red);
+    const float m1 = m.x * inv_d, m2 = m.y * inv_d;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int i = threadIdx.x + kThreads * k;
+      if (i < words) {
+        float xv[kN], gv[kN], wv[kN], o[kN];
+        W::get(xr[k], xv);
+        W::get(gr[k], gv);
+        ln_ragged::load_floats<kN>(gamma + i * kN, wv);
+#pragma unroll
+        for (int j = 0; j < kN; ++j) {
+          const float xhat = (xv[j] - mu) * rs;
+          o[j] = rs * (gv[j] * wv[j] - m1 - xhat * m2);
+          ag[k][j] += gv[j] * xhat;
+          ab[k][j] += gv[j];
+        }
+        ln_ragged::store_word<T, kN>(dx + base + i * kN, o);
+      }
+    }
+  }
+  const size_t part = static_cast<size_t>(blockIdx.x) * d;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int i = threadIdx.x + kThreads * k;
+    if (i < words) {
+      ln_ragged::store_floats<kN>(part_g + part + i * kN, ag[k]);
+      ln_ragged::store_floats<kN>(part_b + part + i * kN, ab[k]);
+    }
+  }
+  // pass 2 may be scheduled now; it waits for this grid's writes
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// rows a block of the ragged pass 1: enough that the blocks are about 8 an
+// SM, and so the partial rows about 8 an SM too; 0 on a CUDA error
+int ragged_rows_per_block(int rows) {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    return 0;
+  const long long want = 8LL * sms;
+  return static_cast<int>(std::max(1LL, (rows + want - 1) / want));
+}
+
+int ragged_parts(int rows) {
+  const int r = ragged_rows_per_block(rows);
+  return r < 1 ? 0 : (rows + r - 1) / r;
+}
+
+template <typename T, int kPer>
+int launch_ragged_rows(const T* x, const T* dy, const float* gamma, T* dx,
+                       float* pg, float* pb, int rows, int d, float eps,
+                       int per_block, int parts, cudaStream_t s) {
+  return static_cast<int>(launch_dependent(
+      ln_bwd_ragged_kernel<T, kPer>, dim3(parts), dim3(ln_ragged::kThreads), 0,
+      s, x, dy, gamma, dx, pg, pb, rows, d, eps, per_block));
+}
+
+// pass 1 with kPer words a thread: the fewest of 4, 8, 12, 16, 24, 32 that
+// hold the row
+template <typename T>
+int ragged_rows_pass(const T* x, const T* dy, const float* gamma, T* dx,
+                     float* pg, float* pb, int rows, int d, float eps,
+                     int per_block, int parts, cudaStream_t s) {
+  constexpr int kN = ln_ragged::Word<T>::kN;
+  const int per = (d / kN + ln_ragged::kThreads - 1) / ln_ragged::kThreads;
+#define FEDVIT_LN_RAGGED(P)                                                   \
+  if (per <= P)                                                               \
+  return launch_ragged_rows<T, P>(x, dy, gamma, dx, pg, pb, rows, d, eps,     \
+                                  per_block, parts, s)
+  FEDVIT_LN_RAGGED(4);
+  FEDVIT_LN_RAGGED(8);
+  FEDVIT_LN_RAGGED(12);
+  FEDVIT_LN_RAGGED(16);
+  FEDVIT_LN_RAGGED(24);
+  FEDVIT_LN_RAGGED(32);
+#undef FEDVIT_LN_RAGGED
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_ragged(const void* x, const void* dy, const void* gamma, void* dx,
+                  void* part_g, void* part_b, void* dgamma, void* dbeta, int rows,
+                  int d, float eps, cudaStream_t s) {
+  constexpr int kN = ln_ragged::Word<T>::kN;
+  if (d % kN != 0 || d > ln_ragged::kMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_block = ragged_rows_per_block(rows);
+  if (per_block < 1) return static_cast<int>(cudaErrorUnknown);
+  const int parts = (rows + per_block - 1) / per_block;
+  float* pg = static_cast<float*>(part_g);
+  float* pb = static_cast<float*>(part_b);
+  const int err = ragged_rows_pass<T>(
+      static_cast<const T*>(x), static_cast<const T*>(dy),
+      static_cast<const float*>(gamma), static_cast<T*>(dx), pg, pb, rows, d,
+      eps, per_block, parts, s);
+  if (err != 0) return err;
+  const int slices = std::min(kSlices, (parts + 7) / 8);
+  return static_cast<int>(launch_dependent(
+      ln_bwd_columns_kernel, dim3((2 * d + 31) / 32), dim3(32 * slices), 0, s,
+      static_cast<const float*>(pg), static_cast<const float*>(pb),
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), parts, d));
+}
+
 }  // namespace
 
 // rows of D in each of the fp32 workspaces part_g and part_b: one for each
@@ -388,3 +580,30 @@ extern "C" int layer_norm_bwd(const void* x, const void* dy, const void* gamma,
 
 // the largest D the kernel takes for a dtype (0 = float32, 1 = bfloat16)
 extern "C" int layer_norm_bwd_max_d(int /*dtype*/) { return 32 * kMaxPerLane; }
+
+// rows of D in each of the fp32 workspaces of layer_norm_bwd_ragged: one a
+// block of its pass 1 (about 8 an SM); 0 on a CUDA error
+extern "C" int layer_norm_bwd_ragged_workspace_rows(int rows) {
+  return rows <= 0 ? 0 : ragged_parts(rows);
+}
+
+// layer_norm_bwd for rows of any size that is a multiple of 4 bytes, D up to
+// 4096 (ops/layer_norm.py::_LN_RAGGED_MAX_D), x, dy and dx 4-byte aligned;
+// the caller takes layer_norm_bwd wherever it can. The workspaces hold
+// layer_norm_bwd_ragged_workspace_rows(rows) rows of D; fewer are refused.
+extern "C" int layer_norm_bwd_ragged(const void* x, const void* dy,
+                                     const void* gamma, void* dx, void* part_g,
+                                     void* part_b, void* dgamma, void* dbeta,
+                                     int rows, int d, int dtype, float eps,
+                                     int workspace_rows, void* stream) {
+  if (rows <= 0 || d <= 0 || workspace_rows < ragged_parts(rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_ragged<float>(x, dy, gamma, dx, part_g, part_b, dgamma, dbeta,
+                                rows, d, eps, s);
+  if (dtype == 1)
+    return launch_ragged<__nv_bfloat16>(x, dy, gamma, dx, part_g, part_b, dgamma,
+                                        dbeta, rows, d, eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

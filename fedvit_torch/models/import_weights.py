@@ -314,10 +314,14 @@ def import_pretrained_file(sd: Dict[str, torch.Tensor], cfg: Config,
         has them).
 
     The patch embed gets the 4-channel surgery when ``cfg`` feeds masks and
-    the file is RGB; a ViT's position embedding is resampled when the grid
-    differs. Every imported tensor must be in the file with the target's
-    shape, and the file's blocks must be the model's; keys the model does
-    not have (a timm head, SwinV2's index buffers) are left out."""
+    the file is RGB; a ViT's or an EVA-02's position embedding is resampled
+    when the grid differs. Every imported tensor must be in the file with the
+    target's shape, and the file's blocks must be the model's; keys the model
+    does not have (a timm head, SwinV2's index buffers) are left out, but for
+    an EVA-02 (timm's names: ``attn.q_proj``, ``attn.k_proj`` without a bias,
+    ``attn.v_proj``, ``mlp.fc1_g``, ``mlp.fc1_x``, ``mlp.norm``, ``mlp.fc2``,
+    ``fc_norm``), where any backbone key but timm's ``head`` raises: a fused
+    ``qkv``, a ``k_proj.bias`` or a final ``norm`` is another block."""
     full = any(k.startswith("backbone.") for k in sd)
     bb = ({k[len("backbone."):]: v for k, v in sd.items()
            if k.startswith("backbone.")} if full else dict(sd))
@@ -332,6 +336,12 @@ def import_pretrained_file(sd: Dict[str, torch.Tensor], cfg: Config,
         raise ValueError(f"the weights file's backbone has blocks {got}, the "
                          f"model's {cfg.model.backbone} has {want}")
     source = {"backbone." + k: v for k, v in bb.items()}
+    if cfg.model.backbone.startswith("eva02_"):
+        unknown = sorted(k for k in source if k not in target
+                         and not k.startswith("backbone.head."))
+        if unknown:
+            raise KeyError(f"the weights file has {unknown[:5]}, which the "
+                           f"model's {cfg.model.backbone} does not have")
     parts = ["backbone."]
     if full:
         source.update({k: v for k, v in sd.items()

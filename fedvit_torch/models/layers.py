@@ -30,16 +30,18 @@ VIT_ATTENTION_IMPLS = ("auto", "pallas", "packed", "mega", "xla")
 
 class Dense(nn.Linear):
     """``nn.Linear`` with fp32 parameters computed in ``dtype`` (flax Dense
-    semantics: input, weight and bias cast to the compute dtype)."""
+    semantics: input, weight and bias cast to the compute dtype); with
+    ``bias=False`` it has no bias (EVA-02's ``k_proj``)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class TorchBatchNorm(nn.BatchNorm1d):
@@ -151,8 +153,8 @@ class DropPath(nn.Module):
 
 
 def remat_block(block: nn.Module, x: torch.Tensor,
-                generator: Optional[torch.Generator]) -> torch.Tensor:
-    """``block(x, generator)`` rematerialised (flax ``nn.remat``): its
+                generator: Optional[torch.Generator], *extra) -> torch.Tensor:
+    """``block(x, generator, *extra)`` rematerialised (flax ``nn.remat``): its
     activations are not kept for the backward, which runs the block's
     forward again to rebuild them.
 
@@ -180,19 +182,23 @@ def remat_block(block: nn.Module, x: torch.Tensor,
             generator.set_state(now)
 
     return checkpoint.checkpoint(
-        block, x, generator, use_reentrant=False, preserve_rng_state=False,
+        block, x, generator, *extra, use_reentrant=False,
+        preserve_rng_state=False,
         context_fn=lambda: (contextlib.nullcontext(), replay()))
 
 
 def run_blocks(blocks: nn.ModuleList, x: torch.Tensor,
                generator: Optional[torch.Generator],
-               remat: bool) -> torch.Tensor:
-    """Each of ``blocks`` in turn, rematerialised (``remat_block``) when
-    ``remat`` is set and a gradient is being recorded in training; evaluation,
-    TTA and serving never checkpoint."""
+               remat: bool, *extra) -> torch.Tensor:
+    """Each of ``blocks`` in turn, ``blk(x, generator, *extra)`` (``extra``:
+    inputs every block shares, such as EVA-02's rotary table),
+    rematerialised (``remat_block``) when ``remat`` is set and a gradient is
+    being recorded in training; evaluation, TTA and serving never
+    checkpoint."""
     remat = remat and blocks.training and torch.is_grad_enabled()
     for blk in blocks:
-        x = remat_block(blk, x, generator) if remat else blk(x, generator)
+        x = (remat_block(blk, x, generator, *extra) if remat
+             else blk(x, generator, *extra))
     return x
 
 

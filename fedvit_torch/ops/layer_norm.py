@@ -6,7 +6,13 @@ The forward is ``layer_norm_fwd``: on a CUDA tensor the hand-written kernel
 leaves the forward to XLA's fusion and ``layer_norm_plain`` would launch 14
 kernels), on a CPU tensor the plain version ``layer_norm_plain``, which the
 kernel is held to on the card.
-``layer_norm_fwd_cuda.launches`` counts the kernel's launches. Under grad the
+Rows whose size is a multiple of 4 bytes but not of 16, or whose D is over
+2048 (EVA-02-L's SwiGLU norm: D 2,730), up to D 4096, take kernels of their
+own (``ln_fwd_ragged_kernel``, ``ln_bwd_ragged_kernel``): the same arithmetic
+in 4-byte words; every row the 16-byte kernels take keeps them.
+``layer_norm_fwd_cuda.launches`` counts the kernel's launches, the ragged
+kernel's among them, and ``layer_norm_fwd_cuda.ragged_launches`` the ragged
+kernel's alone (``layer_norm_bwd_cuda``'s two counters likewise). Under grad the
 forward runs inside ``LayerNormFn``, a ``torch.autograd.Function`` that saves
 only x and the weight (``_ln_fwd_rule``) and whose backward is
 ``layer_norm_bwd``: on a CUDA tensor the hand-written kernel K4
@@ -28,6 +34,15 @@ from fedvit_torch.core import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LN_MAX_D = 2048   # the forward kernel's largest D, K4's too (kMaxD in both)
+_LN_RAGGED_MAX_D = 4096   # the ragged kernels' (ln_ragged::kMaxD)
+
+
+def _ragged(d: int, element_size: int, *tensors: torch.Tensor) -> bool:
+    """Whether rows of D elements of ``element_size`` bytes at ``tensors``
+    fit the ragged kernels: a multiple of 4 bytes, D at most 4096, 4-byte
+    aligned."""
+    return (d * element_size) % 4 == 0 and 0 < d <= _LN_RAGGED_MAX_D and \
+        all(t.data_ptr() % 4 == 0 for t in tensors)
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -50,6 +65,8 @@ def _fwd_library() -> ctypes.CDLL:
     lib.layer_norm_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_void_p]
     lib.layer_norm_fwd.restype = ctypes.c_int
+    lib.layer_norm_fwd_ragged.argtypes = lib.layer_norm_fwd.argtypes
+    lib.layer_norm_fwd_ragged.restype = ctypes.c_int
     return lib
 
 
@@ -57,8 +74,9 @@ def layer_norm_fwd_cuda(x: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor, eps: float = 1e-6,
                         dtype: torch.dtype = None) -> torch.Tensor:
     """The forward kernel on a CUDA ``x`` (..., D) and the (D,) weight and
-    bias: y in ``dtype`` (default: x's dtype) and x's shape. Raises on
-    anything it does not take."""
+    bias: y in ``dtype`` (default: x's dtype) and x's shape; the ragged
+    kernel for rows the 16-byte one does not take. Raises on anything
+    neither takes."""
     dtype = dtype or x.dtype
     if x.device.type != "cuda" or weight.device != x.device or \
             bias.device != x.device:
@@ -72,29 +90,38 @@ def layer_norm_fwd_cuda(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"x {tuple(x.shape)}, weight {tuple(weight.shape)} "
                          f"and bias {tuple(bias.shape)} do not match")
     vec = 16 // x.element_size()
-    if d == 0 or d % vec or d > _LN_MAX_D:
-        raise ValueError(f"D={d} must be a multiple of {vec} and at most "
-                         f"{_LN_MAX_D} for {x.dtype}")
-    rows = x.numel() // d
+    rows = x.numel() // d if d else 0
     if not 0 < rows < 2 ** 31:
         raise ValueError(f"{rows} rows: the kernel takes 1 to 2^31 - 1")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     w, b = weight.float().contiguous(), bias.float().contiguous()
-    if x.data_ptr() % 16 or w.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError("x, weight and bias must be 16-byte aligned")
+    if w.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("weight and bias must be 16-byte aligned")
+    lib = _fwd_library()
+    if d % vec == 0 and d <= _LN_MAX_D and x.data_ptr() % 16 == 0:
+        entry = lib.layer_norm_fwd
+    elif _ragged(d, x.element_size(), x):
+        entry = lib.layer_norm_fwd_ragged
+    else:
+        raise ValueError(
+            f"D={d} of {x.dtype}: rows must be a multiple of 4 bytes with D at "
+            f"most {_LN_RAGGED_MAX_D} and x 4-byte aligned (a multiple of "
+            f"{vec} up to {_LN_MAX_D}, 16-byte aligned, for the 16-byte kernel)")
     y = torch.empty(x.shape, dtype=dtype, device=x.device)
-    err = _fwd_library().layer_norm_fwd(
+    err = entry(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), rows,
         d, _DTYPES[x.dtype], _DTYPES[dtype], eps,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"layer_norm_fwd launch failed: CUDA error {err}")
     layer_norm_fwd_cuda.launches += 1
+    layer_norm_fwd_cuda.ragged_launches += entry is lib.layer_norm_fwd_ragged
     return y
 
 
 layer_norm_fwd_cuda.launches = 0
+layer_norm_fwd_cuda.ragged_launches = 0
 
 
 def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -134,7 +161,10 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p]
     lib.layer_norm_bwd.restype = ctypes.c_int
-    for name in ("layer_norm_bwd_max_d", "layer_norm_bwd_workspace_rows"):
+    lib.layer_norm_bwd_ragged.argtypes = lib.layer_norm_bwd.argtypes
+    lib.layer_norm_bwd_ragged.restype = ctypes.c_int
+    for name in ("layer_norm_bwd_max_d", "layer_norm_bwd_workspace_rows",
+                 "layer_norm_bwd_ragged_workspace_rows"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -144,8 +174,8 @@ def layer_norm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor,
                         dy: torch.Tensor, eps: float = 1e-6
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 on CUDA ``x`` and ``dy`` (..., D) of one dtype and the (D,)
-    weight: (dx in x's dtype, dgamma fp32, dbeta fp32). Raises on anything it
-    does not take."""
+    weight: (dx in x's dtype, dgamma fp32, dbeta fp32); its ragged pass for
+    rows the 16-byte one does not take. Raises on anything neither takes."""
     if x.device.type != "cuda" or dy.device != x.device or \
             weight.device != x.device:
         raise ValueError(f"x, dy and weight must be on one CUDA device, got "
@@ -160,23 +190,29 @@ def layer_norm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor,
     lib = _library()
     dtype = _DTYPES[x.dtype]
     vec = 16 // x.element_size()
-    if d % vec or d > lib.layer_norm_bwd_max_d(dtype):
-        raise ValueError(f"D={d} must be a multiple of {vec} and at most "
-                         f"{lib.layer_norm_bwd_max_d(dtype)} for {x.dtype}")
     if not (x.is_contiguous() and dy.is_contiguous()):
         raise ValueError("x and dy must be contiguous")
-    if x.data_ptr() % 16 or dy.data_ptr() % 16:
-        raise ValueError("x and dy must be 16-byte aligned")
-    rows = x.numel() // d
+    max_d = lib.layer_norm_bwd_max_d(dtype)
+    rows = x.numel() // d if d else 0
+    if d % vec == 0 and d <= max_d and x.data_ptr() % 16 == 0 and \
+            dy.data_ptr() % 16 == 0:
+        entry, blocks = lib.layer_norm_bwd, lib.layer_norm_bwd_workspace_rows(rows)
+    elif _ragged(d, x.element_size(), x, dy) and rows > 0:
+        entry = lib.layer_norm_bwd_ragged
+        blocks = lib.layer_norm_bwd_ragged_workspace_rows(rows)
+    else:
+        raise ValueError(
+            f"D={d} of {x.dtype}: rows must be a multiple of 4 bytes with D at "
+            f"most {_LN_RAGGED_MAX_D} and x and dy 4-byte aligned (a multiple "
+            f"of {vec} up to {max_d}, 16-byte aligned, for the 16-byte kernel)")
     w = weight.float().contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
-    blocks = lib.layer_norm_bwd_workspace_rows(rows)
     part_g = torch.empty((blocks, d), **f32)
     part_b = torch.empty((blocks, d), **f32)
     dx = torch.empty_like(x)
     dgamma = torch.empty((d,), **f32)
     dbeta = torch.empty((d,), **f32)
-    err = lib.layer_norm_bwd(
+    err = entry(
         x.data_ptr(), dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
         part_g.data_ptr(), part_b.data_ptr(), dgamma.data_ptr(),
         dbeta.data_ptr(), rows, d, dtype, eps, blocks,
@@ -184,10 +220,12 @@ def layer_norm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor,
     if err:
         raise RuntimeError(f"layer_norm_bwd launch failed: CUDA error {err}")
     layer_norm_bwd_cuda.launches += 1
+    layer_norm_bwd_cuda.ragged_launches += entry is lib.layer_norm_bwd_ragged
     return dx, dgamma, dbeta
 
 
 layer_norm_bwd_cuda.launches = 0
+layer_norm_bwd_cuda.ragged_launches = 0
 
 
 def layer_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,

@@ -15,13 +15,14 @@ import re
 import pytest
 
 from fedvit_torch.core import kernels
-from fedvit_torch.ops import flash_attention, layer_norm, randaugment, row_shift
+from fedvit_torch.ops import (flash_attention, layer_norm, randaugment, rotary,
+                              row_shift)
 
 LOADERS = (flash_attention._library, flash_attention._bwd_library,
            flash_attention._xqkv_library, flash_attention._xqkv_bwd_library,
            flash_attention._window_library, flash_attention._window_bwd_library,
            layer_norm._library, layer_norm._fwd_library, row_shift._library,
-           randaugment._library)
+           randaugment._library, rotary._library)
 
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 

@@ -106,6 +106,17 @@ Tolerances:
   rounding noise at elements near zero, where an ulp is smaller than it); an
   fp32 output within 1e-6 of the largest |value| (or of 1 when smaller). The
   same bits every run.
+- The ragged LayerNorm kernels (rows off 16 bytes or over D 2048, up to
+  4096: EVA-02-L's SwiGLU norm at D 2,730) to the forward's and K4's
+  tolerances above, for their reasons; the same bits twice. The widths the
+  16-byte kernels take keep their kernels' names.
+- The rotary kernel (EVA-02's 2-D RoPE) against ``ops/rotary.py::
+  rotate_plain``: exact. Both round each product and sum in fp32 as the
+  equations order them and round once to the storage type; the backward is
+  the same kernel with sin negated, and autograd's gradient is the output
+  gradient turned by −θ, exact.
+- A two-block EVA-02 step on the card against the CPU, fp32: the features
+  atol 1e-4 plus rtol 1e-4, each leaf's gradient as for the ViT.
 - ``gemm_product`` (K11's products alone) against ``product_plain``: both
   sum in fp32 and round once, so bf16 values differ by at most one bf16 ulp
   (2^-7 of the value) plus 1e-3 near zero; fp32 1e-5 of the value plus 1e-4.
@@ -297,10 +308,15 @@ def test_k4_matches_plain(cuda, shape, dtype, dx_tol):
 
 
 def test_k4_refuses_d_over_its_cap(cuda):
+    """Over the 16-byte pass's 2048 the ragged pass takes D up to 4096;
+    over that, or on rows off 4 bytes, K4 raises."""
     for dtype in (torch.float32, torch.bfloat16):
-        x = torch.randn(2, 2056, device="cuda").to(dtype)
-        with pytest.raises(ValueError, match="at most 2048"):
-            ln.layer_norm_bwd_cuda(x, torch.ones(2056, device="cuda"), x)
+        x = torch.randn(2, 4104, device="cuda").to(dtype)
+        with pytest.raises(ValueError, match="at most 4096"):
+            ln.layer_norm_bwd_cuda(x, torch.ones(4104, device="cuda"), x)
+    x = torch.randn(2, 13, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 4 bytes"):
+        ln.layer_norm_bwd_cuda(x, torch.ones(13, device="cuda"), x)
 
 
 def test_k3_k4_refuse_a_short_workspace(cuda):
@@ -416,18 +432,20 @@ def test_ln_fwd_mixed_dtypes_match_plain(cuda, shape, xdt, ydt):
 
 
 def test_ln_fwd_refuses_what_it_does_not_take(cuda):
-    """D off the 16-byte vector or over the cap, fp16, a misaligned x: the
-    forward raises and launches nothing, on the card as K4 does. A strided x
-    is made contiguous and a bf16 weight cast, as K4 takes them."""
+    """Rows off 4 bytes, D over the ragged kernel's 4096, fp16, an x off 4
+    bytes: the forward raises and launches nothing, on the card as K4 does.
+    Rows off 16 bytes, D over 2048 and an x off 16 bytes take the ragged
+    kernel. A strided x is made contiguous and a bf16 weight cast, as K4
+    takes them."""
     x, w, b = _ln_fwd_inputs(6, 24, torch.float32, 12)
+    xb = x.to(torch.bfloat16)
     refused = [
-        (x[:, :12].contiguous().to(torch.bfloat16), w[:12], b[:12]),  # D 12
-        (x[:, :6].contiguous(), w[:6], b[:6]),                        # D 6
-        (torch.randn(3, 2056, device="cuda"), torch.ones(2056, device="cuda"),
-         torch.zeros(2056, device="cuda")),                           # cap
+        (xb[:, :13].contiguous(), w[:13], b[:13]),                    # 26 bytes
+        (torch.randn(3, 4100, device="cuda"), torch.ones(4100, device="cuda"),
+         torch.zeros(4100, device="cuda")),                           # cap
         (x.half(), w, b),                                             # fp16
-        (torch.empty(6 * 24 + 1, device="cuda")[1:].view(6, 24).copy_(x), w,
-         b)]                                                          # offset
+        (torch.empty(6 * 24 + 1, dtype=torch.bfloat16,
+                     device="cuda")[1:].view(6, 24).copy_(xb), w, b)]  # offset
     for xi, wi, bi in refused:
         before = ln.layer_norm_fwd_cuda.launches
         with torch.no_grad(), pytest.raises((ValueError, TypeError)):
@@ -435,6 +453,19 @@ def test_ln_fwd_refuses_what_it_does_not_take(cuda):
         with pytest.raises((ValueError, TypeError)):
             ln.layer_norm(xi, wi, bi, 1e-6)
         assert ln.layer_norm_fwd_cuda.launches == before
+    ragged = [
+        (xb[:, :12].contiguous(), w[:12], b[:12]),                    # D 12
+        (x[:, :6].contiguous(), w[:6], b[:6]),                        # D 6
+        (torch.randn(3, 2056, device="cuda"), torch.ones(2056, device="cuda"),
+         torch.zeros(2056, device="cuda")),                           # over 2048
+        (torch.empty(6 * 24 + 1, device="cuda")[1:].view(6, 24).copy_(x), w,
+         b)]                                                          # offset
+    for xi, wi, bi in ragged:
+        before = ln.layer_norm_fwd_cuda.launches
+        with torch.no_grad():
+            y = ln.layer_norm(xi, wi, bi, 1e-6)
+        assert ln.layer_norm_fwd_cuda.launches == before + 1
+        assert _ln_fwd_ok(y, ln.layer_norm_plain(xi, wi, bi, 1e-6))
     strided = x.t().contiguous().t()
     assert not strided.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
@@ -462,6 +493,92 @@ def test_ln_fwd_cap_is_k4s(cuda):
                                w[:ln._LN_MAX_D], b[:ln._LN_MAX_D]),
         ln.layer_norm_plain(x[:, :ln._LN_MAX_D], w[:ln._LN_MAX_D],
                             b[:ln._LN_MAX_D]), atol=1e-5, rtol=0)
+
+
+# --- the ragged LayerNorm kernels: rows off 16 bytes, D up to 4096 ----------
+
+LN_RAGGED_WIDTHS = [(2730, torch.bfloat16, torch.bfloat16),
+                    (1030, torch.bfloat16, torch.bfloat16),
+                    (4096, torch.bfloat16, torch.bfloat16),
+                    (2730, torch.float32, torch.float32),
+                    (2052, torch.float32, torch.float32),
+                    (2730, torch.bfloat16, torch.float32),
+                    (2730, torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("rows", [1, 7, 129, 32800])
+@pytest.mark.parametrize("d,xdt,ydt", LN_RAGGED_WIDTHS,
+                         ids=[f"{d}-{str(a)[6:]}-{str(b)[6:]}"
+                              for d, a, b in LN_RAGGED_WIDTHS])
+def test_ln_fwd_ragged_matches_plain(cuda, rows, d, xdt, ydt):
+    """EVA-02-L's SwiGLU norm (D 2,730) and other rows off 16 bytes or over
+    2048: the forward's tolerance, the same bits twice."""
+    x, w, b = _ln_fwd_inputs(rows, d, xdt, rows + d)
+    before = ln.layer_norm_fwd_cuda.launches
+    y = ln.layer_norm_fwd(x, w, b, 1e-6, ydt)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_fwd_cuda.launches == before + 1
+    want = ln.layer_norm_plain(x, w, b, 1e-6, ydt)
+    assert y.dtype == ydt and y.shape == x.shape
+    assert _ln_fwd_ok(y, want), float(_ln_fwd_err(y, want)[0].max())
+    assert torch.equal(y, ln.layer_norm_fwd(x, w, b, 1e-6, ydt))
+
+
+@pytest.mark.parametrize("shape,dtype,dx_tol", [
+    ((1, 2730), torch.bfloat16, 2.0 ** -6), ((63, 2730), torch.bfloat16, 2.0 ** -6),
+    ((32800, 2730), torch.bfloat16, 2.0 ** -6), ((4, 9, 1030), torch.bfloat16, 2.0 ** -6),
+    ((129, 4096), torch.bfloat16, 2.0 ** -6), ((65, 2730), torch.float32, 1e-5),
+    ((1057, 2052), torch.float32, 1e-5), ((3, 6), torch.float32, 1e-5)])
+def test_k4_ragged_matches_plain(cuda, shape, dtype, dx_tol):
+    """K4's ragged pass against ``ln_bwd_plain`` to K4's tolerances; the same
+    bits twice."""
+    g = torch.Generator(device="cuda").manual_seed(shape[-1] + shape[0])
+    x = (torch.randn(shape, device="cuda", generator=g) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    w = 1.0 + 0.3 * torch.randn(shape[-1], device="cuda", generator=g)
+    before = ln.layer_norm_bwd_cuda.launches
+    got = ln.layer_norm_bwd(x, w, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert ln.layer_norm_bwd_cuda.launches == before + 1
+    want = ln.ln_bwd_plain(x, w, dy, 1e-6)
+    assert got[0].dtype == dtype and got[0].shape == x.shape
+    assert _rel_err(got[0], want[0]) <= dx_tol
+    assert _rel_err(got[1], want[1]) <= 1e-4
+    assert _rel_err(got[2], want[2]) <= 1e-4
+    again = ln.layer_norm_bwd(x, w, dy, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _kernel_names(fn) -> set:
+    """The device kernels ``fn()`` launches, by the profiler's names."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_time_total > 0}
+
+
+@pytest.mark.parametrize("d", [192, 384, 768, 1024, 1536, 2730])
+def test_ln_widths_keep_their_kernel_names(cuda, d):
+    """The widths the 16-byte kernels take keep ``ln_fwd_kernel<`` and K4's
+    ``ln_bwd_rows_kernel<``; D 2,730 takes the ragged kernels, whose names
+    ``ln_fwd_ms.*``'s pattern does not match, and which the ragged
+    counters alone count."""
+    import re
+    x = torch.randn(64, d, device="cuda").to(torch.bfloat16)
+    w, b = torch.ones(d, device="cuda"), torch.zeros(d, device="cuda")
+    fns = (ln.layer_norm_fwd_cuda, ln.layer_norm_bwd_cuda)
+    before = [(f.launches, f.ragged_launches) for f in fns]
+    names = _kernel_names(lambda: (ln.layer_norm_fwd(x, w, b),
+                                   ln.layer_norm_bwd(x, w, x)))
+    fwd = re.compile(r"\bln_fwd_kernel<")
+    ragged = d % 8 != 0
+    assert [(f.launches - n, f.ragged_launches - r)
+            for f, (n, r) in zip(fns, before)] == [(1, int(ragged))] * 2
+    assert any(fwd.search(n) for n in names) != ragged, names
+    assert any("ln_bwd_rows_kernel<" in n for n in names) != ragged, names
+    assert any("ln_fwd_ragged_kernel<" in n for n in names) == ragged, names
+    assert any("ln_bwd_ragged_kernel<" in n for n in names) == ragged, names
 
 
 def test_tiny_model_training_launches_k2_k3_k4(cuda):
@@ -1877,3 +1994,102 @@ def test_plain_attention_options_launch_no_attention_kernel(cuda, backbone,
     err = ((logits.detach().float() - want).square().mean()
            / want.square().mean()).sqrt()
     assert float(err) <= 1e-4
+
+
+# --- the rotary kernel (EVA-02's 2-D RoPE) and the EVA-02 block --------------
+
+@pytest.mark.parametrize("b,n,e,heads,dtype", [
+    (32, 1025, 1024, 16, torch.bfloat16), (3, 17, 192, 3, torch.bfloat16),
+    (9, 1025, 1024, 16, torch.bfloat16), (5, 17, 192, 3, torch.float32),
+    (2, 50, 128, 2, torch.float32)])
+def test_rotary_kernel_matches_plain(cuda, b, n, e, heads, dtype):
+    """The kernel and ``rotate_plain`` take the same roundings: the same
+    bits, forward (+θ) and backward (−θ), into new tensors, the inputs left
+    as they were; the class token copied as it is."""
+    from fedvit_torch.ops import rotary
+    grid = int(round((n - 1) ** 0.5))
+    cos, sin = rotary.rope_table(grid, e // heads, 16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(n + e)
+    q, k = (torch.randn(b, n, e, device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    q0, k0 = q.clone(), k.clone()
+    for sign in (1.0, -1.0):
+        before = rotary.rotary_qk_cuda.launches
+        qo, ko = rotary.rotary_qk_cuda(q, k, cos, sin, sign)
+        assert rotary.rotary_qk_cuda.launches == before + 1
+        s = sin if sign > 0 else -sin
+        assert torch.equal(qo, rotary.rotate_plain(q.cpu(), cos.cpu(), s.cpu()
+                                                   ).cuda())
+        assert torch.equal(ko, rotary.rotate_plain(k, cos, s))
+        assert torch.equal(qo[:, 0], q[:, 0]) and torch.equal(ko[:, 0], k[:, 0])
+        assert torch.equal(q, q0) and torch.equal(k, k0)
+        assert qo.data_ptr() != q.data_ptr() and ko.data_ptr() != k.data_ptr()
+
+
+def test_rotary_autograd_turns_the_gradient_back(cuda):
+    """Under grad ``rotary_qk`` launches the kernel once forward and once
+    backward, and the gradient is the output's turned by −θ."""
+    from fedvit_torch.ops import rotary
+    cos, sin = rotary.rope_table(4, 64, 16, device="cuda")
+    q = torch.randn(2, 17, 128, device="cuda", requires_grad=True)
+    k = torch.randn(2, 17, 128, device="cuda", requires_grad=True)
+    dq, dk = torch.randn_like(q), torch.randn_like(k)
+    before = rotary.rotary_qk_cuda.launches
+    qo, ko = rotary.rotary_qk(q, k, cos, sin)
+    torch.autograd.backward([qo, ko], [dq, dk])
+    assert rotary.rotary_qk_cuda.launches == before + 2
+    assert torch.equal(q.grad, rotary.rotate_plain(dq, cos, -sin))
+    assert torch.equal(k.grad, rotary.rotate_plain(dk, cos, -sin))
+
+
+def test_rotary_refuses_what_it_does_not_take(cuda):
+    from fedvit_torch.ops import rotary
+    cos, sin = rotary.rope_table(4, 64, 16, device="cuda")
+    q = torch.randn(2, 17, 128, device="cuda")
+    for args, err in [((q.half(), q.half(), cos, sin), TypeError),
+                      ((q[:, :9].contiguous(), q[:, :9].contiguous(), cos, sin),
+                       ValueError),                            # a short table
+                      ((q, q, cos.double(), sin.double()), ValueError),
+                      ((q[..., :96].contiguous(), q[..., :96].contiguous(),
+                        cos, sin), ValueError)]:               # E not heads of d
+        before = rotary.rotary_qk_cuda.launches
+        with pytest.raises(err):
+            rotary.rotary_qk_cuda(*args)
+        assert rotary.rotary_qk_cuda.launches == before
+
+
+def test_eva_training_step_on_the_card_matches_the_cpu(cuda):
+    """A two-block EVA-02 (E 128, 2 heads, SwiGLU width 342: the ragged
+    LayerNorm kernels in fp32) under grad launches, a block, K9's entry and
+    backward once, the rotary kernel twice, three LayerNorm forwards and
+    three K4s, one of each ragged; its features and gradients match the
+    CPU's."""
+    from fedvit_torch.models.eva import Eva
+    from fedvit_torch.ops import rotary
+    kw = dict(image_size=56, patch_size=14, in_channels=4, embed_dim=128,
+              depth=2, num_heads=2, mlp_hidden=342, drop_path_rate=0.0)
+    cpu = Eva(**kw).train()
+    torch.manual_seed(0)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    gpu = Eva(**kw).cuda().train()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 56, 56, 4, generator=torch.Generator().manual_seed(1))
+    counters = (fa.flat_attention_lse_cuda, fa.flat_attention_bwd_cuda,
+                rotary.rotary_qk_cuda, ln.layer_norm_fwd_cuda,
+                ln.layer_norm_bwd_cuda)
+    before = [c.launches for c in counters]
+    ragged = [ln.layer_norm_fwd_cuda.ragged_launches,
+              ln.layer_norm_bwd_cuda.ragged_launches]
+    out = gpu(x.cuda())
+    out.square().sum().backward()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 4, 7, 7]
+    assert [ln.layer_norm_fwd_cuda.ragged_launches - ragged[0],
+            ln.layer_norm_bwd_cuda.ragged_launches - ragged[1]] == [2, 2]
+    want = cpu(x)
+    want.square().sum().backward()
+    torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=1e-4)
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, atol=1e-4, rtol=1e-3,
+                                   msg=name)

@@ -240,3 +240,63 @@ def test_cli_writes_what_load_pretrained_takes(shallow, tmp_path):
         tckpt.load_pretrained(str(out), build_torch_model(swin_cfg,
                                                           device="cpu"),
                               swin_cfg)
+
+
+# --- EVA-02: timm's names (the JAX package has no EVA-02 block) -------------
+
+def _eva_config():
+    return tconfig.from_dict({
+        "model": {"backbone": "eva02_tiny_patch14_224", "image_size": 28,
+                  "compute_dtype": "float32", "pool": "mean"},
+        "data": {"use_segmentation_mask": True}})
+
+
+def test_eva02_timm_file_loads_with_4th_channel_and_resampled_grid():
+    """A timm-named EVA-02 backbone file (3 input channels, a 4 × 4 grid,
+    timm's ImageNet head) onto a 28 px, 4-channel EVA-02 (2 × 2 grid): the
+    patch embed widened by the RGB kernels' mean, the position embedding
+    resampled, every other backbone tensor as in the file, the head and the
+    metadata branch fresh, and the result loads strictly."""
+    tcfg = _eva_config()
+    target = _target(tcfg)
+    sd = _source(target, 3, grid=4, extra=("head.weight", "head.bias"))
+    assert "blocks.0.attn.k_proj.weight" in sd and "fc_norm.bias" in sd
+    assert "blocks.0.attn.k_proj.bias" not in sd
+    out = tiw.import_pretrained_file(sd, tcfg, target)
+    w = out["backbone.patch_embed.proj.weight"]
+    assert w.shape[1] == 4
+    assert torch.equal(w[:, :3], sd["patch_embed.proj.weight"])
+    torch.testing.assert_close(w[:, 3], sd["patch_embed.proj.weight"].mean(1),
+                               atol=1e-7, rtol=0)
+    assert out["backbone.pos_embed"].shape == (1, 5, 192)
+    assert torch.equal(out["backbone.pos_embed"],
+                       tiw.resample_vit_pos_embed(sd["pos_embed"], 4))
+    for key, value in sd.items():
+        if key.startswith("head.") or key in ("patch_embed.proj.weight",
+                                              "pos_embed"):
+            continue
+        assert torch.equal(out["backbone." + key], value), key
+    for key in target:
+        if not key.startswith("backbone."):
+            assert torch.equal(out[key], target[key]), key
+    build_torch_model(tcfg, device="cpu").load_state_dict(out, strict=True)
+
+
+@pytest.mark.parametrize("key", ["blocks.0.attn.k_proj.bias",
+                                 "blocks.1.attn.qkv.weight", "norm.weight"])
+def test_eva02_import_refuses_an_unknown_key(key):
+    tcfg = _eva_config()
+    target = _target(tcfg)
+    sd = _source(target, 4, extra=(key,))
+    with pytest.raises(KeyError, match=key.replace(".", r"\.")):
+        tiw.import_pretrained_file(sd, tcfg, target)
+
+
+@pytest.mark.parametrize("key", ["blocks.1.mlp.norm.weight", "fc_norm.bias",
+                                 "blocks.0.attn.v_proj.bias"])
+def test_eva02_import_refuses_a_missing_key(key):
+    tcfg = _eva_config()
+    target = _target(tcfg)
+    sd = {k: v for k, v in _source(target, 5).items() if k != key}
+    with pytest.raises(KeyError, match=f"backbone.{key}".replace(".", r"\.")):
+        tiw.import_pretrained_file(sd, tcfg, target)
